@@ -6,15 +6,26 @@
 Phases, one result line each; any failure exits non-zero:
 
 1. device and build: the card's name and power limit, and the nvcc build of
-   every kernel under dove_tpu_torch/csrc/;
+   every kernel under dove_tpu_torch/csrc/ (flash_fwd holds K1 and K2), with
+   ptxas's registers and spills for each kernel form;
 2. K1 (flash-attention forward) against its plain PyTorch version on the card
    in bf16, bounded and online-softmax forms, at the main path's shape and at
    a ragged length; kernel, plain and SDPA times beside the bound;
 3. the staged pipeline at full widths and 2 DiT layers, run once through the
    kernel and once through the plain attention, compared by PSNR;
-4. the main path: CogVideoX1.5-5B at full width, all 42 layers, bf16, seeded
+4. the bf16 main path: CogVideoX1.5-5B at full width, all 42 layers, seeded
    random weights, through DovePipeline.process_frames on a 32-frame
-   180x320 clip (720p out), with the kernel's launches counted.
+   180x320 clip (720p out), with the kernels' launches counted;
+5. K2 (the int8 Q K^T form of the same kernel) against its plain version on
+   the same int8 codes, at the main path's shape, 4097 and a ragged 200, at
+   K1's bars; its drift from K1 on the same bf16 inputs; kernel, plain and
+   SDPA times beside the bound;
+6. the int8-dit pipeline at full widths and 2 DiT layers, through K2 and
+   through K2's plain version, compared by PSNR;
+7. the int8-dit main path: the 5B DiT quantized on the card (W8A8 linears,
+   K2 attention), the 32-frame clip of phase 4;
+8. the streamed path: the same int8-dit pipeline on a 100-frame 180x320 clip
+   (105 frames padded, 27 latents, four 10-latent DiT windows).
 
 Then one JSON line with the kernels' numbers, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}.
@@ -34,8 +45,10 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM data sheet (dense): 989 TFLOP/s bf16 tensor cores, 3.35 TB/s HBM.
+# H100 SXM data sheet (dense): 989 TFLOP/s bf16 and 1,979 TOP/s int8 on the
+# tensor cores, 3.35 TB/s HBM.
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 # K1 against its plain version, bf16. The absolute bar is that of
 # tests/test_flash_attention.py; at the main path's length a typical output is
@@ -46,9 +59,14 @@ K1_ABS_TOL = 3e-2  # max |out - ref|
 K1_REL_MAX_TOL = 2e-2  # max |out - ref| / max |ref|
 K1_REL_RMS_TOL = 1e-2  # rms(out - ref) / rms(ref)
 PSNR_BAR_DB = 40.0
+# K2 against K1 on the same bf16 inputs: the drift of per-tensor int8 Q K^T
+# itself, held to the bar of tests/test_flash_attention.py:94 (RMS relative).
+K2_DRIFT_TOL = 2e-2
 
 # Main-path clip: the bench.py clip, 32 LQ frames of 180x320 -> 720p.
 CLIP_FRAMES, CLIP_H, CLIP_W = 32, 180, 320
+# The streamed clip: 100 frames pad to 105, 27 latents, 4 DiT windows.
+STREAM_FRAMES = 100
 
 
 def log(msg: str) -> None:
@@ -77,7 +95,7 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def k1_errors(out: torch.Tensor, ref: torch.Tensor) -> dict:
+def attn_errors(out: torch.Tensor, ref: torch.Tensor) -> dict:
     diff = out.float() - ref.float()
     ref = ref.float()
     max_abs = float(diff.abs().max())
@@ -88,22 +106,24 @@ def k1_errors(out: torch.Tensor, ref: torch.Tensor) -> dict:
     )
 
 
-def k1_within_bars(err: dict) -> bool:
+def within_bars(err: dict) -> bool:
     return (err["max_abs"] <= K1_ABS_TOL and err["rel_max"] <= K1_REL_MAX_TOL
             and err["rel_rms"] <= K1_REL_RMS_TOL)
 
 
 def main_path_seq_len(cfg) -> int:
-    """Joint text+video tokens of the main path's DiT pass."""
+    """Joint text+video tokens of the main path's DiT pass. pad_video pads
+    the LQ frame to multiples of 16 (180 rows to 192), so the 32-frame
+    180x320 clip's DiT sees 48x80 patches of 5 latent pairs."""
     from dove_tpu_torch import tiling
 
-    frames = tiling.next_valid_frames(CLIP_FRAMES + tiling.compute_padding(
-        CLIP_FRAMES, CLIP_H, CLIP_W)[0])
-    lat = cfg.vae.latent_frames(frames)
+    pad_f, pad_h, pad_w = tiling.compute_padding(CLIP_FRAMES, CLIP_H, CLIP_W)
+    lat = cfg.vae.latent_frames(tiling.next_valid_frames(CLIP_FRAMES + pad_f))
     pt = cfg.dit.patch_size_t
     lat += (pt - lat % pt) % pt
-    h = CLIP_H * cfg.upscale // cfg.vae.spatial_scale // cfg.dit.patch_size
-    w = CLIP_W * cfg.upscale // cfg.vae.spatial_scale // cfg.dit.patch_size
+    patch = cfg.vae.spatial_scale * cfg.dit.patch_size
+    h = (CLIP_H + pad_h) * cfg.upscale // patch
+    w = (CLIP_W + pad_w) * cfg.upscale // patch
     return cfg.dit.max_text_seq_length + lat // pt * h * w
 
 
@@ -111,14 +131,22 @@ def main_path_seq_len(cfg) -> int:
 # Phase 1: device and build
 # ---------------------------------------------------------------------------
 
+# flash_fwd_kernel<kBounded, kQK8> instantiations, by their mangled arguments
+KERNEL_FORMS = {"ILb1ELb0E": "K1 bounded", "ILb0ELb0E": "K1 online",
+                "ILb1ELb1E": "K2"}
+
+
 def phase_build() -> None:
     from dove_tpu_torch import kernels
 
     seconds, text = kernels.build("flash_fwd")
+    form = "?"
     for line in text.splitlines():
+        if "Compiling entry function" in line:
+            form = next((f for key, f in KERNEL_FORMS.items() if key in line), line)
         if "registers" in line or "spill" in line or "error" in line:
-            log(f"  ptxas flash_fwd: {line.strip()}")
-    log(f"phase 1 build: flash_fwd {seconds:.2f}s of nvcc")
+            log(f"  ptxas flash_fwd [{form}]: {line.strip()}")
+    log(f"phase 1 build: flash_fwd (K1 and K2) {seconds:.2f}s of nvcc")
 
 
 # ---------------------------------------------------------------------------
@@ -142,13 +170,13 @@ def phase_k1(seq_main: int, heads: int) -> dict:
             out = fa.flash_attention(q, k, v, bounded_logits=bounded)
             torch.cuda.synchronize()
             ref = fa.flash_attention_plain(q, k, v, bounded_logits=bounded)
-            err = k1_errors(out, ref)
+            err = attn_errors(out, ref)
             finite = bool(torch.isfinite(out).all())
             log(f"  K1 S={S} bounded={bounded}: max_abs_err {err['max_abs']:.3e}, "
                 f"/ max|ref| {err['rel_max']:.3e}, rms err / rms ref "
                 f"{err['rel_rms']:.3e} (ref rms "
                 f"{float(ref.float().square().mean().sqrt()):.3e}), finite {finite}")
-            if not finite or not k1_within_bars(err):
+            if not finite or not within_bars(err):
                 raise AssertionError(
                     f"K1 disagrees with its plain version: S={S} "
                     f"bounded={bounded} {err}")
@@ -158,11 +186,11 @@ def phase_k1(seq_main: int, heads: int) -> dict:
             dropped = fa.flash_attention_plain(
                 q, k[:, :, 64:].contiguous(), v[:, :, 64:].contiguous(),
                 bounded_logits=False)
-            miss = k1_errors(dropped, ref)
+            miss = attn_errors(dropped, ref)
             log(f"  bar check: one 64-key tile dropped at S={S} gives "
                 f"rms err / rms ref {miss['rel_rms']:.3e}, rejected "
-                f"{not k1_within_bars(miss)}")
-            if k1_within_bars(miss):
+                f"{not within_bars(miss)}")
+            if within_bars(miss):
                 raise AssertionError(f"K1 bars accept a dropped KV tile: {miss}")
             del dropped
             kernel_ms = cuda_ms(
@@ -198,7 +226,8 @@ def phase_k1(seq_main: int, heads: int) -> dict:
 # Phase 3: the slice through the kernel and through the plain attention
 # ---------------------------------------------------------------------------
 
-def _pipeline(cfg, dit, vae, backend: str | None, sample_posterior: bool):
+def _pipeline(cfg, dit, vae, backend: str | None, sample_posterior: bool,
+              quantize: str | None = None):
     from dove_tpu_torch.pipeline import DovePipeline
 
     prompt = torch.zeros((cfg.dit.max_text_seq_length, cfg.dit.text_embed_dim),
@@ -207,6 +236,7 @@ def _pipeline(cfg, dit, vae, backend: str | None, sample_posterior: bool):
         config=cfg, dit=dit, vae=vae, prompt_embedding=prompt,
         dtype=torch.bfloat16, device="cuda", attention_backend=backend,
         sample_posterior=sample_posterior, vae_tiling=True, output_uint8=True,
+        quantize=quantize,
     )
 
 
@@ -273,10 +303,11 @@ def phase_main_path(profile_dir: str | None = None) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     fa.launches.reset()
+    fa.launches_qk8.reset()
     t0 = time.perf_counter()
     out = pipe.process_frames(clip, seed=0)
     wall = time.perf_counter() - t0
-    launches = fa.launches.count
+    launches, launches_k2 = fa.launches.count, fa.launches_qk8.count
     peak = torch.cuda.max_memory_allocated()
 
     expect = (CLIP_FRAMES, CLIP_H * cfg.upscale, CLIP_W * cfg.upscale, 3)
@@ -284,8 +315,9 @@ def phase_main_path(profile_dir: str | None = None) -> dict:
         raise AssertionError(f"main path output {out.shape} {out.dtype}, want {expect}")
     if float(out.std()) == 0.0:
         raise AssertionError("main path output is constant")
-    if launches != cfg.dit.num_layers:  # one DiT pass for a <=33-frame clip
-        raise AssertionError(f"K1 launches {launches}, want {cfg.dit.num_layers}")
+    if launches != cfg.dit.num_layers or launches_k2:  # one DiT pass, bf16
+        raise AssertionError(f"K1 launches {launches}, want {cfg.dit.num_layers}; "
+                             f"K2 launches {launches_k2}, want 0")
     times = {k: round(v, 3) for k, v in pipe.stage_times.items()}
     log(f"phase 4 main path (5B, {cfg.dit.num_layers} layers, "
         f"{n_params / 1e9:.2f}B DiT params, bf16): output {out.shape} uint8, "
@@ -297,10 +329,12 @@ def phase_main_path(profile_dir: str | None = None) -> dict:
 
 
 KERNEL_KINDS = (  # (kind, substrings of CUDA kernel names), first match wins
+    ("k2_flash_fwd_qk8", ("flash_fwd_kernel<true, true>",)),
     ("k1_flash_fwd", ("flash_fwd_kernel",)),
     ("group_norm", ("rowwisemoments", "group_norm", "groupnorm")),
     ("conv_layout", ("nchwtonhwc", "nhwctonchw")),
     ("conv", ("fprop", "conv", "implicit_gemm", "cudnn")),
+    ("int8_gemm", ("i16832gemm", "s8s8", "i8i8", "imma")),  # torch._int_mm
     ("gemm", ("gemm", "nvjet", "cutlass")),
     ("cat_copy_index", ("catarray", "copy", "index", "gather", "memcpy", "memset")),
     ("elementwise", ("elementwise", "reduce", "layer_norm")),
@@ -316,12 +350,13 @@ def _merged_busy(intervals: list[tuple[float, float]]) -> float:
     return busy
 
 
-def profile_main_path(pipe, clip: np.ndarray, out_dir: str) -> None:
+def profile_main_path(pipe, clip: np.ndarray, out_dir: str,
+                      name: str = "main_path", phase: str = "phase 4") -> None:
     """A warm unprofiled run for steady-state stage times, then one run under
     torch.profiler. From the exported trace's kernel events: the device's
     busy and idle share, device time by kernel kind, and busy time inside
     each pipeline stage's range ("dove.enc", ...). The key_averages table
-    goes to <out_dir>/main_path_profile.txt."""
+    goes to <out_dir>/<name>_profile.txt."""
     from pathlib import Path
 
     from torch.profiler import ProfilerActivity, profile
@@ -336,9 +371,9 @@ def profile_main_path(pipe, clip: np.ndarray, out_dir: str) -> None:
         prof_wall = time.perf_counter() - t0
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
-    (out / "main_path_profile.txt").write_text(
+    (out / f"{name}_profile.txt").write_text(
         prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
-    trace_path = out / "main_path_trace.json"
+    trace_path = out / f"{name}_trace.json"
     prof.export_chrome_trace(str(trace_path))
     events = json.loads(trace_path.read_text())["traceEvents"]
     trace_path.unlink()  # tens of MB; the summary below is what is kept
@@ -360,7 +395,7 @@ def profile_main_path(pipe, clip: np.ndarray, out_dir: str) -> None:
             inside = [(max(x, a), min(y, b)) for x, y in spans if y > a and x < b]
             by_stage[e["name"]] = {"span_s": round((b - a) / 1e6, 3),
                                    "busy_s": round(_merged_busy(inside) / 1e6, 3)}
-    log(f"phase 4 profile: warm wall {warm:.2f}s stages {json.dumps(warm_stages)}; "
+    log(f"{phase} profile: warm wall {warm:.2f}s stages {json.dumps(warm_stages)}; "
         f"profiled wall {prof_wall:.2f}s, {len(kernels)} kernels, device busy "
         f"{busy / 1e6:.3f}s of a {window / 1e6:.3f}s kernel window "
         f"(idle {100 * (1 - busy / window):.1f}%), by stage {json.dumps(by_stage)}, "
@@ -369,14 +404,228 @@ def profile_main_path(pipe, clip: np.ndarray, out_dir: str) -> None:
                                                      key=lambda kv: -kv[1])}))
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: K2 against its plain version
+# ---------------------------------------------------------------------------
+
+def phase_k2(seq_main: int, heads: int) -> dict:
+    from dove_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    scale = 64 ** -0.5
+    worst = worst_drift = 0.0
+    timing = None
+    for S in (seq_main, 4097, 200):
+        q, k, v = (
+            torch.randn((1, heads, S, 64), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+            for _ in range(3)
+        )
+        out = fa.flash_attention(q, k, v, bounded_logits=True, qk_int8=True)
+        torch.cuda.synchronize()
+        q8, k8, factor = fa.quantize_qk_pair(q, k, scale)
+        ref = fa.flash_attention_qk8_plain(q8, k8, v, factor)
+        err = attn_errors(out, ref)
+        drift = attn_errors(out, fa.flash_attention(q, k, v, bounded_logits=True))
+        finite = bool(torch.isfinite(out).all())
+        log(f"  K2 S={S}: max_abs_err {err['max_abs']:.3e}, / max|ref| "
+            f"{err['rel_max']:.3e}, rms err / rms ref {err['rel_rms']:.3e}, "
+            f"finite {finite}; drift from K1 (int8 Q K^T): rms "
+            f"{drift['rel_rms']:.3e} (bar {K2_DRIFT_TOL}), max_abs "
+            f"{drift['max_abs']:.3e}")
+        if not finite or not within_bars(err):
+            raise AssertionError(f"K2 disagrees with its plain version: S={S} {err}")
+        if not drift["rel_rms"] <= K2_DRIFT_TOL:
+            raise AssertionError(f"K2 drifts from K1 by {drift} at S={S}")
+        worst = max(worst, err["max_abs"])
+        worst_drift = max(worst_drift, drift["rel_rms"])
+        if S == seq_main:
+            dropped = fa.flash_attention_qk8_plain(
+                q8, k8[:, :, 64:].contiguous(), v[:, :, 64:].contiguous(), factor)
+            miss = attn_errors(dropped, ref)
+            log(f"  bar check: one 64-key tile dropped at S={S} gives "
+                f"rms err / rms ref {miss['rel_rms']:.3e}, rejected "
+                f"{not within_bars(miss)}")
+            if within_bars(miss):
+                raise AssertionError(f"K2 bars accept a dropped KV tile: {miss}")
+            del dropped
+            kernel_ms = cuda_ms(lambda: fa.flash_qk8_launch(q8, k8, v, factor), 10)
+            wrapper_ms = cuda_ms(lambda: fa.flash_attention(
+                q, k, v, bounded_logits=True, qk_int8=True), 10)
+            k1_ms = cuda_ms(
+                lambda: fa.flash_attention(q, k, v, bounded_logits=True), 10)
+            plain_ms = cuda_ms(
+                lambda: fa.flash_attention_qk8_plain(q8, k8, v, factor), 1, warmup=0)
+            sdpa_ms = cuda_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v), 10)
+            # Q K^T in int8, P V in bf16: 2 S^2 D H operations each; reads
+            # int8 q and k and bf16 v once, writes bf16 out once
+            macs = float(S) * S * 64 * heads
+            ops_s = 2 * macs / PEAK_INT8_OPS + 2 * macs / PEAK_BF16_FLOPS
+            nbytes = heads * S * 64 * (1 + 1 + 2 + 2)
+            timing = dict(
+                kernel_ms=kernel_ms, wrapper_ms=wrapper_ms, k1_same_call_ms=k1_ms,
+                plain_ms=plain_ms, sdpa_ms=sdpa_ms,
+                bound_ms=max(ops_s, nbytes / PEAK_BYTES) * 1e3,
+                bound_by="operations" if ops_s >= nbytes / PEAK_BYTES else "bytes",
+                shape=[1, heads, S, 64],
+            )
+        del q, k, v, q8, k8, out, ref
+    fa.launches.reset()
+    fa.launches_qk8.reset()
+    log(f"phase 5 K2: worst max_abs_err {worst:.3e} (K1's bars), worst drift "
+        f"from K1 {worst_drift:.3e}; SDPA is bf16 attention, a yardstick of a "
+        "different function; "
+        + json.dumps({k: (round(x, 4) if isinstance(x, float) else x)
+                      for k, x in timing.items()}))
+    return dict(max_abs_err=worst, **timing)
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the int8-dit slice through K2 and through its plain version
+# ---------------------------------------------------------------------------
+
+def phase_k2_pipeline() -> None:
+    """Phase 3's model and clip with quantize="int8-dit": the automatic
+    backend on the card is K2 for every attention; "plain-qk8" is its plain
+    version. Both runs share the DiT, quantized in place by the first."""
+    import dataclasses
+
+    from dove_tpu_torch import cogvideox1_5_5b, init_dit_params, init_vae_params
+    from dove_tpu_torch.ops import flash_attention as fa
+
+    base = cogvideox1_5_5b()
+    cfg = dataclasses.replace(base, dit=dataclasses.replace(base.dit, num_layers=2))
+    dit = init_dit_params(cfg.dit, seed=0, device="cuda", dtype=torch.bfloat16)
+    vae = init_vae_params(cfg.vae, seed=1, device="cuda", dtype=torch.bfloat16)
+    clip = np.random.default_rng(3).uniform(0, 1, (9, 96, 160, 3)).astype(np.float32)
+    outs = {}
+    for backend in (None, "plain-qk8"):
+        pipe = _pipeline(cfg, dit, vae, backend, sample_posterior=False,
+                         quantize="int8-dit")
+        if backend is None and pipe.attention_backend != "flash-qk8":
+            raise AssertionError(f"int8-dit on the card chose {pipe.attention_backend}")
+        fa.launches.reset()
+        fa.launches_qk8.reset()
+        out = pipe.process_frames(clip, seed=0)
+        outs[backend] = (out, fa.launches_qk8.count, fa.launches.count,
+                         dict(pipe.stage_times))
+    (k_out, k_launch, k_k1, k_times) = outs[None]
+    (p_out, p_launch, p_k1, _) = outs["plain-qk8"]
+    if k_out.shape != (9, 384, 640, 3) or k_out.dtype != np.uint8:
+        raise AssertionError(f"phase 6 output {k_out.shape} {k_out.dtype}")
+    if (k_launch, k_k1, p_launch, p_k1) != (cfg.dit.num_layers, 0, 0, 0):
+        raise AssertionError(
+            f"phase 6 launches: K2 run {k_launch} K2 + {k_k1} K1, plain run "
+            f"{p_launch} K2 + {p_k1} K1")
+    psnr = psnr_u8(k_out, p_out)
+    max_diff = int(np.abs(k_out.astype(int) - p_out.astype(int)).max())
+    log(f"phase 6 K2 vs plain-qk8 int8-dit pipeline (2 layers, full width): "
+        f"PSNR {psnr:.2f} dB (bar {PSNR_BAR_DB}), max |diff| {max_diff} LSB, "
+        f"K2 launches {k_launch}, K1 launches {k_k1}, output std "
+        f"{float(k_out.std()):.2f}, stages "
+        f"{json.dumps({k: round(v, 3) for k, v in k_times.items()})}")
+    if not psnr >= PSNR_BAR_DB:
+        raise AssertionError(f"phase 6 PSNR {psnr} below {PSNR_BAR_DB}")
+    del dit, vae, pipe
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Phases 7 and 8: the int8-dit main path, single pass and streamed
+# ---------------------------------------------------------------------------
+
+def _drive_int8(pipe, cfg, frames: int, want_k2: int, seed: int,
+                profile_dir: str | None = None) -> dict:
+    """One clip through process_frames with both counters at 0 before it;
+    fails unless K2 ran want_k2 times, K1 never, and the output is a
+    non-constant uint8 clip of the right shape."""
+    from dove_tpu_torch.ops import flash_attention as fa
+
+    clip = np.random.default_rng(seed).uniform(
+        0, 1, (frames, CLIP_H, CLIP_W, 3)).astype(np.float32)
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches.reset()
+    fa.launches_qk8.reset()
+    t0 = time.perf_counter()
+    out = pipe.process_frames(clip, seed=0)
+    wall = time.perf_counter() - t0
+    k2, k1 = fa.launches_qk8.count, fa.launches.count
+    peak = torch.cuda.max_memory_allocated()
+    expect = (frames, CLIP_H * cfg.upscale, CLIP_W * cfg.upscale, 3)
+    if out.shape != expect or out.dtype != np.uint8:
+        raise AssertionError(f"int8-dit output {out.shape} {out.dtype}, want {expect}")
+    if float(out.std()) == 0.0:
+        raise AssertionError("int8-dit output is constant")
+    if k2 != want_k2 or k1:
+        raise AssertionError(f"K2 launches {k2}, want {want_k2}; K1 launches {k1}, want 0")
+    result = dict(launches=k2, wall_s=wall, peak_bytes=peak,
+                  stage_s={k: round(v, 3) for k, v in pipe.stage_times.items()})
+    if profile_dir is not None:
+        profile_main_path(pipe, clip, profile_dir, "int8_main_path", "phase 7")
+    return result
+
+
+def phase_int8_paths(profile_dir: str | None = None) -> tuple[dict, dict]:
+    from dove_tpu_torch import cogvideox1_5_5b, init_dit_params, init_vae_params, tiling
+    from dove_tpu_torch.pipeline import plan_dit_windows
+
+    cfg = cogvideox1_5_5b()
+    t0 = time.perf_counter()
+    dit = init_dit_params(cfg.dit, seed=0, device="cuda", dtype=torch.bfloat16)
+    vae = init_vae_params(cfg.vae, seed=1, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    bf16_bytes = sum(t.nbytes for t in (*dit.parameters(), *dit.buffers()))
+    t0 = time.perf_counter()
+    pipe = _pipeline(cfg, dit, vae, None, sample_posterior=True, quantize="int8-dit")
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    del dit
+    int8_bytes = sum(t.nbytes for t in (*pipe.dit.parameters(), *pipe.dit.buffers()))
+    if pipe.attention_backend != "flash-qk8":
+        raise AssertionError(f"int8-dit on the card chose {pipe.attention_backend}")
+    layers = cfg.dit.num_layers
+
+    main = _drive_int8(pipe, cfg, CLIP_FRAMES, layers, seed=4, profile_dir=profile_dir)
+    log(f"phase 7 int8-dit main path (5B, {layers} layers, W8A8 DiT "
+        f"{int8_bytes / 2**30:.2f} GiB from {bf16_bytes / 2**30:.2f} GiB bf16, "
+        f"quantized on the card in {quant_s:.1f}s, weights init {init_s:.1f}s): "
+        f"{CLIP_FRAMES} frames -> {CLIP_H * cfg.upscale}x{CLIP_W * cfg.upscale}, "
+        f"wall {main['wall_s']:.2f}s, stages {json.dumps(main['stage_s'])}, "
+        f"K2 launches {main['launches']}, K1 launches 0, "
+        f"peak {main['peak_bytes'] / 2**30:.2f} GiB")
+
+    padded = tiling.next_valid_frames(STREAM_FRAMES + tiling.compute_padding(
+        STREAM_FRAMES, CLIP_H, CLIP_W)[0])
+    n_lat = cfg.vae.latent_frames(padded)
+    windows = len(plan_dit_windows(n_lat, pipe.dit_window_latents,
+                                   pipe.dit_overlap_latents))
+    streamed_calls = []
+    run = pipe._sr_clip_streamed
+    pipe._sr_clip_streamed = lambda *a, **kw: streamed_calls.append(1) or run(*a, **kw)
+    streamed = _drive_int8(pipe, cfg, STREAM_FRAMES, layers * windows, seed=5)
+    if streamed_calls != [1]:
+        raise AssertionError("the long clip did not take the streamed path")
+    log(f"phase 8 streamed int8-dit: {STREAM_FRAMES} frames ({padded} padded, "
+        f"{n_lat} latents, {windows} DiT windows), wall {streamed['wall_s']:.2f}s, "
+        f"stages {json.dumps(streamed['stage_s'])}, K2 launches "
+        f"{streamed['launches']}, K1 launches 0, peak "
+        f"{streamed['peak_bytes'] / 2**30:.2f} GiB")
+    return main, streamed
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
         "--profile", metavar="DIR", default=None,
-        help="after phase 4, time a warm run and profile one more; write the "
-             "top kernels to DIR/main_path_profile.txt")
+        help="after phases 4 and 7, time a warm run and profile one more; "
+             "write the top kernels to DIR/main_path_profile.txt and "
+             "DIR/int8_main_path_profile.txt")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -393,11 +642,15 @@ def main(argv: list[str] | None = None) -> int:
     k1 = phase_k1(main_path_seq_len(cfg), cfg.dit.num_attention_heads)
     phase_kernel_vs_plain_pipeline()
     main_path = phase_main_path(args.profile)
+    k2 = phase_k2(main_path_seq_len(cfg), cfg.dit.num_attention_heads)
+    phase_k2_pipeline()
+    int8_main, streamed = phase_int8_paths(args.profile)
 
+    source = "dove_tpu_torch/csrc/flash_fwd.cu"
     kernels = [{
         "name": "flash_fwd_bf16",
         "route": "cuda",
-        "source": "dove_tpu_torch/csrc/flash_fwd.cu",
+        "source": source,
         "replaces": "dove_tpu/ops/pallas/flash_attention.py:75",
         "launches": main_path["launches"],
         "max_abs_err": k1["max_abs_err"],
@@ -406,6 +659,21 @@ def main(argv: list[str] | None = None) -> int:
         "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"],
         "library_ms": k1["library_ms"],
+    }, {
+        "name": "flash_fwd_qk8",
+        "route": "cuda",
+        "source": source,
+        "replaces": "dove_tpu/ops/pallas/flash_attention.py:107",
+        "launches": int8_main["launches"],
+        "launches_streamed": streamed["launches"],
+        "max_abs_err": k2["max_abs_err"],
+        "ms": k2["kernel_ms"],
+        "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"],
+        "bound_by": k2["bound_by"],
+        "library_ms": k2["sdpa_ms"],
+        "library_call": "scaled_dot_product_attention on the bf16 q, k, v: "
+                        "a yardstick of a different function (bf16 Q K^T)",
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1,19 +1,31 @@
-// Flash-attention forward for Hopper (sm_90a), bf16 in and out, head dim 64.
+// Flash-attention forward for Hopper (sm_90a), head dim 64, bf16 out.
 //
-// Replaces the TPU kernel dove_tpu/ops/pallas/flash_attention.py:_fwd_kernel
-// (pallas_call in _flash_fwd), in both of its forms: the bounded-logits form
-// (no running max, p = exp2(s * scale * log2 e)) that every inference call
-// takes, and the online-softmax form. Non-causal: out = softmax(scale Q K^T) V
-// with fp32 logits, fp32 row sums and an fp32 accumulator; p is rounded to
-// bf16 before the P V product, as the TPU kernel does.
+// K1 replaces the TPU kernel dove_tpu/ops/pallas/flash_attention.py:_fwd_kernel
+// (pallas_call in _flash_fwd), in both of its bf16 forms: the bounded-logits
+// form (no running max, p = exp2(s * scale * log2 e)) that every inference
+// call takes, and the online-softmax form. Non-causal: out = softmax(scale Q
+// K^T) V with fp32 logits, fp32 row sums and an fp32 accumulator; p is rounded
+// to bf16 before the P V product, as the TPU kernel does.
 //
-// What bounds it on the H100. At the main-path shape (CogVideoX1.5-5B, 720p,
-// 33 frames: B*H = 48, S = 18226, D = 64) one launch does 4 S^2 D H = 4.08
-// TFLOP of tensor-core work, about 4.1 ms at the data sheet's 989 TFLOP/s
-// dense bf16, and S^2 H = 1.6e10 exponentials, which the SFUs need about as
-// long for. It moves only ~0.45 GB. So the kernel is bound by operations,
-// with the exp a co-bound at D = 64; the bounded form exists to avoid adding
-// to it (no max, no rescale, one ex2 per logit).
+// K2 replaces the same pallas_call with qk8=True (flash_attention.py:107-114):
+// the int8-dit serving mode's attention. Q and K arrive as per-tensor
+// symmetric int8 codes (quantized by the wrapper, as the TPU wrapper does
+// outside its pallas_call); Q K^T runs as mma.sync m16n8k32 s8 x s8 -> s32,
+// and the int32 logits are scaled by one fp32 factor c = s_q s_k scale log2 e
+// that the kernel reads from device memory (the TPU kernel reads it from SMEM
+// as a runtime scalar), so the host never waits for it. Bounded form only,
+// V bf16, P rounded to bf16, fp32 accumulators, as on the TPU.
+//
+// What bounds them on the H100. At the main-path shape (CogVideoX1.5-5B, a
+// 180x320 clip padded to 192x320 and upscaled 4x, 33 frames: B*H = 48,
+// S = 19426, D = 64) one K1 launch does 4 S^2 D H = 4.64 TFLOP of bf16
+// tensor-core work, about 4.7 ms at the data sheet's 989 TFLOP/s dense, and
+// moves ~0.48 GB. K2 does 2 S^2 D H = 2.32e12 int8 ops (1.17 ms at 1,979
+// TOPS) plus as many bf16 FLOPs for P V (2.35 ms), so about 3.5 ms of
+// tensor-core time against ~0.36 GB of traffic. Both also take S^2 H =
+// 1.8e10 exponentials, which the SFUs need about as long for: the exp is a
+// co-bound at D = 64, and the bounded form exists to keep it at one ex2 per
+// logit (no max, no rescale).
 //
 // Design. The TPU kernel walks the kv axis as a sequential grid dimension
 // carrying its accumulators in scratch between grid steps. Blocks here run in
@@ -22,15 +34,25 @@
 // [16, 64] fp32 accumulator and the row sums live in registers for the whole
 // loop. K and V tiles of 64 keys are staged in shared memory through a
 // two-stage cp.async ring (zero-filled past the end of the sequence), read
-// with ldmatrix (V transposed on the fly), and both products run on tensor
-// cores as mma.sync m16n8k16 bf16 with fp32 accumulation. The S fragment of
-// Q K^T is reused in registers as the A fragment of P V. The kv tail is
-// masked to -inf; query rows past the end are computed on zeros and never
-// stored, so the host pads and slices nothing. wgmma and TMA are later work.
+// with ldmatrix (V transposed on the fly). P V runs as mma.sync m16n8k16 bf16
+// with fp32 accumulation; Q K^T as the same in bf16 (K1) or as m16n8k32 int8
+// (K2). An int8 m16n8k32 fragment read as pairs of bytes has the layout of
+// the bf16 m16n8k16 one, so the int8 K tile (64 bytes a row, padded to 80 so
+// that ldmatrix stays conflict-free) is read by the same ldmatrix.x4, and the
+// s32 accumulator has the fp32 one's layout: the S fragment of Q K^T is
+// reused in registers as the A fragment of P V in both kernels. K2 turns its
+// int32 logits into floats with an integer add and a float subtract (exact
+// below 2^22; |s| <= 127 * 127 * 64 < 2^20) instead of a conversion
+// instruction, which would add a second 1.6e10 quarter-rate operations next
+// to the exp. The kv tail is masked to -inf; query rows past the end are
+// computed on zeros and never stored, so the host pads and slices nothing.
+// wgmma and TMA are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -39,7 +61,8 @@ constexpr int kBQ = 128;           // query rows per CTA
 constexpr int kBK = 64;            // keys per shared-memory tile
 constexpr int kWarps = kBQ / 16;   // one warp per 16 query rows
 constexpr int kThreads = kWarps * 32;
-constexpr int kLds = kD + 8;       // padded row: 144 B, conflict-free ldmatrix
+constexpr int kLds = kD + 8;       // bf16 row padded to 144 B: conflict-free ldmatrix
+constexpr int kLdk8 = kD + 16;     // int8 K row padded to 80 B: the same
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -85,6 +108,22 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// c[16x8] += a[16x32] * b[32x8], int8 operands, int32 accumulator (exact).
+__device__ __forceinline__ void mma_s8(int32_t (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Exact int32 -> fp32 for |x| < 2^22: place x in the mantissa of 1.5 * 2^23
+// and subtract that; one integer add and one float add, both full rate.
+__device__ __forceinline__ float small_int_to_float(int32_t x) {
+  return __int_as_float(x + 0x4B400000) - 12582912.0f;
+}
+
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -96,27 +135,37 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t load_u32(const __nv_bfloat16* p) {
+template <typename T>
+__device__ __forceinline__ uint32_t load_u32(const T* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-template <bool kBounded>
+// kQK8 = false: K1, q and k bf16, the logit scale is `scale_log2`.
+// kQK8 = true:  K2, q and k int8 codes, the logit scale is *scale_dev.
+template <bool kBounded, bool kQK8>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
+    flash_fwd_kernel(const void* __restrict__ q_, const void* __restrict__ k_,
                      const __nv_bfloat16* __restrict__ v,
                      __nv_bfloat16* __restrict__ o, int sq, int skv,
-                     float scale_log2) {
-  __shared__ __align__(16) __nv_bfloat16 ks[2][kBK][kLds];
+                     float scale_log2_arg,
+                     const float* __restrict__ scale_dev) {
+  static_assert(kBounded || !kQK8, "K2 has the bounded form only");
+  using QK = std::conditional_t<kQK8, int8_t, __nv_bfloat16>;
+  constexpr int kLdk = kQK8 ? kLdk8 : kLds;
+  constexpr int kChunk = 16 / sizeof(QK);  // q/k elements per 16-byte copy
+  __shared__ __align__(16) QK ks[2][kBK][kLdk];
   __shared__ __align__(16) __nv_bfloat16 vs[2][kBK][kLds];
 
+  const QK* q = static_cast<const QK*>(q_);
+  const QK* k = static_cast<const QK*>(k_);
+  const float scale_log2 = kQK8 ? __ldg(scale_dev) : scale_log2_arg;
   const int bh = blockIdx.y;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;   // fragment row within the warp's 8-row group
   const int tig = lane & 3;  // thread in group: fragment column pair
-  const __nv_bfloat16* qb = q + static_cast<size_t>(bh) * sq * kD;
-  const __nv_bfloat16* kb = k + static_cast<size_t>(bh) * skv * kD;
+  const QK* qb = q + static_cast<size_t>(bh) * sq * kD;
+  const QK* kb = k + static_cast<size_t>(bh) * skv * kD;
   const __nv_bfloat16* vb = v + static_cast<size_t>(bh) * skv * kD;
   __nv_bfloat16* ob = o + static_cast<size_t>(bh) * sq * kD;
 
@@ -124,20 +173,35 @@ __global__ void __launch_bounds__(kThreads)
   const int r0 = blockIdx.x * kBQ + warp * 16 + g;
   const int r1 = r0 + 8;
 
-  // Q as four m16k16 A fragments over D, read once; tail rows are zero.
-  uint32_t qf[4][4];
+  // Q as A fragments over D, read once; tail rows are zero. bf16: four
+  // m16k16 steps of 2 elements a register; int8: two m16k32 steps of 4. In
+  // bytes the two layouts are the same: 4 bytes at column 4 * tig, and at
+  // 16 bytes further on, of rows r0 and r1.
+  constexpr int kSteps = kQK8 ? 2 : 4;
+  constexpr int kStepElems = kD / kSteps;
+  uint32_t qf[kSteps][4];
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const int c = kk * 16 + tig * 2;
-    qf[kk][0] = r0 < sq ? load_u32(qb + static_cast<size_t>(r0) * kD + c) : 0u;
-    qf[kk][1] = r1 < sq ? load_u32(qb + static_cast<size_t>(r1) * kD + c) : 0u;
-    qf[kk][2] =
-        r0 < sq ? load_u32(qb + static_cast<size_t>(r0) * kD + c + 8) : 0u;
-    qf[kk][3] =
-        r1 < sq ? load_u32(qb + static_cast<size_t>(r1) * kD + c + 8) : 0u;
+  for (int kk = 0; kk < kSteps; ++kk) {
+    const int c = kk * kStepElems + tig * (4 / sizeof(QK));
+    const int c_hi = c + kStepElems / 2;
+    const QK* q0 = qb + static_cast<size_t>(r0) * kD;
+    const QK* q1 = qb + static_cast<size_t>(r1) * kD;
+    qf[kk][0] = r0 < sq ? load_u32(q0 + c) : 0u;
+    qf[kk][1] = r1 < sq ? load_u32(q1 + c) : 0u;
+    qf[kk][2] = r0 < sq ? load_u32(q0 + c_hi) : 0u;
+    qf[kk][3] = r1 < sq ? load_u32(q1 + c_hi) : 0u;
   }
 
   auto load_tile = [&](int stage, int kv0) {
+#pragma unroll
+    for (int i = threadIdx.x; i < kBK * (kD / kChunk); i += kThreads) {
+      const int row = i / (kD / kChunk);
+      const int col = (i % (kD / kChunk)) * kChunk;
+      const int key = kv0 + row;
+      const bool ok = key < skv;
+      const size_t off = static_cast<size_t>(ok ? key : 0) * kD + col;
+      cp_async_16(smem_addr(&ks[stage][row][col]), kb + off, ok ? 16 : 0);
+    }
 #pragma unroll
     for (int i = threadIdx.x; i < kBK * (kD / 8); i += kThreads) {
       const int row = i / (kD / 8);
@@ -145,7 +209,6 @@ __global__ void __launch_bounds__(kThreads)
       const int key = kv0 + row;
       const bool ok = key < skv;
       const size_t off = static_cast<size_t>(ok ? key : 0) * kD + col;
-      cp_async_16(smem_addr(&ks[stage][row][col]), kb + off, ok ? 16 : 0);
       cp_async_16(smem_addr(&vs[stage][row][col]), vb + off, ok ? 16 : 0);
     }
   };
@@ -174,15 +237,27 @@ __global__ void __launch_bounds__(kThreads)
     float s[8][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
+      if constexpr (kQK8) {
+        // one ldmatrix.x4 covers a key row's 64 bytes: matrices at byte
+        // 0, 16, 32, 48 are the two b registers of k32 steps 0 and 1
+        int32_t si[4] = {0, 0, 0, 0};
         uint32_t b[4];
-        ldmatrix_x4(b, smem_addr(&ks[st][j * 8 + (lane & 7)]
-                                    [h * 32 + (lane >> 3) * 8]));
-        mma_bf16(s[j], qf[2 * h], b[0], b[1]);
-        mma_bf16(s[j], qf[2 * h + 1], b[2], b[3]);
+        ldmatrix_x4(b, smem_addr(&ks[st][j * 8 + (lane & 7)][(lane >> 3) * 16]));
+        mma_s8(si, qf[0], b[0], b[1]);
+        mma_s8(si, qf[1], b[2], b[3]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = small_int_to_float(si[e]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          uint32_t b[4];
+          ldmatrix_x4(b, smem_addr(&ks[st][j * 8 + (lane & 7)]
+                                      [h * 32 + (lane >> 3) * 8]));
+          mma_bf16(s[j], qf[2 * h], b[0], b[1]);
+          mma_bf16(s[j], qf[2 * h + 1], b[2], b[3]);
+        }
       }
     }
 
@@ -197,7 +272,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
 
-    if (kBounded) {
+    if constexpr (kBounded) {
       // |s| is bounded by the caller: exp2 straight off the logits.
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -287,31 +362,53 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+bool bad_shape(int bh, int sq, int skv, int head_dim) {
+  return head_dim != kD || bh <= 0 || sq <= 0 || skv <= 0 || bh > 65535;
+}
+
 }  // namespace
 
-// q: [bh, sq, 64], k and v: [bh, skv, 64], o: [bh, sq, 64]; all contiguous
-// bf16 on the device. Launches on `stream` and returns the cudaError_t of the
-// launch (0 on success); it does not synchronise.
+// K1. q, k, v: bf16 [bh, sq|skv, 64], o: bf16 [bh, sq, 64]; all contiguous on
+// the device. Launches on `stream` and returns the cudaError_t of the launch
+// (0 on success); it does not synchronise.
 extern "C" int dove_flash_fwd_bf16(const void* q, const void* k, const void* v,
                                    void* o, int bh, int sq, int skv,
                                    int head_dim, float scale, int bounded,
                                    void* stream) {
-  if (head_dim != kD || bh <= 0 || sq <= 0 || skv <= 0 || bh > 65535) {
+  if (bad_shape(bh, sq, skv, head_dim)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid((sq + kBQ - 1) / kBQ, bh);
   const float scale_log2 = scale * 1.4426950408889634f;
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const __nv_bfloat16*>(k);
   const auto* vp = static_cast<const __nv_bfloat16*>(v);
   auto* op = static_cast<__nv_bfloat16*>(o);
   auto s = static_cast<cudaStream_t>(stream);
   if (bounded) {
-    flash_fwd_kernel<true><<<grid, kThreads, 0, s>>>(qp, kp, vp, op, sq, skv,
-                                                     scale_log2);
+    flash_fwd_kernel<true, false><<<grid, kThreads, 0, s>>>(
+        q, k, vp, op, sq, skv, scale_log2, nullptr);
   } else {
-    flash_fwd_kernel<false><<<grid, kThreads, 0, s>>>(qp, kp, vp, op, sq, skv,
-                                                      scale_log2);
+    flash_fwd_kernel<false, false><<<grid, kThreads, 0, s>>>(
+        q, k, vp, op, sq, skv, scale_log2, nullptr);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2. q8, k8: int8 codes [bh, sq|skv, 64]; v: bf16 [bh, skv, 64]; o: bf16
+// [bh, sq, 64]; scale_log2: one fp32 on the device, s_q * s_k * scale *
+// log2 e. All contiguous on the device; launches on `stream`, returns the
+// cudaError_t of the launch, does not synchronise.
+extern "C" int dove_flash_fwd_qk8(const void* q8, const void* k8,
+                                  const void* v, void* o, int bh, int sq,
+                                  int skv, int head_dim,
+                                  const void* scale_log2, void* stream) {
+  if (bad_shape(bh, sq, skv, head_dim) || scale_log2 == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((sq + kBQ - 1) / kBQ, bh);
+  flash_fwd_kernel<true, true><<<grid, kThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      q8, k8, static_cast<const __nv_bfloat16*>(v),
+      static_cast<__nv_bfloat16*>(o), sq, skv, 0.f,
+      static_cast<const float*>(scale_log2));
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,7 +3,10 @@
     python -m dove_tpu_torch.inference --input_dir clips/ --output_path out/ --is_vae_st
 
 The subset of ``scripts/inference.py``'s flags that the port supports: the
-staged path (``--is_vae_st``, required) in bf16 or fp32. Without
+staged path (``--is_vae_st``, required) in bf16 or fp32, unquantized or in
+the int8-DiT serving modes (``--quantize int8-dit`` or ``int8w``), with
+clips of more than 33 frames streamed or cut into overlapping chunks
+(``--streaming``). Without
 ``--model_path`` the weights are seeded random ones and the prompt embedding
 is zeros of shape (max_text_seq_length, text_embed_dim) unless the cached
 empty-prompt embedding is found under ``pretrained_models/``.
@@ -40,6 +43,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "path the port has)")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu")
+    p.add_argument("--quantize", type=str, default=None,
+                   choices=["int8-dit", "int8w"],
+                   help="int8 DiT serving mode: 'int8-dit' runs W8A8 linears "
+                        "and, on the card, int8 Q K^T attention (K2); "
+                        "'int8w' stores int8 weights and computes in --dtype")
+    p.add_argument("--streaming", type=str, default="auto",
+                   choices=["auto", "on", "off"],
+                   help="clips over 33 frames: stream contiguous segments "
+                        "with the VAE's causal caches carried across them "
+                        "(on), or run overlapping 33-frame chunks (off); "
+                        "auto streams with --quantize")
     return p
 
 
@@ -76,7 +90,7 @@ def load_pipeline(args):
     return DovePipeline(
         config=cfg, dit=dit, vae=vae, prompt_embedding=prompt_embedding,
         dtype=dtype, device=device, vae_tiling=args.is_vae_st,
-        output_uint8=True,
+        output_uint8=True, quantize=args.quantize, streaming=args.streaming,
     )
 
 

@@ -8,7 +8,10 @@ Counterpart of ``dove_tpu/ops/attention.py``, with its dispatch rule:
     CUDA tensor, its plain PyTorch version on a CPU tensor;
   * "plain": K1's plain PyTorch version on any device, the reference the
     kernel is held to (chip_smoke.py runs the pipeline through both);
-  * "flash-qk8": K2, not ported yet, raises.
+  * "flash-qk8": K2, per-tensor int8 Q K^T (the int8-dit serving mode's
+    attention; needs bounded_logits): the CUDA kernel on a CUDA tensor, its
+    plain version on a CPU tensor;
+  * "plain-qk8": K2's plain PyTorch version on any device, its reference.
 
 ``backend=None`` takes the kernel when the tensors are on the card and the
 longer side of the attention has 2048 tokens or more, and the naive path
@@ -19,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from dove_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+from dove_tpu_torch.ops import flash_attention as fa
 
 FLASH_MIN_SEQ = 2048
 
@@ -50,14 +53,16 @@ def full_attention(
         # buffer is O(Sq * Skv)
         s_max = max(q.shape[-2], k.shape[-2])
         backend = "flash" if (q.is_cuda and s_max >= FLASH_MIN_SEQ) else "naive"
-    if backend == "flash":
-        return flash_attention(q, k, v, bounded_logits=bounded_logits)
+    if backend in ("flash", "flash-qk8"):
+        return fa.flash_attention(q, k, v, bounded_logits=bounded_logits,
+                                  qk_int8=backend == "flash-qk8")
     if backend == "plain":
-        return flash_attention_plain(q, k, v, bounded_logits=bounded_logits)
-    if backend == "flash-qk8":
-        raise NotImplementedError(
-            "attention backend 'flash-qk8' (K2, int8 QK^T) is not ported"
-        )
+        return fa.flash_attention_plain(q, k, v, bounded_logits=bounded_logits)
+    if backend == "plain-qk8":
+        if not bounded_logits:
+            raise ValueError("qk_int8 flash attention requires bounded_logits")
+        q8, k8, factor = fa.quantize_qk_pair(q, k, q.shape[-1] ** -0.5)
+        return fa.flash_attention_qk8_plain(q8, k8, v, factor)
     if backend == "naive":
         return _naive_attention(q, k, v)
     raise ValueError(f"unknown attention backend: {backend}")

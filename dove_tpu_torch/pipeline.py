@@ -1,9 +1,11 @@
 """DOVE one-step video super-resolution, the staged path, in PyTorch.
 
 Counterpart of ``dove_tpu/pipeline.py``'s staged branch (``vae_tiling=True``,
-the reference's ``--is_vae_st`` default) for bf16 or fp32 with no
-quantization. A clip of up to 33 frames is one pass of three stages, each
-ended by a device synchronisation (the stage barrier):
+the reference's ``--is_vae_st`` default) for bf16 or fp32, unquantized or
+in the int8-DiT serving modes (``quantize="int8-dit"``: W8A8 linears and
+K2's int8 Q K^T attention; ``"int8w"``: weight-only int8 linears). A clip of
+up to 33 frames is one pass of three stages, each ended by a device
+synchronisation (the stage barrier):
 
   * enc: 4x bilinear upscale on the device, VAE encode over feathered
     spatial windows, feathered assembly of the moments;
@@ -12,15 +14,19 @@ ended by a device synchronisation (the stage barrier):
   * dec: VAE decode over windows, feathered assembly, uint8 RGB or BT.601
     I420.
 
-Longer clips run as overlapping 33-frame chunks, trimmed at the overlap
-midpoints (the reference's temporal stitching). The window plan is the JAX
-package's bf16 plan, so seams fall where they fall there. On the card the
-DiT's attention takes K1, which is bf16 only: an fp32 pipeline there needs
+Longer clips run either as overlapping 33-frame chunks, trimmed at the
+overlap midpoints (the reference's temporal stitching), or streamed
+(``streaming``; on by default in the int8-DiT modes): contiguous segments
+whose causal conv caches carry across segment calls, so the VAE touches
+every frame once, and only the DiT runs on overlapping latent windows. The
+window plans are the JAX package's (its 16 GB plans), so seams fall where
+they fall there. On the card the DiT's attention takes K1 (bf16) or, with a
+W8A8 DiT, K2; both take bf16 only, so an fp32 pipeline there needs
 ``attention_backend="plain"``.
 
 Not ported yet (each raises): the fused outer-tile path (vae_tiling=False or
-tile_size_hw), the streaming segmented path, mesh serving and the int8
-modes.
+tile_size_hw), mesh serving and the int8 VAE modes ("int8", "int8-vae",
+"int8-dit-dec", which need K4).
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import dataclasses
 import logging
 import math
 import time
+from collections.abc import Iterator
 from pathlib import Path
 from typing import Any
 
@@ -43,17 +50,69 @@ from dove_tpu_torch.io import video as video_io
 from dove_tpu_torch.models import vae as vae_mod
 from dove_tpu_torch.models.dit import CogVideoXTransformer3D
 from dove_tpu_torch.models.vae import AutoencoderKLCogVideoX
+from dove_tpu_torch.ops import quant
 from dove_tpu_torch.ops.scheduler import Schedule
 from dove_tpu_torch.train.losses import one_step_x0_latent
 
 logger = logging.getLogger(__name__)
 
 MAX_FRAMES_PER_PASS = 33
-# bf16 window budget of the JAX plan: 2-latent feather band, max window
-# (h, w) in latents for encode and for decode
-BLEND_LAT = 2
-ENC_MAX = (32, 32)
-DEC_MAX = (28, 28)
+QUANTIZE_MODES = ("int8-dit", "int8w")
+# the int8 VAE modes come with K4, the int8 conv kernel
+UNPORTED_QUANTIZE_MODES = ("int8", "int8-vae", "int8-dit-dec")
+# Streaming: the first pixel segment carries the causally special first
+# frame; later segments are a multiple of the 4x temporal ratio.
+STREAM_SEG0_PX = 33
+STREAM_SEG_PX = 32
+
+
+def plan_stream_segments(num_frames: int) -> list[tuple[int, int]]:
+    """Contiguous (start, end) pixel-frame segments: [33] + [32]*k + tail.
+
+    num_frames must satisfy the causal-VAE frame rule ((F-1) % 4 == 0), so
+    every boundary after the first segment is a multiple of 4, which keeps
+    the temporal pooling and upsampling aligned with whole-clip processing."""
+    if (num_frames - 1) % 4:
+        raise ValueError(f"streamed clips need (F - 1) % 4 == 0, got F={num_frames}")
+    bounds = [(0, min(STREAM_SEG0_PX, num_frames))]
+    start = STREAM_SEG0_PX
+    while start < num_frames:
+        bounds.append((start, min(start + STREAM_SEG_PX, num_frames)))
+        start += STREAM_SEG_PX
+    return bounds
+
+
+def plan_dit_windows(
+    n_lat: int, window: int, overlap: int
+) -> list[tuple[int, int, int, int]]:
+    """Overlapping DiT windows over the latent stream -> (ws, we, klo, khi).
+
+    Each window spans stream latents [ws, we); its kept region is [klo, khi)
+    in window-local coordinates. Interior boundaries sit at the midpoint of
+    each overlap (the latent-space analog of the reference's overlap_t // 2
+    pixel trim). The last window is right-aligned so all windows share one
+    shape; every stream latent is written exactly once."""
+    if n_lat <= window:
+        return [(0, n_lat, 0, n_lat)]
+    stride = max(window - overlap, 1)
+    n = -(-(n_lat - window) // stride) + 1
+    starts = [min(i * stride, n_lat - window) for i in range(n)]
+    bounds = [0]
+    for prev, s in zip(starts[:-1], starts[1:]):
+        cover = prev + window - s  # actual overlap (>= overlap)
+        bounds.append(s + (cover + 1) // 2)
+    bounds.append(n_lat)
+    return [
+        (s, s + window, bounds[i] - s, bounds[i + 1] - s)
+        for i, s in enumerate(starts)
+    ]
+
+
+def _groups(items: list, size: int) -> Iterator[list]:
+    """Consecutive groups of at most ``size`` items."""
+    size = max(1, size)
+    for i in range(0, len(items), size):
+        yield items[i:i + size]
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -177,19 +236,56 @@ class DovePipeline:
     output_uint8: bool = False
     # planar BT.601 studio-swing I420 [F, H*3//2, W] instead of RGB
     output_i420: bool = False
-    quantize: str | None = None  # int8 modes: not ported yet
+    # int8 serving modes of the DiT (ops/quant.py), quantized in place when
+    # the pipeline is built (the DiT passed in becomes the int8 one):
+    #   "int8-dit": W8A8 linears (int8 weights, per-token int8 activations)
+    #               and, on the card, K2's int8 Q K^T attention;
+    #   "int8w":    W8A16, int8 weights dequantized into the bf16 matmuls.
+    # Both halve the DiT's weight bytes and take the JAX package's int8
+    # window plan; the VAE stays bf16.
+    quantize: str | None = None
+    # Streamed long-clip path ("auto" | "on" | "off" | bool): clips of more
+    # than one pass run as contiguous segments with the causal conv caches
+    # carried across them, and only the DiT runs on overlapping latent
+    # windows. "auto" streams in the int8-DiT modes, as the JAX package
+    # does on a directly attached device; bf16 keeps the overlap-chunk path.
+    streaming: str | bool = "auto"
+    # DiT windows of the streamed path in latent frames: 10 with an overlap
+    # of 2 is a 33-frame pass with an 8-frame overlap.
+    dit_window_latents: int = 10
+    dit_overlap_latents: int = 2
+    # latent frames per decoder call in the streamed decode
+    stream_decode_latents: int = 2
+    # spatial windows run together (as one batch) through the streamed
+    # encode and decode; their caches live across all segments
+    stream_enc_group: int = 4
+    stream_dec_group: int = 2
+    # longer clips take the overlap-chunk path (window outputs of the whole
+    # clip stay on the device until assembly)
+    stream_max_frames: int = 320
+    # optional (h, w) cap on the decode window, in latents
+    dec_window_cap: tuple[int, int] | None = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        if self.quantize is not None:
-            raise NotImplementedError(
-                f"quantize={self.quantize!r}: the int8 modes are not ported yet"
+        if self.dec_window_cap is not None and min(self.dec_window_cap) <= 2:
+            raise ValueError(
+                "dec_window_cap must exceed the 2-latent feather band "
+                f"(each side >= 3); got {self.dec_window_cap}"
             )
+        if self.quantize in UNPORTED_QUANTIZE_MODES:
+            raise NotImplementedError(
+                f"quantize={self.quantize!r} quantizes the VAE, which needs "
+                "the int8 conv kernel (K4); that slice is not ported yet"
+            )
+        if self.quantize is not None and self.quantize not in QUANTIZE_MODES:
+            raise ValueError(f"unknown quantize mode: {self.quantize}")
         if self.output_i420 and not (self.vae_tiling and self.output_uint8):
             raise ValueError(
                 "output_i420 requires the staged path (vae_tiling=True) "
                 "with output_uint8=True"
             )
+        self._stream_enabled()  # an unknown streaming value fails here
         T = self.config.scheduler.num_train_timesteps
         for name in ("sr_noise_step", "noise_step"):
             t = getattr(self.config, name)
@@ -197,10 +293,53 @@ class DovePipeline:
                 raise ValueError(f"{name}={t} outside [0, {T})")
         self.schedule = Schedule.create(self.config.scheduler)
         self.dit = self.dit.to(device=self.device, dtype=self.dtype).eval()
+        if self._dit_resident_int8:
+            self.dit = quant.quantize_dit(self.dit, w_only=self.quantize == "int8w")
+        if (self._dit_quantized and self.attention_backend is None
+                and self.device.type == "cuda"):
+            # W8A8 serving: Q K^T in int8 too (K2), as the JAX package does
+            # on its accelerator; the CPU keeps the automatic dispatch
+            self.attention_backend = "flash-qk8"
         self.vae = self.vae.to(device=self.device, dtype=self.dtype).eval()
         self.prompt_embedding = self.prompt_embedding.to(self.device, self.dtype)
         # per-clip stage wall times (seconds), reset by process_frames
         self.stage_times: dict[str, float] = {}
+
+    @property
+    def _dit_quantized(self) -> bool:
+        """W8A8 compute: int8 activations and K2's int8 Q K^T."""
+        return self.quantize == "int8-dit"
+
+    @property
+    def _dit_resident_int8(self) -> bool:
+        """DiT weights stored int8, the W8A16 mode included."""
+        return self.quantize in QUANTIZE_MODES
+
+    def _window_budget(self) -> tuple[int, tuple[int, int], tuple[int, int]]:
+        """(blend_lat, (enc_max_h, enc_max_w), (dec_max_h, dec_max_w)) in
+        latents: the JAX package's plans for a 16 GB device. The int8 DiT
+        leaves room for larger windows than bf16, but not for the int8 VAE
+        modes' decode budget, which comes with their slice."""
+        if self._dit_resident_int8:
+            blend, enc_max, dec_max = 2, (40, 38), (36, 34)
+        else:
+            blend, enc_max, dec_max = 2, (32, 32), (28, 28)
+        if self.dec_window_cap is not None:
+            dec_max = (min(dec_max[0], self.dec_window_cap[0]),
+                       min(dec_max[1], self.dec_window_cap[1]))
+        return blend, enc_max, dec_max
+
+    def _stream_enabled(self) -> bool:
+        mode = self.streaming
+        if isinstance(mode, str):
+            if mode == "auto":
+                return self._dit_resident_int8
+            if mode.lower() in ("1", "true", "on", "yes"):
+                return True
+            if mode.lower() in ("0", "false", "off", "no"):
+                return False
+            raise ValueError(f"streaming={mode!r}: expected auto/on/off")
+        return bool(mode)
 
     # ------------------------------------------------------------------
     # The three stages
@@ -215,8 +354,9 @@ class DovePipeline:
         Hu, Wu = H * cfg.upscale, W * cfg.upscale
         up = bilinear_upscale(lq.float(), cfg.upscale).to(lq.dtype)
         lat_h, lat_w = Hu // s, Wu // s
-        tile_h, stride_h, n_rows = plan_axis(lat_h, BLEND_LAT, ENC_MAX[0])
-        tile_w, stride_w, n_cols = plan_axis(lat_w, BLEND_LAT, ENC_MAX[1])
+        blend, enc_max, _ = self._window_budget()
+        tile_h, stride_h, n_rows = plan_axis(lat_h, blend, enc_max[0])
+        tile_w, stride_w, n_cols = plan_axis(lat_w, blend, enc_max[1])
         if n_rows == 1 and n_cols == 1:
             return vae_mod.encode_moments(cfg.vae, self.vae, up)
         th, tw = tile_h * s, tile_w * s
@@ -232,7 +372,7 @@ class DovePipeline:
         ]
         return feather_assemble(
             tiles, n_rows, n_cols,
-            BLEND_LAT if n_rows > 1 else 0, BLEND_LAT if n_cols > 1 else 0,
+            blend if n_rows > 1 else 0, blend if n_cols > 1 else 0,
             lat_h, lat_w,
         )
 
@@ -240,11 +380,17 @@ class DovePipeline:
         self, moments: torch.Tensor, generator: torch.Generator | None = None
     ) -> torch.Tensor:
         """moments [B, F', h, w, 2C] -> unscaled x-hat_0 latent [B, F', h, w, C]."""
-        cfg = self.config
         latent = vae_mod.sample_latent(
             moments, generator if self.sample_posterior else None,
-            cfg.vae.scaling_factor,
+            self.config.vae.scaling_factor,
         )
+        return self._denoise(latent, generator)
+
+    def _denoise(
+        self, latent: torch.Tensor, generator: torch.Generator | None
+    ) -> torch.Tensor:
+        """Scaled latent [B, F', h, w, C] -> unscaled x-hat_0, one DiT pass."""
+        cfg = self.config
         B, Fl, h, w, C = latent.shape
         text = self.prompt_embedding[None].expand(B, -1, -1)
         noise = None
@@ -267,8 +413,9 @@ class DovePipeline:
         cfg = self.config
         s = cfg.vae.spatial_scale
         _, _, zh, zw, _ = z.shape
-        tile_h, stride_h, n_rows = plan_axis(zh, BLEND_LAT, DEC_MAX[0])
-        tile_w, stride_w, n_cols = plan_axis(zw, BLEND_LAT, DEC_MAX[1])
+        blend, _, dec_max = self._window_budget()
+        tile_h, stride_h, n_rows = plan_axis(zh, blend, dec_max[0])
+        tile_w, stride_w, n_cols = plan_axis(zw, blend, dec_max[1])
         if n_rows == 1 and n_cols == 1:
             pixels = vae_mod.decode(cfg.vae, self.vae, z)
         else:
@@ -284,8 +431,8 @@ class DovePipeline:
             ]
             pixels = feather_assemble(
                 tiles, n_rows, n_cols,
-                (BLEND_LAT if n_rows > 1 else 0) * s,
-                (BLEND_LAT if n_cols > 1 else 0) * s,
+                (blend if n_rows > 1 else 0) * s,
+                (blend if n_cols > 1 else 0) * s,
                 zh * s, zw * s,
             )
         return (pixels.float() * 0.5 + 0.5).clamp(0.0, 1.0)
@@ -352,6 +499,126 @@ class DovePipeline:
         self._add_time("dec", time.perf_counter() - t2)
         return out
 
+    @torch.inference_mode()
+    def _sr_clip_streamed(
+        self, clip: np.ndarray, generator: torch.Generator,
+        overlap_lat: int | None = None,
+    ) -> np.ndarray:
+        """Streamed SR of a whole clip: clip [F, H, W, 3] float in [-1, 1] at
+        LQ resolution with (F-1) % 4 == 0 -> uint8 [F, H*u, W*u, 3] (or I420).
+
+        Three phases, each window-major: a group of spatial windows runs
+        through every temporal segment, its causal conv caches carried from
+        one segment to the next, before the next group starts, so only one
+        group's caches are alive at a time.
+
+          enc: moment windows -> per segment, feather and sample -> latents
+          dit: overlapping latent windows, trimmed at the overlap midpoints
+          dec: pixel windows -> per segment, feather and quantize -> host
+        """
+        cfg = self.config
+        s = cfg.vae.spatial_scale
+        F_, Hl, Wl, _ = clip.shape
+        Hp, Wp = Hl * cfg.upscale, Wl * cfg.upscale
+        lat_h, lat_w = Hp // s, Wp // s
+        n_lat = cfg.vae.latent_frames(F_)
+        blend, enc_max, dec_max = self._window_budget()
+        segs = plan_stream_segments(F_)
+        lat0 = cfg.vae.latent_frames(segs[0][1])
+
+        def lat_span(i: int) -> tuple[int, int]:
+            s0, e0 = segs[i]
+            if i == 0:
+                return 0, lat0
+            ls = lat0 + (s0 - segs[0][1]) // cfg.vae.temporal_compression_ratio
+            return ls, ls + (e0 - s0) // cfg.vae.temporal_compression_ratio
+
+        # ---- enc: window-major groups, the cache handed across segments ----
+        t0 = time.perf_counter()
+        with record_function("dove.enc"):
+            e_th, e_sh, e_nr = plan_axis(lat_h, blend, enc_max[0])
+            e_tw, e_sw, e_nc = plan_axis(lat_w, blend, enc_max[1])
+            cover = ((e_nr - 1) * e_sh + e_th) * s, ((e_nc - 1) * e_sw + e_tw) * s
+            coords = [(r * e_sh * s, c * e_sw * s)
+                      for r in range(e_nr) for c in range(e_nc)]
+            lq = torch.as_tensor(clip).to(self.device).to(self.dtype)[None]
+            moments: list[list[torch.Tensor]] = [[] for _ in segs]
+            for group in _groups(coords, self.stream_enc_group):
+                cache = None
+                for si, (s0, e0) in enumerate(segs):
+                    up = _edge_pad_hw(
+                        bilinear_upscale(lq[:, s0:e0].float(), cfg.upscale)
+                        .to(self.dtype), *cover)
+                    tiles = torch.cat([
+                        up[:, :, y:y + e_th * s, x:x + e_tw * s] for y, x in group])
+                    m, cache = vae_mod.encode_moments_cached(
+                        cfg.vae, self.vae, tiles, cache)
+                    moments[si].extend(m.unbind(0))
+                del cache
+            lat_stream = torch.empty(
+                (1, n_lat, lat_h, lat_w, cfg.vae.latent_channels),
+                dtype=self.dtype, device=self.device)
+            for si in range(len(segs)):
+                m = feather_assemble(
+                    [t[None] for t in moments[si]], e_nr, e_nc,
+                    blend if e_nr > 1 else 0, blend if e_nc > 1 else 0,
+                    lat_h, lat_w)
+                moments[si] = []
+                ls, le = lat_span(si)
+                lat_stream[:, ls:le] = vae_mod.sample_latent(
+                    m, generator if self.sample_posterior else None,
+                    cfg.vae.scaling_factor)
+            self._barrier()
+        t1 = time.perf_counter()
+        self._add_time("enc", t1 - t0)
+
+        # ---- dit: overlapping windows, midpoint trim in latent space ----
+        with record_function("dove.dit"):
+            wplan = plan_dit_windows(
+                n_lat, self.dit_window_latents,
+                self.dit_overlap_latents if overlap_lat is None else overlap_lat)
+            x0_stream = torch.empty_like(lat_stream)
+            for ws, we, klo, khi in wplan:
+                x0 = self._denoise(lat_stream[:, ws:we], generator)
+                x0_stream[:, ws + klo:ws + khi] = x0[:, klo:khi]
+            del lat_stream
+            self._barrier()
+        t2 = time.perf_counter()
+        self._add_time("dit", t2 - t1)
+
+        # ---- dec: window-major groups, no temporal seams ----
+        with record_function("dove.dec"):
+            d_th, d_sh, d_nr = plan_axis(lat_h, blend, dec_max[0])
+            d_tw, d_sw, d_nc = plan_axis(lat_w, blend, dec_max[1])
+            zp = _edge_pad_hw(x0_stream, (d_nr - 1) * d_sh + d_th,
+                              (d_nc - 1) * d_sw + d_tw)
+            del x0_stream
+            coords = [(r * d_sh, c * d_sw) for r in range(d_nr) for c in range(d_nc)]
+            pixels: list[list[torch.Tensor]] = [[] for _ in segs]
+            for group in _groups(coords, self.stream_dec_group):
+                cache = None
+                for si in range(len(segs)):
+                    ls, le = lat_span(si)
+                    tiles = torch.cat([
+                        zp[:, ls:le, y:y + d_th, x:x + d_tw] for y, x in group])
+                    px, cache = vae_mod.decode_cached(
+                        cfg.vae, self.vae, tiles, cache, self.stream_decode_latents)
+                    pixels[si].extend(px.unbind(0))
+                del cache
+            del zp
+            out = np.empty((F_, Hp * 3 // 2, Wp) if self.output_i420
+                           else (F_, Hp, Wp, 3), np.uint8)
+            for si, (s0, e0) in enumerate(segs):
+                seg = feather_assemble(
+                    [t[None] for t in pixels[si]], d_nr, d_nc,
+                    (blend if d_nr > 1 else 0) * s, (blend if d_nc > 1 else 0) * s,
+                    Hp, Wp)
+                pixels[si] = []
+                out01 = (seg.float() * 0.5 + 0.5).clamp(0.0, 1.0)
+                out[s0:e0] = self.quantize_frames(out01)[0].cpu().numpy()
+        self._add_time("dec", time.perf_counter() - t2)
+        return out
+
     def process_frames(
         self,
         frames: np.ndarray,  # [F, H, W, 3] float32 in [0, 1] (LQ input)
@@ -382,6 +649,17 @@ class DovePipeline:
         padded, (pad_f, pad_h, pad_w) = tiling.pad_video(frames)
         lq = padded * 2.0 - 1.0  # [-1, 1] at LQ resolution
         F_ = lq.shape[0]
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+
+        if (chunk_len == 0 and MAX_FRAMES_PER_PASS < F_ <= self.stream_max_frames
+                and self._stream_enabled()):
+            # an explicit overlap_t (pixel frames) becomes latent frames
+            out = self._sr_clip_streamed(
+                lq, generator,
+                overlap_lat=None if overlap_t is None else max(0, round(overlap_t / 4)),
+            )
+            out = _trim_output(out, pad_f, pad_h, pad_w, upscale)
+            return out if self.output_uint8 else out.astype(np.float32) / 255.0
 
         if overlap_t is None:
             overlap_t = 8  # the reference's default
@@ -404,7 +682,6 @@ class DovePipeline:
                 lq = np.concatenate([lq, np.repeat(lq[-1:], extra_f, axis=0)])
             F_ = f_ext
         chunks = tiling.temporal_chunks(F_, chunk_len, effective_ot)
-        generator = torch.Generator(device=self.device).manual_seed(seed)
 
         def chunk_out(ts: int, te: int) -> np.ndarray:
             data = lq[ts:te]

@@ -7,7 +7,11 @@ Conv [O, I, k...] layouts are the checkpoint's own. ``from_jax_params`` takes
 the JAX package's parameter trees (as NumPy arrays) through the same path by
 first undoing the three things that tree does differently: DiT blocks stacked
 on a leading axis for ``lax.scan``, linear kernels stored [d_in, d_out], and
-conv kernels stored [kt, kh, kw, Cin, Cout] (2D: [kh, kw, Cin, Cout]).
+conv kernels stored [kt, kh, kw, Cin, Cout] (2D: [kh, kw, Cin, Cout]). It
+also takes a DiT tree that the JAX package's ``quantize_dit`` made (int8
+``kernel_q`` or ``kernel_w8`` beside fp32 ``kernel_scale`` of [L, 1, out]):
+the port's DiT then carries the same codes and scales in ``QLinear`` or
+``W8Linear`` modules.
 
 ``safetensors`` is imported inside the functions that read files.
 """
@@ -25,6 +29,7 @@ from torch import nn
 from dove_tpu_torch.config import DiTConfig, PipelineConfig, VAEConfig
 from dove_tpu_torch.models.dit import CogVideoXTransformer3D
 from dove_tpu_torch.models.vae import AutoencoderKLCogVideoX
+from dove_tpu_torch.ops import quant
 
 Tensors = Mapping[str, Any]  # name -> torch.Tensor or np.ndarray
 
@@ -60,7 +65,7 @@ def load_safetensors_dir(subdir: str | Path) -> dict[str, torch.Tensor]:
     return tensors
 
 
-def _load_into(module: nn.Module, tensors: Tensors, dtype: torch.dtype) -> None:
+def _load_into(module: nn.Module, tensors: Tensors) -> None:
     """Copy every parameter of ``module`` from ``tensors``; extra checkpoint
     keys are ignored, a missing or misshapen one raises."""
     state = module.state_dict()
@@ -74,18 +79,32 @@ def _load_into(module: nn.Module, tensors: Tensors, dtype: torch.dtype) -> None:
                 raise ValueError(
                     f"{name}: checkpoint shape {tuple(src.shape)} != {tuple(dst.shape)}"
                 )
-            dst.copy_(src.to(dtype))
+            # the model was built in its dtype; int8 codes and fp32
+            # quantization scales keep theirs
+            dst.copy_(src.to(dst.dtype))
 
 
 def convert_dit(
     tensors: Tensors, cfg: DiTConfig, dtype: torch.dtype = torch.bfloat16,
-    device="cpu",
+    device="cpu", quantized: str | None = None,
 ) -> CogVideoXTransformer3D:
-    """diffusers CogVideoXTransformer3DModel state dict -> the port's DiT."""
+    """diffusers CogVideoXTransformer3DModel state dict -> the port's DiT.
+
+    quantized ("w8a8" or "w8a16"): the state dict holds int8 ``weight_q``
+    and fp32 ``scale`` for the linears ``quantize_dit`` quantizes."""
     with torch.device("meta"):
         model = CogVideoXTransformer3D(cfg, dtype=dtype)
+        if quantized is not None:
+            cls = {"w8a8": quant.QLinear, "w8a16": quant.W8Linear}[quantized]
+            for block in model.transformer_blocks:
+                for parent_path, name in quant.QUANTIZED_LINEARS:
+                    parent = block.get_submodule(parent_path)
+                    lin = parent.get_submodule(name)
+                    setattr(parent, name, cls.empty(
+                        lin.in_features, lin.out_features, lin.bias is not None,
+                        dtype=dtype))
     model = model.to_empty(device=device)
-    _load_into(model, tensors, dtype)
+    _load_into(model, tensors)
     return model.eval().requires_grad_(False)
 
 
@@ -97,7 +116,7 @@ def convert_vae(
     with torch.device("meta"):
         vae = AutoencoderKLCogVideoX(cfg, dtype=dtype)
     vae = vae.to_empty(device=device)
-    _load_into(vae, tensors, dtype)
+    _load_into(vae, tensors)
     return vae.eval().requires_grad_(False)
 
 
@@ -130,6 +149,9 @@ def load_prompt_embedding(
 # ---------------------------------------------------------------------------
 
 _DIT_RENAME = {"to_out": "to_out.0", "net_0_proj": "net.0.proj", "net_2": "net.2"}
+# leaves of a quantized JAX linear -> the port's int8 module's names
+_QUANT_LEAVES = {"kernel_q": "weight_q", "kernel_w8": "weight_q",
+                 "kernel_scale": "scale"}
 _VAE_RENAME = {"downsampler": "downsamplers.0", "upsampler": "upsamplers.0"}
 _CAUSAL_CONVS = {"conv_in", "conv_out", "conv1", "conv2", "conv_y", "conv_b"}
 
@@ -152,6 +174,14 @@ def _flatten(tree: Any, prefix: str, out: dict[str, np.ndarray],
     "weight", list indices become ".i", and a VAE causal conv gains ".conv"."""
     if isinstance(tree, Mapping):
         for key, sub in tree.items():
+            if key in _QUANT_LEAVES:
+                leaf = np.asarray(sub)
+                if key == "kernel_scale":  # [1, out] or [out] -> [out] fp32
+                    leaf = leaf.reshape(-1).astype(np.float32)
+                else:  # int8 [in, out] -> [out, in]
+                    leaf = leaf.T
+                out[f"{prefix}{_QUANT_LEAVES[key]}"] = np.array(leaf, order="C")
+                continue
             if key in ("kernel", "scale", "bias"):
                 name = "weight" if key != "bias" else "bias"
                 out[f"{prefix}{name}"] = np.array(  # a writable C-order copy
@@ -201,7 +231,12 @@ def from_jax_params(
     dtype: torch.dtype = torch.float32,
     device="cpu",
 ) -> tuple[CogVideoXTransformer3D, AutoencoderKLCogVideoX]:
-    """The JAX package's parameter trees (NumPy leaves) -> (DiT, VAE)."""
-    dit = convert_dit(jax_dit_to_diffusers(dit_tree), cfg.dit, dtype, device)
+    """The JAX package's parameter trees (NumPy leaves) -> (DiT, VAE). A
+    quantized DiT tree gives a DiT with the same int8 codes and scales."""
+    to_q = dit_tree["blocks"]["attn1"]["to_q"]
+    quantized = ("w8a8" if "kernel_q" in to_q
+                 else "w8a16" if "kernel_w8" in to_q else None)
+    dit = convert_dit(jax_dit_to_diffusers(dit_tree), cfg.dit, dtype, device,
+                      quantized)
     vae = convert_vae(jax_vae_to_diffusers(vae_tree), cfg.vae, dtype, device)
     return dit, vae

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from dove_tpu_torch.ops import flash_attention as fa
+from dove_tpu_torch.ops import quant
 
 # bf16 bars, as chip_smoke.py holds K1: the absolute bar of
 # tests/test_flash_attention.py, and the error relative to the reference's
@@ -67,5 +68,54 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take():
         t = q.transpose(1, 2)
         fa.flash_attention(t, t, t)
     with pytest.raises(NotImplementedError):
-        fa.flash_attention(q, q, q, bounded_logits=True, qk_int8=True)
+        fa.flash_attention(q, q, q, bounded_logits=True, with_lse=True)
+    with pytest.raises(ValueError, match="requires bounded_logits"):
+        fa.flash_attention(q, q, q, qk_int8=True)
+    with pytest.raises(ValueError, match="bfloat16"):  # K2 takes bf16 too
+        fa.flash_attention(q.float(), q.float(), q.float(), bounded_logits=True,
+                           qk_int8=True)
     assert fa.launches.count == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,skv", [(200, 200), (4097, 4097), (130, 300), (1, 77)])
+def test_k2_matches_plain_on_card(sq, skv):
+    """K2 on bf16 inputs against its plain version on the same int8 codes,
+    at K1's bars; each call adds one to K2's counter and none to K1's."""
+    dev = _card()
+    q = _randn((1, 4, sq, 64), 6, dev)
+    k = _randn((1, 4, skv, 64), 7, dev)
+    v = _randn((1, 4, skv, 64), 8, dev)
+    before, before_k1 = fa.launches_qk8.count, fa.launches.count
+    out = fa.flash_attention(q, k, v, bounded_logits=True, qk_int8=True)
+    torch.cuda.synchronize()
+    assert fa.launches_qk8.count == before + 1 and fa.launches.count == before_k1
+    q8, k8, factor = fa.quantize_qk_pair(q, k, 64 ** -0.5)
+    ref = fa.flash_attention_qk8_plain(q8, k8, v, factor)
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    diff, ref = out.float() - ref.float(), ref.float()
+    max_abs = float(diff.abs().max())
+    assert max_abs <= ABS_TOL
+    assert max_abs <= REL_MAX_TOL * float(ref.abs().max())
+    assert float(diff.square().mean().sqrt()) <= (
+        REL_RMS_TOL * float(ref.square().mean().sqrt()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [5, 333])
+def test_qlinear_on_card_matches_cpu(rows):
+    """QLinear on the card (torch._int_mm, padded below 17 rows) against the
+    same module on the CPU: equal int8 codes, exactly equal int32
+    accumulators, and outputs equal to fp32 rounding of the epilogue."""
+    dev = _card()
+    lin = torch.nn.Linear(72, 40)
+    mod = quant.QLinear.from_linear(lin)
+    x = torch.randn(2, rows, 72)
+    x_q, s_x = quant.dynamic_quant_rows(x.reshape(-1, 72))
+    x_q_card, s_x_card = quant.dynamic_quant_rows(x.reshape(-1, 72).to(dev))
+    assert torch.equal(x_q_card.cpu(), x_q) and torch.equal(s_x_card.cpu(), s_x)
+    acc = quant.int8_matmul(x_q, mod.weight_q)
+    acc_card = quant.int8_matmul(x_q_card, mod.weight_q.to(dev))
+    assert torch.equal(acc_card.cpu(), acc)
+    torch.testing.assert_close(mod.to(dev)(x.to(dev)).cpu(), mod.cpu()(x),
+                               rtol=1e-6, atol=1e-6)

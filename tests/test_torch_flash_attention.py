@@ -1,11 +1,11 @@
-"""K1 in the PyTorch port: the plain version against dove_tpu's Pallas kernel.
+"""K1 and K2 in the PyTorch port: the plain versions against dove_tpu's kernel.
 
-On the CPU the port's ``flash_attention`` runs its plain PyTorch version; it
-is held to ``dove_tpu.ops.pallas.flash_attention`` run in Pallas interpret
-mode (as tests/test_flash_attention.py runs it), with 128-blocks so the
-JAX side pads and masks a ragged tail. The CUDA kernel itself is held to the
-plain version on the card by chip_smoke.py and by the ``cuda``-marked tests
-in tests/test_torch_cuda.py.
+On the CPU the port's ``flash_attention`` runs its plain PyTorch version (K1's,
+or K2's with ``qk_int8``); it is held to ``dove_tpu.ops.pallas.flash_attention``
+run in Pallas interpret mode (as tests/test_flash_attention.py runs it), with
+blocks that make the JAX side pad and mask a ragged tail. The CUDA kernels
+themselves are held to their plain versions on the card by chip_smoke.py and
+by the ``cuda``-marked tests in tests/test_torch_cuda.py.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -61,15 +62,43 @@ def test_plain_cross_lengths_match_naive():
 
 
 def test_unported_modes_raise():
+    """The logsumexp output (the training forward, K3's input) is not
+    ported; K2 needs the bounded form, as the TPU wrapper does."""
     q, k, v = (torch.from_numpy(x) for x in _qkv(16, seed=3))
-    with pytest.raises(NotImplementedError):
-        fa.flash_attention(q, k, v, bounded_logits=True, qk_int8=True)
     with pytest.raises(NotImplementedError):
         fa.flash_attention(q, k, v, with_lse=True)
     with pytest.raises(NotImplementedError):
-        tattn.full_attention(q, k, v, backend="flash-qk8", bounded_logits=True)
+        fa.flash_attention(q, k, v, bounded_logits=True, qk_int8=True, with_lse=True)
+    with pytest.raises(ValueError, match="requires bounded_logits"):
+        fa.flash_attention(q, k, v, qk_int8=True)
+    for backend in ("flash-qk8", "plain-qk8"):
+        with pytest.raises(ValueError, match="requires bounded_logits"):
+            tattn.full_attention(q, k, v, backend=backend)
     with pytest.raises(ValueError):
         tattn.full_attention(q, k, v, backend="nope")
+
+
+K2_FLASH = jax.jit(jax_flash, static_argnums=(3, 4, 5, 6, 7))
+
+
+@pytest.mark.parametrize("sq,skv", [(226, 226), (640, 640), (130, 300)])
+def test_qk8_plain_matches_pallas_interpret(sq, skv):
+    """K2's plain version against the TPU kernel's qk8 form in interpret
+    mode, jitted as the pipeline runs it (XLA then scales by the fp32
+    reciprocal of 127, as the port does), 256-blocks: padded, masked tails."""
+    q, k, v = _qkv(sq, seed=sq + skv, Skv=skv)
+    ref = K2_FLASH(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), None, 256, 256,
+                   True, True)
+    fa.launches.reset()
+    fa.launches_qk8.reset()
+    qt, kt, vt = (torch.from_numpy(x) for x in (q, k, v))
+    ours = fa.flash_attention(qt, kt, vt, bounded_logits=True, qk_int8=True)
+    assert ours.shape == (1, 2, sq, 64)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+    # the named plain backend is the same function
+    same = tattn.full_attention(qt, kt, vt, backend="plain-qk8", bounded_logits=True)
+    assert torch.equal(same, ours)
+    assert fa.launches.count == 0 and fa.launches_qk8.count == 0
 
 
 def test_auto_dispatch_on_cpu_takes_the_naive_path():
@@ -92,6 +121,8 @@ def test_imports_and_runs_without_nvcc_or_cuda():
         "q = torch.randn(1, 1, 8, 64)\n"
         "out = fa.flash_attention(q, q, q, bounded_logits=True)\n"
         "assert out.shape == q.shape and fa.launches.count == 0\n"
+        "out = fa.flash_attention(q, q, q, bounded_logits=True, qk_int8=True)\n"
+        "assert out.shape == q.shape and fa.launches_qk8.count == 0\n"
         "assert not kernels._loaded\n"
         "print('ok')\n"
     )
