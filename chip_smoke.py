@@ -5,8 +5,9 @@
 
 Phases, one result line each; any failure exits non-zero:
 
-1. device and build: the card's name and power limit, and the nvcc build of
-   every kernel under dove_tpu_torch/csrc/ (flash_fwd holds K1 and K2), with
+1. device and build: the card's name and power limit, and the nvcc builds of
+   every kernel source under dove_tpu_torch/csrc/, one nvcc each, started
+   together (flash_fwd holds K1 and K2, flash_bwd K3a and K3b), with
    ptxas's registers and spills for each kernel form;
 2. K1 (flash-attention forward) against its plain PyTorch version on the card
    in bf16, bounded and online-softmax forms, at the main path's shape and at
@@ -25,7 +26,20 @@ Phases, one result line each; any failure exits non-zero:
 7. the int8-dit main path: the 5B DiT quantized on the card (W8A8 linears,
    K2 attention), the 32-frame clip of phase 4;
 8. the streamed path: the same int8-dit pipeline on a 100-frame 180x320 clip
-   (105 frames padded, 27 latents, four 10-latent DiT windows).
+   (105 frames padded, 27 latents, four 10-latent DiT windows);
+9. the training attention: K1's logsumexp form, K3a and K3b (the backward)
+   against their plain versions at the stage-1 training shape
+   [2, 48, 3426, 64] and at a ragged Sq != Skv, at K1's bars (and an
+   absolute bar on the logsumexp), with the bars shown to reject a dropped
+   tile; kernel, plain and SDPA times beside the bounds;
+10. one stage-1 LoRA training step at full width and 2 DiT layers, once
+   through the kernels and once through the plain attention, from the same
+   LoRA (B nonzero) and batch: loss and LoRA gradients compared;
+11. the stage-1 recipe (scripts/train_s1.sh): CogVideoX1.5-5B at full width,
+   all 42 layers, seeded bf16 weights, LoRA rank 128 / alpha 64, a synthetic
+   batch of 2 clips of 25x320x640, three steps through DOVES1Trainer with
+   the kernels' launches counted per step, then a checkpoint saved and
+   resumed on the card.
 
 Then one JSON line with the kernels' numbers, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}.
@@ -62,9 +76,24 @@ PSNR_BAR_DB = 40.0
 # K2 against K1 on the same bf16 inputs: the drift of per-tensor int8 Q K^T
 # itself, held to the bar of tests/test_flash_attention.py:94 (RMS relative).
 K2_DRIFT_TOL = 2e-2
+# K1's logsumexp against its plain version: both fp32 from the same bf16
+# inputs, apart in summation order and ex2.approx; 1e-3 keeps p = exp(s -
+# lse) in the backward within 0.1%.
+K1_LSE_ABS_TOL = 1e-3
+# The training step through the kernels against the same step through the
+# plain attention (phase 10): both bf16, rounded at the same points, apart
+# by the kernels' bf16 outputs (one ulp here and there, ~2e-3 RMS) through
+# two layers and the backward.
+TRAIN_LOSS_REL_TOL = 1e-2
+TRAIN_GRAD_REL_RMS_TOL = 5e-2
 
 # Main-path clip: the bench.py clip, 32 LQ frames of 180x320 -> 720p.
 CLIP_FRAMES, CLIP_H, CLIP_W = 32, 180, 320
+# Stage-1 training (scripts/train_s1.sh): batch 2 of 25x320x640, whose DiT
+# pass is 226 text + 4 x 20 x 40 video tokens.
+TRAIN_BATCH, TRAIN_FRAMES, TRAIN_H, TRAIN_W = 2, 25, 320, 640
+TRAIN_SEQ = 3426
+TRAIN_STEPS = 3
 # The streamed clip: 100 frames pad to 105, 27 latents, 4 DiT windows.
 STREAM_FRAMES = 100
 
@@ -131,22 +160,37 @@ def main_path_seq_len(cfg) -> int:
 # Phase 1: device and build
 # ---------------------------------------------------------------------------
 
-# flash_fwd_kernel<kBounded, kQK8> instantiations, by their mangled arguments
-KERNEL_FORMS = {"ILb1ELb0E": "K1 bounded", "ILb0ELb0E": "K1 online",
-                "ILb1ELb1E": "K2"}
+# kernel forms by their mangled names: flash_fwd_kernel<kBounded, kQK8, kLse>
+KERNEL_FORMS = {
+    "flash_fwd_kernelILb1ELb0ELb0E": "K1 bounded",
+    "flash_fwd_kernelILb0ELb0ELb0E": "K1 online",
+    "flash_fwd_kernelILb1ELb1ELb0E": "K2",
+    "flash_fwd_kernelILb1ELb0ELb1E": "K1 bounded lse",
+    "flash_fwd_kernelILb0ELb0ELb1E": "K1 online lse",
+    "flash_bwd_dq_kernel": "K3a",
+    "flash_bwd_dkv_kernel": "K3b",
+}
+SOURCES = ("flash_fwd", "flash_bwd")
 
 
 def phase_build() -> None:
     from dove_tpu_torch import kernels
 
-    seconds, text = kernels.build("flash_fwd")
-    form = "?"
-    for line in text.splitlines():
-        if "Compiling entry function" in line:
-            form = next((f for key, f in KERNEL_FORMS.items() if key in line), line)
-        if "registers" in line or "spill" in line or "error" in line:
-            log(f"  ptxas flash_fwd [{form}]: {line.strip()}")
-    log(f"phase 1 build: flash_fwd (K1 and K2) {seconds:.2f}s of nvcc")
+    t0 = time.perf_counter()
+    built = kernels.build_all(list(SOURCES))
+    wall = time.perf_counter() - t0
+    for name, (seconds, text) in built.items():
+        form = "?"
+        for line in text.splitlines():
+            if "Compiling entry function" in line:
+                form = next((f for key, f in KERNEL_FORMS.items() if key in line),
+                            line)
+            if "registers" in line or "spill" in line or "error" in line:
+                log(f"  ptxas {name} [{form}]: {line.strip()}")
+    log("phase 1 build: " + ", ".join(
+        f"{name} {seconds:.2f}s" for name, (seconds, _) in built.items())
+        + f" of nvcc, {wall:.2f}s wall (flash_fwd: K1 and K2; flash_bwd: K3a "
+        "and K3b)")
 
 
 # ---------------------------------------------------------------------------
@@ -329,8 +373,10 @@ def phase_main_path(profile_dir: str | None = None) -> dict:
 
 
 KERNEL_KINDS = (  # (kind, substrings of CUDA kernel names), first match wins
-    ("k2_flash_fwd_qk8", ("flash_fwd_kernel<true, true>",)),
+    ("k2_flash_fwd_qk8", ("flash_fwd_kernel<true, true, false>",)),
     ("k1_flash_fwd", ("flash_fwd_kernel",)),
+    ("k3a_flash_bwd_dq", ("flash_bwd_dq_kernel",)),
+    ("k3b_flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
     ("group_norm", ("rowwisemoments", "group_norm", "groupnorm")),
     ("conv_layout", ("nchwtonhwc", "nhwctonchw")),
     ("conv", ("fprop", "conv", "implicit_gemm", "cudnn")),
@@ -352,22 +398,31 @@ def _merged_busy(intervals: list[tuple[float, float]]) -> float:
 
 def profile_main_path(pipe, clip: np.ndarray, out_dir: str,
                       name: str = "main_path", phase: str = "phase 4") -> None:
-    """A warm unprofiled run for steady-state stage times, then one run under
-    torch.profiler. From the exported trace's kernel events: the device's
-    busy and idle share, device time by kernel kind, and busy time inside
-    each pipeline stage's range ("dove.enc", ...). The key_averages table
-    goes to <out_dir>/<name>_profile.txt."""
+    def run() -> dict:
+        pipe.process_frames(clip, seed=0)
+        return pipe.stage_times
+
+    profile_run(run, out_dir, name, phase)
+
+
+def profile_run(run, out_dir: str, name: str, phase: str) -> None:
+    """A warm unprofiled ``run()`` (which returns its stage times) for
+    steady-state stage times, then one run under torch.profiler. From the
+    exported trace's kernel events: the device's busy and idle share, device
+    time by kernel kind, and busy time inside each named range ("dove.enc",
+    "dove.train.encode", ...). The key_averages table goes to
+    <out_dir>/<name>_profile.txt."""
     from pathlib import Path
 
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.perf_counter()
-    pipe.process_frames(clip, seed=0)
+    stages = run()
     warm = time.perf_counter() - t0
-    warm_stages = {k: round(v, 3) for k, v in pipe.stage_times.items()}
+    warm_stages = {k: round(v, 3) for k, v in stages.items()}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe.process_frames(clip, seed=0)
+        run()
         prof_wall = time.perf_counter() - t0
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
@@ -607,6 +662,7 @@ def phase_int8_paths(profile_dir: str | None = None) -> tuple[dict, dict]:
     run = pipe._sr_clip_streamed
     pipe._sr_clip_streamed = lambda *a, **kw: streamed_calls.append(1) or run(*a, **kw)
     streamed = _drive_int8(pipe, cfg, STREAM_FRAMES, layers * windows, seed=5)
+    del pipe._sr_clip_streamed  # the wrapper's cycle would keep the pipeline alive
     if streamed_calls != [1]:
         raise AssertionError("the long clip did not take the streamed path")
     log(f"phase 8 streamed int8-dit: {STREAM_FRAMES} frames ({padded} padded, "
@@ -617,15 +673,333 @@ def phase_int8_paths(profile_dir: str | None = None) -> tuple[dict, dict]:
     return main, streamed
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the training attention, K1 with the logsumexp, K3a and K3b
+# ---------------------------------------------------------------------------
+
+def _k3_counters():
+    from dove_tpu_torch.ops import flash_attention as fa
+
+    return {"k1": fa.launches, "k1_lse": fa.launches_lse, "k2": fa.launches_qk8,
+            "k3a": fa.launches_bwd_dq, "k3b": fa.launches_bwd_dkv}
+
+
+def _bound(flops: float, nbytes: float) -> tuple[float, str]:
+    ops_s, bytes_s = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
+
+
+def phase_k3(heads: int) -> dict:
+    """K1's training form and the backward kernels against their plain
+    versions, on the same bf16 inputs; the backward takes the kernel's own
+    out and lse, as in training."""
+    from dove_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    scale = 64 ** -0.5
+    worst = {"k1_lse": 0.0, "lse": 0.0, "k3a": 0.0, "k3b": 0.0}
+    timing = {}
+    for B, sq, skv in ((TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ), (1, 1111, 2345)):
+        q = torch.randn((B, heads, sq, 64), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        k, v = (torch.randn((B, heads, skv, 64), generator=gen, device=dev,
+                            dtype=torch.bfloat16) for _ in range(2))
+        do = torch.randn((B, heads, sq, 64), generator=gen, device=dev,
+                         dtype=torch.bfloat16)
+        out, lse = fa.flash_attention(q, k, v, with_lse=True)
+        torch.cuda.synchronize()
+        ref, ref_lse = fa.flash_attention_plain(q, k, v, with_lse=True)
+        delta = (do.float() * out.float()).sum(-1)
+        dq = fa.flash_bwd_dq_launch(q, k, v, do, lse, delta, scale)
+        dk, dv = fa.flash_bwd_dkv_launch(q, k, v, do, lse, delta, scale)
+        torch.cuda.synchronize()
+        ref_dq = fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, scale)
+        ref_dk, ref_dv = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, scale)
+        lse_err = float((lse - ref_lse).abs().max())
+        checks = {"k1_lse": (out, ref), "k3a dq": (dq, ref_dq),
+                  "k3b dk": (dk, ref_dk), "k3b dv": (dv, ref_dv)}
+        for name, (got, want) in checks.items():
+            err = attn_errors(got, want)
+            finite = bool(torch.isfinite(got).all())
+            log(f"  {name} [{B}, {heads}, {sq}, {skv}]: max_abs_err "
+                f"{err['max_abs']:.3e}, / max|ref| {err['rel_max']:.3e}, rms err / "
+                f"rms ref {err['rel_rms']:.3e}, finite {finite}")
+            if not finite or not within_bars(err):
+                raise AssertionError(f"{name} disagrees with its plain version at "
+                                     f"sq={sq} skv={skv}: {err}")
+            key = name.split()[0]
+            worst[key] = max(worst[key], err["max_abs"])
+        log(f"  lse [{B}, {heads}, {sq}]: max_abs_err {lse_err:.3e} "
+            f"(bar {K1_LSE_ABS_TOL})")
+        if not lse_err <= K1_LSE_ABS_TOL:
+            raise AssertionError(f"K1's logsumexp is off by {lse_err}")
+        worst["lse"] = max(worst["lse"], lse_err)
+        if sq == TRAIN_SEQ:
+            # the bars must reject K3a skipping one 64-key tile and K3b one
+            # 64-query tile
+            miss_dq = attn_errors(fa.flash_bwd_dq_plain(
+                q, k[:, :, 64:].contiguous(), v[:, :, 64:].contiguous(), do, lse,
+                delta, scale), ref_dq)
+            miss_dk, miss_dv = (attn_errors(a, b) for a, b in zip(
+                fa.flash_bwd_dkv_plain(q[:, :, 64:].contiguous(), k, v,
+                                       do[:, :, 64:].contiguous(),
+                                       lse[:, :, 64:].contiguous(),
+                                       delta[:, :, 64:].contiguous(), scale),
+                (ref_dk, ref_dv)))
+            log(f"  bar check: a dropped tile gives rms err / rms ref "
+                f"{miss_dq['rel_rms']:.3e} (dq), {miss_dk['rel_rms']:.3e} (dk), "
+                f"{miss_dv['rel_rms']:.3e} (dv)")
+            if any(within_bars(m) for m in (miss_dq, miss_dk, miss_dv)):
+                raise AssertionError("the K3 bars accept a dropped tile")
+            qq, kk, vv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+            def sdpa_fwd_bwd():
+                torch.nn.functional.scaled_dot_product_attention(qq, kk, vv).backward(do)
+
+            t = dict(
+                k1_lse_ms=cuda_ms(lambda: fa.flash_fwd_launch(q, k, v, scale, False, True), 10),
+                k1_online_ms=cuda_ms(lambda: fa.flash_fwd_launch(q, k, v, scale, False, False), 10),
+                k3a_ms=cuda_ms(lambda: fa.flash_bwd_dq_launch(q, k, v, do, lse, delta, scale), 10),
+                k3b_ms=cuda_ms(lambda: fa.flash_bwd_dkv_launch(q, k, v, do, lse, delta, scale), 10),
+                k1_lse_plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v, with_lse=True), 1, 0),
+                k3a_plain_ms=cuda_ms(lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, scale), 1, 0),
+                k3b_plain_ms=cuda_ms(lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, scale), 1, 0),
+                sdpa_fwd_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), 10),
+                sdpa_fwd_bwd_ms=cuda_ms(sdpa_fwd_bwd, 10),
+            )
+            t["sdpa_bwd_ms"] = t["sdpa_fwd_bwd_ms"] - t["sdpa_fwd_ms"]
+            bh, mm = B * heads, 2.0 * sq * skv * 64  # FLOPs of one S x S x D product per head
+            q_bytes, kv_bytes, row_bytes = sq * 64 * 2, skv * 64 * 2, sq * 4
+            for name, n_mm, nbytes in (
+                    # q, k, v in; out and lse out
+                    ("k1_lse", 2, 2 * q_bytes + 2 * kv_bytes + row_bytes),
+                    # q, k, v, dO, lse, delta in; dq out
+                    ("k3a", 3, 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes),
+                    # q, k, v, dO, lse, delta in; dk, dv out
+                    ("k3b", 4, 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes)):
+                t[f"{name}_flops"] = bh * n_mm * mm
+                t[f"{name}_bound_ms"], t[f"{name}_bound_by"] = _bound(
+                    bh * n_mm * mm, bh * nbytes)
+            t["shape"] = [B, heads, sq, 64]
+            timing = t
+            del qq, kk, vv
+        del q, k, v, do, out, lse, ref, ref_lse, dq, dk, dv, ref_dq, ref_dk, ref_dv
+    for c in _k3_counters().values():
+        c.reset()
+    torch.cuda.empty_cache()
+    log("phase 9 K1-lse, K3a, K3b: worst max_abs_err " + json.dumps(
+        {k: float(f"{x:.3e}") for k, x in worst.items()}) + "; " + json.dumps(
+        {k: (round(x, 4) if isinstance(x, float) else x) for k, x in timing.items()}))
+    return dict(worst=worst, **timing)
+
+
+# ---------------------------------------------------------------------------
+# Phases 10 and 11: stage-1 LoRA training through DOVES1Trainer
+# ---------------------------------------------------------------------------
+
+def _train_args(out_dir: str):
+    """scripts/train_s1.sh, less what this slice does not run (the dataset,
+    validation): LoRA rank 128 / alpha 64 on q, k, v and out, batch 2 of
+    25x320x640, bf16, gradient checkpointing, AdamW (0.9, 0.95), lr 2e-5
+    constant with 100 warmup steps, max_grad_norm 0.1, t = 399, no noise."""
+    from dove_tpu_torch.train.args import Args
+
+    return Args(
+        model_path="no-checkpoint", model_name="dove-s1", training_type="lora",
+        rank=128, lora_alpha=64, output_dir=out_dir,
+        train_resolution=(TRAIN_FRAMES, TRAIN_H, TRAIN_W), batch_size=TRAIN_BATCH,
+        train_steps=TRAIN_STEPS, learning_rate=2e-5,
+        lr_scheduler="constant_with_warmup", lr_warmup_steps=100, max_grad_norm=0.1,
+        mixed_precision="bf16", gradient_checkpointing=True, checkpointing_steps=500,
+        sr_noise_step=399, noise_step=0, num_workers=0,
+    )
+
+
+def train_batch(seed: int) -> dict[str, torch.Tensor]:
+    """Seeded smooth HQ clips [2, 25, 320, 640, 3] in [-1, 1] and their LQ in
+    the dataset's layout: 4x area-down, then bilinear back up to HQ size
+    (dove_tpu/data/datasets.py). Made on the card."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    coarse = torch.rand((TRAIN_BATCH, 3, 7, TRAIN_H // 32, TRAIN_W // 32),
+                        generator=gen, device="cuda")
+    hq = F.interpolate(coarse, size=(TRAIN_FRAMES, TRAIN_H, TRAIN_W),
+                       mode="trilinear", align_corners=False) * 2 - 1
+    frames = hq.permute(0, 2, 1, 3, 4).reshape(-1, 3, TRAIN_H, TRAIN_W)
+    lq = F.interpolate(F.avg_pool2d(frames, 4), scale_factor=4, mode="bilinear",
+                       align_corners=False)
+    lq = lq.reshape(TRAIN_BATCH, TRAIN_FRAMES, 3, TRAIN_H, TRAIN_W)
+
+    def layout(x):  # -> [B, F, H, W, 3]
+        return x.permute(0, 1, 3, 4, 2).contiguous()
+
+    return {"hq_video": layout(hq.permute(0, 2, 1, 3, 4)), "lq_video": layout(lq)}
+
+
+def _rel_rms(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).square().mean().sqrt()
+                 / b.float().square().mean().sqrt())
+
+
+def phase_train_kernel_vs_plain() -> None:
+    import dataclasses
+
+    from dove_tpu_torch import cogvideox1_5_5b
+    from dove_tpu_torch.train.trainer import DOVES1Trainer
+
+    base = cogvideox1_5_5b()
+    cfg = dataclasses.replace(base, dit=dataclasses.replace(base.dit, num_layers=2))
+    tr = DOVES1Trainer(_train_args("build/chip_smoke_train"), pipeline_config=cfg,
+                       device="cuda")
+    tr.load_components()
+    with torch.no_grad():  # B off zero, so that the A gradients are not 0
+        gen = torch.Generator(device="cuda").manual_seed(10)
+        for ab in tr.lora_params.values():
+            ab["B"].copy_(torch.randn(ab["B"].shape, generator=gen, device="cuda") * 1e-2)
+    batch = tr.device_batch(train_batch(seed=10))
+    runs = {}
+    for backend in (None, "plain"):
+        tr.attention_backend = backend
+        for c in _k3_counters().values():
+            c.reset()
+        loss, _, grads = tr.loss_and_grads(batch)
+        runs[backend] = (float(loss), grads,
+                         {n: c.count for n, c in _k3_counters().items()})
+    (k_loss, k_grads, k_counts), (p_loss, p_grads, p_counts) = runs[None], runs["plain"]
+    want = {"k1": 0, "k1_lse": 2 * cfg.dit.num_layers, "k2": 0,
+            "k3a": cfg.dit.num_layers, "k3b": cfg.dit.num_layers}
+    if k_counts != want or any(p_counts.values()):
+        raise AssertionError(f"phase 10 launches: kernel run {k_counts} (want {want}), "
+                             f"plain run {p_counts}")
+    rel = {f"{t}.{ab}": _rel_rms(g, h) for (t, ab), g, h in zip(
+        [(t, ab) for t in tr.lora_params for ab in ("A", "B")], k_grads, p_grads)}
+    loss_rel = abs(k_loss - p_loss) / abs(p_loss)
+    log(f"phase 10 training step kernel vs plain (2 layers, full width, batch "
+        f"{TRAIN_BATCH}x{TRAIN_FRAMES}x{TRAIN_H}x{TRAIN_W}): loss {k_loss:.6f} vs "
+        f"{p_loss:.6f} (rel {loss_rel:.2e}, bar {TRAIN_LOSS_REL_TOL}), LoRA grad "
+        f"rms err / rms ref {json.dumps({k: float(f'{x:.2e}') for k, x in rel.items()})} "
+        f"(bar {TRAIN_GRAD_REL_RMS_TOL}), launches {k_counts}")
+    if not loss_rel <= TRAIN_LOSS_REL_TOL or not all(
+            x <= TRAIN_GRAD_REL_RMS_TOL for x in rel.values()):
+        raise AssertionError("phase 10: the kernels' training step disagrees with the "
+                             "plain one")
+    if not all(float(g.abs().max()) > 0 for g in k_grads):
+        raise AssertionError("phase 10: a LoRA gradient is zero")
+    del tr, batch, runs, k_grads, p_grads
+    torch.cuda.empty_cache()
+
+
+def phase_train_recipe(profile_dir: str | None = None) -> dict:
+    import shutil
+    import statistics
+
+    from dove_tpu_torch.train import lora as lora_mod
+    from dove_tpu_torch.train.trainer import DOVES1Trainer
+
+    out_dir = "build/chip_smoke_train"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    resident = torch.cuda.memory_allocated()  # what earlier phases left: ~0
+    t0 = time.perf_counter()
+    tr = DOVES1Trainer(_train_args(out_dir), device="cuda")
+    tr.load_components()
+    tr.prepare_optimizer(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    layers = tr.config.dit.num_layers
+    n_lora = lora_mod.lora_param_count(tr.lora_params)
+    batch = tr.device_batch(train_batch(seed=11))
+    counters = _k3_counters()
+    want = {"k1": 0, "k1_lse": 2 * layers, "k2": 0, "k3a": layers, "k3b": layers}
+
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    steps = []
+    for _ in range(TRAIN_STEPS):
+        before = {n: c.count for n, c in counters.items()}
+        t0 = time.perf_counter()
+        loss, aux, gnorm = tr.train_step(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tr.global_step += 1
+        per_step = {n: c.count - before[n] for n, c in counters.items()}
+        steps.append(dict(wall_s=wall, loss=float(loss), grad_norm=float(gnorm),
+                          split_s=dict(tr.step_times), launches=per_step))
+        log(f"  step {tr.global_step}: loss {float(loss):.6f}, grad_norm "
+            f"{float(gnorm):.4e}, wall {wall:.3f}s, split "
+            f"{json.dumps({k: round(v, 3) for k, v in tr.step_times.items()})}, "
+            f"launches {per_step}")
+        if per_step != want:
+            raise AssertionError(f"launches per step {per_step}, want {want}")
+        if not math.isfinite(float(loss)) or not float(gnorm) > 0:
+            raise AssertionError(f"step {tr.global_step}: loss {float(loss)}, "
+                                 f"grad_norm {float(gnorm)}")
+    launches = {n: c.count for n, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    b_max = max(float(ab["B"].detach().abs().max()) for ab in tr.lora_params.values())
+    if not b_max > 0:
+        raise AssertionError("LoRA B did not move off zero")
+    # the encode's share of the peak: the two clips' encode alone, beside
+    # the resident weights and LoRA state
+    torch.cuda.reset_peak_memory_stats()
+    tr._encode(batch["lq_video"], None)
+    enc_peak = torch.cuda.max_memory_allocated()
+    if profile_dir is not None:
+        def run() -> dict:
+            tr.train_step(batch)
+            tr.global_step += 1
+            return tr.step_times
+
+        profile_run(run, profile_dir, "train_step", "phase 11")
+
+    # a checkpoint saved and resumed on the card
+    saved = [t.detach().clone() for t in tr.trainable_tensors()]
+    t0 = time.perf_counter()
+    path = tr.save(tr.global_step)
+    save_s = time.perf_counter() - t0
+    ckpt_bytes = sum(f.stat().st_size for f in path.iterdir())
+    with torch.no_grad():
+        for t in tr.trainable_tensors() + tr.optimizer.mu + tr.optimizer.nu:
+            t.zero_()
+    step = tr.global_step
+    tr.global_step, tr.optimizer.count = 0, 0
+    t0 = time.perf_counter()
+    tr.maybe_resume()
+    resume_s = time.perf_counter() - t0
+    if tr.global_step != step or tr.optimizer.count != step or not all(
+            torch.equal(a, b) for a, b in zip(tr.trainable_tensors(), saved)):
+        raise AssertionError("the resumed state differs from the saved one")
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    median = statistics.median(s["wall_s"] for s in steps[1:])
+    mid = min(steps[1:], key=lambda s: abs(s["wall_s"] - median))
+    log(f"phase 11 stage-1 recipe (5B, {layers} layers, LoRA rank 128 on q/k/v/out: "
+        f"{n_lora / 1e6:.1f}M fp32 parameters; batch {TRAIN_BATCH}x{TRAIN_FRAMES}x"
+        f"{TRAIN_H}x{TRAIN_W}, attention [{TRAIN_BATCH}, 48, {TRAIN_SEQ}, 64]): "
+        f"{TRAIN_STEPS} steps, step wall median of steps 2-{TRAIN_STEPS} "
+        f"{median:.3f}s, split {json.dumps({k: round(v, 3) for k, v in mid['split_s'].items()})}, "
+        f"first step {steps[0]['wall_s']:.3f}s, peak {peak / 2**30:.2f} GiB (the LQ "
+        f"batch's encode alone {enc_peak / 2**30:.2f} GiB; {resident / 2**30:.2f} GiB "
+        f"held before the phase), launches "
+        f"{launches}, max|B| {b_max:.3e}; checkpoint {ckpt_bytes / 2**30:.2f} GiB saved "
+        f"in {save_s:.1f}s, resumed in {resume_s:.1f}s; weights init {init_s:.1f}s")
+    del tr, saved, batch
+    torch.cuda.empty_cache()
+    return dict(launches=launches, steps=steps, step_median_s=median,
+                peak_bytes=peak)
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
         "--profile", metavar="DIR", default=None,
-        help="after phases 4 and 7, time a warm run and profile one more; "
-             "write the top kernels to DIR/main_path_profile.txt and "
-             "DIR/int8_main_path_profile.txt")
+        help="after phases 4, 7 and 11, time a warm run and profile one more; "
+             "write the top kernels to DIR/main_path_profile.txt, "
+             "DIR/int8_main_path_profile.txt and DIR/train_step_profile.txt")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -645,6 +1019,9 @@ def main(argv: list[str] | None = None) -> int:
     k2 = phase_k2(main_path_seq_len(cfg), cfg.dit.num_attention_heads)
     phase_k2_pipeline()
     int8_main, streamed = phase_int8_paths(args.profile)
+    k3 = phase_k3(cfg.dit.num_attention_heads)
+    phase_train_kernel_vs_plain()
+    train = phase_train_recipe(args.profile)
 
     source = "dove_tpu_torch/csrc/flash_fwd.cu"
     kernels = [{
@@ -659,6 +1036,18 @@ def main(argv: list[str] | None = None) -> int:
         "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"],
         "library_ms": k1["library_ms"],
+        # the training form, with the logsumexp, at the stage-1 shape
+        "lse_shape": k3["shape"],
+        "lse_launches": train["launches"]["k1_lse"],
+        "lse_launches_per_step": train["launches"]["k1_lse"] // TRAIN_STEPS,
+        "lse_max_abs_err": k3["worst"]["k1_lse"],
+        "lse_max_abs_err_lse": k3["worst"]["lse"],
+        "lse_ms": k3["k1_lse_ms"],
+        "lse_online_no_lse_ms": k3["k1_online_ms"],
+        "lse_plain_ms": k3["k1_lse_plain_ms"],
+        "lse_bound_ms": k3["k1_lse_bound_ms"],
+        "lse_bound_by": k3["k1_lse_bound_by"],
+        "lse_library_ms": k3["sdpa_fwd_ms"],
     }, {
         "name": "flash_fwd_qk8",
         "route": "cuda",
@@ -675,6 +1064,25 @@ def main(argv: list[str] | None = None) -> int:
         "library_call": "scaled_dot_product_attention on the bf16 q, k, v: "
                         "a yardstick of a different function (bf16 Q K^T)",
     }]
+    sdpa_bwd = ("scaled_dot_product_attention forward plus backward minus its "
+                "forward: dq, dk and dv in one call")
+    for name, key, line in (("flash_bwd_dq", "k3a", 253), ("flash_bwd_dkv", "k3b", 290)):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "dove_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": f"dove_tpu/ops/pallas/flash_attention.py:{line}",
+            "launches": train["launches"][key],
+            "launches_per_step": train["launches"][key] // TRAIN_STEPS,
+            "max_abs_err": k3["worst"][key],
+            "ms": k3[f"{key}_ms"],
+            "plain_ms": k3[f"{key}_plain_ms"],
+            "bound_ms": k3[f"{key}_bound_ms"],
+            "bound_by": k3[f"{key}_bound_by"],
+            "library_ms": k3["sdpa_bwd_ms"],
+            "library_call": sdpa_bwd,
+            "shape": k3["shape"],
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

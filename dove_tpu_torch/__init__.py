@@ -4,11 +4,13 @@ The port of ``dove_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100. It
 imports neither JAX nor ``dove_tpu``. What is ported so far is the staged
 inference path of CogVideoX1.5-5B in bf16 or fp32, unquantized or in the
 int8-DiT serving modes (``quantize="int8-dit"`` or ``"int8w"``,
-``ops/quant.py``), with long clips streamed or cut into chunks. Its TPU
-kernels, the flash-attention forward in bf16 (K1) and with int8 Q K^T (K2),
-are hand-written CUDA kernels (``csrc/flash_fwd.cu``, bound in
-``ops/flash_attention.py``). Entry points run on the card unless the caller
-passes ``device="cpu"``.
+``ops/quant.py``), with long clips streamed or cut into chunks; and stage-1
+training, LoRA or SFT (``train/trainer.py``: ``DOVES1Trainer``). Its TPU
+kernels, the flash-attention forward in bf16 (K1, with the logsumexp in its
+training form) and with int8 Q K^T (K2), and the flash-attention backward
+(K3a, K3b), are hand-written CUDA kernels (``csrc/flash_fwd.cu``,
+``csrc/flash_bwd.cu``, bound in ``ops/flash_attention.py``). Entry points
+run on the card unless the caller passes ``device="cpu"``.
 """
 
 from dove_tpu_torch.config import (

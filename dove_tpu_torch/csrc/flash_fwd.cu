@@ -47,6 +47,13 @@
 // to the exp. The kv tail is masked to -inf; query rows past the end are
 // computed on zeros and never stored, so the host pads and slices nothing.
 // wgmma and TMA are later work.
+//
+// The training forward (kLse) also writes each row's logsumexp, K3's input,
+// in the TPU kernel's natural-log units (flash_attention.py:154-159): the
+// online form's running max is kept in log2 units with log2 e folded into
+// the scale, so lse = ln 2 * (m + log2 l), and the bounded form's is ln l.
+// The inference forms are separate instantiations without it: no store, no
+// register.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -142,14 +149,16 @@ __device__ __forceinline__ uint32_t load_u32(const T* p) {
 
 // kQK8 = false: K1, q and k bf16, the logit scale is `scale_log2`.
 // kQK8 = true:  K2, q and k int8 codes, the logit scale is *scale_dev.
-template <bool kBounded, bool kQK8>
+// kLse: also write the fp32 logsumexp of every row to lse [bh, sq].
+template <bool kBounded, bool kQK8, bool kLse>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const void* __restrict__ q_, const void* __restrict__ k_,
                      const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o, int sq, int skv,
-                     float scale_log2_arg,
+                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                     int sq, int skv, float scale_log2_arg,
                      const float* __restrict__ scale_dev) {
   static_assert(kBounded || !kQK8, "K2 has the bounded form only");
+  static_assert(!(kQK8 && kLse), "K2 is inference only");
   using QK = std::conditional_t<kQK8, int8_t, __nv_bfloat16>;
   constexpr int kLdk = kQK8 ? kLdk8 : kLds;
   constexpr int kChunk = 16 / sizeof(QK);  // q/k elements per 16-byte copy
@@ -348,6 +357,17 @@ __global__ void __launch_bounds__(kThreads)
   }
   const float inv0 = 1.f / lsum[0];
   const float inv1 = 1.f / lsum[1];
+  if constexpr (kLse) {
+    // every thread of a row's group holds its sums; one of the four stores
+    if (tig == 0) {
+      constexpr float kLn2 = 0.6931471805599453f;
+      float* lb = lse + static_cast<size_t>(bh) * sq;
+      const float m0 = kBounded ? 0.f : mrow[0];
+      const float m1 = kBounded ? 0.f : mrow[1];
+      if (r0 < sq) lb[r0] = (m0 + log2f(lsum[0])) * kLn2;
+      if (r1 < sq) lb[r1] = (m1 + log2f(lsum[1])) * kLn2;
+    }
+  }
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
     const int c = n * 8 + tig * 2;
@@ -368,11 +388,12 @@ bool bad_shape(int bh, int sq, int skv, int head_dim) {
 
 }  // namespace
 
-// K1. q, k, v: bf16 [bh, sq|skv, 64], o: bf16 [bh, sq, 64]; all contiguous on
-// the device. Launches on `stream` and returns the cudaError_t of the launch
-// (0 on success); it does not synchronise.
+// K1. q, k, v: bf16 [bh, sq|skv, 64], o: bf16 [bh, sq, 64]; lse: fp32
+// [bh, sq], or null for the inference forms that write none. All contiguous
+// on the device. Launches on `stream` and returns the cudaError_t of the
+// launch (0 on success); it does not synchronise.
 extern "C" int dove_flash_fwd_bf16(const void* q, const void* k, const void* v,
-                                   void* o, int bh, int sq, int skv,
+                                   void* o, void* lse, int bh, int sq, int skv,
                                    int head_dim, float scale, int bounded,
                                    void* stream) {
   if (bad_shape(bh, sq, skv, head_dim)) {
@@ -382,13 +403,20 @@ extern "C" int dove_flash_fwd_bf16(const void* q, const void* k, const void* v,
   const float scale_log2 = scale * 1.4426950408889634f;
   const auto* vp = static_cast<const __nv_bfloat16*>(v);
   auto* op = static_cast<__nv_bfloat16*>(o);
+  auto* lp = static_cast<float*>(lse);
   auto s = static_cast<cudaStream_t>(stream);
-  if (bounded) {
-    flash_fwd_kernel<true, false><<<grid, kThreads, 0, s>>>(
-        q, k, vp, op, sq, skv, scale_log2, nullptr);
+  if (lp != nullptr && bounded) {
+    flash_fwd_kernel<true, false, true><<<grid, kThreads, 0, s>>>(
+        q, k, vp, op, lp, sq, skv, scale_log2, nullptr);
+  } else if (lp != nullptr) {
+    flash_fwd_kernel<false, false, true><<<grid, kThreads, 0, s>>>(
+        q, k, vp, op, lp, sq, skv, scale_log2, nullptr);
+  } else if (bounded) {
+    flash_fwd_kernel<true, false, false><<<grid, kThreads, 0, s>>>(
+        q, k, vp, op, nullptr, sq, skv, scale_log2, nullptr);
   } else {
-    flash_fwd_kernel<false, false><<<grid, kThreads, 0, s>>>(
-        q, k, vp, op, sq, skv, scale_log2, nullptr);
+    flash_fwd_kernel<false, false, false><<<grid, kThreads, 0, s>>>(
+        q, k, vp, op, nullptr, sq, skv, scale_log2, nullptr);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -405,10 +433,10 @@ extern "C" int dove_flash_fwd_qk8(const void* q8, const void* k8,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid((sq + kBQ - 1) / kBQ, bh);
-  flash_fwd_kernel<true, true><<<grid, kThreads, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
+  flash_fwd_kernel<true, true, false><<<grid, kThreads, 0,
+                                        static_cast<cudaStream_t>(stream)>>>(
       q8, k8, static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(o), sq, skv, 0.f,
+      static_cast<__nv_bfloat16*>(o), nullptr, sq, skv, 0.f,
       static_cast<const float*>(scale_log2));
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,9 +4,10 @@ Every ``csrc/<name>.cu`` exposes a plain C interface. It is compiled with
 ``nvcc`` for ``sm_90a`` into its own shared library under ``build/torch_kernels/``
 beside the package (a directory ``.gitignore`` lists) and bound with ``ctypes``.
 Nothing is compiled when a module is imported: a wrapper calls :func:`load` the
-first time it launches its kernel, and ``chip_smoke.py`` calls :func:`build` up
-front to time the build. A library's file name carries a hash of its source and
-flags, so an edited source is rebuilt and a stale library is never loaded.
+first time it launches its kernel, and ``chip_smoke.py`` calls :func:`build_all`
+up front to time the builds, one nvcc per source, all started together. A
+library's file name carries a hash of its source and flags, so an edited
+source is rebuilt and a stale library is never loaded.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -73,6 +75,12 @@ def build(name: str) -> tuple[float, str]:
                            f"{res.stdout}")
     os.replace(tmp, out)  # atomic: another process never loads half a file
     return seconds, res.stdout
+
+
+def build_all(names: list[str]) -> dict[str, tuple[float, str]]:
+    """:func:`build` for every name at once, one nvcc process each."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 def load(name: str) -> ctypes.CDLL:

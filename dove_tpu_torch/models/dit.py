@@ -11,23 +11,33 @@ attention with 3D RoPE on the video segment -> adaLN-zero -> GELU-tanh MLP,
 then the joint final norm, the (shift, scale) adaLN and the linear
 unpatchify. LayerNorms and adaLN math run in fp32, matmuls in the model
 dtype. Attention goes through ops/attention.py, which takes the K1 kernel on
-the card for long sequences.
+the card for long sequences (with gradients: K1 with the logsumexp, and K3a
+and K3b behind it).
+
+Training: ``forward(..., lora=..., gradient_checkpointing=True)``. A LoRA
+tree (train/lora.py) is merged into the attention projections inside each
+block, so a checkpointed block recomputes the merge instead of holding 42
+merged copies; per-block ``torch.utils.checkpoint`` is the counterpart of the
+JAX package's ``jax.checkpoint(_block, policy=nothing_saveable)``.
 
 Not ported yet: the 2B variant (conv2d patchify + sincos positions), tensor
-and sequence parallelism, remat and the int8 linears.
+and sequence parallelism. The int8 linears are ops/quant.py's.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Mapping
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from dove_tpu_torch.config import DiTConfig
 from dove_tpu_torch.ops.attention import full_attention
 from dove_tpu_torch.ops.rope import apply_rotary, rope_3d
+from dove_tpu_torch.train.lora import LoraLayer, lora_layer, merged_weight
 
 
 def _layer_norm(
@@ -97,6 +107,17 @@ class _Attention(nn.Module):
         self.norm_q = LayerNorm(self.head_dim, cfg.qk_norm_eps, **kw)
         self.norm_k = LayerNorm(self.head_dim, cfg.qk_norm_eps, **kw)
 
+    def _project(self, target: str, x: torch.Tensor, lora: LoraLayer | None):
+        """One of the LoRA targets ("to_q", "to_k", "to_v", "to_out"), with
+        the adapter merged into its weight when the layer has one."""
+        lin = self.to_out[0] if target == "to_out" else getattr(self, target)
+        if lora is None or target not in lora.ab:
+            return lin(x)
+        if not isinstance(lin, nn.Linear):
+            raise NotImplementedError("LoRA on a quantized DiT is not ported")
+        a, b = lora.ab[target]
+        return F.linear(x, merged_weight(lin.weight, a, b, lora.scale), lin.bias)
+
     def forward(
         self,
         hidden: torch.Tensor,
@@ -104,6 +125,7 @@ class _Attention(nn.Module):
         rope: tuple[torch.Tensor, torch.Tensor] | None,
         backend: str | None,
         bounded_logits: bool,
+        lora: LoraLayer | None = None,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Joint attention over [text | video]; returns (video_out, text_out)."""
         text_len = encoder.shape[1]
@@ -114,9 +136,9 @@ class _Attention(nn.Module):
         def heads(t: torch.Tensor) -> torch.Tensor:
             return t.view(B, S, H, D).transpose(1, 2)  # [B, H, S, D]
 
-        q = self.norm_q(heads(self.to_q(x)))
-        k = self.norm_k(heads(self.to_k(x)))
-        v = heads(self.to_v(x)).contiguous()
+        q = self.norm_q(heads(self._project("to_q", x, lora)))
+        k = self.norm_k(heads(self._project("to_k", x, lora)))
+        v = heads(self._project("to_v", x, lora)).contiguous()
         if rope is not None:
             cos, sin = rope
             q = torch.cat(
@@ -126,10 +148,11 @@ class _Attention(nn.Module):
                 [k[:, :, :text_len], apply_rotary(k[:, :, text_len:], cos, sin)], dim=2
             )
         # qk-layernorm bounds the per-head logits only while the gains stay
-        # near their pretrained magnitude: bounded_logits is for inference.
+        # near their pretrained magnitude: inference takes the bounded form,
+        # training the online form with the logsumexp that K3 reads.
         o = full_attention(q, k, v, backend=backend, bounded_logits=bounded_logits)
         o = o.transpose(1, 2).reshape(B, S, H * D)
-        out = self.to_out[0](o)
+        out = self._project("to_out", o, lora)
         return out[:, text_len:], out[:, :text_len]
 
 
@@ -164,13 +187,14 @@ class _Block(nn.Module):
         self.norm2 = _AdaNorm(cfg, 6, **kw)
         self.ff = _FeedForward(cfg, **kw)
 
-    def forward(self, hidden, encoder, temb, rope, backend, bounded_logits):
+    def forward(self, hidden, encoder, temb, rope, backend, bounded_logits,
+                lora: LoraLayer | None = None):
         # adaLN-zero #1 -> attention
         shift, scale, gate, e_shift, e_scale, e_gate = self.norm1.modulation(temb)
         n_hidden = self.norm1.norm(hidden) * (1 + scale) + shift
         n_encoder = self.norm1.norm(encoder) * (1 + e_scale) + e_shift
         attn_h, attn_e = self.attn1(
-            n_hidden, n_encoder, rope, backend, bounded_logits
+            n_hidden, n_encoder, rope, backend, bounded_logits, lora
         )
         hidden = hidden + gate * attn_h
         encoder = encoder + e_gate * attn_e
@@ -262,14 +286,21 @@ class CogVideoXTransformer3D(nn.Module):
         *,
         attention_backend: str | None = None,
         bounded_logits: bool = False,
+        lora: Mapping[str, Mapping[str, torch.Tensor]] | None = None,
+        lora_scale: float = 1.0,
+        gradient_checkpointing: bool = False,
     ) -> torch.Tensor:
         """One DiT pass.
 
         latent: [B, F, C, H, W] noisy latent, F divisible by patch_size_t;
         text_embeds: [B, L_text, text_embed_dim] T5 features; timestep: [B]
         integer timesteps. bounded_logits is the inference-only flash path
-        (safe only with frozen, near-unit qk-layernorm gains). Returns the
-        velocity prediction [B, F, C_out, H, W]."""
+        (safe only with frozen, near-unit qk-layernorm gains). lora: a LoRA
+        tree {target: {"A": [L, in, r], "B": [L, r, out]}} merged at
+        ``lora_scale`` into each layer's attention projections.
+        gradient_checkpointing recomputes each block in the backward pass
+        (when gradients are on). Returns the velocity prediction
+        [B, F, C_out, H, W]."""
         cfg = self.cfg
         B, Fr, _, Hh, Ww = latent.shape
         dtype = latent.dtype
@@ -291,10 +322,14 @@ class CogVideoXTransformer3D(nn.Module):
             cfg.rope_theta,
             device=latent.device,
         )
-        for block in self.transformer_blocks:
-            hidden, encoder = block(
-                hidden, encoder, temb, rope, attention_backend, bounded_logits
-            )
+        remat = gradient_checkpointing and torch.is_grad_enabled()
+        for i, block in enumerate(self.transformer_blocks):
+            args = (hidden, encoder, temb, rope, attention_backend, bounded_logits,
+                    None if lora is None else lora_layer(lora, i, lora_scale))
+            if remat:
+                hidden, encoder = checkpoint(block, *args, use_reentrant=False)
+            else:
+                hidden, encoder = block(*args)
 
         # Final norm over the joint sequence, adaLN (shift, scale), projection
         text_len = encoder.shape[1]

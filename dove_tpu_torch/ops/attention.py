@@ -5,9 +5,12 @@ Counterpart of ``dove_tpu/ops/attention.py``, with its dispatch rule:
   * "naive": fp32-softmax attention, exact, O(S^2) memory (the JAX
     package's "xla" backend);
   * "flash": K1 (ops/flash_attention.py): the hand-written CUDA kernel on a
-    CUDA tensor, its plain PyTorch version on a CPU tensor;
+    CUDA tensor, its plain PyTorch version on a CPU tensor; with gradients,
+    K1 with the logsumexp and K3a/K3b as its backward;
   * "plain": K1's plain PyTorch version on any device, the reference the
-    kernel is held to (chip_smoke.py runs the pipeline through both);
+    kernel is held to (chip_smoke.py runs the pipeline and a training step
+    through both); with gradients, the same autograd function on the plain
+    versions of K1 and K3a/K3b;
   * "flash-qk8": K2, per-tensor int8 Q K^T (the int8-dit serving mode's
     attention; needs bounded_logits): the CUDA kernel on a CUDA tensor, its
     plain version on a CPU tensor;
@@ -15,7 +18,7 @@ Counterpart of ``dove_tpu/ops/attention.py``, with its dispatch rule:
 
 ``backend=None`` takes the kernel when the tensors are on the card and the
 longer side of the attention has 2048 tokens or more, and the naive path
-otherwise.
+otherwise. The naive path differentiates through plain autograd.
 """
 
 from __future__ import annotations
@@ -57,6 +60,9 @@ def full_attention(
         return fa.flash_attention(q, k, v, bounded_logits=bounded_logits,
                                   qk_int8=backend == "flash-qk8")
     if backend == "plain":
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+            return fa.FlashAttention.apply(q, k, v, q.shape[-1] ** -0.5,
+                                           bounded_logits, True)[0]
         return fa.flash_attention_plain(q, k, v, bounded_logits=bounded_logits)
     if backend == "plain-qk8":
         if not bounded_logits:

@@ -1,16 +1,23 @@
-"""K1 and K2: non-causal flash-attention forward, hand-written CUDA kernels.
+"""K1, K2, K3a and K3b: non-causal flash attention, hand-written CUDA kernels.
 
-Counterpart of ``dove_tpu/ops/pallas/flash_attention.py`` (``flash_attention``,
-kernel ``_fwd_kernel``): K1 is its bf16 form, K2 its ``qk8`` form (per-tensor
-int8 q and k, int32 Q K^T), the int8-dit serving mode's attention. Both
-kernels live in ``csrc/flash_fwd.cu``, whose note says what bounds them on the
-H100 and how they differ from the TPU schedule.
+Counterpart of ``dove_tpu/ops/pallas/flash_attention.py`` (``flash_attention``
+with its custom VJP). K1 is the bf16 forward (kernel ``_fwd_kernel``), with
+the per-row logsumexp in its training form; K2 its ``qk8`` form (per-tensor
+int8 q and k, int32 Q K^T), the int8-dit serving mode's attention; K3a and
+K3b are the backward (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``). K1 and K2
+live in ``csrc/flash_fwd.cu``, K3a and K3b in ``csrc/flash_bwd.cu``; each
+note says what bounds the kernels on the H100 and how they differ from the
+TPU schedule.
 
 ``flash_attention`` keeps the JAX package's ``[B, H, S, D]`` layout. On a CUDA
 tensor it launches a kernel or raises; on a CPU tensor it runs the same
 function in plain PyTorch (:func:`flash_attention_plain` for K1,
-:func:`flash_attention_qk8_plain` for K2). There is no fallback from one to
-the other. Each kernel counts its own launches (``launches``, ``launches_qk8``).
+:func:`flash_attention_qk8_plain` for K2, :func:`flash_attention_bwd_plain`
+for K3a and K3b). There is no fallback from one to the other. When an input
+requires grad it goes through :class:`FlashAttention`, whose forward is K1
+with the logsumexp and whose backward is K3a then K3b. Each kernel counts its
+own launches (``launches``, ``launches_lse``, ``launches_qk8``,
+``launches_bwd_dq``, ``launches_bwd_dkv``).
 """
 
 from __future__ import annotations
@@ -37,15 +44,18 @@ class LaunchCounter:
         self.count = 0
 
 
-launches = LaunchCounter()  # K1
+launches = LaunchCounter()  # K1, inference forms (no logsumexp)
+launches_lse = LaunchCounter()  # K1, training form (writes the logsumexp)
 launches_qk8 = LaunchCounter()  # K2
+launches_bwd_dq = LaunchCounter()  # K3a
+launches_bwd_dkv = LaunchCounter()  # K3b
 
 
 def _library() -> ctypes.CDLL:
     lib = kernels.load("flash_fwd")
     fn = lib.dove_flash_fwd_bf16
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
@@ -54,6 +64,17 @@ def _library() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p,
         ]
         fn8.restype = ctypes.c_int
+    return lib
+
+
+def _bwd_library() -> ctypes.CDLL:
+    lib = kernels.load("flash_bwd")
+    if lib.dove_flash_bwd_dq.argtypes is None:
+        tail = [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+        lib.dove_flash_bwd_dq.argtypes = [ctypes.c_void_p] * 7 + tail
+        lib.dove_flash_bwd_dkv.argtypes = [ctypes.c_void_p] * 8 + tail
+        lib.dove_flash_bwd_dq.restype = ctypes.c_int
+        lib.dove_flash_bwd_dkv.restype = ctypes.c_int
     return lib
 
 
@@ -161,28 +182,198 @@ def flash_attention_plain(
     v: torch.Tensor,
     scale: float | None = None,
     bounded_logits: bool = False,
-) -> torch.Tensor:
+    with_lse: bool = False,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """The kernel's function in plain PyTorch, one (batch, head) at a time so
     that the fp32 ``[Sq, Skv]`` logits of a long sequence fit.
 
     fp32 logits; ``bounded_logits`` takes ``exp2(s * scale * log2 e)`` with no
     max, otherwise ``exp(s - rowmax)``; fp32 row sums; the probabilities are
-    cast to ``v``'s dtype before the P V product, as the kernel does."""
-    B, H, _, D = q.shape
+    cast to ``v``'s dtype before the P V product, as the kernel does.
+    ``with_lse`` also returns the fp32 ``[B, H, Sq]`` logsumexp of the scaled
+    logits: ``log l`` in the bounded form, ``rowmax + log l`` otherwise."""
+    B, H, Sq, D = q.shape
     sc = scale if scale is not None else 1.0 / math.sqrt(D)
     out = torch.empty(q.shape, dtype=v.dtype, device=q.device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     for b in range(B):
         for h in range(H):
             dots = q[b, h].float() @ k[b, h].float().T
             if bounded_logits:
                 p = torch.exp2(dots * (sc * LOG2E))
+                m = 0.0
             else:
                 s = dots * sc
-                p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-            denom = p.sum(dim=-1, keepdim=True)
+                m = s.amax(dim=-1)
+                p = torch.exp(s - m[:, None])
+            denom = p.sum(dim=-1)
             acc = p.to(v.dtype).float() @ v[b, h].float()
-            out[b, h] = (acc / denom).to(v.dtype)
-    return out
+            out[b, h] = (acc / denom[:, None]).to(v.dtype)
+            lse[b, h] = m + torch.log(denom)
+    return (out, lse) if with_lse else out
+
+
+def _delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) in fp32, [B, H, Sq]: the backward's per-row
+    term that the TPU wrapper also computes outside its kernels."""
+    return (do.float() * out.float()).sum(dim=-1)
+
+
+def flash_bwd_dq_plain(q, k, v, do, lse, delta, scale: float) -> torch.Tensor:
+    """K3a's function in plain PyTorch, one (batch, head) at a time: the
+    logits recomputed in fp32, p = exp(s - lse), ds = p (dO V^T - delta)
+    scale, and dQ = ds K with ds cast to k's dtype first; dQ in q's dtype."""
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    for b in range(q.shape[0]):
+        for h in range(q.shape[1]):
+            p = torch.exp(q[b, h].float() @ k[b, h].float().T * scale
+                          - lse[b, h, :, None])
+            dp = do[b, h].float() @ v[b, h].float().T
+            ds = p * (dp - delta[b, h, :, None]) * scale
+            dq[b, h] = (ds.to(k.dtype).float() @ k[b, h].float()).to(q.dtype)
+    return dq
+
+
+def flash_bwd_dkv_plain(
+    q, k, v, do, lse, delta, scale: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3b's function in plain PyTorch, in the kernel's transposed layout
+    s^T = K Q^T: dV = p^T dO with p^T cast to dO's dtype, dK = ds^T Q with
+    ds^T cast to q's dtype; fp32 sums, outputs in k's and v's dtypes."""
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    for b in range(q.shape[0]):
+        for h in range(q.shape[1]):
+            pt = torch.exp(k[b, h].float() @ q[b, h].float().T * scale
+                           - lse[b, h, None, :])
+            dv[b, h] = (pt.to(do.dtype).float() @ do[b, h].float()).to(v.dtype)
+            dpt = v[b, h].float() @ do[b, h].float().T
+            dst = pt * (dpt - delta[b, h, None, :]) * scale
+            dk[b, h] = (dst.to(q.dtype).float() @ q[b, h].float()).to(k.dtype)
+    return dk, dv
+
+
+def flash_attention_bwd_plain(
+    q, k, v, out, lse, do, scale: float,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3a and K3b in plain PyTorch -> (dq, dk, dv), from the forward's
+    output and logsumexp and the output's gradient ``do``."""
+    delta = _delta(out, do)
+    dq = flash_bwd_dq_plain(q, k, v, do, lse, delta, scale)
+    dk, dv = flash_bwd_dkv_plain(q, k, v, do, lse, delta, scale)
+    return dq, dk, dv
+
+
+def flash_fwd_launch(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+    bounded_logits: bool, with_lse: bool,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Launch K1 -> (out, lse or None). ``with_lse`` takes the training form,
+    which also writes the fp32 [B, H, Sq] logsumexp, and counts its launch
+    in ``launches_lse`` instead of ``launches``."""
+    B, H, Sq, Skv, D = _check_cuda_inputs(q, k, v, torch.bfloat16)
+    out = torch.empty_like(q)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    lib = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.dove_flash_fwd_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if with_lse else None,
+            B * H, Sq, Skv, D, float(scale), int(bool(bounded_logits)), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"flash_fwd kernel launch failed: cudaError_t {rc}")
+    (launches_lse if with_lse else launches).count += 1
+    return out, lse
+
+
+def _check_bwd_inputs(q, k, v, do, lse, delta) -> tuple[int, int, int, int, int]:
+    if q.device.type != "cuda":
+        raise ValueError(f"K3a and K3b run on cuda, not {q.device}")
+    B, H, Sq, Skv, D = _check_cuda_inputs(q, k, v, torch.bfloat16)
+    if do.shape != q.shape or do.dtype != q.dtype or not do.is_contiguous():
+        raise ValueError("do must be a contiguous bf16 tensor of q's shape")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (t.shape != (B, H, Sq) or t.dtype != torch.float32
+                or not t.is_contiguous() or t.device != q.device):
+            raise ValueError(f"{name} must be contiguous fp32 [B, H, Sq] on q's device")
+    return B, H, Sq, Skv, D
+
+
+def flash_bwd_dq_launch(q, k, v, do, lse, delta, scale: float) -> torch.Tensor:
+    """Launch K3a -> dq: the CUDA counterpart of :func:`flash_bwd_dq_plain`."""
+    B, H, Sq, Skv, D = _check_bwd_inputs(q, k, v, do, lse, delta)
+    dq = torch.empty_like(q)
+    lib = _bwd_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.dove_flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            B * H, Sq, Skv, D, float(scale), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd_dq kernel launch failed: cudaError_t {rc}")
+    launches_bwd_dq.count += 1
+    return dq
+
+
+def flash_bwd_dkv_launch(
+    q, k, v, do, lse, delta, scale: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch K3b -> (dk, dv): the CUDA counterpart of
+    :func:`flash_bwd_dkv_plain`."""
+    B, H, Sq, Skv, D = _check_bwd_inputs(q, k, v, do, lse, delta)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    lib = _bwd_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.dove_flash_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B * H, Sq, Skv, D, float(scale), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd_dkv kernel launch failed: cudaError_t {rc}")
+    launches_bwd_dkv.count += 1
+    return dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with the flash backward: the counterpart of the JAX
+    package's ``custom_vjp`` (``_fa_fwd`` / ``_fa_bwd``).
+
+    forward: K1 with the logsumexp (its plain version on a CPU tensor, or
+    when ``plain``), saving q, k, v, out and lse; returns (out, lse), lse not
+    differentiable. backward: delta = rowsum(dO * O) in torch, then K3a and
+    K3b (their plain versions on a CPU tensor, or when ``plain``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float, bounded_logits: bool, plain: bool):
+        if plain or q.device.type == "cpu":
+            out, lse = flash_attention_plain(q, k, v, scale, bounded_logits,
+                                             with_lse=True)
+        else:
+            out, lse = flash_fwd_launch(q, k, v, scale, bounded_logits, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale, ctx.plain = scale, plain
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        do = do.contiguous()
+        if ctx.plain or q.device.type == "cpu":
+            dq, dk, dv = flash_attention_bwd_plain(q, k, v, out, lse, do, ctx.scale)
+        else:
+            delta = _delta(out, do)
+            dq = flash_bwd_dq_launch(q, k, v, do, lse, delta, ctx.scale)
+            dk, dv = flash_bwd_dkv_launch(q, k, v, do, lse, delta, ctx.scale)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(
@@ -193,7 +384,7 @@ def flash_attention(
     bounded_logits: bool = False,
     qk_int8: bool = False,
     with_lse: bool = False,
-) -> torch.Tensor:
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """Non-causal attention. q: [B, H, Sq, D]; k, v: [B, H, Skv, D] ->
     [B, H, Sq, D].
 
@@ -203,15 +394,23 @@ def flash_attention(
 
     qk_int8 (K2, inference only, needs bounded_logits): q and k are
     quantized per tensor to int8 here, as the TPU wrapper does outside its
-    kernel, and Q K^T runs on int8 codes. with_lse (the training forward
-    that feeds K3) is not ported yet and raises."""
+    kernel, and Q K^T runs on int8 codes; with grad it raises, as in JAX.
+
+    with_lse returns (out, lse), lse the fp32 [B, H, Sq] logsumexp of the
+    scaled logits (K1's training form). When q, k or v requires grad the call
+    goes through :class:`FlashAttention`, whose backward is K3a and K3b."""
     if qk_int8 and not bounded_logits:
         raise ValueError("qk_int8 flash attention requires bounded_logits")
-    if with_lse:
-        raise NotImplementedError("flash attention with logsumexp (K3) is not ported")
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    if qk_int8 and (grad or with_lse):
+        raise NotImplementedError(
+            "qk_int8 flash attention is inference-only (no logsumexp, no backward)")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     sc = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if grad:
+        out, lse = FlashAttention.apply(q, k, v, sc, bounded_logits, False)
+        return (out, lse) if with_lse else out
     if qk_int8:
         if q.device.type == "cuda":  # the kernel's checks come before any work
             _check_cuda_inputs(q, k, v, torch.bfloat16)
@@ -220,17 +419,6 @@ def flash_attention(
             return flash_attention_qk8_plain(q8, k8, v, factor)
         return flash_qk8_launch(q8, k8, v, factor)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, scale, bounded_logits)
-    B, H, Sq, Skv, D = _check_cuda_inputs(q, k, v, torch.bfloat16)
-    out = torch.empty_like(q)
-    lib = _library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.dove_flash_fwd_bf16(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B * H, Sq, Skv, D, float(sc), int(bool(bounded_logits)), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: cudaError_t {rc}")
-    launches.count += 1
-    return out
+        return flash_attention_plain(q, k, v, scale, bounded_logits, with_lse)
+    out, lse = flash_fwd_launch(q, k, v, sc, bounded_logits, with_lse)
+    return (out, lse) if with_lse else out

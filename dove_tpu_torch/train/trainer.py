@@ -1,0 +1,478 @@
+"""DOVE training, stage 1, in PyTorch.
+
+Counterpart of ``dove_tpu/train/trainer.py`` for stage 1 (latent MSE after
+one DiT pass at t = 399; reference lora_one_s1_trainer.py:116-209), LoRA or
+SFT. The API is the JAX trainer's::
+
+    trainer = DOVES1Trainer(args, device="cuda")   # the card unless "cpu"
+    trainer.load_components()
+    trainer.prepare_optimizer(total_steps)
+    trainer.maybe_resume()
+    loss, aux, grad_norm = trainer.train_step(trainer.device_batch(batch))
+    trainer.save(step); trainer.export(out_dir)
+
+``train_step`` is the function the JAX package jits in ``build_train_step``:
+the loss, its backward, the global norm of the gradients (logged before
+clipping), the clip and the optimizer step with its schedule. The VAE encode
+runs under ``no_grad``; its posterior noise comes from a generator seeded
+from (seed, step), so a resumed run draws the same noise (JAX folds the step
+into its key). The base DiT and the VAE stay frozen; only the LoRA tree
+trains, or the whole DiT under ``sft``. ``train`` loops over ``self.loader``
+with JSONL logging, checkpoints every ``checkpointing_steps`` and on SIGTERM.
+
+Not ported yet (they raise, naming their slice): the dataset
+(``prepare_dataset``; a caller may set ``trainer.loader``), validation,
+stage 2 (``dove-s2``), gradient accumulation and the optimizers other than
+AdamW and Adam.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import signal
+import time
+from pathlib import Path
+from typing import Any
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from dove_tpu_torch import config as cfg_mod
+from dove_tpu_torch import weights
+from dove_tpu_torch.models.dit import init_dit_params
+from dove_tpu_torch.models.vae import encode_moments, init_vae_params, sample_latent
+from dove_tpu_torch.ops.scheduler import Schedule
+from dove_tpu_torch.pipeline import resolve_device
+from dove_tpu_torch.train import checkpointing as ckpt_mod
+from dove_tpu_torch.train import components as components_mod
+from dove_tpu_torch.train import losses
+from dove_tpu_torch.train.args import Args
+from dove_tpu_torch.train.lora import TARGETS, init_lora_params
+from dove_tpu_torch.train.optim import make_lr_schedule, make_optimizer
+
+logger = logging.getLogger(__name__)
+
+# sha256 of the empty prompt: the file name of its cached T5 embedding
+EMPTY_PROMPT_SHA = "e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855"
+
+DTYPES = {"no": torch.float32, "bf16": torch.bfloat16, "fp16": torch.float16}
+PRESETS = {
+    "cogvideox1.5-5b": cfg_mod.cogvideox1_5_5b,
+    "cogvideox-2b": cfg_mod.cogvideox_2b,
+    "tiny": cfg_mod.tiny_test,
+}
+BATCH_KEYS = ("hq_video", "lq_video", "hq_latent", "lq_latent")
+
+
+# ---------------------------------------------------------------------------
+# Model registry (reference: finetune/models/utils.py SUPPORTED_MODELS)
+# ---------------------------------------------------------------------------
+
+SUPPORTED_MODELS: dict[str, dict[str, type]] = {}
+
+
+def register(model_name: str, training_type: str, cls: type) -> None:
+    SUPPORTED_MODELS.setdefault(model_name, {})[training_type] = cls
+
+
+def get_model_cls(model_name: str, training_type: str) -> type:
+    if model_name == "dove-s2":
+        raise NotImplementedError(
+            "stage 2 (dove-s2) is not ported yet: it needs the VAE decode with "
+            "gradients, DISTS/LPIPS and the image-video data (ROADMAP queue A, "
+            "the stage-2 slice)")
+    try:
+        return SUPPORTED_MODELS[model_name][training_type]
+    except KeyError:
+        raise ValueError(
+            f"no trainer registered for ({model_name}, {training_type}); "
+            f"available: { {k: list(v) for k, v in SUPPORTED_MODELS.items()} }"
+        ) from None
+
+
+def _seed(*words: int) -> int:
+    return int(np.random.SeedSequence(list(words)).generate_state(1)[0])
+
+
+# ---------------------------------------------------------------------------
+# Trainer
+# ---------------------------------------------------------------------------
+
+class Trainer:
+    """Generic train loop; stages override ``compute_loss``."""
+
+    stage: int = 1
+
+    def __init__(self, args: Args, pipeline_config=None, device=None):
+        self.args = args
+        self.device = resolve_device(device)
+        self.dtype = DTYPES[args.mixed_precision]
+        if pipeline_config is not None:
+            self.config = pipeline_config
+        elif (Path(args.model_path) / "transformer" / "config.json").exists():
+            self.config = cfg_mod.pipeline_config_from_pretrained(args.model_path)
+        else:  # presets for tests and runs on random weights
+            self.config = PRESETS[args.base_preset]()
+        self.config = dataclasses.replace(
+            self.config, sr_noise_step=args.sr_noise_step, noise_step=args.noise_step)
+        self.schedule = Schedule.create(self.config.scheduler)
+        self.global_step = 0
+        self.attention_backend: str | None = None  # ops/attention.py's choice
+        self.loader = None
+        self.step_times: dict[str, float] = {}
+        self._lap_t = 0.0
+        self._log_file = None
+
+    # ------------------------------------------------------------------
+    # Components
+    # ------------------------------------------------------------------
+
+    def load_components(self) -> None:
+        args, cfg = self.args, self.config
+        model_dir = Path(args.model_path)
+        if (model_dir / "transformer").exists():
+            self.dit = weights.load_dit(model_dir, cfg.dit, self.dtype, self.device)
+            self.vae = weights.load_vae(model_dir, cfg.vae, self.dtype, self.device)
+        else:
+            logger.warning("model_path %s has no checkpoint; using random init",
+                           model_dir)
+            self.dit = init_dit_params(cfg.dit, seed=0, device=self.device,
+                                       dtype=self.dtype)
+            self.vae = init_vae_params(cfg.vae, seed=1, device=self.device,
+                                       dtype=self.dtype)
+        emb_path = (Path(args.data_root) / "cache" / args.prompt_cache
+                    / f"{EMPTY_PROMPT_SHA}.safetensors")
+        if args.empty_prompt and emb_path.exists():
+            emb = weights.load_prompt_embedding(emb_path, torch.float32)
+        else:
+            emb = torch.zeros((cfg.dit.max_text_seq_length, cfg.dit.text_embed_dim))
+        self.empty_prompt = emb.to(self.device)
+        if args.training_type == "lora":
+            self.lora_params = init_lora_params(
+                cfg.dit, rank=args.rank, seed=2, device=self.device)
+            self.lora_scale = args.lora_alpha / args.rank
+        else:
+            self.dit.requires_grad_(True)
+
+    @property
+    def components(self) -> components_mod.Components:
+        from dove_tpu_torch.pipeline import DovePipeline
+
+        return components_mod.Components(
+            pipeline_cls=DovePipeline,
+            vae=getattr(self, "vae", None),
+            transformer=getattr(self, "dit", None),
+            scheduler=self.schedule,
+        )
+
+    @property
+    def state(self) -> components_mod.State:
+        f, h, w = self.args.train_resolution
+        n_trainable = (sum(t.numel() for t in self.trainable_tensors())
+                       if hasattr(self, "dit") else 0)
+        return components_mod.State(
+            train_frames=f, train_height=h, train_width=w,
+            transformer_config=dataclasses.asdict(self.config.dit),
+            weight_dtype=self.dtype,
+            num_trainable_parameters=n_trainable,
+            generator=torch.Generator(device=self.device).manual_seed(
+                self.args.seed or 0),
+        )
+
+    def trainable_tensors(self) -> list[torch.Tensor]:
+        """The LoRA tree's eight tensors, or the DiT's parameters under sft."""
+        if self.args.training_type == "lora":
+            return [self.lora_params[t][ab] for t in TARGETS for ab in ("A", "B")]
+        return list(self.dit.parameters())
+
+    def _trainable_state(self) -> dict[str, Any]:
+        if self.args.training_type == "lora":
+            return {t: {ab: x.detach() for ab, x in d.items()}
+                    for t, d in self.lora_params.items()}
+        return self.dit.state_dict()
+
+    def prepare_dataset(self) -> None:
+        raise NotImplementedError(
+            "the training data pipeline (dove_tpu/data: datasets, degradation, "
+            "loader) is not ported yet (ROADMAP queue A, the data slice); set "
+            "trainer.loader to an iterable of batches instead")
+
+    # ------------------------------------------------------------------
+    # Optimizer and the train step
+    # ------------------------------------------------------------------
+
+    def prepare_optimizer(self, total_steps: int) -> None:
+        args = self.args
+        if args.gradient_accumulation_steps > 1:
+            raise NotImplementedError(
+                "gradient_accumulation_steps > 1 is not ported yet (ROADMAP queue A)")
+        lr = make_lr_schedule(
+            args.learning_rate, warmup_steps=args.lr_warmup_steps,
+            total_steps=total_steps, kind=args.lr_scheduler,
+            num_cycles=args.lr_num_cycles, power=args.lr_power,
+        )
+        self.optimizer = make_optimizer(
+            args.optimizer, lr, betas=(args.beta1, args.beta2), beta3=args.beta3,
+            eps=args.epsilon, weight_decay=args.weight_decay,
+            max_grad_norm=args.max_grad_norm,
+        )
+        self.optimizer.init(self.trainable_tensors())
+
+    def dit_kwargs(self) -> dict[str, Any]:
+        """The DiT's training forward: LoRA merged in, checkpointed blocks."""
+        kw: dict[str, Any] = dict(
+            attention_backend=self.attention_backend,
+            gradient_checkpointing=self.args.gradient_checkpointing,
+        )
+        if self.args.training_type == "lora":
+            kw.update(lora=self.lora_params, lora_scale=self.lora_scale)
+        return kw
+
+    def compute_loss(self, batch: dict[str, torch.Tensor], step: int):
+        raise NotImplementedError
+
+    def generator(self, step: int, stream: int) -> torch.Generator:
+        """A generator for one random stream of one step, seeded from
+        (seed, step, stream)."""
+        return torch.Generator(device=self.device).manual_seed(
+            _seed(self.args.seed or 0, step, stream))
+
+    def _encode(self, video: torch.Tensor, generator: torch.Generator | None,
+                ) -> torch.Tensor:
+        """Pixels [B, F, H, W, 3] in [-1, 1] -> scaled latent [B, F', h, w, C],
+        sampled from the posterior (its mean when generator is None)."""
+        with torch.no_grad():
+            moments = encode_moments(self.config.vae, self.vae, video.to(self.dtype))
+            return sample_latent(moments, generator, self.config.vae.scaling_factor)
+
+    def _barrier(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _lap(self, name: str) -> None:
+        """Record the time since the last lap under ``name`` in step_times."""
+        self._barrier()
+        now = time.perf_counter()
+        self.step_times[name] = self.step_times.get(name, 0.0) + now - self._lap_t
+        self._lap_t = now
+
+    def loss_and_grads(self, batch: dict[str, torch.Tensor]):
+        """The loss of this step's batch and the gradients of the trainable
+        tensors -> (loss, aux, grads); the tensors' ``.grad`` are left
+        empty."""
+        params = self.trainable_tensors()
+        for p in params:
+            p.grad = None
+        loss, aux = self.compute_loss(batch, self.global_step)
+        loss.backward()
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+        for p in params:
+            p.grad = None
+        self._lap("dit_fwd_bwd")
+        return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
+
+    def train_step(self, batch: dict[str, torch.Tensor]):
+        """One update -> (loss, aux, grad_norm), all device scalars. Times
+        the encode, the DiT's forward and backward, and the optimizer into
+        ``step_times``. The encode, the DiT's forward and the optimizer are
+        also named ranges ("dove.train.encode", "dove.train.dit_fwd",
+        "dove.train.optimizer") in a torch.profiler trace; the backward runs
+        on autograd's own thread, outside them."""
+        self.step_times = {}
+        self._barrier()
+        self._lap_t = time.perf_counter()
+        loss, aux, grads = self.loss_and_grads(batch)
+        with record_function("dove.train.optimizer"):
+            gnorm = self.optimizer.step(self.trainable_tensors(), grads)
+        self._lap("optimizer")
+        return loss, aux, gnorm
+
+    def device_batch(self, batch: dict[str, Any]) -> dict[str, torch.Tensor]:
+        """A batch of NumPy arrays or tensors -> fp32 tensors on the device,
+        with the empty-prompt embedding where the batch has none."""
+        arrays = (np.ndarray, torch.Tensor)
+        B = next(v.shape[0] for v in batch.values() if isinstance(v, arrays))
+        embs = batch.get("prompt_embedding")
+        if embs is None or (isinstance(embs, list) and any(e is None for e in embs)):
+            emb = self.empty_prompt[None].expand(B, -1, -1)
+        else:
+            emb = torch.as_tensor(np.stack(embs) if isinstance(embs, list) else embs)
+        out = {"prompt_embeds": emb.to(self.device, torch.float32)}
+        for k in BATCH_KEYS:
+            if isinstance(batch.get(k), arrays):
+                out[k] = torch.as_tensor(batch[k]).to(self.device, torch.float32)
+        return out
+
+    # ------------------------------------------------------------------
+    # fit / train
+    # ------------------------------------------------------------------
+
+    def fit(self) -> None:
+        args = self.args
+        args.output_dir.mkdir(parents=True, exist_ok=True)
+        args.dump_yaml(args.output_dir / "args.yaml")
+        self._log_file = open(args.output_dir / "train_log.jsonl", "a")
+        self.load_components()
+        self.prepare_dataset()
+        steps_per_epoch = max(len(self.loader), 1)
+        total_steps = args.train_steps or steps_per_epoch * args.train_epochs
+        self.prepare_optimizer(total_steps)
+        self.maybe_resume()
+        self.train(total_steps, steps_per_epoch)
+
+    def maybe_resume(self) -> None:
+        args = self.args
+        if args.resume_from_checkpoint:
+            resume = (int(str(args.resume_from_checkpoint).rsplit("-", 1)[-1]),
+                      args.resume_from_checkpoint)
+        else:
+            resume = ckpt_mod.latest_checkpoint(args.output_dir)
+        if resume is None:
+            return
+        step, path = resume
+        template = {"trainable": self._trainable_state(),
+                    "opt_state": self.optimizer.state_dict()}
+        restored = ckpt_mod.restore_checkpoint(path, template)
+        with torch.no_grad():
+            if args.training_type == "lora":
+                for t, d in self.lora_params.items():
+                    for ab, x in d.items():
+                        x.copy_(restored["trainable"][t][ab])
+            else:
+                self.dit.load_state_dict(restored["trainable"])
+        self.optimizer.load_state_dict(restored["opt_state"])
+        self.global_step = step
+        logger.info("resumed from %s at step %d", path, step)
+
+    def train(self, total_steps: int, steps_per_epoch: int) -> None:
+        args = self.args
+        t_start = time.time()
+        epoch = self.global_step // max(steps_per_epoch, 1)
+
+        # SIGTERM/SIGINT: checkpoint at the next step boundary and stop
+        stop_requested = {"flag": False}
+
+        def _request_stop(signum, frame):
+            logger.warning("signal %s: will checkpoint and stop", signum)
+            stop_requested["flag"] = True
+
+        old_handlers = {}
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                old_handlers[sig] = signal.signal(sig, _request_stop)
+            except ValueError:  # not the main thread
+                pass
+
+        while self.global_step < total_steps and not stop_requested["flag"]:
+            if hasattr(self.loader, "set_epoch"):
+                self.loader.set_epoch(epoch)
+            for batch in self.loader:
+                if self.global_step >= total_steps or stop_requested["flag"]:
+                    break
+                loss, aux, gnorm = self.train_step(self.device_batch(batch))
+                self.global_step += 1
+                self.log_step(loss, aux, gnorm, t_start)
+                if args.stastic_frequency and (
+                        self.global_step % args.stastic_frequency == 0):
+                    self.log_memory()
+                if self.global_step % args.checkpointing_steps == 0:
+                    self.save(self.global_step)
+            epoch += 1
+
+        for sig, handler in old_handlers.items():
+            signal.signal(sig, handler)
+        self.save(self.global_step)
+        if self._log_file:
+            self._log_file.close()
+
+    # ------------------------------------------------------------------
+    # Logging / checkpoint / export
+    # ------------------------------------------------------------------
+
+    def log_step(self, loss, aux, gnorm, t_start) -> None:
+        rec = {
+            "step": self.global_step,
+            "loss": float(loss),
+            "grad_norm": float(gnorm),
+            "elapsed_s": round(time.time() - t_start, 1),
+        }
+        rec.update({k: float(v) for k, v in aux.items()})
+        logger.info("%s", rec)
+        if self._log_file:
+            self._log_file.write(json.dumps(rec) + "\n")
+            self._log_file.flush()
+
+    def log_memory(self) -> None:
+        if self.device.type != "cuda":
+            return
+        rec = {
+            "step": self.global_step,
+            "bytes_in_use": torch.cuda.memory_allocated(self.device),
+            "peak_bytes_in_use": torch.cuda.max_memory_allocated(self.device),
+        }
+        logger.info("memory %s", rec)
+        if self._log_file:
+            self._log_file.write(json.dumps({"memory": rec}) + "\n")
+
+    def save(self, step: int) -> Path:
+        state = {"trainable": self._trainable_state(),
+                 "opt_state": self.optimizer.state_dict()}
+        path = ckpt_mod.save_checkpoint(self.args.output_dir, step, state,
+                                        limit=self.args.checkpointing_limit)
+        logger.info("saved checkpoint %s", path)
+        return path
+
+    def export(self, out_dir: str | Path) -> None:
+        """The deployable export: peft LoRA weights, or the DiT in diffusers
+        layout under sft."""
+        if self.args.training_type == "lora":
+            ckpt_mod.export_lora_safetensors(
+                self.lora_params, Path(out_dir) / "pytorch_lora_weights.safetensors")
+        else:
+            base = Path(self.args.model_path) / "transformer" / "config.json"
+            ckpt_mod.export_dit_safetensors(
+                self.dit, Path(out_dir) / "transformer",
+                base_config=base if base.exists() else None)
+
+    def validate(self, step: int) -> dict[str, float]:
+        raise NotImplementedError(
+            "validation (one-step SR on held-out clips and the eval metrics) is "
+            "not ported yet (ROADMAP queue A, the eval slice)")
+
+
+# ---------------------------------------------------------------------------
+# Stage trainers
+# ---------------------------------------------------------------------------
+
+class DOVES1Trainer(Trainer):
+    """Stage 1: latent-space MSE (reference lora_one_s1_trainer.py:116-209)."""
+
+    stage = 1
+
+    def compute_loss(self, batch: dict[str, torch.Tensor], step: int):
+        if "lq_latent" in batch:  # precomputed latents
+            lq_lat, hq_lat = batch["lq_latent"], batch["hq_latent"]
+        else:
+            with record_function("dove.train.encode"):
+                lq_lat = self._encode(batch["lq_video"], self.generator(step, 0))
+                hq_lat = self._encode(batch["hq_video"], self.generator(step, 1))
+        self._lap("encode")
+        lq_lat = lq_lat.to(self.dtype)
+        noise = None
+        if self.config.noise_step != 0:
+            B, F, h, w, C = lq_lat.shape
+            pt = self.config.dit.patch_size_t
+            noise = torch.randn((B, F + (pt - F % pt) % pt, C, h, w),
+                                generator=self.generator(step, 2), device=self.device)
+        loss_batch = {"lq_latent": lq_lat, "hq_latent": hq_lat,
+                      "prompt_embeds": batch["prompt_embeds"]}
+        with record_function("dove.train.dit_fwd"):
+            return losses.stage1_loss(self.config, self.schedule, self.dit,
+                                      loss_batch, noise, **self.dit_kwargs())
+
+
+register("dove-s1", "lora", DOVES1Trainer)
+register("dove-s1", "sft", DOVES1Trainer)  # SFT: the same math, the whole DiT trains

@@ -11,7 +11,9 @@ conv kernels stored [kt, kh, kw, Cin, Cout] (2D: [kh, kw, Cin, Cout]). It
 also takes a DiT tree that the JAX package's ``quantize_dit`` made (int8
 ``kernel_q`` or ``kernel_w8`` beside fp32 ``kernel_scale`` of [L, 1, out]):
 the port's DiT then carries the same codes and scales in ``QLinear`` or
-``W8Linear`` modules.
+``W8Linear`` modules. ``from_jax_lora`` carries the JAX package's LoRA tree
+across, and ``fuse_lora_into_dit`` fuses a peft adapter (the trained LoRA's
+export) into a DiT so that the pipeline serves it.
 
 ``safetensors`` is imported inside the functions that read files.
 """
@@ -19,6 +21,7 @@ the port's DiT then carries the same codes and scales in ``QLinear`` or
 from __future__ import annotations
 
 import json
+import re
 from pathlib import Path
 from typing import Any, Mapping
 
@@ -240,3 +243,64 @@ def from_jax_params(
                       quantized)
     vae = convert_vae(jax_vae_to_diffusers(vae_tree), cfg.vae, dtype, device)
     return dit, vae
+
+
+# ---------------------------------------------------------------------------
+# LoRA
+# ---------------------------------------------------------------------------
+
+def from_jax_lora(
+    tree: Mapping[str, Mapping[str, Any]], device="cpu", dtype=torch.float32,
+) -> dict[str, dict[str, torch.Tensor]]:
+    """The JAX package's LoRA tree ({target: {"A": [L, in, r], "B": [L, r,
+    out]}}, NumPy leaves) -> the port's, which keeps the same layout; the
+    tensors require grad, ready to train."""
+    from dove_tpu_torch.train.lora import TARGETS
+
+    if set(tree) - set(TARGETS) or set(tree["to_q"]) != {"A", "B"}:
+        raise ValueError(f"not a LoRA tree: {sorted(tree)}")
+    return {t: {ab: torch.tensor(np.asarray(x), dtype=dtype, device=device)
+                .requires_grad_() for ab, x in d.items()}
+            for t, d in tree.items()}
+
+
+_LORA_KEY = re.compile(
+    r"transformer_blocks\.(\d+)\.attn1\.(to_q|to_k|to_v|to_out\.0)\."
+    r"lora_([AB])\.weight$"
+)
+
+
+def fuse_lora_into_dit(
+    dit: CogVideoXTransformer3D, lora_tensors: Tensors, scale: float = 1.0,
+) -> CogVideoXTransformer3D:
+    """Fuse peft LoRA weights into the DiT in place, W += scale * B @ A, and
+    return it: the counterpart of ``dove_tpu.weights.fuse_lora_into_dit``
+    (the reference's load_lora_weights + fuse_lora). Keys follow the
+    diffusers export (``pytorch_lora_weights.safetensors``); a leading
+    "transformer." is tolerated. Each delta is computed in fp32 and cast to
+    the weight's dtype before the add, as in JAX."""
+    deltas: dict[tuple[int, str], dict[str, torch.Tensor]] = {}
+    for key, val in lora_tensors.items():
+        m = _LORA_KEY.search(key.removeprefix("transformer."))
+        if m:
+            deltas.setdefault((int(m.group(1)), m.group(2)), {})[m.group(3)] = (
+                torch.as_tensor(np.asarray(val, np.float32)))
+    if not deltas:
+        raise ValueError("no recognizable LoRA keys found")
+    n_layers = len(dit.transformer_blocks)
+    with torch.no_grad():
+        for (layer, target), ab in sorted(deltas.items()):
+            if "A" not in ab or "B" not in ab:
+                raise ValueError(
+                    f"incomplete LoRA pair for layer {layer} {target}: found "
+                    f"only lora_{'A' if 'A' in ab else 'B'}")
+            if layer >= n_layers:
+                raise ValueError(
+                    f"LoRA adapter targets transformer_blocks.{layer} but the "
+                    f"model has {n_layers} layers — adapter/model mismatch")
+            lin = dit.transformer_blocks[layer].attn1.get_submodule(target)
+            if not isinstance(lin, nn.Linear):
+                raise NotImplementedError("fusing LoRA into a quantized DiT is not ported")
+            delta = (ab["B"] @ ab["A"]) * scale  # [out, in]
+            lin.weight += delta.to(device=lin.weight.device, dtype=lin.weight.dtype)
+    return dit

@@ -67,14 +67,77 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         t = q.transpose(1, 2)
         fa.flash_attention(t, t, t)
-    with pytest.raises(NotImplementedError):
-        fa.flash_attention(q, q, q, bounded_logits=True, with_lse=True)
+    with pytest.raises(NotImplementedError):  # K2 is inference only
+        fa.flash_attention(q, q, q, bounded_logits=True, qk_int8=True, with_lse=True)
     with pytest.raises(ValueError, match="requires bounded_logits"):
         fa.flash_attention(q, q, q, qk_int8=True)
     with pytest.raises(ValueError, match="bfloat16"):  # K2 takes bf16 too
         fa.flash_attention(q.float(), q.float(), q.float(), bounded_logits=True,
                            qk_int8=True)
     assert fa.launches.count == before
+
+
+def _assert_within_bars(out: torch.Tensor, ref: torch.Tensor) -> None:
+    diff, ref = out.float() - ref.float(), ref.float()
+    max_abs = float(diff.abs().max())
+    assert max_abs <= ABS_TOL
+    assert max_abs <= REL_MAX_TOL * float(ref.abs().max())
+    assert float(diff.square().mean().sqrt()) <= (
+        REL_RMS_TOL * float(ref.square().mean().sqrt()))
+
+
+# K1's logsumexp against its plain version: fp32 on both sides from the same
+# bf16 inputs, differing in summation order and in ex2.approx.
+LSE_TOL = 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,skv", [(200, 200), (130, 300)])
+@pytest.mark.parametrize("bounded", [False, True])
+def test_k1_lse_and_k3_match_plain_on_card(sq, skv, bounded):
+    """K1's training form (output and logsumexp), then K3a and K3b on the
+    same inputs, against their plain versions at K1's bars; each kernel
+    counts one launch."""
+    dev = _card()
+    q = _randn((2, 3, sq, 64), 11, dev)
+    k = _randn((2, 3, skv, 64), 12, dev)
+    v = _randn((2, 3, skv, 64), 13, dev)
+    do = _randn((2, 3, sq, 64), 14, dev)
+    counters = (fa.launches, fa.launches_lse, fa.launches_bwd_dq, fa.launches_bwd_dkv)
+    before = [c.count for c in counters]
+    out, lse = fa.flash_attention(q, k, v, bounded_logits=bounded, with_lse=True)
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, bounded_logits=bounded,
+                                            with_lse=True)
+    _assert_within_bars(out, ref)
+    assert lse.shape == (2, 3, sq) and lse.dtype == torch.float32
+    assert float((lse - ref_lse).abs().max()) <= LSE_TOL
+    delta = (do.float() * out.float()).sum(-1)
+    dq = fa.flash_bwd_dq_launch(q, k, v, do, lse, delta, 0.125)
+    dk, dv = fa.flash_bwd_dkv_launch(q, k, v, do, lse, delta, 0.125)
+    torch.cuda.synchronize()
+    assert [c.count - b for c, b in zip(counters, before)] == [0, 1, 1, 1]
+    ref_dq = fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, 0.125)
+    ref_dk, ref_dv = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, 0.125)
+    for got, want in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        _assert_within_bars(got, want)
+
+
+@pytest.mark.cuda
+def test_flash_autograd_on_card_matches_plain_autograd():
+    """Gradients through FlashAttention on the card (K1 with lse, K3a, K3b)
+    against the same function on the plain versions (backend "plain")."""
+    from dove_tpu_torch.ops import attention as tattn
+
+    dev = _card()
+    q, k, v = (_randn((1, 4, 333, 64), s, dev).requires_grad_() for s in (15, 16, 17))
+    g = _randn((1, 4, 333, 64), 18, dev)
+    grads = {}
+    for backend in ("flash", "plain"):
+        out = tattn.full_attention(q, k, v, backend=backend)
+        grads[backend] = torch.autograd.grad(out, (q, k, v), g)
+    for got, want in zip(grads["flash"], grads["plain"]):
+        _assert_within_bars(got, want)
 
 
 @pytest.mark.cuda

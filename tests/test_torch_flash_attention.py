@@ -62,13 +62,14 @@ def test_plain_cross_lengths_match_naive():
 
 
 def test_unported_modes_raise():
-    """The logsumexp output (the training forward, K3's input) is not
-    ported; K2 needs the bounded form, as the TPU wrapper does."""
+    """K2 is inference only: no logsumexp and no backward, as in JAX; it
+    needs the bounded form, as the TPU wrapper does."""
     q, k, v = (torch.from_numpy(x) for x in _qkv(16, seed=3))
     with pytest.raises(NotImplementedError):
-        fa.flash_attention(q, k, v, with_lse=True)
-    with pytest.raises(NotImplementedError):
         fa.flash_attention(q, k, v, bounded_logits=True, qk_int8=True, with_lse=True)
+    with pytest.raises(NotImplementedError):
+        fa.flash_attention(q.clone().requires_grad_(), k, v, bounded_logits=True,
+                           qk_int8=True)
     with pytest.raises(ValueError, match="requires bounded_logits"):
         fa.flash_attention(q, k, v, qk_int8=True)
     for backend in ("flash-qk8", "plain-qk8"):
@@ -123,6 +124,11 @@ def test_imports_and_runs_without_nvcc_or_cuda():
         "assert out.shape == q.shape and fa.launches.count == 0\n"
         "out = fa.flash_attention(q, q, q, bounded_logits=True, qk_int8=True)\n"
         "assert out.shape == q.shape and fa.launches_qk8.count == 0\n"
+        "x = q.clone().requires_grad_()\n"
+        "out, lse = fa.flash_attention(x, q, q, with_lse=True)\n"
+        "out.sum().backward()\n"
+        "assert x.grad.shape == q.shape and lse.shape == q.shape[:3]\n"
+        "assert fa.launches_lse.count == fa.launches_bwd_dq.count == 0\n"
         "assert not kernels._loaded\n"
         "print('ok')\n"
     )
