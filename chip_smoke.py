@@ -7,8 +7,8 @@ Phases, one result line each; any failure exits non-zero:
 
 1. device and build: the card's name and power limit, and the nvcc builds of
    every kernel source under dove_tpu_torch/csrc/, one nvcc each, started
-   together (flash_fwd holds K1 and K2, flash_bwd K3a and K3b), with
-   ptxas's registers and spills for each kernel form;
+   together (flash_fwd holds K1 and K2, flash_bwd K3a and K3b, conv3d_taps
+   K4 and K5), with ptxas's registers and spills for each kernel form;
 2. K1 (flash-attention forward) against its plain PyTorch version on the card
    in bf16, bounded and online-softmax forms, at the main path's shape and at
    a ragged length; kernel, plain and SDPA times beside the bound;
@@ -39,7 +39,22 @@ Phases, one result line each; any failure exits non-zero:
    all 42 layers, seeded bf16 weights, LoRA rank 128 / alpha 64, a synthetic
    batch of 2 clips of 25x320x640, three steps through DOVES1Trainer with
    the kernels' launches counted per step, then a checkpoint saved and
-   resumed on the card.
+   resumed on the card;
+12. K4 (the W8A8 3x3x3 tap conv) and K5 (the same schedule in bf16) against
+   their plain versions at the shapes the int8 decode of the 32-frame clip
+   gives them (every channel width of the 5B decoder, the per-frame k_t = 1
+   form, a ragged shape): K4 equal bit for bit, K5 within 2e-5 of the largest
+   output in fp32 and one bf16 ulp in bf16, with a plain version that skips
+   one tap shown to be rejected; kernel, plain and cuDNN times beside the
+   bound;
+13. the quantize="int8" pipeline (int8 DiT, encoder and decoder) at full
+   widths and 2 DiT layers: through K4 and through K4's plain version (uint8
+   outputs identical), and through K2 and its plain version (PSNR), with K4's
+   launches held to the count the window plan predicts;
+14. the int8-dit-dec main path: the 5B model at all 42 layers, the decoder
+   int8 outside the "lowres" exclusion set and equalized from synthetic
+   calibration stats, the 32-frame clip of phase 4;
+15. K5 opt-in: the bf16 pipeline of phase 3 with hand_conv on and off.
 
 Then one JSON line with the kernels' numbers, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}.
@@ -96,6 +111,27 @@ TRAIN_SEQ = 3426
 TRAIN_STEPS = 3
 # The streamed clip: 100 frames pad to 105, 27 latents, 4 DiT windows.
 STREAM_FRAMES = 100
+# K5 against its plain version: fp32 products summed in another order, the
+# bar of tests/test_conv_kernel.py:88 (a share of the largest output), whose
+# shapes sum at most 27 x 256 products; a longer sum (Cin = 512) gets the
+# square root of its excess, as rounding errors add. With bf16 output, one
+# bf16 ulp of the plain result beside that.
+K5_REL_TOL = 2e-5
+K5_TOL_TERMS = 27 * 256
+# What the int8 decode plan of the main-path clip gives K4, largest window:
+# (B, Fo, Ho, Wo, Cin, Cout, k_t). The 192x320 padded frame is 96x160
+# latents, decoded in 3x4 windows of 34x42; all 9 latents are one frame
+# chunk, so a window is 33 frames of 272x336 at the last level. Phases 13 and
+# 14 check the logged shapes against this list. The first is the main shape.
+CONV_SHAPES = (
+    (1, 33, 272, 336, 128, 128, 3),  # up.3 resnets (7 of 17 launches a window)
+    (1, 33, 272, 336, 256, 128, 3),  # up.3 first resnet
+    (1, 33, 136, 168, 256, 256, 3),  # up.2 resnets
+    (1, 33, 272, 336, 256, 256, 1),  # up.2 upsampler, per frame
+    (1, 17, 68, 84, 512, 256, 3),  # up.1 first resnet (mode "int8")
+    (1, 9, 34, 42, 512, 512, 3),  # mid and up.0 (mode "int8")
+    (1, 1, 37, 53, 128, 128, 3),  # ragged: odd Ho and Wo, one frame
+)
 
 
 def log(msg: str) -> None:
@@ -169,8 +205,14 @@ KERNEL_FORMS = {
     "flash_fwd_kernelILb0ELb0ELb1E": "K1 online lse",
     "flash_bwd_dq_kernel": "K3a",
     "flash_bwd_dkv_kernel": "K3b",
+    "conv3d_taps_kernelIaiLi3E": "K4 k_t=3",
+    "conv3d_taps_kernelIaiLi1E": "K4 k_t=1",
+    "conv3d_taps_kernelI13__nv_bfloat16fLi3E": "K5 k_t=3",
+    "conv3d_taps_kernelI13__nv_bfloat16fLi1E": "K5 k_t=1",
+    "quant_pack_kernelI13__nv_bfloat16E": "quantizer bf16",
+    "quant_pack_kernelIfE": "quantizer fp32",
 }
-SOURCES = ("flash_fwd", "flash_bwd")
+SOURCES = ("flash_fwd", "flash_bwd", "conv3d_taps")
 
 
 def phase_build() -> None:
@@ -190,7 +232,7 @@ def phase_build() -> None:
     log("phase 1 build: " + ", ".join(
         f"{name} {seconds:.2f}s" for name, (seconds, _) in built.items())
         + f" of nvcc, {wall:.2f}s wall (flash_fwd: K1 and K2; flash_bwd: K3a "
-        "and K3b)")
+        "and K3b; conv3d_taps: K4, K5 and the int8 quantizer's pass)")
 
 
 # ---------------------------------------------------------------------------
@@ -271,7 +313,7 @@ def phase_k1(seq_main: int, heads: int) -> dict:
 # ---------------------------------------------------------------------------
 
 def _pipeline(cfg, dit, vae, backend: str | None, sample_posterior: bool,
-              quantize: str | None = None):
+              quantize: str | None = None, **flags):
     from dove_tpu_torch.pipeline import DovePipeline
 
     prompt = torch.zeros((cfg.dit.max_text_seq_length, cfg.dit.text_embed_dim),
@@ -280,7 +322,7 @@ def _pipeline(cfg, dit, vae, backend: str | None, sample_posterior: bool,
         config=cfg, dit=dit, vae=vae, prompt_embedding=prompt,
         dtype=torch.bfloat16, device="cuda", attention_backend=backend,
         sample_posterior=sample_posterior, vae_tiling=True, output_uint8=True,
-        quantize=quantize,
+        quantize=quantize, **flags,
     )
 
 
@@ -377,6 +419,9 @@ KERNEL_KINDS = (  # (kind, substrings of CUDA kernel names), first match wins
     ("k1_flash_fwd", ("flash_fwd_kernel",)),
     ("k3a_flash_bwd_dq", ("flash_bwd_dq_kernel",)),
     ("k3b_flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    ("k4_conv3d_w8a8", ("conv3d_taps_kernel<signed char", "conv3d_taps_kernel<int8")),
+    ("k5_conv3d_bf16", ("conv3d_taps_kernel<__nv_bfloat16",)),
+    ("quant_pack", ("quant_pack_kernel",)),
     ("group_norm", ("rowwisemoments", "group_norm", "groupnorm")),
     ("conv_layout", ("nchwtonhwc", "nhwctonchw")),
     ("conv", ("fprop", "conv", "implicit_gemm", "cudnn")),
@@ -444,12 +489,20 @@ def profile_run(run, out_dir: str, name: str, phase: str) -> None:
                     "other")
         by_kind[kind] = by_kind.get(kind, 0.0) + float(e["dur"])
     by_stage = {}
+    starts, ends = (np.array(v) for v in zip(*spans))
     for e in events:
         if e.get("cat") == "gpu_user_annotation" and e["name"].startswith("dove."):
             a, b = float(e["ts"]), float(e["ts"]) + float(e["dur"])
-            inside = [(max(x, a), min(y, b)) for x, y in spans if y > a and x < b]
-            by_stage[e["name"]] = {"span_s": round((b - a) / 1e6, 3),
-                                   "busy_s": round(_merged_busy(inside) / 1e6, 3)}
+            hit = np.nonzero((ends > a) & (starts < b))[0]
+            inside = [(max(starts[i], a), min(ends[i], b)) for i in hit]
+            # a range entered many times (the quantizer of every int8 conv)
+            # adds up
+            tot = by_stage.setdefault(e["name"], {"span_s": 0.0, "busy_s": 0.0, "n": 0})
+            tot["span_s"] += (b - a) / 1e6
+            tot["busy_s"] += _merged_busy(inside) / 1e6
+            tot["n"] += 1
+    for tot in by_stage.values():
+        tot["span_s"], tot["busy_s"] = round(tot["span_s"], 3), round(tot["busy_s"], 3)
     log(f"{phase} profile: warm wall {warm:.2f}s stages {json.dumps(warm_stages)}; "
         f"profiled wall {prof_wall:.2f}s, {len(kernels)} kernels, device busy "
         f"{busy / 1e6:.3f}s of a {window / 1e6:.3f}s kernel window "
@@ -991,16 +1044,491 @@ def phase_train_recipe(profile_dir: str | None = None) -> dict:
                 peak_bytes=peak)
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: K4 and K5 against their plain versions
+# ---------------------------------------------------------------------------
+
+def _conv_inputs(shape, gen, int8: bool):
+    """Seeded operands in the kernel's layouts: x [B, Fo + kt - 1, Ho + 2,
+    Wo + 2, Cin], packed w [kt * 9, Cout, Cin], and for K4 the fp32 scale."""
+    B, Fo, Ho, Wo, cin, cout, kt = shape
+    dev = torch.device("cuda")
+    shape_x, shape_w = (B, Fo + kt - 1, Ho + 2, Wo + 2, cin), (kt * 9, cout, cin)
+    if int8:
+        x = torch.randint(-127, 128, shape_x, generator=gen, device=dev,
+                          dtype=torch.int8)
+        w = torch.randint(-127, 128, shape_w, generator=gen, device=dev,
+                          dtype=torch.int8)
+        return x, w, torch.rand(cout, generator=gen, device=dev) * 1e-4 + 1e-6
+    x = torch.randn(shape_x, generator=gen, device=dev, dtype=torch.bfloat16)
+    w = (torch.randn(shape_w, generator=gen, device=dev) * (kt * 9 * cin) ** -0.5)
+    return x, w.to(torch.bfloat16), None
+
+
+def _bf16_ulp(ref: torch.Tensor) -> torch.Tensor:
+    _, exponent = torch.frexp(ref.float().abs())
+    return torch.ldexp(torch.ones_like(ref, dtype=torch.float32), exponent - 8)
+
+
+def _conv_bound(shape, in_bytes: int, out_bytes: int, peak_ops: float):
+    B, Fo, Ho, Wo, cin, cout, kt = shape
+    ops = 2.0 * kt * 9 * cin * cout * B * Fo * Ho * Wo
+    nbytes = (B * (Fo + kt - 1) * (Ho + 2) * (Wo + 2) * cin * in_bytes
+              + kt * 9 * cin * cout * in_bytes + B * Fo * Ho * Wo * cout * out_bytes)
+    ops_s, bytes_s = ops / peak_ops, nbytes / PEAK_BYTES
+    return (max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes",
+            ops)
+
+
+def phase_conv_kernels() -> tuple[dict, dict, dict]:
+    """K4 and K5 alone, then the quantizer's pass. K4 is exact (int32 sums, one fp32 multiply, one
+    rounding), so it must equal its plain version; K5 sums fp32 products in
+    another order than its plain version."""
+    import torch.nn.functional as F
+
+    from dove_tpu_torch.ops import conv3d_int8 as conv
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rows = {"k4": [], "k5": []}
+    worst_k5 = 0.0
+    for shape in CONV_SHAPES:
+        B, Fo, Ho, Wo, cin, cout, kt = shape
+        main = shape == CONV_SHAPES[0]
+        # K4: bf16 NCDHW out with the offset term and the bias in the epilogue
+        # is what the VAE asks for; bf16 NDHWC and fp32 out with the scale
+        # alone are the TPU kernel's forms
+        x, w, scale = _conv_inputs(shape, gen, int8=True)
+        addend = torch.randn((cout, min(Ho, 3), min(Wo, 3)), generator=gen, device="cuda")
+        bias = torch.randn(cout, generator=gen, device="cuda")
+        vae_form = dict(addend=addend, bias=bias)
+        scale_big = scale * 1e3  # outputs of the order of addend and bias
+        out = conv.conv_taps(x, w, scale_big, kt, torch.bfloat16, channels_first=True,
+                             **vae_form)
+        out_f32 = conv.conv_taps(x, w, scale, kt, torch.float32, channels_first=True)
+        out_bf = conv.conv_taps(x, w, scale, kt, torch.bfloat16)
+        torch.cuda.synchronize()
+        ref = conv.conv_taps_plain(x, w, scale_big, kt, torch.bfloat16,
+                                   channels_first=True, **vae_form)
+        ref_f32 = conv.conv_taps_plain(x, w, scale, kt, torch.float32, channels_first=True)
+        equal = bool(torch.equal(out, ref))
+        equal_f32 = bool(torch.equal(out_f32, ref_f32))
+        equal_bf = bool(torch.equal(out_bf.permute(0, 4, 1, 2, 3),
+                                    ref_f32.to(torch.bfloat16)))
+        max_err = max(float((out.float() - ref.float()).abs().max()),
+                      float((out_f32 - ref_f32).abs().max()))
+        if not (equal and equal_f32 and equal_bf and bool(torch.isfinite(out).all())):
+            raise AssertionError(
+                f"K4 differs from its plain version at {shape}: max |diff| {max_err}; "
+                f"equal: VAE form {equal}, fp32 out {equal_f32}, bf16 NDHWC out {equal_bf}")
+        t4 = dict(shape=list(shape), max_abs_err=max_err)
+        if main or kt == 1:
+            short = conv.conv_taps_plain(x, w, scale_big, kt, torch.bfloat16,
+                                         channels_first=True, skip_tap=kt * 9 // 2,
+                                         **vae_form)
+            if torch.equal(short, ref):
+                raise AssertionError("K4's bar accepts a plain version without one tap")
+            t4["skipped_tap_max_diff"] = float((short.float() - ref.float()).abs().max())
+            del short
+        del out_bf, out_f32, ref_f32
+        t4["ms"] = cuda_ms(lambda: conv.conv_taps_launch(
+            x, w, scale_big, kt, torch.bfloat16, True, addend, bias), 10)
+        t4["ms_f32_out"] = cuda_ms(lambda: conv.conv_taps_launch(
+            x, w, scale, kt, torch.float32, channels_first=True), 10)
+        t4["ms_bf16_ndhwc_out"] = cuda_ms(lambda: conv.conv_taps_launch(
+            x, w, scale, kt, torch.bfloat16), 10)
+        t4["plain_ms"] = cuda_ms(lambda: conv.conv_taps_plain(
+            x, w, scale_big, kt, torch.bfloat16, channels_first=True, **vae_form),
+            1, warmup=0)
+        t4["bound_ms"], t4["bound_by"], ops = _conv_bound(shape, 1, 2, PEAK_INT8_OPS)
+        t4["tops"] = ops / t4["ms"] / 1e9
+        del x, w, scale, scale_big, addend, bias, out, ref
+        torch.cuda.empty_cache()
+
+        # K5 on bf16 operands of the same shape, against its plain version
+        # and beside cuDNN's convolution of the same tensors
+        x, w, _ = _conv_inputs(shape, gen, int8=False)
+        out = conv.conv_taps(x, w, None, kt, torch.float32, channels_first=True)
+        out_bf = conv.conv_taps(x, w, None, kt, torch.bfloat16, channels_first=True)
+        torch.cuda.synchronize()
+        ref = conv.conv_taps_plain(x, w, None, kt, torch.float32, channels_first=True)
+        slack = (K5_REL_TOL * max(1.0, (kt * 9 * cin / K5_TOL_TERMS) ** 0.5)
+                 * float(ref.abs().max()))
+        err = float((out - ref).abs().max())
+        ref_bf = ref.to(torch.bfloat16)
+        over = float(((out_bf.float() - ref_bf.float()).abs()
+                      - _bf16_ulp(ref_bf) - slack).max())
+        if not (err <= slack and over <= 0 and bool(torch.isfinite(out).all())):
+            raise AssertionError(
+                f"K5 differs from its plain version at {shape}: max |diff| {err} "
+                f"(bar {slack}), bf16 out over one ulp by {over}")
+        worst_k5 = max(worst_k5, err)
+        t5 = dict(shape=list(shape), max_abs_err=err, bar=slack)
+        if main or kt == 1:
+            short = conv.conv_taps_plain(x, w, None, kt, torch.float32,
+                                         channels_first=True, skip_tap=kt * 9 // 2)
+            miss = float((short - ref).abs().max())
+            if miss <= slack:
+                raise AssertionError("K5's bar accepts a plain version without one tap")
+            t5["skipped_tap_max_diff"] = miss
+            del short
+        del out, out_bf, ref_bf
+        t5["ms"] = cuda_ms(lambda: conv.conv_taps_launch(
+            x, w, None, kt, torch.bfloat16, channels_first=True), 10)
+        t5["ms_f32_out"] = cuda_ms(lambda: conv.conv_taps_launch(
+            x, w, None, kt, torch.float32, channels_first=True), 10)
+        t5["plain_ms"] = cuda_ms(lambda: conv.conv_taps_plain(
+            x, w, None, kt, torch.bfloat16, channels_first=True), 1, warmup=0)
+        t5["bound_ms"], t5["bound_by"], ops = _conv_bound(shape, 2, 2, PEAK_BF16_FLOPS)
+        t5["tflops"] = ops / t5["ms"] / 1e9
+        # the library's call on the same tensors: a VALID conv3d of the
+        # padded input. x viewed NCDHW keeps channels_last_3d strides.
+        w5 = w.view(kt, 3, 3, cout, cin).permute(3, 4, 0, 1, 2)
+        x_cl, w_cl = x.permute(0, 4, 1, 2, 3), w5.contiguous(
+            memory_format=torch.channels_last_3d)
+        x_cf, w_cf = x_cl.contiguous(), w5.contiguous()
+        lib = F.conv3d(x_cf, w_cf)
+        lib_err = float((lib.float() - ref).abs().max())
+        del lib, ref
+        t5["library_ms"] = cuda_ms(lambda: F.conv3d(x_cf, w_cf), 10)
+        t5["library_channels_last_ms"] = cuda_ms(lambda: F.conv3d(x_cl, w_cl), 10)
+        t5["library_max_diff"] = lib_err
+        t4["library_bf16_conv3d_ms"] = t5["library_ms"]
+        del x, w, x_cl, w_cl, x_cf, w_cf, w5
+        torch.cuda.empty_cache()
+        for key, t in (("k4", t4), ("k5", t5)):
+            rows[key].append(t)
+            log(f"  {key.upper()} {shape}: " + json.dumps(
+                {k: (round(v, 4) if isinstance(v, float) and k.endswith(("ms", "tops", "tflops"))
+                     else v) for k, v in t.items() if k != "shape"}))
+    for c in (conv.launches_w8a8, conv.launches_w8a8_kt1, conv.launches_bf16):
+        c.reset()
+    log(f"phase 12 K4, K5: K4 equal to its plain version at {len(CONV_SHAPES)} shapes "
+        f"(the VAE's form with offset term and bias, fp32 NCDHW and bf16 NDHWC "
+        f"out), K5 worst max_abs_err {worst_k5:.3e} (bar "
+        f"{K5_REL_TOL} of max|ref|, times sqrt 2 at Cin = 512; bf16 out within one "
+        "ulp); a plain version "
+        "without one tap is rejected by both; main shape "
+        f"{list(CONV_SHAPES[0])}: K4 {rows['k4'][0]['ms']:.3f} ms (bound "
+        f"{rows['k4'][0]['bound_ms']:.3f}), K5 {rows['k5'][0]['ms']:.3f} ms (bound "
+        f"{rows['k5'][0]['bound_ms']:.3f}, cuDNN {rows['k5'][0]['library_ms']:.3f} NCDHW, "
+        f"{rows['k5'][0]['library_channels_last_ms']:.3f} channels-last)")
+    k4 = dict(rows["k4"][0], by_shape=rows["k4"])
+    k5 = dict(rows["k5"][0], by_shape=rows["k5"], max_abs_err=worst_k5)
+    return k4, k5, _quantizer_kernel(gen)
+
+
+def _quantizer_kernel(gen) -> dict:
+    """The quantizer's pack pass against its plain version, at the input of
+    K4's main shape (bf16 NCDHW with the two causal frames) and at a ragged
+    one, with and without an equalization vector: equal codes."""
+    from dove_tpu_torch.ops import conv3d_int8 as conv
+    from dove_tpu_torch.ops import quant
+
+    B, Fo, Ho, Wo, cin, _, kt = CONV_SHAPES[0]
+    main_shape = (B, cin, Fo + kt - 1, Ho, Wo)
+    timing = {}
+    for shape, padding in ((main_shape, 1), ((1, 68, 3, 37, 53), 1),
+                           ((1, 128, 2, 31, 45), 0)):
+        x = torch.nn.functional.silu(
+            torch.randn(shape, generator=gen, device="cuda") * 2).to(torch.bfloat16)
+        for eq in (None, torch.rand(shape[1], generator=gen, device="cuda") + 0.5):
+            s, m = quant.asym_grid(x, eq_inv=eq, channel_dim=1)
+            out = conv.quantize_pack(x, s, m, eq, padding)
+            torch.cuda.synchronize()
+            ref = conv.quantize_pack_plain(x, s, m, eq, padding)
+            wrong = int((out != ref).sum())
+            max_err = float((out.int() - ref.int()).abs().max())
+            if wrong or int(out.abs().max()) != 127:
+                raise AssertionError(f"the quantizer's kernel differs from its plain "
+                                     f"version at {shape} in {wrong} codes")
+            if torch.equal(conv.quantize_pack_plain(x, s * 1.01, m, eq, padding), ref):
+                raise AssertionError("the quantizer's bar accepts another grid")
+            if shape == main_shape and eq is not None:  # the main path's form
+                timing = dict(
+                    shape=list(shape), max_abs_err=max_err,
+                    ms=cuda_ms(lambda: conv.quantize_pack_launch(x, s, m, eq, padding), 10),
+                    plain_ms=cuda_ms(lambda: conv.quantize_pack_plain(x, s, m, eq, padding),
+                                     3),
+                    search_ms=cuda_ms(lambda: quant.asym_grid(x, eq_inv=eq, channel_dim=1),
+                                      10))
+                nbytes = x.numel() * 2 + out.numel() + 4 * shape[1]
+                timing.update(bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes")
+            del out, ref
+        del x
+    conv.launches_quantize.reset()
+    torch.cuda.empty_cache()
+    log(f"  quantizer's pack pass: equal to its plain version (bf16 in, with and "
+        f"without equalization, padded and not); {json.dumps(timing)}")
+    return timing
+
+
+# ---------------------------------------------------------------------------
+# Phases 13-15: the int8 VAE modes and the K5 route
+# ---------------------------------------------------------------------------
+
+def _conv_counters():
+    from dove_tpu_torch.ops import conv3d_int8 as conv
+    from dove_tpu_torch.ops import flash_attention as fa
+
+    return {"k1": fa.launches, "k2": fa.launches_qk8, "k4": conv.launches_w8a8,
+            "k4_kt1": conv.launches_w8a8_kt1, "k5": conv.launches_bf16,
+            "quantize": conv.launches_quantize}
+
+
+def _vae_passes(pipe, frames: int, h: int, w: int) -> tuple[int, int]:
+    """(encoder forwards, decoder forwards) of one staged pass over an LQ
+    clip: windows of the pipeline's plan times frame chunks."""
+    from dove_tpu_torch import tiling
+    from dove_tpu_torch.models.vae import _frame_chunks
+    from dove_tpu_torch.pipeline import plan_axis
+
+    cfg = pipe.config
+    pad_f, pad_h, pad_w = tiling.compute_padding(frames, h, w)
+    n_frames = tiling.next_valid_frames(frames + pad_f)
+    lat_h = (h + pad_h) * cfg.upscale // cfg.vae.spatial_scale
+    lat_w = (w + pad_w) * cfg.upscale // cfg.vae.spatial_scale
+    blend, enc_max, dec_max = pipe._window_budget()
+
+    def windows(budget):
+        return plan_axis(lat_h, blend, budget[0])[2] * plan_axis(lat_w, blend, budget[1])[2]
+
+    enc_chunks = len(_frame_chunks(n_frames, cfg.vae.sample_frames_batch_size))
+    dec_chunks = len(_frame_chunks(cfg.vae.latent_frames(n_frames),
+                                   cfg.vae.latent_frames_batch_size))
+    return windows(enc_max) * enc_chunks, windows(dec_max) * dec_chunks
+
+
+def predicted_conv_launches(pipe, frames: int, h: int, w: int) -> dict:
+    """K4, K5 and quantizer launches of one staged pass, from the window plan: every
+    conv module runs once per forward of its half of the VAE. K4 takes the
+    stride-1 QConv3ds (the encoder's k_t = 1 ones are its stride-2
+    downsamplers, an int8 matrix product); K5, when switched on, the float
+    3x3x3 convs with both channel counts multiples of 128."""
+    from dove_tpu_torch.ops.quant import QConv3d
+
+    enc_passes, dec_passes = _vae_passes(pipe, frames, h, w)
+    want = {"k4": 0, "k4_kt1": 0, "k5": 0, "quantize": 0}
+    for half, passes in ((pipe.vae.encoder, enc_passes), (pipe.vae.decoder, dec_passes)):
+        for mod in half.modules():
+            if isinstance(mod, QConv3d):
+                want["quantize"] += passes  # the stride-2 ones too
+                if mod.kt == 3:
+                    want["k4"] += passes
+                elif half is pipe.vae.decoder:
+                    want["k4_kt1"] += passes
+            elif (pipe.hand_conv and isinstance(mod, torch.nn.Conv3d)
+                  and tuple(mod.kernel_size) == (3, 3, 3)
+                  and mod.in_channels % 128 == 0 and mod.out_channels % 128 == 0):
+                want["k5"] += passes
+    return want
+
+
+def _largest_logged(shape_log: list) -> dict:
+    """Per (Cin, Cout, k_t), the largest input the run gave the kernel, as a
+    CONV_SHAPES tuple."""
+    best: dict = {}
+    for (B, F, Hp, Wp, cin), cout, kt in shape_log:
+        key = (cin, cout, kt)
+        shape = (B, F - (kt - 1), Hp - 2, Wp - 2, cin, cout, kt)
+        if key not in best or math.prod(shape[:4]) > math.prod(best[key][:4]):
+            best[key] = shape
+    return best
+
+
+def _two_layer_models():
+    import dataclasses
+
+    from dove_tpu_torch import cogvideox1_5_5b, init_dit_params, init_vae_params
+
+    base = cogvideox1_5_5b()
+    cfg = dataclasses.replace(base, dit=dataclasses.replace(base.dit, num_layers=2))
+    dit = init_dit_params(cfg.dit, seed=0, device="cuda", dtype=torch.bfloat16)
+    vae = init_vae_params(cfg.vae, seed=1, device="cuda", dtype=torch.bfloat16)
+    return cfg, dit, vae
+
+
+def phase_k4_pipeline() -> None:
+    """Phase 3's model and clip with quantize="int8": W8A8 DiT with K2, every
+    hot conv of encoder and decoder int8 (K4 at k_t = 3 and 1, the stride-2
+    downsamplers as an int8 matrix product). Three runs share the models,
+    quantized in place by the first: kernels, K4's plain version
+    (conv_backend="plain"), K2's plain version ("plain-qk8")."""
+    from dove_tpu_torch.ops import conv3d_int8 as conv
+
+    cfg, dit, vae = _two_layer_models()
+    clip = np.random.default_rng(3).uniform(0, 1, (9, 96, 160, 3)).astype(np.float32)
+    counters = _conv_counters()
+    outs = {}
+    for name, backend, conv_backend in (("kernels", None, None),
+                                        ("plain conv", None, "plain"),
+                                        ("plain qk8", "plain-qk8", None)):
+        pipe = _pipeline(cfg, dit, vae, backend, sample_posterior=False,
+                         quantize="int8", conv_backend=conv_backend)
+        for c in counters.values():
+            c.reset()
+        conv.shape_log = []
+        torch.cuda.reset_peak_memory_stats()
+        out = pipe.process_frames(clip, seed=0)
+        outs[name] = (out, {n: c.count for n, c in counters.items()},
+                      dict(pipe.stage_times), torch.cuda.max_memory_allocated())
+        if name == "kernels":
+            shapes = conv.shape_log
+        conv.shape_log = None
+    want = predicted_conv_launches(pipe, *clip.shape[:3])
+    k_out, k_counts, k_times, k_peak = outs["kernels"]
+    layers = cfg.dit.num_layers
+    want_counts = {"kernels": dict(want, k1=0, k2=layers),
+                   "plain conv": dict(k1=0, k2=layers, k4=0, k4_kt1=0, k5=0, quantize=0),
+                   "plain qk8": dict(want, k1=0, k2=0)}
+    for name, (_, counts, _, _) in outs.items():
+        if counts != want_counts[name]:
+            raise AssertionError(f"phase 13 launches in the {name} run: {counts}, "
+                                 f"want {want_counts[name]}")
+    if k_out.shape != (9, 384, 640, 3) or k_out.dtype != np.uint8 or not k_out.std() > 0:
+        raise AssertionError(f"phase 13 output {k_out.shape} {k_out.dtype}")
+    unsupported = [sh for sh in _largest_logged(shapes).values()
+                   if sh[4] % 64 or sh[5] % 128]
+    if len(shapes) != want["k4"] + want["k4_kt1"] or unsupported:
+        raise AssertionError(f"phase 13 logged {len(shapes)} launches, {unsupported}")
+    identical = bool(np.array_equal(k_out, outs["plain conv"][0]))
+    psnr = psnr_u8(k_out, outs["plain qk8"][0])
+    log(f"phase 13 int8 pipeline (2 layers, full width, int8 DiT + encoder + "
+        f"decoder): K4 vs its plain version uint8 identical {identical}; K2 vs "
+        f"plain-qk8 PSNR {psnr:.2f} dB (bar {PSNR_BAR_DB}); launches {k_counts} as "
+        f"predicted from the window plan; output std {float(k_out.std()):.2f}, "
+        f"stages {json.dumps({k: round(v, 3) for k, v in k_times.items()})} "
+        f"(plain conv: {json.dumps({k: round(v, 3) for k, v in outs['plain conv'][2].items()})}), "
+        f"peak {k_peak / 2**30:.2f} GiB")
+    if not identical:
+        diff = np.abs(k_out.astype(int) - outs["plain conv"][0].astype(int))
+        raise AssertionError(f"phase 13: K4 and its plain version give different "
+                             f"outputs (max {diff.max()} LSB, {(diff > 0).mean():.2%})")
+    if not psnr >= PSNR_BAR_DB:
+        raise AssertionError(f"phase 13 PSNR {psnr} below {PSNR_BAR_DB}")
+    del dit, vae, pipe
+    torch.cuda.empty_cache()
+
+
+def phase_int8_dit_dec(profile_dir: str | None = None) -> dict:
+    """The mode the JAX package recommends, as its bench serves it: int8 DiT,
+    int8 decoder outside the "lowres" set, equalized from synthetic stats."""
+    from dove_tpu_torch import cogvideox1_5_5b, init_dit_params, init_vae_params
+    from dove_tpu_torch.ops import conv3d_int8 as conv
+    from dove_tpu_torch.ops import quant
+
+    resident = torch.cuda.memory_allocated()  # what earlier phases left: ~0
+    cfg = cogvideox1_5_5b()
+    t0 = time.perf_counter()
+    dit = init_dit_params(cfg.dit, seed=0, device="cuda", dtype=torch.bfloat16)
+    vae = init_vae_params(cfg.vae, seed=1, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pipe = _pipeline(cfg, dit, vae, None, sample_posterior=True,
+                     quantize="int8-dit-dec", vae_exclude=("lowres",),
+                     vae_calib=quant.synthetic_vae_calib(vae))
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    del dit, vae
+    qconvs = [m for m in pipe.vae.modules() if isinstance(m, quant.QConv3d)]
+    if not qconvs or any(m.equalize_inv is None for m in qconvs) or any(
+            isinstance(m, quant.QConv3d) for m in pipe.vae.encoder.modules()):
+        raise AssertionError("int8-dit-dec did not quantize and equalize the decoder only")
+    clip = np.random.default_rng(4).uniform(
+        0, 1, (CLIP_FRAMES, CLIP_H, CLIP_W, 3)).astype(np.float32)
+    counters = _conv_counters()
+    want = dict(predicted_conv_launches(pipe, *clip.shape[:3]), k1=0,
+                k2=cfg.dit.num_layers)
+    for c in counters.values():
+        c.reset()
+    conv.shape_log = []
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = pipe.process_frames(clip, seed=0)
+    wall = time.perf_counter() - t0
+    counts = {n: c.count for n, c in counters.items()}
+    shapes, conv.shape_log = conv.shape_log, None
+    peak = torch.cuda.max_memory_allocated()
+    expect = (CLIP_FRAMES, CLIP_H * cfg.upscale, CLIP_W * cfg.upscale, 3)
+    if out.shape != expect or out.dtype != np.uint8 or float(out.std()) == 0.0:
+        raise AssertionError(f"int8-dit-dec output {out.shape} {out.dtype}, want {expect}")
+    if counts != want:
+        raise AssertionError(f"phase 14 launches {counts}, want {want}")
+    largest = _largest_logged(shapes)
+    missing = [sh for sh in largest.values() if sh not in CONV_SHAPES]
+    if missing or CONV_SHAPES[0] not in largest.values():
+        raise AssertionError(f"phase 14 gave K4 shapes phase 12 did not check: {largest}")
+    stage_s = {k: round(v, 3) for k, v in pipe.stage_times.items()}
+    log(f"phase 14 int8-dit-dec main path (5B, {cfg.dit.num_layers} layers, W8A8 DiT, "
+        f"{len(qconvs)} int8 decoder convs outside \"lowres\" ({len(pipe.vae_exclude)} "
+        f"kept bf16), synthetic equalization; quantized in {quant_s:.1f}s, weights "
+        f"init {init_s:.1f}s, {resident / 2**30:.2f} GiB held before the phase): "
+        f"{CLIP_FRAMES} frames -> {expect[1]}x{expect[2]}, wall {wall:.2f}s, stages "
+        f"{json.dumps(stage_s)}, launches {counts} as predicted, largest K4 inputs "
+        f"{sorted(largest.values(), reverse=True)}, peak {peak / 2**30:.2f} GiB")
+    if profile_dir is not None:
+        profile_main_path(pipe, clip, profile_dir, "int8_dit_dec_main_path", "phase 14")
+    del pipe
+    torch.cuda.empty_cache()
+    return dict(launches=counts, stage_s=stage_s, wall_s=wall, peak_bytes=peak)
+
+
+def phase_hand_conv() -> dict:
+    """K5 opt-in: phase 3's bf16 pipeline with the float VAE's eligible
+    3x3x3 convs through K5 (hand_conv=True) and through cuDNN."""
+    from dove_tpu_torch.models import vae as vae_mod
+
+    cfg, dit, vae = _two_layer_models()
+    clip = np.random.default_rng(3).uniform(0, 1, (9, 96, 160, 3)).astype(np.float32)
+    counters = _conv_counters()
+    outs = {}
+    try:
+        for hand in (False, True, False):  # the first run warms the card up
+            pipe = _pipeline(cfg, dit, vae, None, sample_posterior=False, hand_conv=hand)
+            for c in counters.values():
+                c.reset()
+            out = pipe.process_frames(clip, seed=0)
+            counts = {n: c.count for n, c in counters.items()}
+            want = dict(predicted_conv_launches(pipe, *clip.shape[:3]),
+                        k1=cfg.dit.num_layers, k2=0)
+            if counts != want or bool(want["k5"]) != hand:
+                raise AssertionError(f"phase 15 hand_conv={hand}: launches {counts}, "
+                                     f"want {want}")
+            outs[hand] = (out, counts, dict(pipe.stage_times))
+    finally:
+        vae_mod.set_pallas_conv(False)
+    psnr = psnr_u8(outs[True][0], outs[False][0])
+    max_diff = int(np.abs(outs[True][0].astype(int) - outs[False][0].astype(int)).max())
+    log(f"phase 15 K5 opt-in (bf16, 2 layers, full width): hand_conv on vs off "
+        f"PSNR {psnr:.2f} dB (bar {PSNR_BAR_DB}), max |diff| {max_diff} LSB; K5 "
+        f"launches {outs[True][1]['k5']} on (every eligible conv of every forward), "
+        f"{outs[False][1]['k5']} off; stages on "
+        f"{json.dumps({k: round(v, 3) for k, v in outs[True][2].items()})}, off "
+        f"{json.dumps({k: round(v, 3) for k, v in outs[False][2].items()})}")
+    if not psnr >= PSNR_BAR_DB:
+        raise AssertionError(f"phase 15 PSNR {psnr} below {PSNR_BAR_DB}")
+    del dit, vae, pipe
+    torch.cuda.empty_cache()
+    return dict(launches=outs[True][1]["k5"], stage_s=outs[True][2],
+                stage_s_off=outs[False][2])
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
         "--profile", metavar="DIR", default=None,
-        help="after phases 4, 7 and 11, time a warm run and profile one more; "
-             "write the top kernels to DIR/main_path_profile.txt, "
-             "DIR/int8_main_path_profile.txt and DIR/train_step_profile.txt")
+        help="after phases 4, 7, 11 and 14, time a warm run and profile one "
+             "more; write the top kernels to DIR/main_path_profile.txt, "
+             "DIR/int8_main_path_profile.txt, DIR/train_step_profile.txt and "
+             "DIR/int8_dit_dec_main_path_profile.txt")
+    parser.add_argument(
+        "--phases", metavar="N,N", default=None,
+        help="development: run only these phases (after the build) and print "
+             "no result line")
     args = parser.parse_args(argv)
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
         return 1
@@ -1013,15 +1541,44 @@ def main(argv: list[str] | None = None) -> int:
         f"{torch.version.cuda}")
     phase_build()
     cfg = cogvideox1_5_5b()
-    k1 = phase_k1(main_path_seq_len(cfg), cfg.dit.num_attention_heads)
+    seq, heads = main_path_seq_len(cfg), cfg.dit.num_attention_heads
+    if args.phases is not None:
+        # a development run of some phases: no kernels line, no ok line
+        chosen = {int(p) for p in args.phases.split(",")}
+        for numbers, run in (
+                ({2}, lambda: phase_k1(seq, heads)),
+                ({3}, phase_kernel_vs_plain_pipeline),
+                ({4}, lambda: phase_main_path(args.profile)),
+                ({5}, lambda: phase_k2(seq, heads)),
+                ({6}, phase_k2_pipeline),
+                ({7, 8}, lambda: phase_int8_paths(args.profile)),
+                ({9}, lambda: phase_k3(heads)),
+                ({10}, phase_train_kernel_vs_plain),
+                ({11}, lambda: phase_train_recipe(args.profile)),
+                ({12}, phase_conv_kernels),
+                ({13}, phase_k4_pipeline),
+                ({14}, lambda: phase_int8_dit_dec(args.profile)),
+                ({15}, phase_hand_conv)):
+            if numbers & chosen:
+                t0 = time.perf_counter()
+                run()
+                log(f"  (phase {min(numbers)} took {time.perf_counter() - t0:.1f}s)")
+        log(f"partial run of phases {sorted(chosen)} on {card}: no result line")
+        return 0
+    k1 = phase_k1(seq, heads)
     phase_kernel_vs_plain_pipeline()
     main_path = phase_main_path(args.profile)
-    k2 = phase_k2(main_path_seq_len(cfg), cfg.dit.num_attention_heads)
+    k2 = phase_k2(seq, heads)
     phase_k2_pipeline()
     int8_main, streamed = phase_int8_paths(args.profile)
-    k3 = phase_k3(cfg.dit.num_attention_heads)
+    k3 = phase_k3(heads)
     phase_train_kernel_vs_plain()
     train = phase_train_recipe(args.profile)
+    k4, k5, quantizer = phase_conv_kernels()
+    phase_k4_pipeline()
+    dit_dec = phase_int8_dit_dec(args.profile)
+    hand = phase_hand_conv()
+    log(f"all phases took {time.perf_counter() - t_start:.1f}s")
 
     source = "dove_tpu_torch/csrc/flash_fwd.cu"
     kernels = [{
@@ -1083,6 +1640,58 @@ def main(argv: list[str] | None = None) -> int:
             "library_call": sdpa_bwd,
             "shape": k3["shape"],
         })
+    conv_source = "dove_tpu_torch/csrc/conv3d_taps.cu"
+    kernels.append({
+        "name": "conv3d_w8a8",
+        "route": "cuda",
+        "source": conv_source,
+        "replaces": "dove_tpu/ops/pallas/conv3d_int8.py:244",
+        "launches": dit_dec["launches"]["k4"],
+        "launches_kt1": dit_dec["launches"]["k4_kt1"],
+        "max_abs_err": k4["max_abs_err"],
+        "ms": k4["ms"],
+        "plain_ms": k4["plain_ms"],
+        "bound_ms": k4["bound_ms"],
+        "bound_by": k4["bound_by"],
+        "library_ms": k4["library_bf16_conv3d_ms"],
+        "library_call": "F.conv3d on bf16 operands of the same shape: a yardstick "
+                        "of a different function (no int8 convolution is bound)",
+        "shape": k4["shape"],
+        "by_shape": k4["by_shape"],
+    })
+    kernels.append({
+        "name": "conv3d_bf16",
+        "route": "cuda",
+        "source": conv_source,
+        "replaces": "dove_tpu/ops/pallas/conv3d_int8.py:337",
+        "launches": hand["launches"],
+        "max_abs_err": k5["max_abs_err"],
+        "ms": k5["ms"],
+        "plain_ms": k5["plain_ms"],
+        "bound_ms": k5["bound_ms"],
+        "bound_by": k5["bound_by"],
+        "library_ms": k5["library_ms"],
+        "library_channels_last_ms": k5["library_channels_last_ms"],
+        "library_call": "F.conv3d of the same bf16 tensors, NCDHW (and "
+                        "channels_last_3d)",
+        "shape": k5["shape"],
+        "by_shape": k5["by_shape"],
+    })
+    kernels.append({
+        "name": "quant_pack",
+        "route": "cuda",
+        "source": conv_source,
+        "replaces": "dove_tpu/ops/quant.py:240 (the quantizer's fused elementwise "
+                    "chain, one XLA pass on the TPU; not a Pallas kernel)",
+        "launches": dit_dec["launches"]["quantize"],
+        "max_abs_err": quantizer["max_abs_err"],
+        "ms": quantizer["ms"],
+        "plain_ms": quantizer["plain_ms"],
+        "bound_ms": quantizer["bound_ms"],
+        "bound_by": quantizer["bound_by"],
+        "library_ms": None,
+        "shape": quantizer["shape"],
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,14 +3,16 @@
 The port of ``dove_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100. It
 imports neither JAX nor ``dove_tpu``. What is ported so far is the staged
 inference path of CogVideoX1.5-5B in bf16 or fp32, unquantized or in the
-int8-DiT serving modes (``quantize="int8-dit"`` or ``"int8w"``,
-``ops/quant.py``), with long clips streamed or cut into chunks; and stage-1
-training, LoRA or SFT (``train/trainer.py``: ``DOVES1Trainer``). Its TPU
-kernels, the flash-attention forward in bf16 (K1, with the logsumexp in its
-training form) and with int8 Q K^T (K2), and the flash-attention backward
-(K3a, K3b), are hand-written CUDA kernels (``csrc/flash_fwd.cu``,
-``csrc/flash_bwd.cu``, bound in ``ops/flash_attention.py``). Entry points
-run on the card unless the caller passes ``device="cpu"``.
+five int8 serving modes (``quantize="int8"``, ``"int8-dit"``, ``"int8-vae"``,
+``"int8w"``, ``"int8-dit-dec"``; ``ops/quant.py``), with long clips streamed
+or cut into chunks; and stage-1 training, LoRA or SFT
+(``train/trainer.py``: ``DOVES1Trainer``). Its TPU kernels are hand-written
+CUDA kernels: the flash-attention forward in bf16 (K1, with the logsumexp in
+its training form) and with int8 Q K^T (K2) in ``csrc/flash_fwd.cu``, the
+flash-attention backward (K3a, K3b) in ``csrc/flash_bwd.cu`` (bound in
+``ops/flash_attention.py``), and the 3x3x3 tap convolution in int8 (K4) and
+bf16 (K5) in ``csrc/conv3d_taps.cu`` (bound in ``ops/conv3d_int8.py``).
+Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
 from dove_tpu_torch.config import (

@@ -4,9 +4,10 @@
 
 The subset of ``scripts/inference.py``'s flags that the port supports: the
 staged path (``--is_vae_st``, required) in bf16 or fp32, unquantized or in
-the int8-DiT serving modes (``--quantize int8-dit`` or ``int8w``), with
-clips of more than 33 frames streamed or cut into overlapping chunks
-(``--streaming``). Without
+one of the five int8 serving modes (``--quantize``; the ones that quantize
+the VAE also take ``--vae_calib`` and ``--vae_exclude``), with clips of more
+than 33 frames streamed or cut into overlapping chunks (``--streaming``),
+and ``--hand_conv`` for the hand-written bf16 conv in a float VAE. Without
 ``--model_path`` the weights are seeded random ones and the prompt embedding
 is zeros of shape (max_text_seq_length, text_embed_dim) unless the cached
 empty-prompt embedding is found under ``pretrained_models/``.
@@ -19,6 +20,7 @@ import logging
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 EMPTY_PROMPT = Path(
@@ -44,16 +46,31 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu")
     p.add_argument("--quantize", type=str, default=None,
-                   choices=["int8-dit", "int8w"],
-                   help="int8 DiT serving mode: 'int8-dit' runs W8A8 linears "
-                        "and, on the card, int8 Q K^T attention (K2); "
-                        "'int8w' stores int8 weights and computes in --dtype")
+                   choices=["int8", "int8-dit", "int8-vae", "int8w", "int8-dit-dec"],
+                   help="int8 serving modes: 'int8' quantizes DiT and VAE; "
+                        "'int8-dit' runs W8A8 DiT linears and, on the card, "
+                        "int8 Q K^T attention (K2); 'int8-vae' runs the VAE's "
+                        "hot convs in int8 (K4 on the card); 'int8w' stores "
+                        "int8 DiT weights and computes in --dtype; "
+                        "'int8-dit-dec' is int8-dit with an int8 VAE decoder")
+    p.add_argument("--vae_calib", type=str, default=None,
+                   help="npz of per-conv calibration stats (models.vae."
+                        "calibrate): folds a per-channel equalization, and "
+                        "with #tapcorr entries GPTQ tap-space rounding, into "
+                        "the quantized VAE convs (int8, int8-vae, int8-dit-dec)")
+    p.add_argument("--vae_exclude", type=str, default="",
+                   help="comma list of VAE conv names kept in --dtype inside "
+                        "a quantized VAE, or the literal 'lowres' for every "
+                        "decoder conv below the two full-resolution levels")
+    p.add_argument("--hand_conv", action="store_true",
+                   help="run the float VAE's eligible 3x3x3 convs through the "
+                        "hand-written bf16 conv kernel (K5) instead of cuDNN")
     p.add_argument("--streaming", type=str, default="auto",
                    choices=["auto", "on", "off"],
                    help="clips over 33 frames: stream contiguous segments "
                         "with the VAE's causal caches carried across them "
                         "(on), or run overlapping 33-frame chunks (off); "
-                        "auto streams with --quantize")
+                        "auto streams with an int8 DiT")
     return p
 
 
@@ -91,6 +108,10 @@ def load_pipeline(args):
         config=cfg, dit=dit, vae=vae, prompt_embedding=prompt_embedding,
         dtype=dtype, device=device, vae_tiling=args.is_vae_st,
         output_uint8=True, quantize=args.quantize, streaming=args.streaming,
+        vae_exclude=tuple(n.strip() for n in args.vae_exclude.split(",") if n.strip()),
+        vae_calib=({k: torch.from_numpy(v) for k, v in np.load(args.vae_calib).items()}
+                   if args.vae_calib else None),
+        hand_conv=args.hand_conv,
     )
 
 

@@ -1,7 +1,6 @@
-"""CogVideoX 3D causal VAE (bf16/fp32) in PyTorch.
+"""CogVideoX 3D causal VAE in PyTorch: bf16/fp32, or with int8 convs.
 
-Counterpart of ``dove_tpu/models/vae.py`` without its int8, calibration,
-error-attribution and Pallas branches, and without the ``tiled_*`` and
+Counterpart of ``dove_tpu/models/vae.py`` without the ``tiled_*`` and
 ``*_host`` APIs:
 
   * 8x spatial / 4x temporal compression, 16 latent channels;
@@ -10,15 +9,24 @@ error-attribution and Pallas branches, and without the ``tiled_*`` and
     causal conv's trailing k_t-1 input frames, so chunked and whole-clip
     results agree;
   * encoder temporal mean-pool and decoder temporal upsampling treat an odd
-    leading frame as the clip's causal first frame.
+    leading frame as the clip's causal first frame;
+  * a conv that ``ops.quant.quantize_vae`` swapped for a ``QConv3d`` runs as
+    an int8 convolution (``ops.quant.qconv``: K4 on the card);
+  * :func:`set_pallas_conv` routes the eligible float 3x3x3 convs through K5,
+    the hand-written bf16 conv, instead of cuDNN (off by default);
+  * :func:`calibrate` and :func:`attribute_quant_error` run a forward with
+    taps on every named conv: per-input-channel activation amax and tap
+    autocorrelation for ``quantize_vae``, or each quantizable conv's own int8
+    error.
 
 The parameters live in ``nn.Module``s named like the diffusers checkpoint
 (``encoder.down_blocks.0.resnets.1.conv1.conv.weight``, ...), so a released
 state dict loads with ``load_state_dict``. The forward code is functional
 over those modules. Public functions keep the JAX package's [B, F, H, W, C]
 layout; inside, activations are NCDHW, the layout cuDNN's 3D convolution
-takes. GroupNorm takes its statistics in fp32 and applies the affine in the
-model dtype, as the JAX package does.
+takes, and the int8 quantizer writes its codes channels-last for K4.
+GroupNorm takes its statistics in fp32 and applies the affine in the model
+dtype, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -30,8 +38,136 @@ import torch.nn.functional as F
 from torch import nn
 
 from dove_tpu_torch.config import VAEConfig
+from dove_tpu_torch.ops import conv3d_int8, quant
 
 Cache = dict[str, torch.Tensor]
+
+# Serving-only switch for K5, the hand-written bf16 3x3x3 conv
+# (ops/conv3d_int8.py). Off by default, as in the JAX package: the kernel has
+# no backward, and cuDNN's convolution stays the default route.
+_HAND_BF16_CONV = False
+
+
+def set_pallas_conv(enabled: bool) -> None:
+    """Route every eligible float conv (3x3x3, both channel counts multiples
+    of 128) through K5 from now on. The name is the JAX package's, whose
+    switch selects its Pallas kernel; here it selects the CUDA one. Process
+    wide: a trainer built after a serving pipeline turns it off first."""
+    global _HAND_BF16_CONV
+    _HAND_BF16_CONV = enabled
+
+
+# --- activation calibration (int8 channel equalization) --------------------
+# While _CALIB is a dict, every named conv records the per-input-channel amax
+# of its input into it, and once the input's tap autocorrelation. Keys are
+# "<scope>.<conv name>": the scope is set by encoder_/decoder_forward, the
+# names are the conv-cache keys ("up.0.res.1.conv1", ...), and
+# ops.quant.module_calib_name derives the same names from module paths.
+_CALIB: dict[str, torch.Tensor] | None = None
+_CALIB_SCOPE = ""
+
+
+def _calib_tap(name: str | None, x: torch.Tensor) -> None:
+    if _CALIB is None or name is None:
+        return
+    key = f"{_CALIB_SCOPE}.{name}"
+    xf = x.float()
+    amax = xf.abs().amax(dim=(0, 2, 3, 4))
+    _CALIB[key] = torch.maximum(_CALIB[key], amax) if key in _CALIB else amax
+    tkey = f"{key}#tapcorr"
+    if tkey not in _CALIB:  # the first capture wins; the amax folds over calls
+        _CALIB[tkey] = _tap_autocorr(xf)
+
+
+def _tap_autocorr(xf: torch.Tensor, reach: int = 2) -> torch.Tensor:
+    """NCDHW [B, C, F, H, W] -> [2r+1, 2r+1, 2r+1] normalized autocorrelation
+    c(d) = E[x(p) x(p+d)] / E[x^2] over (frame, h, w) shifts: the statistics
+    behind ``gptq_tap_rounding``. Entries with no valid overlap are 0."""
+    _, _, Fr, H, W = xf.shape
+    denom = xf.square().mean() + 1e-12
+    n = 2 * reach + 1
+    rows = []
+    for dt in range(-reach, reach + 1):
+        for dh in range(-reach, reach + 1):
+            for dw in range(-reach, reach + 1):
+                if Fr <= abs(dt) or H <= abs(dh) or W <= abs(dw):
+                    rows.append(torch.zeros((), dtype=torch.float32, device=xf.device))
+                    continue
+                a = xf[:, :, max(dt, 0):Fr + min(dt, 0),
+                       max(dh, 0):H + min(dh, 0), max(dw, 0):W + min(dw, 0)]
+                b = xf[:, :, max(-dt, 0):Fr + min(-dt, 0),
+                       max(-dh, 0):H + min(-dh, 0), max(-dw, 0):W + min(-dw, 0)]
+                rows.append((a * b).mean() / denom)
+    return torch.stack(rows).reshape(n, n, n)
+
+
+@torch.no_grad()
+def calibrate(fn, *args):
+    """Run ``fn(*args)`` once with the calibration taps on -> (fn's output,
+    {name: per-channel amax, name + "#tapcorr": autocorrelation})."""
+    global _CALIB
+    _CALIB = {}
+    try:
+        out = fn(*args)
+        return out, dict(_CALIB)
+    finally:
+        _CALIB = None
+
+
+# --- per-layer quantization-error attribution -------------------------------
+# While _QERR is a dict, every quantizable float conv also runs its int8
+# version on the same input and records the squared error and norm of its
+# output. The float activations keep flowing, so each record is the layer's
+# own rounding error. _QERR_CALIB carries calibrate()'s stats, so that the
+# measured quantizer is the equalized one when serving would equalize.
+_QERR: dict[str, tuple[torch.Tensor, torch.Tensor]] | None = None
+_QERR_CALIB: dict | None = None
+
+
+def _qerr_active(name: str | None, conv: nn.Module) -> bool:
+    if _QERR is None or name is None or isinstance(conv, quant.QConv3d):
+        return False
+    return quant.should_quantize_conv(conv.weight)
+
+
+def _qerr_leaf(conv: nn.Module, name: str) -> quant.QConv3d:
+    # as in the JAX package, the tap autocorrelation is not passed on: the
+    # attribution measures round-to-nearest weights
+    amax = (_QERR_CALIB or {}).get(f"{_CALIB_SCOPE}.{name}")
+    return quant.quantize_conv(
+        conv, with_ksum=True,
+        calib_amax=None if amax is None else torch.as_tensor(amax))
+
+
+def _qerr_record(name: str, y: torch.Tensor, y_q: torch.Tensor) -> None:
+    key = f"{_CALIB_SCOPE}.{name}"
+    e2 = (y_q.float() - y.float()).square().sum()
+    n2 = y.float().square().sum()
+    if key in _QERR:
+        pe, pn = _QERR[key]
+        e2, n2 = pe + e2, pn + n2
+    _QERR[key] = (e2, n2)
+
+
+@torch.no_grad()
+def attribute_quant_error(fn, *args, calib: dict | None = None):
+    """Run ``fn(*args)`` once with the quantization-error taps on -> (fn's
+    output, {name: (sum of squared error, sum of squared output)}); a layer's
+    relative error is sqrt(err / norm). ``calib`` equalizes the measured
+    quantizer. Convs that are already int8 are skipped."""
+    global _QERR, _QERR_CALIB
+    _QERR, _QERR_CALIB = {}, calib
+    try:
+        out = fn(*args)
+        return out, dict(_QERR)
+    finally:
+        _QERR, _QERR_CALIB = None, None
+
+
+def _set_scope(scope: str) -> None:
+    global _CALIB_SCOPE
+    if _CALIB is not None or _QERR is not None:
+        _CALIB_SCOPE = scope
 
 
 # ---------------------------------------------------------------------------
@@ -138,17 +274,27 @@ class AutoencoderKLCogVideoX(nn.Module):
 # ---------------------------------------------------------------------------
 
 def causal_conv3d(
-    p: CausalConv3d | nn.Conv3d, x: torch.Tensor, cache: torch.Tensor | None,
-    keep_cache: bool = True,
+    p: CausalConv3d | nn.Module, x: torch.Tensor, cache: torch.Tensor | None,
+    keep_cache: bool = True, name: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Causal 3D conv: temporal left context from ``cache`` (or first-frame
     replicate at clip start), symmetric zero spatial padding.
 
-    Returns (output, new_cache): the trailing k_t-1 input frames for the next
-    chunk (a copy, so it does not keep the padded input alive), or None when
-    k_t == 1 or the caller does not keep caches."""
+    A ``QConv3d`` runs as an int8 convolution; an eligible float conv runs
+    through K5 when :func:`set_pallas_conv` is on; the rest through cuDNN.
+    ``name`` (the conv-cache key) feeds the calibration and attribution
+    taps. Returns (output, new_cache): the trailing k_t-1 input frames for
+    the next chunk (a copy, so it does not keep the padded input alive), or
+    None when k_t == 1 or the caller does not keep caches."""
     conv = p.conv if isinstance(p, CausalConv3d) else p
-    kt, kh, kw = conv.weight.shape[2:]
+    _calib_tap(name, x)
+    if _qerr_active(name, conv):  # attribution: also run the int8 version
+        y_q, _ = causal_conv3d(_qerr_leaf(conv, name), x, cache, False)
+        y, new_cache = causal_conv3d(conv, x, cache, keep_cache)  # no re-tap
+        _qerr_record(name, y, y_q)
+        return y, new_cache
+    quantized = isinstance(conv, quant.QConv3d)
+    kt, kh, kw = (conv.kt, 3, 3) if quantized else conv.weight.shape[2:]
     new_cache = None
     if kt > 1:
         if cache is None:
@@ -158,12 +304,42 @@ def causal_conv3d(
         x = torch.cat([left, x], dim=2)
         if keep_cache:
             new_cache = x[:, :, -(kt - 1):].clone()
+    if quantized:
+        return quant.qconv(conv, x, stride=1, padding=1), new_cache
+    if (_HAND_BF16_CONV and (kt, kh, kw) == (3, 3, 3)
+            and conv.in_channels % 128 == 0 and conv.out_channels % 128 == 0):
+        return _hand_conv3d(conv, x), new_cache
     y = F.conv3d(x, conv.weight, conv.bias, padding=(0, (kh - 1) // 2, (kw - 1) // 2))
     return y, new_cache
 
 
-def _conv_per_frame(p: Conv2dHolder, x: torch.Tensor, stride: int, padding: int) -> torch.Tensor:
+def _hand_conv3d(conv: nn.Conv3d, x: torch.Tensor) -> torch.Tensor:
+    """K5's route: x NCDHW with its causal frames -> bf16 channels-last with
+    the spatial border in place (the kernel computes VALID), weights rounded
+    to bf16 in the kernel's tap layout, the output in x's dtype, NCDHW."""
+    B, C, Ft, H, W = x.shape
+    xp = torch.zeros((B, Ft, H + 2, W + 2, C), dtype=torch.bfloat16, device=x.device)
+    xp[:, :, 1:-1, 1:-1].permute(0, 4, 1, 2, 3).copy_(x)
+    wp = conv3d_int8.pack_taps(conv.weight.permute(2, 3, 4, 1, 0).to(torch.bfloat16))
+    y = conv3d_int8.conv_taps(xp, wp, None, 3, x.dtype, channels_first=True)
+    if conv.bias is not None:
+        y = y + conv.bias.to(y.dtype).view(1, -1, 1, 1, 1)
+    return y
+
+
+def _conv_per_frame(
+    p: Conv2dHolder, x: torch.Tensor, stride: int, padding: int,
+    name: str | None = None,
+) -> torch.Tensor:
     """The down/upsampler's 2D conv on every frame, as a k_t=1 3D conv."""
+    _calib_tap(name, x)
+    if _qerr_active(name, p.conv):  # attribution: also run the int8 version
+        y_q = quant.qconv(_qerr_leaf(p.conv, name), x, stride, padding)
+        y = _conv_per_frame(p, x, stride, padding)  # name omitted: no re-tap
+        _qerr_record(name, y, y_q)
+        return y
+    if isinstance(p.conv, quant.QConv3d):
+        return quant.qconv(p.conv, x, stride, padding)
     w = p.conv.weight.unsqueeze(2)
     return F.conv3d(x, w, p.conv.bias, stride=(1, stride, stride),
                     padding=(0, padding, padding))
@@ -228,18 +404,20 @@ def _resnet(
 
     h = F.silu(norm(p.norm1, x))
     h, new_cache[f"{path}.conv1"] = causal_conv3d(
-        p.conv1, h, cache.get(f"{path}.conv1"), keep_cache
+        p.conv1, h, cache.get(f"{path}.conv1"), keep_cache, name=f"{path}.conv1"
     )
     h = F.silu(norm(p.norm2, h))
     h, new_cache[f"{path}.conv2"] = causal_conv3d(
-        p.conv2, h, cache.get(f"{path}.conv2"), keep_cache
+        p.conv2, h, cache.get(f"{path}.conv2"), keep_cache, name=f"{path}.conv2"
     )
     if p.conv_shortcut is not None:
-        x, _ = causal_conv3d(p.conv_shortcut, x, None)
+        x, _ = causal_conv3d(p.conv_shortcut, x, None, name=f"{path}.conv_shortcut")
     return x + h
 
 
-def _downsample(p: Conv2dHolder, x: torch.Tensor, compress_time: bool) -> torch.Tensor:
+def _downsample(
+    p: Conv2dHolder, x: torch.Tensor, compress_time: bool, name: str | None = None,
+) -> torch.Tensor:
     """Spatial stride-2 conv with (0,1) asymmetric pad; optional 2x temporal
     mean-pool with causal first-frame passthrough on odd lengths."""
     if compress_time:
@@ -252,11 +430,12 @@ def _downsample(p: Conv2dHolder, x: torch.Tensor, compress_time: bool) -> torch.
         else:
             x = x.reshape(B, C, Fr // 2, 2, H, W).mean(dim=3)
     x = F.pad(x, (0, 1, 0, 1))
-    return _conv_per_frame(p, x, stride=2, padding=0)
+    return _conv_per_frame(p, x, stride=2, padding=0, name=name)
 
 
 def _upsample(
-    p: Conv2dHolder, x: torch.Tensor, compress_time: bool, first: bool = True
+    p: Conv2dHolder, x: torch.Tensor, compress_time: bool, first: bool = True,
+    name: str | None = None,
 ) -> torch.Tensor:
     """2x nearest upsample (spatial, and temporal when compress_time) + conv.
 
@@ -274,7 +453,7 @@ def _upsample(
             x = _nearest_resize(x, 1, H * 2, W * 2)
     else:
         x = _nearest_resize(x, Fr, H * 2, W * 2)
-    return _conv_per_frame(p, x, stride=1, padding=1)
+    return _conv_per_frame(p, x, stride=1, padding=1, name=name)
 
 
 # ---------------------------------------------------------------------------
@@ -286,19 +465,23 @@ def encoder_forward(
     keep_cache: bool = True,
 ) -> tuple[torch.Tensor, Cache]:
     """Pixels [B, 3, F, H, W] -> moments [B, 2*latent, F', H/8, W/8]."""
+    _set_scope("encoder")
     cache = cache or {}
     nc: Cache = {}
-    h, nc["conv_in"] = causal_conv3d(enc.conv_in, x, cache.get("conv_in"), keep_cache)
+    h, nc["conv_in"] = causal_conv3d(enc.conv_in, x, cache.get("conv_in"), keep_cache,
+                                     name="conv_in")
     n_blocks = len(cfg.block_out_channels)
     for i, level in enumerate(enc.down_blocks):
         for j, res in enumerate(level.resnets):
             h = _resnet(res, h, None, cache, nc, f"down.{i}.res.{j}", True, keep_cache)
         if i < n_blocks - 1:
-            h = _downsample(level.downsamplers[0], h, i < cfg.temporal_compress_level)
+            h = _downsample(level.downsamplers[0], h, i < cfg.temporal_compress_level,
+                            name=f"down.{i}.downsample")
     for j, res in enumerate(enc.mid_block.resnets):
         h = _resnet(res, h, None, cache, nc, f"mid.{j}", True, keep_cache)
     h = F.silu(_group_norm(enc.norm_out, h))
-    h, nc["conv_out"] = causal_conv3d(enc.conv_out, h, cache.get("conv_out"), keep_cache)
+    h, nc["conv_out"] = causal_conv3d(enc.conv_out, h, cache.get("conv_out"), keep_cache,
+                                      name="conv_out")
     return h, nc
 
 
@@ -311,10 +494,12 @@ def decoder_forward(
     ``cache is None`` marks the clip's first segment (its leading latent is
     the causally special first frame); with a cache this is a continuation
     segment: uniform temporal upsampling, conv left context from the cache."""
+    _set_scope("decoder")
     first = cache is None
     cache = cache or {}
     nc: Cache = {}
-    h, nc["conv_in"] = causal_conv3d(dec.conv_in, z, cache.get("conv_in"), keep_cache)
+    h, nc["conv_in"] = causal_conv3d(dec.conv_in, z, cache.get("conv_in"), keep_cache,
+                                     name="conv_in")
     for j, res in enumerate(dec.mid_block.resnets):
         h = _resnet(res, h, z, cache, nc, f"mid.{j}", first, keep_cache)
     n_blocks = len(cfg.block_out_channels)
@@ -322,9 +507,11 @@ def decoder_forward(
         for j, res in enumerate(level.resnets):
             h = _resnet(res, h, z, cache, nc, f"up.{i}.res.{j}", first, keep_cache)
         if i < n_blocks - 1:
-            h = _upsample(level.upsamplers[0], h, i < cfg.temporal_compress_level, first)
+            h = _upsample(level.upsamplers[0], h, i < cfg.temporal_compress_level, first,
+                          name=f"up.{i}.upsample")
     h = F.silu(_spatial_norm3d(dec.norm_out, h, z, first))
-    h, nc["conv_out"] = causal_conv3d(dec.conv_out, h, cache.get("conv_out"), keep_cache)
+    h, nc["conv_out"] = causal_conv3d(dec.conv_out, h, cache.get("conv_out"), keep_cache,
+                                      name="conv_out")
     return h, nc
 
 

@@ -1,11 +1,13 @@
 """DOVE one-step video super-resolution, the staged path, in PyTorch.
 
 Counterpart of ``dove_tpu/pipeline.py``'s staged branch (``vae_tiling=True``,
-the reference's ``--is_vae_st`` default) for bf16 or fp32, unquantized or
-in the int8-DiT serving modes (``quantize="int8-dit"``: W8A8 linears and
-K2's int8 Q K^T attention; ``"int8w"``: weight-only int8 linears). A clip of
-up to 33 frames is one pass of three stages, each ended by a device
-synchronisation (the stage barrier):
+the reference's ``--is_vae_st`` default) for bf16 or fp32, unquantized or in
+one of the JAX package's five int8 serving modes (``quantize``): the DiT's
+linears W8A8 with K2's int8 Q K^T attention (``"int8-dit"``) or weight-only
+(``"int8w"``), the VAE's hot convs int8 through K4 (``"int8-vae"``), both
+(``"int8"``), or the int8 DiT with an int8 decoder and a float encoder
+(``"int8-dit-dec"``). A clip of up to 33 frames is one pass of three stages,
+each ended by a device synchronisation (the stage barrier):
 
   * enc: 4x bilinear upscale on the device, VAE encode over feathered
     spatial windows, feathered assembly of the moments;
@@ -16,7 +18,7 @@ synchronisation (the stage barrier):
 
 Longer clips run either as overlapping 33-frame chunks, trimmed at the
 overlap midpoints (the reference's temporal stitching), or streamed
-(``streaming``; on by default in the int8-DiT modes): contiguous segments
+(``streaming``; on by default with an int8 DiT): contiguous segments
 whose causal conv caches carry across segment calls, so the VAE touches
 every frame once, and only the DiT runs on overlapping latent windows. The
 window plans are the JAX package's (its 16 GB plans), so seams fall where
@@ -25,8 +27,7 @@ W8A8 DiT, K2; both take bf16 only, so an fp32 pipeline there needs
 ``attention_backend="plain"``.
 
 Not ported yet (each raises): the fused outer-tile path (vae_tiling=False or
-tile_size_hw), mesh serving and the int8 VAE modes ("int8", "int8-vae",
-"int8-dit-dec", which need K4).
+tile_size_hw) and mesh serving.
 """
 
 from __future__ import annotations
@@ -57,9 +58,7 @@ from dove_tpu_torch.train.losses import one_step_x0_latent
 logger = logging.getLogger(__name__)
 
 MAX_FRAMES_PER_PASS = 33
-QUANTIZE_MODES = ("int8-dit", "int8w")
-# the int8 VAE modes come with K4, the int8 conv kernel
-UNPORTED_QUANTIZE_MODES = ("int8", "int8-vae", "int8-dit-dec")
+QUANTIZE_MODES = ("int8", "int8-dit", "int8-vae", "int8w", "int8-dit-dec")
 # Streaming: the first pixel segment carries the causally special first
 # frame; later segments are a multiple of the 4x temporal ratio.
 STREAM_SEG0_PX = 33
@@ -236,14 +235,31 @@ class DovePipeline:
     output_uint8: bool = False
     # planar BT.601 studio-swing I420 [F, H*3//2, W] instead of RGB
     output_i420: bool = False
-    # int8 serving modes of the DiT (ops/quant.py), quantized in place when
-    # the pipeline is built (the DiT passed in becomes the int8 one):
-    #   "int8-dit": W8A8 linears (int8 weights, per-token int8 activations)
-    #               and, on the card, K2's int8 Q K^T attention;
-    #   "int8w":    W8A16, int8 weights dequantized into the bf16 matmuls.
-    # Both halve the DiT's weight bytes and take the JAX package's int8
-    # window plan; the VAE stays bf16.
+    # int8 serving modes (ops/quant.py), quantized in place when the pipeline
+    # is built (the DiT and VAE passed in become the int8 ones):
+    #   "int8":     DiT and VAE quantized;
+    #   "int8-dit": W8A8 DiT linears (int8 weights, per-token int8
+    #               activations) and, on the card, K2's int8 Q K^T attention;
+    #               the VAE stays in the model dtype;
+    #   "int8-vae": the VAE's hot convs int8 (K4 on the card), the DiT not;
+    #   "int8w":    W8A16 DiT, int8 weights dequantized into the bf16 matmuls;
+    #   "int8-dit-dec": int8 DiT and int8 VAE decoder, the encoder float (its
+    #               error would feed the DiT; the decoder's stays in pixels).
+    # Each takes the JAX package's window plan for its mode.
     quantize: str | None = None
+    # {name: per-input-channel activation amax, name + "#tapcorr": ...} from
+    # models.vae.calibrate: where the mode quantizes the VAE, each matched
+    # conv is equalized (and GPTQ-rounded with a tapcorr). Ignored otherwise.
+    vae_calib: dict | None = None
+    # runtime conv names (ops.quant.calib_name) kept in the model dtype inside
+    # a quantized VAE; "lowres" stands for lowres_decoder_exclusions(vae)
+    vae_exclude: tuple[str, ...] = ()
+    # K4's plain version instead of the kernel on any device ("plain"), for
+    # comparisons; None is the kernel on the card
+    conv_backend: str | None = None
+    # route the eligible float 3x3x3 VAE convs through K5, the hand-written
+    # bf16 conv, instead of cuDNN (models.vae.set_pallas_conv; process-wide)
+    hand_conv: bool = False
     # Streamed long-clip path ("auto" | "on" | "off" | bool): clips of more
     # than one pass run as contiguous segments with the causal conv caches
     # carried across them, and only the DiT runs on overlapping latent
@@ -273,18 +289,16 @@ class DovePipeline:
                 "dec_window_cap must exceed the 2-latent feather band "
                 f"(each side >= 3); got {self.dec_window_cap}"
             )
-        if self.quantize in UNPORTED_QUANTIZE_MODES:
-            raise NotImplementedError(
-                f"quantize={self.quantize!r} quantizes the VAE, which needs "
-                "the int8 conv kernel (K4); that slice is not ported yet"
-            )
         if self.quantize is not None and self.quantize not in QUANTIZE_MODES:
             raise ValueError(f"unknown quantize mode: {self.quantize}")
+        if self.conv_backend not in (None, "plain"):
+            raise ValueError(f"unknown conv_backend: {self.conv_backend}")
         if self.output_i420 and not (self.vae_tiling and self.output_uint8):
             raise ValueError(
                 "output_i420 requires the staged path (vae_tiling=True) "
                 "with output_uint8=True"
             )
+        self.vae_exclude = tuple(self.vae_exclude)
         self._stream_enabled()  # an unknown streaming value fails here
         T = self.config.scheduler.num_train_timesteps
         for name in ("sr_noise_step", "noise_step"):
@@ -301,6 +315,20 @@ class DovePipeline:
             # on its accelerator; the CPU keeps the automatic dispatch
             self.attention_backend = "flash-qk8"
         self.vae = self.vae.to(device=self.device, dtype=self.dtype).eval()
+        if self._vae_decoder_quantized:
+            if "lowres" in self.vae_exclude:
+                # expand the named set against this VAE before the names
+                # are validated
+                self.vae_exclude = tuple(
+                    n for n in self.vae_exclude if n != "lowres"
+                ) + quant.lowres_decoder_exclusions(self.vae)
+            self.vae = quant.quantize_vae(
+                self.vae, which="all" if self._vae_quantized else "decoder",
+                calib=self.vae_calib, exclude=self.vae_exclude)
+        for mod in self.vae.modules():
+            if isinstance(mod, quant.QConv3d):
+                mod.backend = self.conv_backend
+        vae_mod.set_pallas_conv(self.hand_conv)
         self.prompt_embedding = self.prompt_embedding.to(self.device, self.dtype)
         # per-clip stage wall times (seconds), reset by process_frames
         self.stage_times: dict[str, float] = {}
@@ -308,19 +336,32 @@ class DovePipeline:
     @property
     def _dit_quantized(self) -> bool:
         """W8A8 compute: int8 activations and K2's int8 Q K^T."""
-        return self.quantize == "int8-dit"
+        return self.quantize in ("int8", "int8-dit", "int8-dit-dec")
 
     @property
     def _dit_resident_int8(self) -> bool:
         """DiT weights stored int8, the W8A16 mode included."""
-        return self.quantize in QUANTIZE_MODES
+        return self.quantize in ("int8", "int8-dit", "int8w", "int8-dit-dec")
+
+    @property
+    def _vae_quantized(self) -> bool:
+        return self.quantize in ("int8", "int8-vae")
+
+    @property
+    def _vae_decoder_quantized(self) -> bool:
+        return self.quantize in ("int8", "int8-vae", "int8-dit-dec")
 
     def _window_budget(self) -> tuple[int, tuple[int, int], tuple[int, int]]:
         """(blend_lat, (enc_max_h, enc_max_w), (dec_max_h, dec_max_w)) in
-        latents: the JAX package's plans for a 16 GB device. The int8 DiT
-        leaves room for larger windows than bf16, but not for the int8 VAE
-        modes' decode budget, which comes with their slice."""
-        if self._dit_resident_int8:
+        latents: the JAX package's plans for a 16 GB device, by mode. An
+        int8 DiT leaves room for larger windows than bf16; an int8 decoder
+        beside it for the largest decode windows, and an int8 encoder too
+        for the largest encode windows."""
+        if self._dit_quantized and self._vae_quantized:
+            blend, enc_max, dec_max = 2, (46, 42), (46, 42)
+        elif self.quantize == "int8-dit-dec":
+            blend, enc_max, dec_max = 2, (40, 38), (46, 42)
+        elif self._dit_resident_int8:
             blend, enc_max, dec_max = 2, (40, 38), (36, 34)
         else:
             blend, enc_max, dec_max = 2, (32, 32), (28, 28)

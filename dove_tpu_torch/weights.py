@@ -11,9 +11,12 @@ conv kernels stored [kt, kh, kw, Cin, Cout] (2D: [kh, kw, Cin, Cout]). It
 also takes a DiT tree that the JAX package's ``quantize_dit`` made (int8
 ``kernel_q`` or ``kernel_w8`` beside fp32 ``kernel_scale`` of [L, 1, out]):
 the port's DiT then carries the same codes and scales in ``QLinear`` or
-``W8Linear`` modules. ``from_jax_lora`` carries the JAX package's LoRA tree
-across, and ``fuse_lora_into_dit`` fuses a peft adapter (the trained LoRA's
-export) into a DiT so that the pipeline serves it.
+``W8Linear`` modules. A VAE tree that ``quantize_vae`` made (conv leaves
+with ``kernel_q``, ``kernel_scale`` and optionally ``kernel_ksum`` and
+``equalize_inv``) likewise gives a VAE with the same codes in ``QConv3d``s.
+``from_jax_lora`` carries the JAX package's LoRA tree across, and
+``fuse_lora_into_dit`` fuses a peft adapter (the trained LoRA's export) into
+a DiT so that the pipeline serves it.
 
 ``safetensors`` is imported inside the functions that read files.
 """
@@ -115,9 +118,20 @@ def convert_vae(
     tensors: Tensors, cfg: VAEConfig, dtype: torch.dtype = torch.bfloat16,
     device="cpu",
 ) -> AutoencoderKLCogVideoX:
-    """diffusers AutoencoderKLCogVideoX state dict -> the port's VAE."""
+    """diffusers AutoencoderKLCogVideoX state dict -> the port's VAE. A conv
+    whose entry holds ``weight_q`` (``QConv3d``'s state) becomes a
+    ``QConv3d``."""
     with torch.device("meta"):
         vae = AutoencoderKLCogVideoX(cfg, dtype=dtype)
+        for _, path, parent, attr, conv in quant.quantizable_convs(vae):
+            prefix = f"{path}."
+            if f"{prefix}weight_q" in tensors:
+                kt = conv.weight.shape[2] if conv.weight.ndim == 5 else 1
+                setattr(parent, attr, quant.QConv3d.empty(
+                    conv.in_channels, conv.out_channels, kt,
+                    f"{prefix}kernel_ksum" in tensors,
+                    f"{prefix}equalize_inv" in tensors,
+                    conv.bias is not None, dtype=dtype))
     vae = vae.to_empty(device=device)
     _load_into(vae, tensors)
     return vae.eval().requires_grad_(False)
@@ -171,11 +185,36 @@ def _torch_layout(name: str, leaf: np.ndarray) -> np.ndarray:
     raise ValueError(f"unexpected kernel rank {leaf.ndim}")
 
 
+def _quantized_conv_leaves(leaf: Mapping[str, Any], prefix: str,
+                           out: dict[str, np.ndarray]) -> None:
+    """A conv leaf of the JAX package's ``quantize_vae`` -> ``QConv3d``'s
+    state: codes [(kt,) 3, 3, I, O] -> [taps, O, I], the channel-summed codes
+    [(kt,) 3, 3, 1, O] -> [O, 1, kt, 3, 3]."""
+    codes = np.asarray(leaf["kernel_q"])
+    cin, cout = codes.shape[-2:]
+    kt = codes.shape[0] if codes.ndim == 5 else 1
+    out[f"{prefix}weight_q"] = np.ascontiguousarray(
+        codes.reshape(-1, cin, cout).transpose(0, 2, 1))
+    out[f"{prefix}kernel_scale"] = np.asarray(
+        leaf["kernel_scale"], np.float32).reshape(-1).copy()
+    if "kernel_ksum" in leaf:
+        ksum = np.asarray(leaf["kernel_ksum"], np.float32).reshape(-1, cout)
+        out[f"{prefix}kernel_ksum"] = np.ascontiguousarray(
+            ksum.T.reshape(cout, 1, kt, 3, 3))
+    if "equalize_inv" in leaf:
+        out[f"{prefix}equalize_inv"] = np.asarray(
+            leaf["equalize_inv"], np.float32).reshape(-1).copy()
+    if "bias" in leaf:
+        out[f"{prefix}bias"] = np.array(leaf["bias"], np.float32, order="C")
+
+
 def _flatten(tree: Any, prefix: str, out: dict[str, np.ndarray],
              rename: dict[str, str], causal: bool) -> None:
     """Walk a JAX tree, emitting diffusers names: "kernel"/"scale" become
     "weight", list indices become ".i", and a VAE causal conv gains ".conv"."""
-    if isinstance(tree, Mapping):
+    if isinstance(tree, Mapping) and np.ndim(tree.get("kernel_q", 0)) >= 4:
+        _quantized_conv_leaves(tree, prefix, out)
+    elif isinstance(tree, Mapping):
         for key, sub in tree.items():
             if key in _QUANT_LEAVES:
                 leaf = np.asarray(sub)
@@ -235,7 +274,8 @@ def from_jax_params(
     device="cpu",
 ) -> tuple[CogVideoXTransformer3D, AutoencoderKLCogVideoX]:
     """The JAX package's parameter trees (NumPy leaves) -> (DiT, VAE). A
-    quantized DiT tree gives a DiT with the same int8 codes and scales."""
+    quantized DiT or VAE tree gives a model with the same int8 codes and
+    scales."""
     to_q = dit_tree["blocks"]["attn1"]["to_q"]
     quantized = ("w8a8" if "kernel_q" in to_q
                  else "w8a16" if "kernel_w8" in to_q else None)

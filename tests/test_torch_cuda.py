@@ -12,6 +12,7 @@ from __future__ import annotations
 import pytest
 import torch
 
+from dove_tpu_torch.ops import conv3d_int8 as tconv
 from dove_tpu_torch.ops import flash_attention as fa
 from dove_tpu_torch.ops import quant
 
@@ -182,3 +183,168 @@ def test_qlinear_on_card_matches_cpu(rows):
     assert torch.equal(acc_card.cpu(), acc)
     torch.testing.assert_close(mod.to(dev)(x.to(dev)).cpu(), mod.cpu()(x),
                                rtol=1e-6, atol=1e-6)
+
+
+# K4 and K5 (csrc/conv3d_taps.cu): (B, Fo, Ho, Wo, Cin, Cout, kt)
+CONV_CASES = [
+    (1, 2, 16, 32, 128, 128, 3),  # whole 8x16 tiles
+    (2, 1, 13, 21, 256, 128, 3),  # ragged rows and columns, Fo = 1, a batch
+    (1, 3, 9, 40, 64, 256, 3),  # one 64-channel slab, two cout blocks
+    (2, 3, 11, 19, 128, 128, 1),  # the per-frame 3x3 conv
+]
+
+
+def _conv_case(case, seed, dev, int8: bool):
+    B, Fo, Ho, Wo, cin, cout, kt = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shape_x = (B, Fo + kt - 1, Ho + 2, Wo + 2, cin)
+    shape_w = (kt * 9, cout, cin)
+    if int8:
+        x = torch.randint(-127, 128, shape_x, generator=gen, device=dev).to(torch.int8)
+        w = torch.randint(-127, 128, shape_w, generator=gen, device=dev).to(torch.int8)
+        scale = torch.rand(cout, generator=gen, device=dev) * 1e-4
+        return x, w, scale
+    x = torch.randn(shape_x, generator=gen, device=dev, dtype=torch.bfloat16)
+    w = (torch.randn(shape_w, generator=gen, device=dev) * 0.03).to(torch.bfloat16)
+    return x, w, None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CONV_CASES)
+@pytest.mark.parametrize("channels_first", [False, True])
+def test_k4_equals_plain_on_card(case, channels_first):
+    """K4 is exact: int32 sums, one fp32 multiply, one rounding."""
+    dev = _card()
+    x, w, scale = _conv_case(case, 1, dev, int8=True)
+    counter = tconv.launches_w8a8 if case[-1] == 3 else tconv.launches_w8a8_kt1
+    for out_dtype in (torch.float32, torch.bfloat16):
+        before = counter.count
+        out = tconv.conv_taps(x, w, scale, case[-1], out_dtype, channels_first)
+        torch.cuda.synchronize()
+        assert counter.count == before + 1
+        ref = tconv.conv_taps_plain(x, w, scale, case[-1], out_dtype, channels_first)
+        assert out.shape == ref.shape and out.dtype == out_dtype
+        assert out.is_contiguous()
+        assert torch.equal(out, ref)
+    short = tconv.conv_taps_plain(x, w, scale, case[-1], torch.float32,
+                                  channels_first, skip_tap=4)
+    assert not torch.equal(out.float(), short)  # the comparison can fail
+    # the VAE's form: the offset term by border class and the bias, added in
+    # the epilogue in the plain version's order
+    B, Fo, Ho, Wo, cin, cout, kt = case
+    gen = torch.Generator(device=dev).manual_seed(7)
+    addend = torch.randn((cout, min(Ho, 3), min(Wo, 3)), generator=gen, device=dev)
+    bias = torch.randn(cout, generator=gen, device=dev)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        out = tconv.conv_taps(x, w, scale * 1e3, kt, out_dtype, channels_first,
+                              addend=addend, bias=bias)
+        ref = tconv.conv_taps_plain(x, w, scale * 1e3, kt, out_dtype, channels_first,
+                                    addend=addend, bias=bias)
+        assert torch.equal(out, ref)
+    bare = tconv.conv_taps_plain(x, w, scale * 1e3, kt, torch.float32, channels_first)
+    assert not torch.equal(out.float(), bare)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CONV_CASES[:3])
+def test_k5_within_bars_on_card(case):
+    """K5 sums fp32 products in another order than its plain version: fp32
+    out within 2e-5 of the largest output (tests/test_conv_kernel.py), bf16
+    out within one bf16 ulp of the plain bf16 result (plus that fp32 slack,
+    which is all that separates two outputs near zero)."""
+    dev = _card()
+    x, w, _ = _conv_case(case, 2, dev, int8=False)
+    before = tconv.launches_bf16.count
+    out = tconv.conv_taps(x, w, None, 3, torch.float32, channels_first=True)
+    out_bf = tconv.conv_taps(x, w, None, 3, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert tconv.launches_bf16.count == before + 2
+    ref = tconv.conv_taps_plain(x, w, None, 3, torch.float32, channels_first=True)
+    ref_bf = tconv.conv_taps_plain(x, w, None, 3, torch.bfloat16)
+    slack = 2e-5 * float(ref.abs().max())
+    assert float((out - ref).abs().max()) <= slack
+    _, exponent = torch.frexp(ref_bf.float().abs())
+    ulp = torch.ldexp(torch.ones_like(ref_bf, dtype=torch.float32), exponent - 8)
+    assert bool(((out_bf.float() - ref_bf.float()).abs() <= ulp + slack).all())
+    jax_form = tconv.conv3d_bf16(x[0].float(), w.view(3, 3, 3, *w.shape[1:])
+                                 .permute(0, 1, 2, 4, 3).float(), torch.float32)
+    assert torch.equal(jax_form, out[0].permute(1, 2, 3, 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("with_eq", [False, True])
+@pytest.mark.parametrize("shape,padding", [((2, 68, 3, 13, 37), 1),  # ragged tiles
+                                           ((1, 256, 2, 9, 70), 0),
+                                           ((1, 128, 4, 40, 64), 1)])
+def test_quantize_pack_equals_plain_on_card(shape, padding, with_eq, dtype):
+    """The quantizer's kernel against its plain version on the card: the
+    same rounded fp32 steps (one fused multiply-add with an equalization
+    vector), so the codes are equal, the zero border included."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(sum(shape))
+    x = (torch.randn(shape, generator=gen, device=dev) * 3).to(dtype)
+    eq = torch.rand(shape[1], generator=gen, device=dev) + 0.5 if with_eq else None
+    s, m = quant.asym_grid(x, eq_inv=eq, channel_dim=1)
+    before = tconv.launches_quantize.count
+    out = tconv.quantize_pack(x, s, m, eq, padding)
+    torch.cuda.synchronize()
+    assert tconv.launches_quantize.count == before + 1
+    ref = tconv.quantize_pack_plain(x, s, m, eq, padding)
+    B, C, Ft, H, W = shape
+    assert out.shape == ref.shape == (B, Ft, H + 2 * padding, W + 2 * padding, C)
+    assert out.dtype == torch.int8 and out.is_contiguous()
+    assert torch.equal(out, ref)
+    assert int(out.abs().max()) == 127  # the grid is used up to its edge
+    if padding:
+        assert not out[:, :, 0].any() and not out[:, :, :, -1].any()
+    # a transposed input is copied, not misread
+    xt = x.transpose(3, 4).contiguous().transpose(3, 4)
+    assert torch.equal(tconv.quantize_pack(xt, s, m, eq, padding), ref)
+    with pytest.raises(ValueError, match="C % 4"):
+        tconv.quantize_pack(x[:, :3], s, m, None, padding)
+
+
+@pytest.mark.cuda
+def test_conv_wrapper_raises_on_what_the_kernel_does_not_take():
+    dev = _card()
+    x, w, scale = _conv_case((1, 1, 4, 4, 64, 64, 3), 3, dev, int8=True)
+    before = tconv.launches_w8a8.count
+    with pytest.raises(ValueError, match="Cout % 128"):  # 64 output channels
+        tconv.conv_taps(x, w, scale, 3)
+    x, w, scale = _conv_case((1, 1, 4, 4, 64, 128, 3), 3, dev, int8=True)
+    with pytest.raises(ValueError, match="scale"):
+        tconv.conv_taps(x, w, scale.double(), 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        tconv.conv_taps(x.transpose(2, 3), w, scale, 3)
+    with pytest.raises(ValueError, match="of one type"):
+        tconv.conv_taps(x.float(), w.float(), None, 3)
+    assert tconv.launches_w8a8.count == before
+    # the plain version takes them on request, and a QConv3d never drops to a
+    # float conv: its unsupported channel count raises on the card
+    conv = quant.quantize_conv(torch.nn.Conv3d(64, 64, 3), with_ksum=True).to(dev)
+    with pytest.raises(ValueError, match="Cout % 128"):
+        quant.qconv(conv, torch.randn(1, 64, 3, 4, 4, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride", [1, 2])
+def test_qconv_on_card_matches_cpu(stride):
+    """A quantized conv on the card (K4, or the int8 matrix product of the
+    stride-2 form) against the same module on the CPU (the plain version):
+    the same codes and int32 sums, so equal up to the range search's fp32
+    summation order (the chosen grid is compared first)."""
+    dev = _card()
+    torch.manual_seed(4)
+    kt = 3 if stride == 1 else 1
+    float_conv = (torch.nn.Conv3d(128, 128, 3) if kt == 3 else torch.nn.Conv2d(128, 128, 3))
+    conv = quant.quantize_conv(float_conv, with_ksum=True,
+                               calib_amax=torch.rand(128) + 0.5)
+    x = torch.nn.functional.silu(torch.randn(1, 128, kt + 1, 12, 14) * 2)
+    grid_cpu = quant.asym_grid(x, eq_inv=conv.equalize_inv, channel_dim=1)
+    grid_card = quant.asym_grid(x.to(dev), eq_inv=conv.equalize_inv.to(dev), channel_dim=1)
+    assert all(torch.equal(a, b.cpu()) for a, b in zip(grid_cpu, grid_card))
+    ref = quant.qconv(conv, x, stride, 2 - stride)
+    out = quant.qconv(conv.to(dev), x.to(dev), stride, 2 - stride)
+    assert out.shape == ref.shape
+    torch.testing.assert_close(out.cpu(), ref, rtol=1e-6, atol=1e-6)

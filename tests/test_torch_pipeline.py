@@ -139,8 +139,6 @@ def test_unported_paths_raise(models):
         tp.process_frames(frames, tile_size_hw=(64, 64))
     with pytest.raises(NotImplementedError):
         tp.process_frames(frames, mesh=object())
-    with pytest.raises(NotImplementedError):
-        dataclasses.replace(tp, quantize="int8")
     with pytest.raises(NotImplementedError):  # the fused tile path
         dataclasses.replace(tp, vae_tiling=False).process_frames(frames)
 
