@@ -7,17 +7,22 @@ Phases, one result line each; any failure exits non-zero:
 
 1. device and build: the card's name and power limit, and the nvcc builds of
    every kernel source under dove_tpu_torch/csrc/, one nvcc each, started
-   together (flash_fwd holds K1 and K2, flash_bwd K3a and K3b, conv3d_taps
-   K4 and K5), with ptxas's registers and spills for each kernel form;
-2. K1 (flash-attention forward) against its plain PyTorch version on the card
-   in bf16, bounded and online-softmax forms, at the main path's shape and at
-   a ragged length; kernel, plain and SDPA times beside the bound;
+   together (flash_fwd_sm90 holds K1, flash_fwd K2, flash_bwd K3a and K3b,
+   conv3d_taps K4 and K5), with ptxas's registers, shared memory and spills
+   for each kernel form, and each form's count of HGMMA (wgmma), UTMALDG
+   (TMA load) and HMMA (mma.sync) in its SASS where the toolkit has
+   cuobjdump: every K1 form must issue the first two and not the third;
+2. K1 (the bf16 flash-attention forward, wgmma/TMA) against its plain
+   PyTorch version on the card, bounded and online-softmax forms, at the
+   main path's shape, 4097 and 200, and at every Sq, Skv around its
+   128- and 192-row tiles with B*H = 3, and beside heads of NaN; each of its four
+   forms timed beside SDPA, the bound and the exp floor;
 3. the staged pipeline at full widths and 2 DiT layers, run once through the
    kernel and once through the plain attention, compared by PSNR;
 4. the bf16 main path: CogVideoX1.5-5B at full width, all 42 layers, seeded
    random weights, through DovePipeline.process_frames on a 32-frame
    180x320 clip (720p out), with the kernels' launches counted;
-5. K2 (the int8 Q K^T form of the same kernel) against its plain version on
+5. K2 (the int8 Q K^T flash-attention forward) against its plain version on
    the same int8 codes, at the main path's shape, 4097 and a ragged 200, at
    K1's bars; its drift from K1 on the same bf16 inputs; kernel, plain and
    SDPA times beside the bound;
@@ -31,7 +36,9 @@ Phases, one result line each; any failure exits non-zero:
    against their plain versions at the stage-1 training shape
    [2, 48, 3426, 64] and at a ragged Sq != Skv, at K1's bars (and an
    absolute bar on the logsumexp), with the bars shown to reject a dropped
-   tile; kernel, plain and SDPA times beside the bounds;
+   tile; K1's training forms also at every Sq, Skv of phase 2 and beside
+   NaN heads; kernel, plain and SDPA times beside the bounds, K1's four
+   forms with the exp floor;
 10. one stage-1 LoRA training step at full width and 2 DiT layers, once
    through the kernels and once through the plain attention, from the same
    LoRA (B nonzero) and batch: loss and LoRA gradients compared;
@@ -160,6 +167,17 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def rounded(x, digits: int = 4):
+    """x with its floats rounded, dicts and lists included, for a log line."""
+    if isinstance(x, float):
+        return round(x, digits)
+    if isinstance(x, dict):
+        return {k: rounded(v, digits) for k, v in x.items()}
+    if isinstance(x, list):
+        return [rounded(v, digits) for v in x]
+    return x
+
+
 def attn_errors(out: torch.Tensor, ref: torch.Tensor) -> dict:
     diff = out.float() - ref.float()
     ref = ref.float()
@@ -196,13 +214,13 @@ def main_path_seq_len(cfg) -> int:
 # Phase 1: device and build
 # ---------------------------------------------------------------------------
 
-# kernel forms by their mangled names: flash_fwd_kernel<kBounded, kQK8, kLse>
+# kernel forms by their mangled names: flash_fwd_sm90_kernel<kBounded, kLse>
 KERNEL_FORMS = {
-    "flash_fwd_kernelILb1ELb0ELb0E": "K1 bounded",
-    "flash_fwd_kernelILb0ELb0ELb0E": "K1 online",
-    "flash_fwd_kernelILb1ELb1ELb0E": "K2",
-    "flash_fwd_kernelILb1ELb0ELb1E": "K1 bounded lse",
-    "flash_fwd_kernelILb0ELb0ELb1E": "K1 online lse",
+    "flash_fwd_sm90_kernelILb1ELb0E": "K1 bounded",
+    "flash_fwd_sm90_kernelILb0ELb0E": "K1 online",
+    "flash_fwd_sm90_kernelILb1ELb1E": "K1 bounded lse",
+    "flash_fwd_sm90_kernelILb0ELb1E": "K1 online lse",
+    "flash_fwd_qk8_kernel": "K2",
     "flash_bwd_dq_kernel": "K3a",
     "flash_bwd_dkv_kernel": "K3b",
     "conv3d_taps_kernelIaiLi3E": "K4 k_t=3",
@@ -212,10 +230,47 @@ KERNEL_FORMS = {
     "quant_pack_kernelI13__nv_bfloat16E": "quantizer bf16",
     "quant_pack_kernelIfE": "quantizer fp32",
 }
-SOURCES = ("flash_fwd", "flash_bwd", "conv3d_taps")
+SOURCES = ("flash_fwd_sm90", "flash_fwd", "flash_bwd", "conv3d_taps")
+# SASS opcodes counted per kernel form: Hopper's warpgroup MMA and TMA load,
+# and the pre-Hopper mma.sync
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
+
+
+def _form(line: str) -> str | None:
+    return next((f for key, f in KERNEL_FORMS.items() if key in line), None)
+
+
+def sass_counts(lib_path) -> dict[str, dict[str, int]] | None:
+    """Counts of SASS_OPS in each kernel form of a built library, from
+    cuobjdump -sass; None where the toolkit has no cuobjdump."""
+    from pathlib import Path
+
+    from dove_tpu_torch import kernels
+
+    tool = Path(kernels._nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return None
+    out = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True,
+                         text=True, check=True, timeout=120).stdout
+    counts: dict[str, dict[str, int]] = {}
+    form = None
+    for line in out.splitlines():
+        if "Function :" in line:
+            form = _form(line) or line.split("Function :")[1].strip()
+            counts[form] = dict.fromkeys(SASS_OPS, 0)
+        elif form is not None:
+            op = line.split(";")[0].split()
+            for tok in op[1:3]:  # the opcode, after an optional predicate
+                name = tok.split(".")[0]
+                if name in SASS_OPS:
+                    counts[form][name] += 1
+                    break
+    return counts
 
 
 def phase_build() -> None:
+    import ctypes
+
     from dove_tpu_torch import kernels
 
     t0 = time.perf_counter()
@@ -225,19 +280,135 @@ def phase_build() -> None:
         form = "?"
         for line in text.splitlines():
             if "Compiling entry function" in line:
-                form = next((f for key, f in KERNEL_FORMS.items() if key in line),
-                            line)
-            if "registers" in line or "spill" in line or "error" in line:
+                form = _form(line) or line
+            if any(w in line for w in ("registers", "spill", "error", "warning")):
                 log(f"  ptxas {name} [{form}]: {line.strip()}")
+    smem = ctypes.CDLL(str(kernels.library_path("flash_fwd_sm90"))
+                       ).dove_flash_fwd_sm90_smem_bytes()
+    log(f"  K1 (all four forms): {smem} bytes of dynamic shared memory a CTA "
+        "(a 192-row Q tile, three stages of 128-key K and V tiles, alignment "
+        "slack), 512 threads: producer warpgroup at 24 registers, three "
+        "consumer warpgroups at 160 (setmaxnreg)")
+    k1_forms = [f for f in KERNEL_FORMS.values() if f.startswith("K1")]
+    counts = sass_counts(kernels.library_path("flash_fwd_sm90"))
+    if counts is None:
+        log("  SASS: no cuobjdump in this toolkit; opcode counts not taken")
+    else:
+        for name in SOURCES:
+            lib_counts = (counts if name == "flash_fwd_sm90"
+                          else sass_counts(kernels.library_path(name)))
+            for form, c in lib_counts.items():
+                log(f"  SASS {name} [{form}]: " + ", ".join(
+                    f"{op} {n}" for op, n in c.items()))
+        bad = [f for f in k1_forms if f not in counts or not counts[f]["HGMMA"]
+               or not counts[f]["UTMALDG"] or counts[f]["HMMA"]]
+        if bad:
+            raise AssertionError(f"K1 forms without wgmma and TMA loads, or with "
+                                 f"mma.sync: {bad}")
     log("phase 1 build: " + ", ".join(
         f"{name} {seconds:.2f}s" for name, (seconds, _) in built.items())
-        + f" of nvcc, {wall:.2f}s wall (flash_fwd: K1 and K2; flash_bwd: K3a "
-        "and K3b; conv3d_taps: K4, K5 and the int8 quantizer's pass)")
+        + f" of nvcc, {wall:.2f}s wall (flash_fwd_sm90: K1 in its four forms; "
+        "flash_fwd: K2; flash_bwd: K3a and K3b; conv3d_taps: K4, K5 and the "
+        "int8 quantizer's pass)")
 
 
 # ---------------------------------------------------------------------------
 # Phase 2: K1 against its plain version
 # ---------------------------------------------------------------------------
+
+# K1's tiles are 192 queries and 128 keys, its TMA maps 3-D over [b*h, S,
+# 64]: lengths around the tile edges, B*H = 3 so that every head has
+# neighbours on both sides.
+RAGGED = (1, 63, 64, 65, 127, 128, 129, 191, 192, 193, 4097)
+K1_FORMS = {"bounded": (True, False), "online": (False, False),
+            "bounded_lse": (True, True), "online_lse": (False, True)}
+
+
+def sm_clock_mhz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def k1_edge_cases(with_lse: bool) -> dict:
+    """K1's bounded and online forms (with_lse: their training forms) against
+    their plain versions at every (Sq, Skv) of RAGGED, and with the
+    neighbouring heads' q, k and v NaN: a tile read across a head's end
+    would poison head 1, a store across it would overwrite head 2's NaN."""
+    from dove_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21 if with_lse else 20)
+    worst = dict(max_abs=0.0, rel_max=0.0, rel_rms=0.0, lse=0.0)
+
+    def check(out, ref, what):
+        (out, lse), (ref, ref_lse) = (out, ref) if with_lse else ((out, None), (ref, None))
+        err = attn_errors(out, ref)
+        lse_err = float((lse - ref_lse).abs().max()) if with_lse else 0.0
+        if (not bool(torch.isfinite(out).all()) or not within_bars(err)
+                or not lse_err <= K1_LSE_ABS_TOL):
+            raise AssertionError(f"K1 disagrees with its plain version at {what}: "
+                                 f"{err}, lse {lse_err}")
+        for key in ("max_abs", "rel_max", "rel_rms"):
+            worst[key] = max(worst[key], err[key])
+        worst["lse"] = max(worst["lse"], lse_err)
+
+    def rand(s):
+        return torch.randn((1, 3, s, 64), generator=gen, device=dev, dtype=torch.bfloat16)
+
+    for sq in RAGGED:
+        for skv in RAGGED:
+            q, k, v = rand(sq), rand(skv), rand(skv)
+            for bounded in (True, False):
+                out = fa.flash_attention(q, k, v, bounded_logits=bounded, with_lse=with_lse)
+                torch.cuda.synchronize()
+                check(out, fa.flash_attention_plain(q, k, v, bounded_logits=bounded,
+                                                    with_lse=with_lse),
+                      f"sq={sq} skv={skv} bounded={bounded}")
+    for sq, skv in ((129, 193), (4097, 129)):
+        q, k, v = rand(sq), rand(skv), rand(skv)
+        for t in (q, k, v):
+            t[:, 0::2] = float("nan")
+        mid = [t[:, 1:2].contiguous() for t in (q, k, v)]
+        for bounded in (True, False):
+            out = fa.flash_attention(q, k, v, bounded_logits=bounded, with_lse=with_lse)
+            torch.cuda.synchronize()
+            o = out[0] if with_lse else out
+            if not bool(torch.isnan(o[:, 0::2].float()).all()):
+                raise AssertionError(f"K1 wrote into a NaN head's output at sq={sq}")
+            head1 = (o[:, 1:2], out[1][:, 1:2].contiguous()) if with_lse else o[:, 1:2]
+            check(head1, fa.flash_attention_plain(*mid, bounded_logits=bounded,
+                                                  with_lse=with_lse),
+                  f"NaN neighbours sq={sq} skv={skv} bounded={bounded}")
+    cases = len(RAGGED) ** 2 * 2 + 4
+    log(f"  K1 {'training' if with_lse else 'inference'} forms at every Sq, Skv in "
+        f"{RAGGED} (B*H = 3) and beside NaN heads: {cases} launches within the bars; "
+        "worst " + json.dumps({k: float(f"{x:.3e}") for k, x in worst.items()}))
+    return worst
+
+
+def time_k1_forms(q, k, v) -> dict:
+    """Each K1 form's time, SDPA's time on the same tensors (timed after and
+    before the kernels), the SM clock the card ran at, and the exp floor:
+    Sq Skv B H exponentials at 16 a clock on each SM at that clock."""
+    from dove_tpu_torch.ops import flash_attention as fa
+
+    B, H, sq, _ = q.shape
+    skv = k.shape[2]
+    scale = 64 ** -0.5
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sdpa_before = cuda_ms(lambda: sdpa(q, k, v), 10)
+    forms = {name: cuda_ms(lambda b=b, lse=lse: fa.flash_fwd_launch(q, k, v, scale, b, lse), 10)
+             for name, (b, lse) in K1_FORMS.items()}
+    clock = sm_clock_mhz()
+    sdpa_ms = min(sdpa_before, cuda_ms(lambda: sdpa(q, k, v), 10))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    exp_floor = float(sq) * skv * B * H / (16 * sms * clock * 1e6) * 1e3
+    return dict(forms_ms=forms, sdpa_ms=sdpa_ms,
+                sdpa_ratio={n: t / sdpa_ms for n, t in forms.items()},
+                sm_clock_mhz=clock, exp_floor_ms=exp_floor)
+
 
 def phase_k1(seq_main: int, heads: int) -> dict:
     from dove_tpu_torch.ops import flash_attention as fa
@@ -279,33 +450,29 @@ def phase_k1(seq_main: int, heads: int) -> dict:
             if within_bars(miss):
                 raise AssertionError(f"K1 bars accept a dropped KV tile: {miss}")
             del dropped
-            kernel_ms = cuda_ms(
-                lambda: fa.flash_attention(q, k, v, bounded_logits=True), 10)
-            unb_ms = cuda_ms(
-                lambda: fa.flash_attention(q, k, v, bounded_logits=False), 10)
+            forms = time_k1_forms(q, k, v)
             plain_ms = cuda_ms(
                 lambda: fa.flash_attention_plain(q, k, v, bounded_logits=True),
                 1, warmup=0)
-            library_ms = cuda_ms(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, k, v), 10)
             flops = 4.0 * S * S * 64 * heads
             nbytes = 4 * heads * S * 64 * 2
             bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+            kernel_ms = forms["forms_ms"]["bounded"]
             timing = dict(
-                kernel_ms=kernel_ms, unbounded_ms=unb_ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms,
+                kernel_ms=kernel_ms, unbounded_ms=forms["forms_ms"]["online"],
+                plain_ms=plain_ms, library_ms=forms["sdpa_ms"], bound_ms=bound_ms,
                 bound_by="operations" if flops / PEAK_BF16_FLOPS
                 >= nbytes / PEAK_BYTES else "bytes",
-                tflops=flops / kernel_ms / 1e9, shape=[1, heads, S, 64],
+                tflops=flops / kernel_ms / 1e9, shape=[1, heads, S, 64], **forms,
             )
         del q, k, v
+    edges = k1_edge_cases(with_lse=False)
     fa.launches.reset()
+    fa.launches_lse.reset()
     log(f"phase 2 K1: worst max_abs_err {worst:.3e} (bars: abs {K1_ABS_TOL}, "
         f"/ max|ref| {K1_REL_MAX_TOL}, rms ratio {K1_REL_RMS_TOL}); "
-        + json.dumps({k: (round(x, 4) if isinstance(x, float) else x)
-                      for k, x in timing.items()}))
-    return dict(max_abs_err=worst, **timing)
+        + json.dumps(rounded(timing)))
+    return dict(max_abs_err=max(worst, edges["max_abs"]), **timing)
 
 
 # ---------------------------------------------------------------------------
@@ -415,8 +582,8 @@ def phase_main_path(profile_dir: str | None = None) -> dict:
 
 
 KERNEL_KINDS = (  # (kind, substrings of CUDA kernel names), first match wins
-    ("k2_flash_fwd_qk8", ("flash_fwd_kernel<true, true, false>",)),
-    ("k1_flash_fwd", ("flash_fwd_kernel",)),
+    ("k2_flash_fwd_qk8", ("flash_fwd_qk8_kernel",)),
+    ("k1_flash_fwd", ("flash_fwd_sm90_kernel",)),
     ("k3a_flash_bwd_dq", ("flash_bwd_dq_kernel",)),
     ("k3b_flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
     ("k4_conv3d_w8a8", ("conv3d_taps_kernel<signed char", "conv3d_taps_kernel<int8")),
@@ -810,9 +977,11 @@ def phase_k3(heads: int) -> dict:
             def sdpa_fwd_bwd():
                 torch.nn.functional.scaled_dot_product_attention(qq, kk, vv).backward(do)
 
+            forms = time_k1_forms(q, k, v)
             t = dict(
-                k1_lse_ms=cuda_ms(lambda: fa.flash_fwd_launch(q, k, v, scale, False, True), 10),
-                k1_online_ms=cuda_ms(lambda: fa.flash_fwd_launch(q, k, v, scale, False, False), 10),
+                k1_lse_ms=forms["forms_ms"]["online_lse"],
+                k1_online_ms=forms["forms_ms"]["online"],
+                k1_forms=forms,
                 k3a_ms=cuda_ms(lambda: fa.flash_bwd_dq_launch(q, k, v, do, lse, delta, scale), 10),
                 k3b_ms=cuda_ms(lambda: fa.flash_bwd_dkv_launch(q, k, v, do, lse, delta, scale), 10),
                 k1_lse_plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v, with_lse=True), 1, 0),
@@ -838,12 +1007,14 @@ def phase_k3(heads: int) -> dict:
             timing = t
             del qq, kk, vv
         del q, k, v, do, out, lse, ref, ref_lse, dq, dk, dv, ref_dq, ref_dk, ref_dv
+    edges = k1_edge_cases(with_lse=True)
+    worst["k1_lse"] = max(worst["k1_lse"], edges["max_abs"])
+    worst["lse"] = max(worst["lse"], edges["lse"])
     for c in _k3_counters().values():
         c.reset()
     torch.cuda.empty_cache()
     log("phase 9 K1-lse, K3a, K3b: worst max_abs_err " + json.dumps(
-        {k: float(f"{x:.3e}") for k, x in worst.items()}) + "; " + json.dumps(
-        {k: (round(x, 4) if isinstance(x, float) else x) for k, x in timing.items()}))
+        {k: float(f"{x:.3e}") for k, x in worst.items()}) + "; " + json.dumps(rounded(timing)))
     return dict(worst=worst, **timing)
 
 
@@ -1580,11 +1751,10 @@ def main(argv: list[str] | None = None) -> int:
     hand = phase_hand_conv()
     log(f"all phases took {time.perf_counter() - t_start:.1f}s")
 
-    source = "dove_tpu_torch/csrc/flash_fwd.cu"
     kernels = [{
         "name": "flash_fwd_bf16",
         "route": "cuda",
-        "source": source,
+        "source": "dove_tpu_torch/csrc/flash_fwd_sm90.cu",
         "replaces": "dove_tpu/ops/pallas/flash_attention.py:75",
         "launches": main_path["launches"],
         "max_abs_err": k1["max_abs_err"],
@@ -1593,6 +1763,10 @@ def main(argv: list[str] | None = None) -> int:
         "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"],
         "library_ms": k1["library_ms"],
+        "forms_ms": k1["forms_ms"],
+        "library_ratio": k1["sdpa_ratio"],
+        "exp_floor_ms": k1["exp_floor_ms"],
+        "sm_clock_mhz": k1["sm_clock_mhz"],
         # the training form, with the logsumexp, at the stage-1 shape
         "lse_shape": k3["shape"],
         "lse_launches": train["launches"]["k1_lse"],
@@ -1605,10 +1779,13 @@ def main(argv: list[str] | None = None) -> int:
         "lse_bound_ms": k3["k1_lse_bound_ms"],
         "lse_bound_by": k3["k1_lse_bound_by"],
         "lse_library_ms": k3["sdpa_fwd_ms"],
+        "lse_forms_ms": k3["k1_forms"]["forms_ms"],
+        "lse_library_ratio": k3["k1_forms"]["sdpa_ratio"],
+        "lse_exp_floor_ms": k3["k1_forms"]["exp_floor_ms"],
     }, {
         "name": "flash_fwd_qk8",
         "route": "cuda",
-        "source": source,
+        "source": "dove_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "dove_tpu/ops/pallas/flash_attention.py:107",
         "launches": int8_main["launches"],
         "launches_streamed": streamed["launches"],

@@ -1,31 +1,27 @@
-// Flash-attention forward for Hopper (sm_90a), head dim 64, bf16 out.
+// K2: the int8-Q K^T flash-attention forward (sm_90a), head dim 64, bf16 out.
 //
-// K1 replaces the TPU kernel dove_tpu/ops/pallas/flash_attention.py:_fwd_kernel
-// (pallas_call in _flash_fwd), in both of its bf16 forms: the bounded-logits
-// form (no running max, p = exp2(s * scale * log2 e)) that every inference
-// call takes, and the online-softmax form. Non-causal: out = softmax(scale Q
-// K^T) V with fp32 logits, fp32 row sums and an fp32 accumulator; p is rounded
-// to bf16 before the P V product, as the TPU kernel does.
+// This file holds K2 only. K1, the bf16 forward in its four forms, is the
+// Hopper kernel in flash_fwd_sm90.cu (wgmma, TMA, warp specialisation); K2
+// still runs the mma.sync schedule below, the one K1 had before it moved.
 //
-// K2 replaces the same pallas_call with qk8=True (flash_attention.py:107-114):
+// K2 replaces the TPU kernel dove_tpu/ops/pallas/flash_attention.py:_fwd_kernel
+// (pallas_call in _flash_fwd) with qk8=True (flash_attention.py:107-114):
 // the int8-dit serving mode's attention. Q and K arrive as per-tensor
 // symmetric int8 codes (quantized by the wrapper, as the TPU wrapper does
 // outside its pallas_call); Q K^T runs as mma.sync m16n8k32 s8 x s8 -> s32,
 // and the int32 logits are scaled by one fp32 factor c = s_q s_k scale log2 e
 // that the kernel reads from device memory (the TPU kernel reads it from SMEM
-// as a runtime scalar), so the host never waits for it. Bounded form only,
-// V bf16, P rounded to bf16, fp32 accumulators, as on the TPU.
+// as a runtime scalar), so the host never waits for it. Bounded form only
+// (no running max, p = exp2(s * c)), V bf16, P rounded to bf16, fp32
+// accumulators, as on the TPU.
 //
-// What bounds them on the H100. At the main-path shape (CogVideoX1.5-5B, a
+// What bounds it on the H100. At the main-path shape (CogVideoX1.5-5B, a
 // 180x320 clip padded to 192x320 and upscaled 4x, 33 frames: B*H = 48,
-// S = 19426, D = 64) one K1 launch does 4 S^2 D H = 4.64 TFLOP of bf16
-// tensor-core work, about 4.7 ms at the data sheet's 989 TFLOP/s dense, and
-// moves ~0.48 GB. K2 does 2 S^2 D H = 2.32e12 int8 ops (1.17 ms at 1,979
-// TOPS) plus as many bf16 FLOPs for P V (2.35 ms), so about 3.5 ms of
-// tensor-core time against ~0.36 GB of traffic. Both also take S^2 H =
+// S = 19426, D = 64) one launch does 2 S^2 D H = 2.32e12 int8 ops (1.17 ms
+// at 1,979 TOPS) plus as many bf16 FLOPs for P V (2.35 ms), so about 3.5 ms
+// of tensor-core time against ~0.36 GB of traffic. It also takes S^2 H =
 // 1.8e10 exponentials, which the SFUs need about as long for: the exp is a
-// co-bound at D = 64, and the bounded form exists to keep it at one ex2 per
-// logit (no max, no rescale).
+// co-bound at D = 64, and the bounded form keeps it at one ex2 per logit.
 //
 // Design. The TPU kernel walks the kv axis as a sequential grid dimension
 // carrying its accumulators in scratch between grid steps. Blocks here run in
@@ -34,32 +30,21 @@
 // [16, 64] fp32 accumulator and the row sums live in registers for the whole
 // loop. K and V tiles of 64 keys are staged in shared memory through a
 // two-stage cp.async ring (zero-filled past the end of the sequence), read
-// with ldmatrix (V transposed on the fly). P V runs as mma.sync m16n8k16 bf16
-// with fp32 accumulation; Q K^T as the same in bf16 (K1) or as m16n8k32 int8
-// (K2). An int8 m16n8k32 fragment read as pairs of bytes has the layout of
-// the bf16 m16n8k16 one, so the int8 K tile (64 bytes a row, padded to 80 so
-// that ldmatrix stays conflict-free) is read by the same ldmatrix.x4, and the
-// s32 accumulator has the fp32 one's layout: the S fragment of Q K^T is
-// reused in registers as the A fragment of P V in both kernels. K2 turns its
-// int32 logits into floats with an integer add and a float subtract (exact
-// below 2^22; |s| <= 127 * 127 * 64 < 2^20) instead of a conversion
-// instruction, which would add a second 1.6e10 quarter-rate operations next
-// to the exp. The kv tail is masked to -inf; query rows past the end are
-// computed on zeros and never stored, so the host pads and slices nothing.
-// wgmma and TMA are later work.
-//
-// The training forward (kLse) also writes each row's logsumexp, K3's input,
-// in the TPU kernel's natural-log units (flash_attention.py:154-159): the
-// online form's running max is kept in log2 units with log2 e folded into
-// the scale, so lse = ln 2 * (m + log2 l), and the bounded form's is ln l.
-// The inference forms are separate instantiations without it: no store, no
-// register.
+// with ldmatrix (V transposed on the fly). An int8 m16n8k32 fragment read as
+// pairs of bytes has the layout of the bf16 m16n8k16 one, so the int8 K tile
+// (64 bytes a row, padded to 80 so that ldmatrix stays conflict-free) is read
+// by ldmatrix.x4, and the s32 accumulator has the fp32 one's layout: the S
+// fragment of Q K^T is reused in registers as the A fragment of the bf16
+// m16n8k16 P V. The int32 logits become floats with an integer add and a
+// float subtract (exact below 2^22; |s| <= 127 * 127 * 64 < 2^20) instead of
+// a conversion instruction, which would add a second 1.6e10 quarter-rate
+// operations next to the exp. The kv tail is masked to -inf; query rows past
+// the end are computed on zeros and never stored, so the host pads and slices
+// nothing. Moving it onto K1's wgmma/TMA design is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -147,34 +132,25 @@ __device__ __forceinline__ uint32_t load_u32(const T* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// kQK8 = false: K1, q and k bf16, the logit scale is `scale_log2`.
-// kQK8 = true:  K2, q and k int8 codes, the logit scale is *scale_dev.
-// kLse: also write the fp32 logsumexp of every row to lse [bh, sq].
-template <bool kBounded, bool kQK8, bool kLse>
+// K2: q and k int8 codes, v bf16; the logit scale is *scale_dev.
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const void* __restrict__ q_, const void* __restrict__ k_,
-                     const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                     int sq, int skv, float scale_log2_arg,
-                     const float* __restrict__ scale_dev) {
-  static_assert(kBounded || !kQK8, "K2 has the bounded form only");
-  static_assert(!(kQK8 && kLse), "K2 is inference only");
-  using QK = std::conditional_t<kQK8, int8_t, __nv_bfloat16>;
-  constexpr int kLdk = kQK8 ? kLdk8 : kLds;
-  constexpr int kChunk = 16 / sizeof(QK);  // q/k elements per 16-byte copy
-  __shared__ __align__(16) QK ks[2][kBK][kLdk];
+    flash_fwd_qk8_kernel(const int8_t* __restrict__ q,
+                         const int8_t* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         __nv_bfloat16* __restrict__ o, int sq, int skv,
+                         const float* __restrict__ scale_dev) {
+  constexpr int kChunk = 16;  // int8 elements per 16-byte copy
+  __shared__ __align__(16) int8_t ks[2][kBK][kLdk8];
   __shared__ __align__(16) __nv_bfloat16 vs[2][kBK][kLds];
 
-  const QK* q = static_cast<const QK*>(q_);
-  const QK* k = static_cast<const QK*>(k_);
-  const float scale_log2 = kQK8 ? __ldg(scale_dev) : scale_log2_arg;
+  const float scale_log2 = __ldg(scale_dev);
   const int bh = blockIdx.y;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;   // fragment row within the warp's 8-row group
   const int tig = lane & 3;  // thread in group: fragment column pair
-  const QK* qb = q + static_cast<size_t>(bh) * sq * kD;
-  const QK* kb = k + static_cast<size_t>(bh) * skv * kD;
+  const int8_t* qb = q + static_cast<size_t>(bh) * sq * kD;
+  const int8_t* kb = k + static_cast<size_t>(bh) * skv * kD;
   const __nv_bfloat16* vb = v + static_cast<size_t>(bh) * skv * kD;
   __nv_bfloat16* ob = o + static_cast<size_t>(bh) * sq * kD;
 
@@ -182,19 +158,18 @@ __global__ void __launch_bounds__(kThreads)
   const int r0 = blockIdx.x * kBQ + warp * 16 + g;
   const int r1 = r0 + 8;
 
-  // Q as A fragments over D, read once; tail rows are zero. bf16: four
-  // m16k16 steps of 2 elements a register; int8: two m16k32 steps of 4. In
-  // bytes the two layouts are the same: 4 bytes at column 4 * tig, and at
-  // 16 bytes further on, of rows r0 and r1.
-  constexpr int kSteps = kQK8 ? 2 : 4;
+  // Q as A fragments over D, read once; tail rows are zero. Two m16k32
+  // steps of 4 bytes a register: 4 bytes at column 4 * tig, and at 16
+  // bytes further on, of rows r0 and r1.
+  constexpr int kSteps = 2;
   constexpr int kStepElems = kD / kSteps;
   uint32_t qf[kSteps][4];
 #pragma unroll
   for (int kk = 0; kk < kSteps; ++kk) {
-    const int c = kk * kStepElems + tig * (4 / sizeof(QK));
+    const int c = kk * kStepElems + tig * 4;
     const int c_hi = c + kStepElems / 2;
-    const QK* q0 = qb + static_cast<size_t>(r0) * kD;
-    const QK* q1 = qb + static_cast<size_t>(r1) * kD;
+    const int8_t* q0 = qb + static_cast<size_t>(r0) * kD;
+    const int8_t* q1 = qb + static_cast<size_t>(r1) * kD;
     qf[kk][0] = r0 < sq ? load_u32(q0 + c) : 0u;
     qf[kk][1] = r1 < sq ? load_u32(q1 + c) : 0u;
     qf[kk][2] = r0 < sq ? load_u32(q0 + c_hi) : 0u;
@@ -229,7 +204,6 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
   }
   float lsum[2] = {0.f, 0.f};  // this thread's partial row sums
-  float mrow[2] = {-INFINITY, -INFINITY};  // online-softmax running max
 
   const int ntiles = (skv + kBK - 1) / kBK;
   load_tile(0, 0);
@@ -242,32 +216,19 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     const int st = t & 1;
 
-    // S = Q K^T for this warp's 16 rows x 64 keys (8 n-tiles of 8 keys).
+    // S = Q K^T for this warp's 16 rows x 64 keys (8 n-tiles of 8 keys):
+    // one ldmatrix.x4 covers a key row's 64 bytes, matrices at byte 0, 16,
+    // 32, 48 are the two b registers of k32 steps 0 and 1.
     float s[8][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      if constexpr (kQK8) {
-        // one ldmatrix.x4 covers a key row's 64 bytes: matrices at byte
-        // 0, 16, 32, 48 are the two b registers of k32 steps 0 and 1
-        int32_t si[4] = {0, 0, 0, 0};
-        uint32_t b[4];
-        ldmatrix_x4(b, smem_addr(&ks[st][j * 8 + (lane & 7)][(lane >> 3) * 16]));
-        mma_s8(si, qf[0], b[0], b[1]);
-        mma_s8(si, qf[1], b[2], b[3]);
+      int32_t si[4] = {0, 0, 0, 0};
+      uint32_t b[4];
+      ldmatrix_x4(b, smem_addr(&ks[st][j * 8 + (lane & 7)][(lane >> 3) * 16]));
+      mma_s8(si, qf[0], b[0], b[1]);
+      mma_s8(si, qf[1], b[2], b[3]);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = small_int_to_float(si[e]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          uint32_t b[4];
-          ldmatrix_x4(b, smem_addr(&ks[st][j * 8 + (lane & 7)]
-                                      [h * 32 + (lane >> 3) * 8]));
-          mma_bf16(s[j], qf[2 * h], b[0], b[1]);
-          mma_bf16(s[j], qf[2 * h + 1], b[2], b[3]);
-        }
-      }
+      for (int e = 0; e < 4; ++e) s[j][e] = small_int_to_float(si[e]);
     }
 
     const int kv0 = t * kBK;
@@ -281,49 +242,14 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
 
-    if constexpr (kBounded) {
-      // |s| is bounded by the caller: exp2 straight off the logits.
+    // |s| is bounded by the caller: exp2 straight off the logits.
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < 8; ++j) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = ex2(s[j][e] * scale_log2);
-          s[j][e] = p;
-          lsum[e >> 1] += p;
-        }
-      }
-    } else {
-      float mx[2] = {mrow[0], mrow[1]};
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]) * scale_log2);
-        mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]) * scale_log2);
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      }
-      const float alpha[2] = {ex2(mrow[0] - mx[0]), ex2(mrow[1] - mx[1])};
-      mrow[0] = mx[0];
-      mrow[1] = mx[1];
-      lsum[0] *= alpha[0];
-      lsum[1] *= alpha[1];
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        acc[n][0] *= alpha[0];
-        acc[n][1] *= alpha[0];
-        acc[n][2] *= alpha[1];
-        acc[n][3] *= alpha[1];
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = ex2(fmaf(s[j][e], scale_log2, -mx[e >> 1]));
-          s[j][e] = p;
-          lsum[e >> 1] += p;
-        }
+      for (int e = 0; e < 4; ++e) {
+        const float p = ex2(s[j][e] * scale_log2);
+        s[j][e] = p;
+        lsum[e >> 1] += p;
       }
     }
 
@@ -357,17 +283,6 @@ __global__ void __launch_bounds__(kThreads)
   }
   const float inv0 = 1.f / lsum[0];
   const float inv1 = 1.f / lsum[1];
-  if constexpr (kLse) {
-    // every thread of a row's group holds its sums; one of the four stores
-    if (tig == 0) {
-      constexpr float kLn2 = 0.6931471805599453f;
-      float* lb = lse + static_cast<size_t>(bh) * sq;
-      const float m0 = kBounded ? 0.f : mrow[0];
-      const float m1 = kBounded ? 0.f : mrow[1];
-      if (r0 < sq) lb[r0] = (m0 + log2f(lsum[0])) * kLn2;
-      if (r1 < sq) lb[r1] = (m1 + log2f(lsum[1])) * kLn2;
-    }
-  }
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
     const int c = n * 8 + tig * 2;
@@ -388,39 +303,6 @@ bool bad_shape(int bh, int sq, int skv, int head_dim) {
 
 }  // namespace
 
-// K1. q, k, v: bf16 [bh, sq|skv, 64], o: bf16 [bh, sq, 64]; lse: fp32
-// [bh, sq], or null for the inference forms that write none. All contiguous
-// on the device. Launches on `stream` and returns the cudaError_t of the
-// launch (0 on success); it does not synchronise.
-extern "C" int dove_flash_fwd_bf16(const void* q, const void* k, const void* v,
-                                   void* o, void* lse, int bh, int sq, int skv,
-                                   int head_dim, float scale, int bounded,
-                                   void* stream) {
-  if (bad_shape(bh, sq, skv, head_dim)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const dim3 grid((sq + kBQ - 1) / kBQ, bh);
-  const float scale_log2 = scale * 1.4426950408889634f;
-  const auto* vp = static_cast<const __nv_bfloat16*>(v);
-  auto* op = static_cast<__nv_bfloat16*>(o);
-  auto* lp = static_cast<float*>(lse);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (lp != nullptr && bounded) {
-    flash_fwd_kernel<true, false, true><<<grid, kThreads, 0, s>>>(
-        q, k, vp, op, lp, sq, skv, scale_log2, nullptr);
-  } else if (lp != nullptr) {
-    flash_fwd_kernel<false, false, true><<<grid, kThreads, 0, s>>>(
-        q, k, vp, op, lp, sq, skv, scale_log2, nullptr);
-  } else if (bounded) {
-    flash_fwd_kernel<true, false, false><<<grid, kThreads, 0, s>>>(
-        q, k, vp, op, nullptr, sq, skv, scale_log2, nullptr);
-  } else {
-    flash_fwd_kernel<false, false, false><<<grid, kThreads, 0, s>>>(
-        q, k, vp, op, nullptr, sq, skv, scale_log2, nullptr);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 // K2. q8, k8: int8 codes [bh, sq|skv, 64]; v: bf16 [bh, skv, 64]; o: bf16
 // [bh, sq, 64]; scale_log2: one fp32 on the device, s_q * s_k * scale *
 // log2 e. All contiguous on the device; launches on `stream`, returns the
@@ -433,10 +315,10 @@ extern "C" int dove_flash_fwd_qk8(const void* q8, const void* k8,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid((sq + kBQ - 1) / kBQ, bh);
-  flash_fwd_kernel<true, true, false><<<grid, kThreads, 0,
-                                        static_cast<cudaStream_t>(stream)>>>(
-      q8, k8, static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(o), nullptr, sq, skv, 0.f,
-      static_cast<const float*>(scale_log2));
+  flash_fwd_qk8_kernel<<<grid, kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(q8), static_cast<const int8_t*>(k8),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), sq,
+      skv, static_cast<const float*>(scale_log2));
   return static_cast<int>(cudaGetLastError());
 }

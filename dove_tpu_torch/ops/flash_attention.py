@@ -4,10 +4,11 @@ Counterpart of ``dove_tpu/ops/pallas/flash_attention.py`` (``flash_attention``
 with its custom VJP). K1 is the bf16 forward (kernel ``_fwd_kernel``), with
 the per-row logsumexp in its training form; K2 its ``qk8`` form (per-tensor
 int8 q and k, int32 Q K^T), the int8-dit serving mode's attention; K3a and
-K3b are the backward (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``). K1 and K2
-live in ``csrc/flash_fwd.cu``, K3a and K3b in ``csrc/flash_bwd.cu``; each
-note says what bounds the kernels on the H100 and how they differ from the
-TPU schedule.
+K3b are the backward (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``). K1 lives in
+``csrc/flash_fwd_sm90.cu`` (wgmma, TMA, warp-specialised), K2 in
+``csrc/flash_fwd.cu``, K3a and K3b in ``csrc/flash_bwd.cu``; each note says
+what bounds the kernels on the H100 and how they differ from the TPU
+schedule.
 
 ``flash_attention`` keeps the JAX package's ``[B, H, S, D]`` layout. On a CUDA
 tensor it launches a kernel or raises; on a CPU tensor it runs the same
@@ -52,18 +53,26 @@ launches_bwd_dkv = LaunchCounter()  # K3b
 
 
 def _library() -> ctypes.CDLL:
-    lib = kernels.load("flash_fwd")
+    """K1's library."""
+    lib = kernels.load("flash_fwd_sm90")
     fn = lib.dove_flash_fwd_bf16
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
-        fn8 = lib.dove_flash_fwd_qk8
-        fn8.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+    return lib
+
+
+def _qk8_library() -> ctypes.CDLL:
+    """K2's library."""
+    lib = kernels.load("flash_fwd")
+    fn = lib.dove_flash_fwd_qk8
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p, ctypes.c_void_p,
         ]
-        fn8.restype = ctypes.c_int
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -163,7 +172,7 @@ def flash_qk8_launch(
             or factor.numel() != 1):
         raise ValueError("the logit factor must be one fp32 value on q's device")
     out = torch.empty(q8.shape, dtype=v.dtype, device=v.device)
-    lib = _library()
+    lib = _qk8_library()
     with torch.cuda.device(q8.device):
         stream = torch.cuda.current_stream(q8.device).cuda_stream
         rc = lib.dove_flash_fwd_qk8(
@@ -270,8 +279,14 @@ def flash_fwd_launch(
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Launch K1 -> (out, lse or None). ``with_lse`` takes the training form,
     which also writes the fp32 [B, H, Sq] logsumexp, and counts its launch
-    in ``launches_lse`` instead of ``launches``."""
+    in ``launches_lse`` instead of ``launches``. The kernel's TMA loads need
+    16-byte aligned data."""
+    if q.device.type != "cuda":
+        raise ValueError(f"K1 runs on cuda, not {q.device}")
     B, H, Sq, Skv, D = _check_cuda_inputs(q, k, v, torch.bfloat16)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}'s data is not 16-byte aligned")
     out = torch.empty_like(q)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if with_lse else None)

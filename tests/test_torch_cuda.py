@@ -68,6 +68,9 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         t = q.transpose(1, 2)
         fa.flash_attention(t, t, t)
+    with pytest.raises(ValueError, match="16-byte aligned"):  # K1's TMA loads
+        t = torch.empty(q.numel() + 1, device=dev, dtype=q.dtype)[1:].view(q.shape)
+        fa.flash_attention(t, t, t)
     with pytest.raises(NotImplementedError):  # K2 is inference only
         fa.flash_attention(q, q, q, bounded_logits=True, qk_int8=True, with_lse=True)
     with pytest.raises(ValueError, match="requires bounded_logits"):
@@ -76,6 +79,92 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take():
         fa.flash_attention(q.float(), q.float(), q.float(), bounded_logits=True,
                            qk_int8=True)
     assert fa.launches.count == before
+
+
+# K1 (csrc/flash_fwd_sm90.cu) streams 128-key tiles through 3-D TMA maps over
+# [b*h, S, 64] and stores 192-query tiles row by row: lengths around the tile
+# edges, and B*H = 3 so that every head has neighbours.
+RAGGED = (1, 63, 64, 65, 127, 128, 129, 191, 192, 193, 4097)
+K1_FORMS = [(bounded, with_lse) for bounded in (False, True) for with_lse in (False, True)]
+
+
+def _k1_form(q, k, v, bounded: bool, with_lse: bool):
+    """(out, lse or None) of K1 in one form, and of its plain version;
+    checks the form's counter took one launch."""
+    counter = fa.launches_lse if with_lse else fa.launches
+    before = counter.count
+    got = fa.flash_attention(q, k, v, bounded_logits=bounded, with_lse=with_lse)
+    torch.cuda.synchronize()
+    assert counter.count == before + 1
+    want = fa.flash_attention_plain(q, k, v, bounded_logits=bounded, with_lse=with_lse)
+    if not with_lse:
+        got, want = (got, None), (want, None)
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skv", RAGGED)
+@pytest.mark.parametrize("sq", RAGGED)
+def test_k1_forms_at_ragged_lengths_on_card(sq, skv):
+    """All four forms of K1 at Sq, Skv around its 128- and 192-row tiles,
+    against their plain versions at K1's bars (the logsumexp at LSE_TOL)."""
+    dev = _card()
+    q = _randn((1, 3, sq, 64), 20 + sq, dev)
+    k = _randn((1, 3, skv, 64), 30 + skv, dev)
+    v = _randn((1, 3, skv, 64), 40 + skv, dev)
+    for bounded, with_lse in K1_FORMS:
+        (out, lse), (ref, ref_lse) = _k1_form(q, k, v, bounded, with_lse)
+        assert out.shape == q.shape and out.dtype == torch.bfloat16
+        assert bool(torch.isfinite(out).all())
+        _assert_within_bars(out, ref)
+        if with_lse:
+            assert lse.shape == (1, 3, sq) and lse.dtype == torch.float32
+            assert float((lse - ref_lse).abs().max()) <= LSE_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,skv", [(129, 193), (193, 65), (4097, 129)])
+def test_k1_reads_and_writes_nothing_across_a_head(sq, skv):
+    """Heads 0 and 2 are NaN: a K or V tile read past the end of head 1, or a
+    Q tile's store past its end, would carry NaN into head 1 or head 1's
+    values into head 2."""
+    dev = _card()
+    q = _randn((1, 3, sq, 64), 50, dev)
+    k = _randn((1, 3, skv, 64), 51, dev)
+    v = _randn((1, 3, skv, 64), 52, dev)
+    for t in (q, k, v):
+        t[:, 0::2] = float("nan")
+    mid = [t[:, 1:2].contiguous() for t in (q, k, v)]
+    for bounded, with_lse in K1_FORMS:
+        out = fa.flash_attention(q, k, v, bounded_logits=bounded, with_lse=with_lse)
+        torch.cuda.synchronize()
+        (out, lse) = out if with_lse else (out, None)
+        ref = fa.flash_attention_plain(*mid, bounded_logits=bounded, with_lse=with_lse)
+        (ref, ref_lse) = ref if with_lse else (ref, None)
+        assert bool(torch.isfinite(out[:, 1]).all())
+        _assert_within_bars(out[:, 1:2], ref)
+        assert bool(torch.isnan(out[:, 0::2].float()).all())
+        if with_lse:
+            assert float((lse[:, 1:2] - ref_lse).abs().max()) <= LSE_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bounded", [False, True])
+def test_k1_when_the_row_max_rises_late_on_card(bounded):
+    """Keys from 600 on have 6x the logits: the online form's running max,
+    taken on the first tile, is then exceeded by far more than 2^8 and must
+    move (the rare path that redoes a tile's exponentials)."""
+    dev = _card()
+    q = _randn((2, 3, 300, 64), 60, dev)
+    k = _randn((2, 3, 1000, 64), 61, dev)
+    v = _randn((2, 3, 1000, 64), 62, dev)
+    k[:, :, 600:] *= 6
+    for with_lse in (False, True):
+        (out, lse), (ref, ref_lse) = _k1_form(q, k, v, bounded, with_lse)
+        assert bool(torch.isfinite(out).all())
+        _assert_within_bars(out, ref)
+        if with_lse:
+            assert float((lse - ref_lse).abs().max()) <= LSE_TOL
 
 
 def _assert_within_bars(out: torch.Tensor, ref: torch.Tensor) -> None:

@@ -160,3 +160,20 @@ def test_build_reuses_a_built_library_and_needs_nvcc_otherwise(tmp_path, monkeyp
         kernels.build("flash_fwd")
     kernels.library_path("flash_fwd").touch()  # as if built before
     assert kernels.build("flash_fwd") == (0.0, "")
+
+
+def test_k1_lives_in_its_own_source():
+    """K1 (bf16, wgmma/TMA) and K2 (int8 Q K^T) build from separate sources
+    into separate libraries, each named by its source and flags."""
+    paths = {name: kernels.library_path(name) for name in ("flash_fwd_sm90", "flash_fwd")}
+    for name, path in paths.items():
+        assert (kernels.CSRC / f"{name}.cu").is_file()
+        assert path.name.startswith(f"lib{name}-")
+    assert paths["flash_fwd_sm90"] != paths["flash_fwd"]
+
+
+def test_k1_launcher_refuses_cpu_tensors_before_building():
+    q = torch.zeros(1, 1, 8, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="K1 runs on cuda"):
+        fa.flash_fwd_launch(q, q, q, 0.125, True, False)
+    assert "flash_fwd_sm90" not in kernels._loaded
