@@ -7,11 +7,13 @@ Phases, one result line each; any failure exits non-zero:
 
 1. device and build: the card's name and power limit, and the nvcc builds of
    every kernel source under dove_tpu_torch/csrc/, one nvcc each, started
-   together (flash_fwd_sm90 holds K1, flash_fwd K2, flash_bwd K3a and K3b,
-   conv3d_taps K4 and K5), with ptxas's registers, shared memory and spills
-   for each kernel form, and each form's count of HGMMA (wgmma), UTMALDG
-   (TMA load) and HMMA (mma.sync) in its SASS where the toolkit has
-   cuobjdump: every K1 form must issue the first two and not the third;
+   together (flash_fwd_sm90 holds K1, flash_fwd K2, flash_bwd_sm90 K3a and
+   K3b, conv3d_taps K4 and K5), with ptxas's registers, shared memory and
+   spills for each kernel form, and each form's count of HGMMA (wgmma),
+   UTMALDG (TMA load) and HMMA (mma.sync) in its SASS where the toolkit has
+   cuobjdump: every K1, K3a and K3b form must issue the first two and not
+   the third, and spill nothing; which media packages (PIL, torchvision.io,
+   av, imageio) the card's Python imports;
 2. K1 (the bf16 flash-attention forward, wgmma/TMA) against its plain
    PyTorch version on the card, bounded and online-softmax forms, at the
    main path's shape, 4097 and 200, and at every Sq, Skv around its
@@ -36,9 +38,9 @@ Phases, one result line each; any failure exits non-zero:
    against their plain versions at the stage-1 training shape
    [2, 48, 3426, 64] and at a ragged Sq != Skv, at K1's bars (and an
    absolute bar on the logsumexp), with the bars shown to reject a dropped
-   tile; K1's training forms also at every Sq, Skv of phase 2 and beside
-   NaN heads; kernel, plain and SDPA times beside the bounds, K1's four
-   forms with the exp floor;
+   tile; K1's training forms, K3a and K3b also at every Sq, Skv of phase 2
+   and beside NaN heads; kernel, plain and SDPA times beside the bounds,
+   K1's four forms with the exp floor;
 10. one stage-1 LoRA training step at full width and 2 DiT layers, once
    through the kernels and once through the plain attention, from the same
    LoRA (B nonzero) and batch: loss and LoRA gradients compared;
@@ -46,7 +48,8 @@ Phases, one result line each; any failure exits non-zero:
    all 42 layers, seeded bf16 weights, LoRA rank 128 / alpha 64, a synthetic
    batch of 2 clips of 25x320x640, three steps through DOVES1Trainer with
    the kernels' launches counted per step, then a checkpoint saved and
-   resumed on the card;
+   resumed on the card, and the LoRA exported, read back through the port's
+   own safetensors reader and fused into the DiT;
 12. K4 (the W8A8 3x3x3 tap conv) and K5 (the same schedule in bf16) against
    their plain versions at the shapes the int8 decode of the 32-frame clip
    gives them (every channel width of the 5B decoder, the per-frame k_t = 1
@@ -106,6 +109,11 @@ K1_LSE_ABS_TOL = 1e-3
 # plain attention (phase 10): both bf16, rounded at the same points, apart
 # by the kernels' bf16 outputs (one ulp here and there, ~2e-3 RMS) through
 # two layers and the backward.
+# K3a's dQ and K3b's dK with a single key in the online form are exactly 0
+# (p = 1, o = v): the rounding residue either side may show, fp32 dot
+# products of 64 bf16 products of unit-variance values apart in summation
+# order, times |k|.
+ZERO_GRAD_TOL = 1e-4
 TRAIN_LOSS_REL_TOL = 1e-2
 TRAIN_GRAD_REL_RMS_TOL = 5e-2
 
@@ -194,6 +202,17 @@ def within_bars(err: dict) -> bool:
             and err["rel_rms"] <= K1_REL_RMS_TOL)
 
 
+def within_grad_bars(err: dict) -> bool:
+    """K1's bars for a gradient of any size: the absolute bar, set for
+    attention outputs of |o| <= ~3, scales with the gradient's largest value
+    past 1. A gradient summed over thousands of rows reaches |x| ~ 8, where
+    one bf16 ulp is 0.0625 and two fp32 sums in another order may round to
+    neighbours; the relative bars are as K1's."""
+    ref_max = err["max_abs"] / err["rel_max"] if err["rel_max"] else 0.0
+    return (err["max_abs"] <= K1_ABS_TOL * max(1.0, ref_max)
+            and err["rel_max"] <= K1_REL_MAX_TOL and err["rel_rms"] <= K1_REL_RMS_TOL)
+
+
 def main_path_seq_len(cfg) -> int:
     """Joint text+video tokens of the main path's DiT pass. pad_video pads
     the LQ frame to multiples of 16 (180 rows to 192), so the 32-frame
@@ -221,8 +240,8 @@ KERNEL_FORMS = {
     "flash_fwd_sm90_kernelILb1ELb1E": "K1 bounded lse",
     "flash_fwd_sm90_kernelILb0ELb1E": "K1 online lse",
     "flash_fwd_qk8_kernel": "K2",
-    "flash_bwd_dq_kernel": "K3a",
-    "flash_bwd_dkv_kernel": "K3b",
+    "flash_bwd_dq_sm90_kernel": "K3a",
+    "flash_bwd_dkv_sm90_kernel": "K3b",
     "conv3d_taps_kernelIaiLi3E": "K4 k_t=3",
     "conv3d_taps_kernelIaiLi1E": "K4 k_t=1",
     "conv3d_taps_kernelI13__nv_bfloat16fLi3E": "K5 k_t=3",
@@ -230,7 +249,13 @@ KERNEL_FORMS = {
     "quant_pack_kernelI13__nv_bfloat16E": "quantizer bf16",
     "quant_pack_kernelIfE": "quantizer fp32",
 }
-SOURCES = ("flash_fwd_sm90", "flash_fwd", "flash_bwd", "conv3d_taps")
+SOURCES = ("flash_fwd_sm90", "flash_fwd", "flash_bwd_sm90", "conv3d_taps")
+# the kernels that must issue wgmma and TMA loads, no mma.sync, and spill
+# nothing
+HOPPER_FORMS = ("K1 bounded", "K1 online", "K1 bounded lse", "K1 online lse",
+                "K3a", "K3b")
+# the packages a media route for the CLI could use on the card
+MEDIA_PACKAGES = ("PIL", "torchvision.io", "av", "imageio")
 # SASS opcodes counted per kernel form: Hopper's warpgroup MMA and TMA load,
 # and the pre-Hopper mma.sync
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
@@ -268,14 +293,38 @@ def sass_counts(lib_path) -> dict[str, dict[str, int]] | None:
     return counts
 
 
+def media_packages() -> dict[str, str]:
+    """Which of MEDIA_PACKAGES this Python imports: each one's version, or
+    the error, from a child process (nothing is loaded into this one)."""
+    code = (
+        "import importlib, json\n"
+        "out = {}\n"
+        f"for name in {MEDIA_PACKAGES!r}:\n"
+        "    try:\n"
+        "        m = importlib.import_module(name)\n"
+        "        top = importlib.import_module(name.split('.')[0])\n"
+        "        out[name] = 'imports ' + str(getattr(top, '__version__', '?'))\n"
+        "    except Exception as e:\n"
+        "        out[name] = type(e).__name__ + ': ' + str(e)[:80]\n"
+        "print(json.dumps(out))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120)
+    if res.returncode != 0:
+        return {"probe": f"failed: {res.stderr.strip()[-200:]}"}
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
 def phase_build() -> None:
     import ctypes
+    import re
 
     from dove_tpu_torch import kernels
 
     t0 = time.perf_counter()
     built = kernels.build_all(list(SOURCES))
     wall = time.perf_counter() - t0
+    spills: dict[str, int] = {}
     for name, (seconds, text) in built.items():
         form = "?"
         for line in text.splitlines():
@@ -283,32 +332,51 @@ def phase_build() -> None:
                 form = _form(line) or line
             if any(w in line for w in ("registers", "spill", "error", "warning")):
                 log(f"  ptxas {name} [{form}]: {line.strip()}")
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                spills[form] = spills.get(form, 0) + int(m.group(1)) + int(m.group(2))
     smem = ctypes.CDLL(str(kernels.library_path("flash_fwd_sm90"))
                        ).dove_flash_fwd_sm90_smem_bytes()
     log(f"  K1 (all four forms): {smem} bytes of dynamic shared memory a CTA "
         "(a 192-row Q tile, three stages of 128-key K and V tiles, alignment "
         "slack), 512 threads: producer warpgroup at 24 registers, three "
         "consumer warpgroups at 160 (setmaxnreg)")
-    k1_forms = [f for f in KERNEL_FORMS.values() if f.startswith("K1")]
+    bwd_smem = ctypes.CDLL(str(kernels.library_path("flash_bwd_sm90"))
+                           ).dove_flash_bwd_sm90_smem_bytes
+    log(f"  K3a: {bwd_smem(0)} bytes of dynamic shared memory a CTA (Q and dO of "
+        "192 queries, four stages of 64-key K and V tiles, alignment slack), 512 "
+        "threads: producer warpgroup at 24 registers, three consumer warpgroups "
+        f"at 160; K3b: {bwd_smem(1)} bytes (four stages of 64-query Q and dO "
+        "tiles with their lse and delta values; K and V of its 128 keys are "
+        "register operands), 384 threads: producer at 24, two consumers at 240")
+    bad_spills = {f: n for f, n in spills.items() if f in HOPPER_FORMS and n}
+    if bad_spills:
+        raise AssertionError(f"register spills in {bad_spills}")
+    if not all(built[n][1] for n in ("flash_fwd_sm90", "flash_bwd_sm90")):
+        log("  ptxas: K1 or K3 was built before this run; its spills are not checked")
+    elif not all(f in spills for f in HOPPER_FORMS):
+        raise AssertionError(f"no ptxas report for some of {HOPPER_FORMS}: {spills}")
+    log(f"  media packages on this machine: {json.dumps(media_packages())}")
     counts = sass_counts(kernels.library_path("flash_fwd_sm90"))
     if counts is None:
         log("  SASS: no cuobjdump in this toolkit; opcode counts not taken")
     else:
         for name in SOURCES:
-            lib_counts = (counts if name == "flash_fwd_sm90"
+            lib_counts = (dict(counts) if name == "flash_fwd_sm90"
                           else sass_counts(kernels.library_path(name)))
             for form, c in lib_counts.items():
                 log(f"  SASS {name} [{form}]: " + ", ".join(
                     f"{op} {n}" for op, n in c.items()))
-        bad = [f for f in k1_forms if f not in counts or not counts[f]["HGMMA"]
+            counts.update(lib_counts)
+        bad = [f for f in HOPPER_FORMS if f not in counts or not counts[f]["HGMMA"]
                or not counts[f]["UTMALDG"] or counts[f]["HMMA"]]
         if bad:
-            raise AssertionError(f"K1 forms without wgmma and TMA loads, or with "
-                                 f"mma.sync: {bad}")
+            raise AssertionError(f"K1, K3a or K3b forms without wgmma and TMA loads, "
+                                 f"or with mma.sync: {bad}")
     log("phase 1 build: " + ", ".join(
         f"{name} {seconds:.2f}s" for name, (seconds, _) in built.items())
         + f" of nvcc, {wall:.2f}s wall (flash_fwd_sm90: K1 in its four forms; "
-        "flash_fwd: K2; flash_bwd: K3a and K3b; conv3d_taps: K4, K5 and the "
+        "flash_fwd: K2; flash_bwd_sm90: K3a and K3b; conv3d_taps: K4, K5 and the "
         "int8 quantizer's pass)")
 
 
@@ -584,8 +652,8 @@ def phase_main_path(profile_dir: str | None = None) -> dict:
 KERNEL_KINDS = (  # (kind, substrings of CUDA kernel names), first match wins
     ("k2_flash_fwd_qk8", ("flash_fwd_qk8_kernel",)),
     ("k1_flash_fwd", ("flash_fwd_sm90_kernel",)),
-    ("k3a_flash_bwd_dq", ("flash_bwd_dq_kernel",)),
-    ("k3b_flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    ("k3a_flash_bwd_dq", ("flash_bwd_dq_sm90_kernel",)),
+    ("k3b_flash_bwd_dkv", ("flash_bwd_dkv_sm90_kernel",)),
     ("k4_conv3d_w8a8", ("conv3d_taps_kernel<signed char", "conv3d_taps_kernel<int8")),
     ("k5_conv3d_bf16", ("conv3d_taps_kernel<__nv_bfloat16",)),
     ("quant_pack", ("quant_pack_kernel",)),
@@ -909,6 +977,72 @@ def _bound(flops: float, nbytes: float) -> tuple[float, str]:
     return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
 
 
+def k3_edge_cases() -> dict:
+    """K3a and K3b against their plain versions at every (Sq, Skv) of RAGGED
+    with B*H = 3, on the output and logsumexp of both K1 training forms; and
+    with the neighbouring heads' q, k, v, dO, lse and delta NaN: a tile read
+    across a head's end would poison head 1 (K3b's lse and delta slices may
+    read the next head's values, which its last tile must mask), a store
+    across it would overwrite a NaN head's gradients."""
+    from dove_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(22)
+    scale = 64 ** -0.5
+    worst = {"k3a": 0.0, "k3b": 0.0}
+
+    def rand(s):
+        return torch.randn((1, 3, s, 64), generator=gen, device=dev, dtype=torch.bfloat16)
+
+    def inputs(sq, skv, bounded):
+        q, k, v, do = rand(sq), rand(skv), rand(skv), rand(sq)
+        out, lse = fa.flash_attention(q, k, v, bounded_logits=bounded, with_lse=True)
+        return [q, k, v, do, lse, (do.float() * out.float()).sum(-1)]
+
+    def check(args, heads: slice, what: str):
+        grads = (fa.flash_bwd_dq_launch(*args, scale),
+                 *fa.flash_bwd_dkv_launch(*args, scale))
+        torch.cuda.synchronize()
+        mid = [t[:, heads].contiguous() for t in args]
+        refs = (fa.flash_bwd_dq_plain(*mid, scale), *fa.flash_bwd_dkv_plain(*mid, scale))
+        one_key = args[1].shape[2] == 1
+        for key, name, got, want in zip(("k3a", "k3b", "k3b"), "qkv", grads, refs):
+            got = got[:, heads]
+            err = attn_errors(got, want)
+            if (one_key and name != "v"
+                    and float(want.float().abs().max()) <= ZERO_GRAD_TOL):
+                # one key, online form: p = 1 and o = v, so ds = dO.v - delta
+                # and dQ, dK are 0; both sides hold only rounding residue
+                ok = float(got.float().abs().max()) <= ZERO_GRAD_TOL
+            else:
+                ok = within_grad_bars(err)
+            if not bool(torch.isfinite(got).all()) or not ok:
+                raise AssertionError(f"{key} d{name} disagrees with its plain version "
+                                     f"at {what}: {err}")
+            worst[key] = max(worst[key], err["max_abs"])
+        return grads
+
+    for sq in RAGGED:
+        for skv in RAGGED:
+            for bounded in (True, False):
+                check(inputs(sq, skv, bounded), slice(None),
+                      f"sq={sq} skv={skv} bounded={bounded}")
+    nan_pairs = ((129, 193), (193, 65), (4097, 129), (65, 4097))
+    for sq, skv in nan_pairs:
+        args = inputs(sq, skv, False)
+        for t in args:
+            t[:, 0::2] = float("nan")
+        for g in check(args, slice(1, 2), f"NaN neighbours sq={sq} skv={skv}"):
+            if not bool(torch.isnan(g[:, 0::2].float()).all()):
+                raise AssertionError(f"K3 wrote into a NaN head's gradient at sq={sq} "
+                                     f"skv={skv}")
+    log(f"  K3a, K3b at every Sq, Skv in {RAGGED} (B*H = 3, both K1 training forms) "
+        f"and beside NaN heads: {2 * len(RAGGED) ** 2 + len(nan_pairs)} launches each "
+        "within the bars; worst max_abs " + json.dumps(
+            {k: float(f"{x:.3e}") for k, x in worst.items()}))
+    return worst
+
+
 def phase_k3(heads: int) -> dict:
     """K1's training form and the backward kernels against their plain
     versions, on the same bf16 inputs; the backward takes the kernel's own
@@ -1010,6 +1144,8 @@ def phase_k3(heads: int) -> dict:
     edges = k1_edge_cases(with_lse=True)
     worst["k1_lse"] = max(worst["k1_lse"], edges["max_abs"])
     worst["lse"] = max(worst["lse"], edges["lse"])
+    for key, x in k3_edge_cases().items():
+        worst[key] = max(worst[key], x)
     for c in _k3_counters().values():
         c.reset()
     torch.cuda.empty_cache()
@@ -1115,6 +1251,56 @@ def phase_train_kernel_vs_plain() -> None:
     torch.cuda.empty_cache()
 
 
+def lora_round_trip(tr, out_dir: str) -> str:
+    """The trainer's LoRA export (export_lora_safetensors) read back through
+    the port's own safetensors reader, equal bit for bit to the trained
+    tensors, then fused into the trainer's DiT (which it changes in place):
+    every adapted weight must equal the LoRA merge (train/lora.py
+    merged_weight) to within the rounding of the fused delta. Returns a log
+    fragment."""
+    from pathlib import Path
+
+    from dove_tpu_torch import safetensors_io, weights
+    from dove_tpu_torch.train import checkpointing as ckpt_mod
+    from dove_tpu_torch.train import lora as lora_mod
+
+    path = Path(out_dir) / "export" / "pytorch_lora_weights.safetensors"
+    t0 = time.perf_counter()
+    tr.export(path.parent)
+    read = safetensors_io.load_file(path)
+    load_s = time.perf_counter() - t0
+    want = ckpt_mod.lora_state_dict(tr.lora_params)
+    if sorted(read) != sorted(want) or not all(
+            torch.equal(read[k], torch.from_numpy(v)) for k, v in want.items()):
+        raise AssertionError("the LoRA read back differs from the exported one")
+    layers = len(tr.dit.transformer_blocks)
+    targets = {"to_q": "to_q", "to_k": "to_k", "to_v": "to_v", "to_out": "to_out.0"}
+    with torch.no_grad():
+        before = {(i, t): tr.dit.transformer_blocks[i].attn1.get_submodule(name)
+                  .weight.detach().clone()
+                  for i in (0, layers - 1) for t, name in targets.items()}
+        merged = {(i, t): lora_mod.merged_weight(
+            w, tr.lora_params[t]["A"][i], tr.lora_params[t]["B"][i], tr.lora_scale)
+            for (i, t), w in before.items()}
+    weights.fuse_lora_into_dit(tr.dit, {k: v.cuda() for k, v in read.items()},
+                               scale=tr.lora_scale)
+    worst = 0.0
+    for (i, t), m in merged.items():
+        w = tr.dit.transformer_blocks[i].attn1.get_submodule(targets[t]).weight
+        # the fused weight rounds the delta to bf16, then the sum; the merge
+        # rounds the sum alone: apart by an ulp of the larger of the weight
+        # and the merge (where the two nearly cancel, of the weight)
+        scale = torch.maximum(before[i, t].float().abs(), m.float().abs())
+        ulp = torch.ldexp(torch.ones_like(scale), torch.frexp(scale)[1] - 8)
+        worst = max(worst, float(((w.float() - m.float()).abs() / ulp).max()))
+    if not worst <= 2.0:
+        raise AssertionError(f"the fused LoRA is {worst} bf16 ulps from the merge")
+    return (f"LoRA export {path.stat().st_size / 2**20:.0f} MiB written and read back "
+            f"through dove_tpu_torch.safetensors_io in {load_s:.1f}s, {len(read)} "
+            f"tensors equal; fused into {layers} layers, within {worst:.0f} bf16 ulp "
+            "of the merge")
+
+
 def phase_train_recipe(profile_dir: str | None = None) -> dict:
     import shutil
     import statistics
@@ -1195,6 +1381,7 @@ def phase_train_recipe(profile_dir: str | None = None) -> dict:
     if tr.global_step != step or tr.optimizer.count != step or not all(
             torch.equal(a, b) for a, b in zip(tr.trainable_tensors(), saved)):
         raise AssertionError("the resumed state differs from the saved one")
+    lora_check = lora_round_trip(tr, out_dir)
     shutil.rmtree(out_dir, ignore_errors=True)
 
     median = statistics.median(s["wall_s"] for s in steps[1:])
@@ -1208,7 +1395,8 @@ def phase_train_recipe(profile_dir: str | None = None) -> dict:
         f"batch's encode alone {enc_peak / 2**30:.2f} GiB; {resident / 2**30:.2f} GiB "
         f"held before the phase), launches "
         f"{launches}, max|B| {b_max:.3e}; checkpoint {ckpt_bytes / 2**30:.2f} GiB saved "
-        f"in {save_s:.1f}s, resumed in {resume_s:.1f}s; weights init {init_s:.1f}s")
+        f"in {save_s:.1f}s, resumed in {resume_s:.1f}s; weights init {init_s:.1f}s; "
+        f"{lora_check}")
     del tr, saved, batch
     torch.cuda.empty_cache()
     return dict(launches=launches, steps=steps, step_median_s=median,
@@ -1804,7 +1992,7 @@ def main(argv: list[str] | None = None) -> int:
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": "dove_tpu_torch/csrc/flash_bwd.cu",
+            "source": "dove_tpu_torch/csrc/flash_bwd_sm90.cu",
             "replaces": f"dove_tpu/ops/pallas/flash_attention.py:{line}",
             "launches": train["launches"][key],
             "launches_per_step": train["launches"][key] // TRAIN_STEPS,

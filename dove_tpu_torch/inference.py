@@ -107,7 +107,12 @@ def load_pipeline(args):
     return DovePipeline(
         config=cfg, dit=dit, vae=vae, prompt_embedding=prompt_embedding,
         dtype=dtype, device=device, vae_tiling=args.is_vae_st,
-        output_uint8=True, quantize=args.quantize, streaming=args.streaming,
+        output_uint8=True,
+        # as scripts/inference.py: a plain mp4 takes planar I420 from the
+        # device (the H.264 encoder consumes yuv420); the reference keeps RGB
+        # for PNG, lossless and metrics outputs, which the port does not write yet
+        output_i420=args.is_vae_st,
+        quantize=args.quantize, streaming=args.streaming,
         vae_exclude=tuple(n.strip() for n in args.vae_exclude.split(",") if n.strip()),
         vae_calib=({k: torch.from_numpy(v) for k, v in np.load(args.vae_calib).items()}
                    if args.vae_calib else None),
@@ -133,8 +138,10 @@ def main(argv=None) -> None:
         dt = time.perf_counter() - t0
         logging.info("%s: %s in %.2fs (%.2f frames/s) stages %s", vpath.name,
                      out.shape, dt, out.shape[0] / dt, pipe.stage_times)
+        # explicit: the pipeline falls back to RGB on odd dims
         video_io.save_video(out, out_dir / (vpath.stem + ".mp4"),
-                            pixel_format="rgb")
+                            pixel_format="i420" if (pipe.output_i420 and out.ndim == 3)
+                            else "rgb")
     print("All videos processed.")
 
 

@@ -5,8 +5,8 @@ with its custom VJP). K1 is the bf16 forward (kernel ``_fwd_kernel``), with
 the per-row logsumexp in its training form; K2 its ``qk8`` form (per-tensor
 int8 q and k, int32 Q K^T), the int8-dit serving mode's attention; K3a and
 K3b are the backward (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``). K1 lives in
-``csrc/flash_fwd_sm90.cu`` (wgmma, TMA, warp-specialised), K2 in
-``csrc/flash_fwd.cu``, K3a and K3b in ``csrc/flash_bwd.cu``; each note says
+``csrc/flash_fwd_sm90.cu`` and K3a and K3b in ``csrc/flash_bwd_sm90.cu``
+(wgmma, TMA, warp-specialised), K2 in ``csrc/flash_fwd.cu``; each note says
 what bounds the kernels on the H100 and how they differ from the TPU
 schedule.
 
@@ -77,7 +77,8 @@ def _qk8_library() -> ctypes.CDLL:
 
 
 def _bwd_library() -> ctypes.CDLL:
-    lib = kernels.load("flash_bwd")
+    """K3a's and K3b's library."""
+    lib = kernels.load("flash_bwd_sm90")
     if lib.dove_flash_bwd_dq.argtypes is None:
         tail = [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
         lib.dove_flash_bwd_dq.argtypes = [ctypes.c_void_p] * 7 + tail
@@ -314,6 +315,10 @@ def _check_bwd_inputs(q, k, v, do, lse, delta) -> tuple[int, int, int, int, int]
         if (t.shape != (B, H, Sq) or t.dtype != torch.float32
                 or not t.is_contiguous() or t.device != q.device):
             raise ValueError(f"{name} must be contiguous fp32 [B, H, Sq] on q's device")
+    # the kernels' TMA loads
+    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}'s data is not 16-byte aligned")
     return B, H, Sq, Skv, D
 
 

@@ -7,7 +7,8 @@ from the directory name). The JAX package persists its state with orbax;
 here the payload (the trainable tensors and the optimizer state) goes
 through ``torch.save`` into ``checkpoint-{step}/state.pt``.
 ``export_lora_safetensors`` writes the peft key names and layouts the JAX
-package writes; ``safetensors`` is imported inside it.
+package writes. Both exports go through the port's own writer of the
+format (``safetensors_io``), not the ``safetensors`` package.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+
+from dove_tpu_torch import safetensors_io
 
 CHECKPOINT_PREFIX = "checkpoint-"
 STATE_FILE = "state.pt"
@@ -111,10 +114,8 @@ def lora_state_dict(lora: Mapping[str, Mapping[str, Any]]) -> dict[str, np.ndarr
 def export_lora_safetensors(lora: Mapping[str, Mapping[str, Any]],
                             out_path: str | Path) -> None:
     """Write a peft/diffusers-format ``pytorch_lora_weights.safetensors``."""
-    from safetensors.numpy import save_file
-
     Path(out_path).parent.mkdir(parents=True, exist_ok=True)
-    save_file(lora_state_dict(lora), str(out_path))
+    safetensors_io.save_file(lora_state_dict(lora), out_path)
 
 
 def export_dit_safetensors(dit: torch.nn.Module, out_dir: str | Path, *,
@@ -124,8 +125,6 @@ def export_dit_safetensors(dit: torch.nn.Module, out_dir: str | Path, *,
     (sharded, with an index, past ``max_shard_bytes``): the port's module
     names are the checkpoint's, so its state dict is the payload."""
     import json
-
-    from safetensors.torch import save_file
 
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -143,7 +142,7 @@ def export_dit_safetensors(dit: torch.nn.Module, out_dir: str | Path, *,
     for i, shard in enumerate(shards):
         name = ("diffusion_pytorch_model.safetensors" if n == 1 else
                 f"diffusion_pytorch_model-{i + 1:05d}-of-{n:05d}.safetensors")
-        save_file(shard, str(out_dir / name))
+        safetensors_io.save_file(shard, out_dir / name)
         for k, v in shard.items():
             weight_map[k] = name
             total += v.numel() * v.element_size()

@@ -18,7 +18,8 @@ with ``kernel_q``, ``kernel_scale`` and optionally ``kernel_ksum`` and
 ``fuse_lora_into_dit`` fuses a peft adapter (the trained LoRA's export) into
 a DiT so that the pipeline serves it.
 
-``safetensors`` is imported inside the functions that read files.
+Files are read through ``safetensors_io``, the port's own reader of the
+format: the ``safetensors`` package is not needed.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from dove_tpu_torch import safetensors_io
 from dove_tpu_torch.config import DiTConfig, PipelineConfig, VAEConfig
 from dove_tpu_torch.models.dit import CogVideoXTransformer3D
 from dove_tpu_torch.models.vae import AutoencoderKLCogVideoX
@@ -42,8 +44,6 @@ Tensors = Mapping[str, Any]  # name -> torch.Tensor or np.ndarray
 
 def load_safetensors_dir(subdir: str | Path) -> dict[str, torch.Tensor]:
     """All tensors of a diffusers model subfolder (sharded or single file)."""
-    from safetensors import safe_open
-
     subdir = Path(subdir)
     index_files = sorted(subdir.glob("*.safetensors.index.json"))
     if len(index_files) > 1:
@@ -60,14 +60,13 @@ def load_safetensors_dir(subdir: str | Path) -> dict[str, torch.Tensor]:
         raise FileNotFoundError(f"no safetensors files under {subdir}")
     tensors: dict[str, torch.Tensor] = {}
     for f in files:
-        with safe_open(str(f), framework="pt") as fp:
-            for k in fp.keys():
-                if k in tensors:
-                    raise ValueError(
-                        f"duplicate tensor {k!r} across files in {subdir} "
-                        "(multiple precision variants?) — keep one variant"
-                    )
-                tensors[k] = fp.get_tensor(k)
+        for k, t in safetensors_io.load_file(f).items():
+            if k in tensors:
+                raise ValueError(
+                    f"duplicate tensor {k!r} across files in {subdir} "
+                    "(multiple precision variants?) — keep one variant"
+                )
+            tensors[k] = t
     return tensors
 
 
@@ -154,11 +153,7 @@ def load_prompt_embedding(
 ) -> torch.Tensor:
     """A cached T5 prompt embedding (e.g. the empty-prompt file shipped with
     the reference, prompt_embeddings/e3b0c4...safetensors)."""
-    from safetensors import safe_open
-
-    with safe_open(str(path), framework="pt") as fp:
-        emb = fp.get_tensor("prompt_embedding")
-    return emb.to(dtype)
+    return safetensors_io.load_file(path)["prompt_embedding"].to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -317,14 +312,16 @@ def fuse_lora_into_dit(
     return it: the counterpart of ``dove_tpu.weights.fuse_lora_into_dit``
     (the reference's load_lora_weights + fuse_lora). Keys follow the
     diffusers export (``pytorch_lora_weights.safetensors``); a leading
-    "transformer." is tolerated. Each delta is computed in fp32 and cast to
-    the weight's dtype before the add, as in JAX."""
+    "transformer." is tolerated. The tensors may be NumPy arrays or torch
+    tensors of any float dtype on any device (a bf16 file read by
+    ``safetensors_io``). Each delta is computed in fp32 and cast to the
+    weight's dtype before the add, as in JAX."""
     deltas: dict[tuple[int, str], dict[str, torch.Tensor]] = {}
     for key, val in lora_tensors.items():
         m = _LORA_KEY.search(key.removeprefix("transformer."))
         if m:
             deltas.setdefault((int(m.group(1)), m.group(2)), {})[m.group(3)] = (
-                torch.as_tensor(np.asarray(val, np.float32)))
+                torch.as_tensor(val).float())
     if not deltas:
         raise ValueError("no recognizable LoRA keys found")
     n_layers = len(dit.transformer_blocks)

@@ -167,10 +167,15 @@ def test_k1_when_the_row_max_rises_late_on_card(bounded):
             assert float((lse - ref_lse).abs().max()) <= LSE_TOL
 
 
-def _assert_within_bars(out: torch.Tensor, ref: torch.Tensor) -> None:
+def _assert_within_bars(out: torch.Tensor, ref: torch.Tensor,
+                        grad: bool = False) -> None:
+    """K1's bars. grad: a gradient of any size, whose absolute bar scales
+    with its largest value past 1 (summed over thousands of rows it reaches
+    |x| ~ 8, where one bf16 ulp is 0.0625 and two fp32 sums in another order
+    may round to neighbours)."""
     diff, ref = out.float() - ref.float(), ref.float()
     max_abs = float(diff.abs().max())
-    assert max_abs <= ABS_TOL
+    assert max_abs <= ABS_TOL * (max(1.0, float(ref.abs().max())) if grad else 1.0)
     assert max_abs <= REL_MAX_TOL * float(ref.abs().max())
     assert float(diff.square().mean().sqrt()) <= (
         REL_RMS_TOL * float(ref.square().mean().sqrt()))
@@ -211,6 +216,103 @@ def test_k1_lse_and_k3_match_plain_on_card(sq, skv, bounded):
     for got, want in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
         assert got.dtype == torch.bfloat16 and got.shape == want.shape
         _assert_within_bars(got, want)
+
+
+def _k3_case(q, k, v, do, bounded: bool):
+    """K1's training form on (q, k, v), then K3a and K3b on its output and
+    logsumexp -> ((dq, dk, dv), (lse, delta)); checks each backward kernel
+    took one launch."""
+    out, lse = fa.flash_attention(q, k, v, bounded_logits=bounded, with_lse=True)
+    delta = (do.float() * out.float()).sum(-1)
+    before = fa.launches_bwd_dq.count, fa.launches_bwd_dkv.count
+    dq = fa.flash_bwd_dq_launch(q, k, v, do, lse, delta, 0.125)
+    dk, dv = fa.flash_bwd_dkv_launch(q, k, v, do, lse, delta, 0.125)
+    torch.cuda.synchronize()
+    assert (fa.launches_bwd_dq.count, fa.launches_bwd_dkv.count) == (
+        before[0] + 1, before[1] + 1)
+    return (dq, dk, dv), (lse, delta)
+
+
+def _k3_plain(q, k, v, do, lse, delta):
+    return (fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, 0.125),
+            *fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, 0.125))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skv", RAGGED)
+@pytest.mark.parametrize("sq", RAGGED)
+def test_k3_at_ragged_lengths_on_card(sq, skv):
+    """K3a (192-query CTAs, 64-key tiles) and K3b (128-key CTAs, 64-query
+    tiles) at Sq, Skv around their tiles, on the output and logsumexp of
+    both K1 training forms, against their plain versions at K1's bars."""
+    dev = _card()
+    q = _randn((1, 3, sq, 64), 70 + sq, dev)
+    k = _randn((1, 3, skv, 64), 80 + skv, dev)
+    v = _randn((1, 3, skv, 64), 90 + skv, dev)
+    do = _randn((1, 3, sq, 64), 100 + sq, dev)
+    for bounded in (False, True):
+        grads, (lse, delta) = _k3_case(q, k, v, do, bounded)
+        for name, got, want in zip("qkv", grads, _k3_plain(q, k, v, do, lse, delta)):
+            assert got.shape == want.shape and got.dtype == torch.bfloat16
+            assert bool(torch.isfinite(got).all())
+            if skv == 1 and name in "qk" and float(want.abs().max()) <= ZERO_GRAD_TOL:
+                # one key, online form: p = 1 and o = v exactly, so ds =
+                # dO.v - delta and dQ, dK are 0; both sides hold only the
+                # rounding residue of two fp32 dot products, where a
+                # relative bar means nothing. (The bounded form rounds an
+                # unnormalised p to bf16, so its o is not v and its dQ, dK
+                # are real values, held to the bars.)
+                assert float(got.float().abs().max()) <= ZERO_GRAD_TOL
+            else:
+                _assert_within_bars(got, want, grad=True)
+
+
+# the residue that a zero gradient may show: fp32 dot products of 64 bf16
+# products of unit-variance values, apart in summation order, times |k|
+ZERO_GRAD_TOL = 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,skv", [(129, 193), (193, 65), (4097, 129), (65, 4097)])
+def test_k3_reads_and_writes_nothing_across_a_head(sq, skv):
+    """Heads 0 and 2 are NaN (q, k, v, dO, lse and delta): a tile read past
+    the end of head 1 (K3b's lse and delta slices do read on into the next
+    head, and its last tile must mask them), or a store past its end, would
+    carry NaN into head 1's gradients or head 1's values into head 2's."""
+    dev = _card()
+    q = _randn((1, 3, sq, 64), 110, dev)
+    k = _randn((1, 3, skv, 64), 111, dev)
+    v = _randn((1, 3, skv, 64), 112, dev)
+    do = _randn((1, 3, sq, 64), 113, dev)
+    out, lse = fa.flash_attention(q, k, v, with_lse=True)
+    delta = (do.float() * out.float()).sum(-1)
+    for t in (q, k, v, do, lse, delta):
+        t[:, 0::2] = float("nan")
+    grads = (fa.flash_bwd_dq_launch(q, k, v, do, lse, delta, 0.125),
+             *fa.flash_bwd_dkv_launch(q, k, v, do, lse, delta, 0.125))
+    torch.cuda.synchronize()
+    refs = _k3_plain(*(t[:, 1:2].contiguous() for t in (q, k, v, do, lse, delta)))
+    for got, want in zip(grads, refs):
+        assert bool(torch.isfinite(got[:, 1]).all())
+        _assert_within_bars(got[:, 1:2], want, grad=True)
+        assert bool(torch.isnan(got[:, 0::2].float()).all())
+
+
+@pytest.mark.cuda
+def test_k3_wrapper_raises_on_what_the_kernels_do_not_take():
+    """Misaligned data (the TMA loads) and a float32 dO raise before any
+    launch; nothing falls back to the plain version."""
+    dev = _card()
+    q, k, v, do = (_randn((1, 2, 100, 64), s, dev) for s in (120, 121, 122, 123))
+    lse = torch.zeros((1, 2, 100), device=dev)
+    delta = torch.zeros((1, 2, 100), device=dev)
+    before = fa.launches_bwd_dq.count, fa.launches_bwd_dkv.count
+    with pytest.raises(ValueError, match="do must be"):
+        fa.flash_bwd_dq_launch(q, k, v, do.float(), lse, delta, 0.125)
+    odd = torch.empty(do.numel() + 1, device=dev, dtype=do.dtype)[1:].view(do.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_bwd_dkv_launch(q, k, v, odd, lse, delta, 0.125)
+    assert (fa.launches_bwd_dq.count, fa.launches_bwd_dkv.count) == before
 
 
 @pytest.mark.cuda

@@ -194,3 +194,40 @@ def test_inference_cli_tiny_on_cpu(tmp_path):
                     "--dtype", "float32"])
     frames = video_io.read_video_frames(out / "clip.mp4")
     assert frames.shape == (9, 64, 96, 3)
+
+
+def test_inference_cli_saves_i420_as_the_reference(tmp_path, monkeypatch):
+    """The CLI builds its pipeline with output_i420 and saves the planar
+    I420 frames as "i420", as scripts/inference.py does; the file decodes to
+    what dove_tpu.io.video.save_video writes from the same array."""
+    from dove_tpu.io import video as jvideo
+    from dove_tpu_torch import inference
+    from dove_tpu_torch.io import video as video_io
+
+    built, saved = [], []
+    load = inference.load_pipeline
+    monkeypatch.setattr(inference, "load_pipeline", lambda a: built.append(load(a)) or built[-1])
+    save = video_io.save_video
+
+    def spy(video, path, fps=16, pixel_format=None):
+        saved.append((video.copy(), pixel_format))
+        return save(video, path, fps, pixel_format)
+
+    monkeypatch.setattr(video_io, "save_video", spy)
+    src = tmp_path / "in"
+    src.mkdir()
+    save(_clip(9, 16, 24, 7), src / "clip.mp4")
+    out = tmp_path / "out"
+    inference.main(["--input_dir", str(src), "--output_path", str(out),
+                    "--is_vae_st", "--device", "cpu", "--preset", "tiny",
+                    "--dtype", "float32"])
+    (pipe,) = built
+    assert pipe.output_i420
+    (i420, pixel_format), = saved
+    assert pixel_format == "i420"
+    assert i420.dtype == np.uint8 and i420.shape == (9, 64 * 3 // 2, 96)
+    ref_path = jvideo.save_video(i420, tmp_path / "ref.mp4", pixel_format="i420")
+    ours = video_io.read_video_frames(out / "clip.mp4")
+    ref = jvideo.read_video_frames(ref_path)
+    assert ours.shape == (9, 64, 96, 3)
+    np.testing.assert_array_equal(ours, ref)
