@@ -8,12 +8,13 @@ Phases, one result line each; any failure exits non-zero:
 1. device and build: the card's name and power limit, and the nvcc builds of
    every kernel source under dove_tpu_torch/csrc/, one nvcc each, started
    together (flash_fwd_sm90 holds K1, flash_fwd K2, flash_bwd_sm90 K3a and
-   K3b, conv3d_taps K4 and K5), with ptxas's registers, shared memory and
-   spills for each kernel form, and each form's count of HGMMA (wgmma),
-   UTMALDG (TMA load) and HMMA (mma.sync) in its SASS where the toolkit has
-   cuobjdump: every K1, K3a and K3b form must issue the first two and not
-   the third, and spill nothing; which media packages (PIL, torchvision.io,
-   av, imageio) the card's Python imports;
+   K3b, conv3d_taps_sm90 K4 and K5, conv3d_taps the int8 quantizer's pass),
+   with ptxas's registers, shared memory and spills for each kernel form,
+   and each form's count of HGMMA / IGMMA (wgmma on bf16 / int8), UTMALDG
+   (TMA load), UBLKCP (bulk copy) and HMMA / IMMA (mma.sync) in its SASS
+   where the toolkit has cuobjdump: every K1, K3a, K3b, K4 and K5 form must
+   issue wgmma and TMA loads and no mma.sync, and spill nothing; which media
+   packages (PIL, torchvision.io, av, imageio) the card's Python imports;
 2. K1 (the bf16 flash-attention forward, wgmma/TMA) against its plain
    PyTorch version on the card, bounded and online-softmax forms, at the
    main path's shape, 4097 and 200, and at every Sq, Skv around its
@@ -53,10 +54,14 @@ Phases, one result line each; any failure exits non-zero:
 12. K4 (the W8A8 3x3x3 tap conv) and K5 (the same schedule in bf16) against
    their plain versions at the shapes the int8 decode of the 32-frame clip
    gives them (every channel width of the 5B decoder, the per-frame k_t = 1
-   form, a ragged shape): K4 equal bit for bit, K5 within 2e-5 of the largest
-   output in fp32 and one bf16 ulp in bf16, with a plain version that skips
-   one tap shown to be rejected; kernel, plain and cuDNN times beside the
-   bound;
+   form, a ragged shape) and at a ragged sweep around the kernel's tiles
+   (Ho and Wo in 1, 63-65, 127-129, 383-385; Fo = 1, two windows, Cin 64 to
+   512, Cout 128 and 256, k_t 1 and 3): K4 equal bit for bit in its three
+   output forms, K5 within 2e-5 of the largest output in fp32 and one bf16
+   ulp in bf16, with a plain version that skips one tap shown to be
+   rejected; K5 beside a window and a frame of NaN equal to its plain
+   version wherever the NaN is not an input; kernel, plain and cuDNN times
+   beside the bound;
 13. the quantize="int8" pipeline (int8 DiT, encoder and decoder) at full
    widths and 2 DiT layers: through K4 and through K4's plain version (uint8
    outputs identical), and through K2 and its plain version (PSNR), with K4's
@@ -242,23 +247,25 @@ KERNEL_FORMS = {
     "flash_fwd_qk8_kernel": "K2",
     "flash_bwd_dq_sm90_kernel": "K3a",
     "flash_bwd_dkv_sm90_kernel": "K3b",
-    "conv3d_taps_kernelIaiLi3E": "K4 k_t=3",
-    "conv3d_taps_kernelIaiLi1E": "K4 k_t=1",
-    "conv3d_taps_kernelI13__nv_bfloat16fLi3E": "K5 k_t=3",
-    "conv3d_taps_kernelI13__nv_bfloat16fLi1E": "K5 k_t=1",
+    "conv3d_taps_sm90_kernelIaiLi3E": "K4 k_t=3",
+    "conv3d_taps_sm90_kernelIaiLi1E": "K4 k_t=1",
+    "conv3d_taps_sm90_kernelI13__nv_bfloat16fLi3E": "K5 k_t=3",
+    "conv3d_taps_sm90_kernelI13__nv_bfloat16fLi1E": "K5 k_t=1",
     "quant_pack_kernelI13__nv_bfloat16E": "quantizer bf16",
     "quant_pack_kernelIfE": "quantizer fp32",
 }
-SOURCES = ("flash_fwd_sm90", "flash_fwd", "flash_bwd_sm90", "conv3d_taps")
+SOURCES = ("flash_fwd_sm90", "flash_fwd", "flash_bwd_sm90", "conv3d_taps_sm90",
+           "conv3d_taps")
 # the kernels that must issue wgmma and TMA loads, no mma.sync, and spill
 # nothing
 HOPPER_FORMS = ("K1 bounded", "K1 online", "K1 bounded lse", "K1 online lse",
-                "K3a", "K3b")
+                "K3a", "K3b", "K4 k_t=3", "K4 k_t=1", "K5 k_t=3", "K5 k_t=1")
 # the packages a media route for the CLI could use on the card
 MEDIA_PACKAGES = ("PIL", "torchvision.io", "av", "imageio")
-# SASS opcodes counted per kernel form: Hopper's warpgroup MMA and TMA load,
-# and the pre-Hopper mma.sync
-SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
+# SASS opcodes counted per kernel form: Hopper's warpgroup MMA (HGMMA on
+# floating-point operands, IGMMA on int8), its TMA tensor load (UTMALDG) and
+# bulk copy (UBLKCP), and the pre-Hopper mma.sync (HMMA, IMMA)
+SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "UBLKCP", "HMMA", "IMMA")
 
 
 def _form(line: str) -> str | None:
@@ -349,11 +356,19 @@ def phase_build() -> None:
         f"at 160; K3b: {bwd_smem(1)} bytes (four stages of 64-query Q and dO "
         "tiles with their lse and delta values; K and V of its 128 keys are "
         "register operands), 384 threads: producer at 24, two consumers at 240")
+    conv_smem = ctypes.CDLL(str(kernels.library_path("conv3d_taps_sm90"))
+                            ).dove_conv3d_sm90_smem_bytes()
+    log(f"  K4 and K5 (all four forms): {conv_smem} bytes of dynamic shared memory a "
+        "CTA (three stages of a 384-position halo in three dh pieces and nine "
+        "[128 cout, 32 B] weight tiles, the epilogue's per-cout table, alignment "
+        "slack), 384 threads: producer "
+        "warpgroup at 40 registers, two consumer warpgroups at 232 (setmaxnreg)")
     bad_spills = {f: n for f, n in spills.items() if f in HOPPER_FORMS and n}
     if bad_spills:
         raise AssertionError(f"register spills in {bad_spills}")
-    if not all(built[n][1] for n in ("flash_fwd_sm90", "flash_bwd_sm90")):
-        log("  ptxas: K1 or K3 was built before this run; its spills are not checked")
+    if not all(built[n][1] for n in ("flash_fwd_sm90", "flash_bwd_sm90",
+                                     "conv3d_taps_sm90")):
+        log("  ptxas: K1, K3 or K4/K5 was built before this run; spills not checked")
     elif not all(f in spills for f in HOPPER_FORMS):
         raise AssertionError(f"no ptxas report for some of {HOPPER_FORMS}: {spills}")
     log(f"  media packages on this machine: {json.dumps(media_packages())}")
@@ -368,16 +383,17 @@ def phase_build() -> None:
                 log(f"  SASS {name} [{form}]: " + ", ".join(
                     f"{op} {n}" for op, n in c.items()))
             counts.update(lib_counts)
-        bad = [f for f in HOPPER_FORMS if f not in counts or not counts[f]["HGMMA"]
-               or not counts[f]["UTMALDG"] or counts[f]["HMMA"]]
+        bad = [f for f in HOPPER_FORMS if f not in counts
+               or not (counts[f]["HGMMA"] or counts[f]["IGMMA"])
+               or not counts[f]["UTMALDG"] or counts[f]["HMMA"] or counts[f]["IMMA"]]
         if bad:
-            raise AssertionError(f"K1, K3a or K3b forms without wgmma and TMA loads, "
-                                 f"or with mma.sync: {bad}")
+            raise AssertionError(f"K1, K3a, K3b, K4 or K5 forms without wgmma and TMA "
+                                 f"loads, or with mma.sync: {bad}")
     log("phase 1 build: " + ", ".join(
         f"{name} {seconds:.2f}s" for name, (seconds, _) in built.items())
         + f" of nvcc, {wall:.2f}s wall (flash_fwd_sm90: K1 in its four forms; "
-        "flash_fwd: K2; flash_bwd_sm90: K3a and K3b; conv3d_taps: K4, K5 and the "
-        "int8 quantizer's pass)")
+        "flash_fwd: K2; flash_bwd_sm90: K3a and K3b; conv3d_taps_sm90: K4 and K5 "
+        "at k_t = 3 and 1; conv3d_taps: the int8 quantizer's pass)")
 
 
 # ---------------------------------------------------------------------------
@@ -654,8 +670,9 @@ KERNEL_KINDS = (  # (kind, substrings of CUDA kernel names), first match wins
     ("k1_flash_fwd", ("flash_fwd_sm90_kernel",)),
     ("k3a_flash_bwd_dq", ("flash_bwd_dq_sm90_kernel",)),
     ("k3b_flash_bwd_dkv", ("flash_bwd_dkv_sm90_kernel",)),
-    ("k4_conv3d_w8a8", ("conv3d_taps_kernel<signed char", "conv3d_taps_kernel<int8")),
-    ("k5_conv3d_bf16", ("conv3d_taps_kernel<__nv_bfloat16",)),
+    ("k4_conv3d_w8a8", ("conv3d_taps_sm90_kernel<signed char",
+                        "conv3d_taps_sm90_kernel<int8")),
+    ("k5_conv3d_bf16", ("conv3d_taps_sm90_kernel<__nv_bfloat16",)),
     ("quant_pack", ("quant_pack_kernel",)),
     ("group_norm", ("rowwisemoments", "group_norm", "groupnorm")),
     ("conv_layout", ("nchwtonhwc", "nhwctonchw")),
@@ -1439,6 +1456,111 @@ def _conv_bound(shape, in_bytes: int, out_bytes: int, peak_ops: float):
             ops)
 
 
+# K4 and K5 tile 384 flat positions (q = f * Hp * Wp + h * Wp + w) in
+# 64-row blocks: heights and widths around the blocks and the tile, every
+# pair of them in one frame of one window, then the other axes of the
+# kernel's shapes.
+CONV_RAGGED_HW = (1, 63, 64, 65, 127, 128, 129, 383, 384, 385)
+CONV_RAGGED = tuple((1, 1, h, w, 64, 128, 3) for h in CONV_RAGGED_HW
+                    for w in CONV_RAGGED_HW) + (
+    (2, 2, 65, 129, 128, 256, 3),  # two windows, two cout blocks
+    (2, 1, 63, 385, 256, 128, 1),  # per frame, two windows
+    (1, 3, 127, 64, 512, 128, 3),  # the widest Cin
+    (2, 1, 1, 383, 64, 256, 1),
+    (1, 2, 384, 1, 128, 128, 3),
+)
+
+
+def _k5_bar(ref: torch.Tensor, kt: int, cin: int) -> float:
+    return (K5_REL_TOL * max(1.0, (kt * 9 * cin / K5_TOL_TERMS) ** 0.5)
+            * float(ref.abs().max()))
+
+
+def conv_ragged_sweep(gen) -> dict:
+    """K4 bit for bit in its three output forms and K5 within its bars at
+    every CONV_RAGGED shape; a plain version without one tap is rejected by
+    both at the first shape of each k_t."""
+    from dove_tpu_torch.ops import conv3d_int8 as conv
+
+    worst_k5, seen_kt = 0.0, set()
+    for shape in CONV_RAGGED:
+        B, Fo, Ho, Wo, cin, cout, kt = shape
+        x, w, scale = _conv_inputs(shape, gen, int8=True)
+        addend = torch.randn((cout, min(Ho, 3), min(Wo, 3)), generator=gen, device="cuda")
+        bias = torch.randn(cout, generator=gen, device="cuda")
+        out = conv.conv_taps(x, w, scale * 1e3, kt, torch.bfloat16, True, addend=addend,
+                             bias=bias)
+        out_f32 = conv.conv_taps(x, w, scale, kt, torch.float32, channels_first=True)
+        out_bf = conv.conv_taps(x, w, scale, kt, torch.bfloat16)
+        torch.cuda.synchronize()
+        ref = conv.conv_taps_plain(x, w, scale * 1e3, kt, torch.bfloat16, True,
+                                   addend=addend, bias=bias)
+        ref_f32 = conv.conv_taps_plain(x, w, scale, kt, torch.float32, channels_first=True)
+        if not (torch.equal(out, ref) and torch.equal(out_f32, ref_f32) and torch.equal(
+                out_bf.permute(0, 4, 1, 2, 3), ref_f32.to(torch.bfloat16))):
+            raise AssertionError(f"K4 differs from its plain version at ragged {shape}")
+        if kt not in seen_kt:
+            short = conv.conv_taps_plain(x, w, scale, kt, torch.float32, True,
+                                         skip_tap=kt * 9 - 1)
+            if torch.equal(short, ref_f32):
+                raise AssertionError("K4's bar accepts a plain version without one tap")
+        x, w, _ = _conv_inputs(shape, gen, int8=False)
+        out = conv.conv_taps(x, w, None, kt, torch.float32, channels_first=True)
+        out_bf = conv.conv_taps(x, w, None, kt, torch.bfloat16)
+        torch.cuda.synchronize()
+        ref = conv.conv_taps_plain(x, w, None, kt, torch.float32, channels_first=True)
+        bar = _k5_bar(ref, kt, cin)
+        err = float((out - ref).abs().max())
+        ref_bf = ref.permute(0, 2, 3, 4, 1).to(torch.bfloat16)
+        over = float(((out_bf.float() - ref_bf.float()).abs() - _bf16_ulp(ref_bf)
+                      - bar).max())
+        if not (err <= bar and over <= 0):
+            raise AssertionError(f"K5 differs from its plain version at ragged {shape}: "
+                                 f"max |diff| {err} (bar {bar}), bf16 over one ulp by {over}")
+        if kt not in seen_kt:
+            short = conv.conv_taps_plain(x, w, None, kt, torch.float32, True,
+                                         skip_tap=kt * 9 - 1)
+            if float((short - ref).abs().max()) <= bar:
+                raise AssertionError("K5's bar accepts a plain version without one tap")
+            seen_kt.add(kt)
+        worst_k5 = max(worst_k5, err / float(ref.abs().max()))
+        del x, w, out, out_bf, ref, ref_bf
+    torch.cuda.empty_cache()
+    return dict(cases=len(CONV_RAGGED), k5_worst_rel_err=worst_k5)
+
+
+def conv_nan_neighbours(gen) -> dict:
+    """K5 with NaN in its input: all of one window, or the last frame of the
+    other. Tiles run across frames and windows, computing positions they
+    never store; an output whose taps read no NaN must stay its plain
+    version's. Returns the outputs checked."""
+    from dove_tpu_torch.ops import conv3d_int8 as conv
+
+    checked = 0
+    for shape in ((2, 3, 37, 53, 128, 128, 3), (2, 3, 37, 53, 128, 128, 1)):
+        B, Fo, Ho, Wo, cin, cout, kt = shape
+        x, w, _ = _conv_inputs(shape, gen, int8=False)
+        for b_nan, frames in ((0, slice(None)), (1, slice(-1, None))):
+            xn = x.clone()
+            xn[b_nan, frames] = float("nan")
+            out = conv.conv_taps(xn, w, None, kt, torch.float32, channels_first=True)
+            torch.cuda.synchronize()
+            ref = conv.conv_taps_plain(xn, w, None, kt, torch.float32, channels_first=True)
+            clean = torch.isfinite(ref)  # the outputs whose taps read no NaN
+            want = Fo * Ho * Wo * cout * (B - 1) + (
+                0 if frames == slice(None) else (Fo - 1) * Ho * Wo * cout)
+            if int(clean.sum()) != want:
+                raise AssertionError(f"NaN neighbour case {shape}: {int(clean.sum())} "
+                                     f"clean outputs, want {want}")
+            bar = _k5_bar(ref[clean], kt, cin)
+            err = float((out[clean] - ref[clean]).abs().max())
+            if not (bool(torch.isfinite(out[clean]).all()) and err <= bar):
+                raise AssertionError(f"K5 beside NaN inputs at {shape} (window {b_nan}): "
+                                     f"max |diff| {err} on clean outputs (bar {bar})")
+            checked += int(clean.sum())
+    return dict(clean_outputs_checked=checked)
+
+
 def phase_conv_kernels() -> tuple[dict, dict, dict]:
     """K4 and K5 alone, then the quantizer's pass. K4 is exact (int32 sums, one fp32 multiply, one
     rounding), so it must equal its plain version; K5 sums fp32 products in
@@ -1510,8 +1632,7 @@ def phase_conv_kernels() -> tuple[dict, dict, dict]:
         out_bf = conv.conv_taps(x, w, None, kt, torch.bfloat16, channels_first=True)
         torch.cuda.synchronize()
         ref = conv.conv_taps_plain(x, w, None, kt, torch.float32, channels_first=True)
-        slack = (K5_REL_TOL * max(1.0, (kt * 9 * cin / K5_TOL_TERMS) ** 0.5)
-                 * float(ref.abs().max()))
+        slack = _k5_bar(ref, kt, cin)
         err = float((out - ref).abs().max())
         ref_bf = ref.to(torch.bfloat16)
         over = float(((out_bf.float() - ref_bf.float()).abs()
@@ -1559,6 +1680,12 @@ def phase_conv_kernels() -> tuple[dict, dict, dict]:
             log(f"  {key.upper()} {shape}: " + json.dumps(
                 {k: (round(v, 4) if isinstance(v, float) and k.endswith(("ms", "tops", "tflops"))
                      else v) for k, v in t.items() if k != "shape"}))
+    ragged = conv_ragged_sweep(gen)
+    nan = conv_nan_neighbours(gen)
+    log(f"  ragged sweep: K4 equal in its three output forms and K5 within its bars "
+        f"at {ragged['cases']} shapes (K5 worst error {ragged['k5_worst_rel_err']:.2e} "
+        f"of max|ref|); NaN neighbours: {nan['clean_outputs_checked']} outputs that "
+        "read no NaN equal K5's plain version")
     for c in (conv.launches_w8a8, conv.launches_w8a8_kt1, conv.launches_bf16):
         c.reset()
     log(f"phase 12 K4, K5: K4 equal to its plain version at {len(CONV_SHAPES)} shapes "
@@ -1571,8 +1698,9 @@ def phase_conv_kernels() -> tuple[dict, dict, dict]:
         f"{rows['k4'][0]['bound_ms']:.3f}), K5 {rows['k5'][0]['ms']:.3f} ms (bound "
         f"{rows['k5'][0]['bound_ms']:.3f}, cuDNN {rows['k5'][0]['library_ms']:.3f} NCDHW, "
         f"{rows['k5'][0]['library_channels_last_ms']:.3f} channels-last)")
-    k4 = dict(rows["k4"][0], by_shape=rows["k4"])
-    k5 = dict(rows["k5"][0], by_shape=rows["k5"], max_abs_err=worst_k5)
+    k4 = dict(rows["k4"][0], by_shape=rows["k4"], ragged_cases=ragged["cases"])
+    k5 = dict(rows["k5"][0], by_shape=rows["k5"], max_abs_err=worst_k5,
+              ragged_cases=ragged["cases"], nan_neighbours=nan)
     return k4, k5, _quantizer_kernel(gen)
 
 
@@ -2005,7 +2133,7 @@ def main(argv: list[str] | None = None) -> int:
             "library_call": sdpa_bwd,
             "shape": k3["shape"],
         })
-    conv_source = "dove_tpu_torch/csrc/conv3d_taps.cu"
+    conv_source = "dove_tpu_torch/csrc/conv3d_taps_sm90.cu"
     kernels.append({
         "name": "conv3d_w8a8",
         "route": "cuda",
@@ -2045,7 +2173,7 @@ def main(argv: list[str] | None = None) -> int:
     kernels.append({
         "name": "quant_pack",
         "route": "cuda",
-        "source": conv_source,
+        "source": "dove_tpu_torch/csrc/conv3d_taps.cu",
         "replaces": "dove_tpu/ops/quant.py:240 (the quantizer's fused elementwise "
                     "chain, one XLA pass on the TPU; not a Pallas kernel)",
         "launches": dit_dec["launches"]["quantize"],

@@ -11,10 +11,15 @@ to ``out_dtype``. K5 multiplies bf16 operands and sums in fp32. The JAX
 functions' ``row_block`` and ``dh_fold`` arguments pick among TPU schedules
 of the same function, not among results, so they have no counterpart here.
 
-Both are instantiations of one kernel in ``csrc/conv3d_taps.cu``, whose note
-says what bounds it on the H100 and how its schedule differs from the TPU's.
+Both are instantiations of one kernel in ``csrc/conv3d_taps_sm90.cu``, whose
+note says what bounds it on the H100 and how its schedule differs from the
+TPU's. Its tiling is planned here too (:func:`tile_count`, :func:`halo_boxes`,
+:func:`tile_stores`, :func:`tap_row`), so that the CPU tests can check that
+the plan stores every output once and reads nothing outside x, and so is the
+weights' shared-memory image (:func:`weight_image`); the wrapper holds the
+library's own numbers to these at first load.
 :func:`conv_taps` is the form the VAE calls: a batch of windows, weights
-already in the kernel's ``[taps, Cout, Cin]`` layout (:func:`pack_taps`,
+already in the packed ``[taps, Cout, Cin]`` layout (:func:`pack_taps`,
 done once when a conv is quantized), k_t = 3 or 1 (the per-frame 3x3 convs
 of the upsamplers), the output written NCDHW if asked, and for K4 the rest
 of the VAE's int8 conv in the epilogue: the asymmetric grid's offset term
@@ -26,7 +31,7 @@ There is no fallback from one to the other.
 
 :func:`quantize_pack` is the step before K4: the activation quantizer's
 last pass, NCDHW activation in, int8 codes out, channels-last with the
-conv's zero border in place. The same source holds its kernel
+conv's zero border in place. ``csrc/conv3d_taps.cu`` holds its kernel
 (``quant_pack_kernel``), and ``ops.quant.asym_codes`` into a zeroed buffer is
 its plain version.
 
@@ -58,30 +63,116 @@ CIN_MULTIPLE = 64
 COUT_MULTIPLE = 128
 
 
+# The CUDA kernel's tiling. Output positions are numbered over the padded
+# frame, q = f * Hp * Wp + h * Wp + w, so that each tap of a run of positions
+# is the same run of input rows shifted; a CTA owns TILE_M consecutive q (by
+# 128 couts) of one window. For each (dt, dh) the CTA loads the PIECE_ROWS
+# input rows from q0 + dt * Hp * Wp + dh * Wp on, as PIECE_ROWS // BOX_ROWS
+# boxes; rows past the window read as zeros. Tap (dh, dw) of the tile's
+# 64-row block j reads piece dh from row j * 64 + dw (:func:`tap_row`). A
+# stage is one 32-byte slab of input channels; its weights arrive as one
+# block of the image :func:`weight_image` lays out.
+TILE_M = 384
+PIECE_ROWS = 400
+BOX_ROWS = 200
+SLAB_BYTES = 32
+
+
 def kernel_supports(cin: int, cout: int) -> bool:
     return cin % CIN_MULTIPLE == 0 and cout % COUT_MULTIPLE == 0
 
 
+def flat_positions(Fo: int, Ho: int, Wo: int) -> int:
+    """Flat positions a window's tiles must cover: up to the last stored one."""
+    Hp, Wp = Ho + 2, Wo + 2
+    return (Fo - 1) * Hp * Wp + (Ho - 1) * Wp + Wo
+
+
+def tile_count(Fo: int, Ho: int, Wo: int) -> int:
+    """CTAs along a window's positions (the grid's x)."""
+    return -(-flat_positions(Fo, Ho, Wo) // TILE_M)
+
+
+def halo_boxes(tile: int, kt: int, Ho: int, Wo: int) -> list[tuple[int, int, int]]:
+    """(dt, dh, first input row) of every halo box a tile loads, in the
+    window's flat input rows [F * Hp * Wp]; each box is BOX_ROWS rows."""
+    Hp, Wp = Ho + 2, Wo + 2
+    return [(dt, dh, tile * TILE_M + dt * Hp * Wp + dh * Wp + k * BOX_ROWS)
+            for dt in range(kt) for dh in range(3)
+            for k in range(PIECE_ROWS // BOX_ROWS)]
+
+
+def tap_row(block: int, dw: int) -> int:
+    """Row of a dh piece where tap (dh, dw) of 64-row block ``block`` starts."""
+    return block * 64 + dw
+
+
+def tile_stores(tile: int, Fo: int, Ho: int, Wo: int) -> tuple[torch.Tensor, ...]:
+    """(row in the tile, f, h, w) of each position the tile stores: those
+    with f < Fo, h < Ho and w < Wo."""
+    Hp, Wp = Ho + 2, Wo + 2
+    rows = torch.arange(TILE_M)
+    q = tile * TILE_M + rows
+    f, rem = q // (Hp * Wp), q % (Hp * Wp)
+    h, w = rem // Wp, rem % Wp
+    keep = (f < Fo) & (h < Ho) & (w < Wo)
+    return rows[keep], f[keep], h[keep], w[keep]
+
+
+def weight_image(w_packed: torch.Tensor) -> torch.Tensor:
+    """Packed weights ``[kt * 9, Cout, Cin]`` (int8 or bf16) -> the kernel's
+    shared-memory image, bytes ``[Cout / 128, kt, slabs, 9 taps, 128 cout,
+    32]``: one contiguous block per stage (cout block, k_t, 32-byte slab of
+    input channels), each tap's ``[128 cout, 32 B]`` tile in the 32-byte
+    swizzle, whose two 16-byte halves trade places in rows 4-7 of every 8."""
+    taps, cout, _ = w_packed.shape
+    raw = w_packed.contiguous().view(torch.uint8)  # [taps, Cout, Cin bytes]
+    kt, nb, slabs = taps // 9, cout // COUT_MULTIPLE, raw.shape[-1] // SLAB_BYTES
+    img = raw.reshape(kt, 9, nb, COUT_MULTIPLE, slabs, SLAB_BYTES).permute(2, 0, 4, 1, 3, 5)
+    # a tile's rows as [groups of 8][rows 0-3 or 4-7][4][two 16-byte halves][16]
+    img = img.reshape(nb, kt, slabs, 9, COUT_MULTIPLE // 8, 2, 4, 2, 16)
+    return torch.cat((img[:, :, :, :, :, :1], img[:, :, :, :, :, 1:].flip(-2)),
+                     dim=5).reshape(-1)
+
+
+def _check_geometry(lib: ctypes.CDLL) -> None:
+    got = (ctypes.c_int * 4)()
+    lib.dove_conv3d_sm90_geometry(got)
+    want = (TILE_M, PIECE_ROWS, BOX_ROWS, 9 * COUT_MULTIPLE * SLAB_BYTES)
+    if tuple(got) != want:
+        raise RuntimeError(f"conv3d_taps_sm90 tiles as {tuple(got)}, the host's plan "
+                           f"as {want}: rebuild or correct the plan")
+
+
 def _library() -> ctypes.CDLL:
-    lib = kernels.load("conv3d_taps")
+    lib = kernels.load("conv3d_taps_sm90")
     if lib.dove_conv3d_w8a8.argtypes is None:
+        _check_geometry(lib)
         strides = [ctypes.c_longlong] * 5 + [ctypes.c_void_p]
         lib.dove_conv3d_w8a8.argtypes = (
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + strides)
         lib.dove_conv3d_bf16.argtypes = (
             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + strides)
+        for fn in (lib.dove_conv3d_w8a8, lib.dove_conv3d_bf16):
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _quant_library() -> ctypes.CDLL:
+    lib = kernels.load("conv3d_taps")
+    if lib.dove_quant_pack.argtypes is None:
         lib.dove_quant_pack.argtypes = (
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-        for fn in (lib.dove_conv3d_w8a8, lib.dove_conv3d_bf16, lib.dove_quant_pack):
-            fn.restype = ctypes.c_int
+        lib.dove_quant_pack.restype = ctypes.c_int
     return lib
 
 
 def pack_taps(w: torch.Tensor) -> torch.Tensor:
     """Weights ``[kt, 3, 3, Cin, Cout]`` (or ``[3, 3, Cin, Cout]``, k_t = 1)
-    -> the kernel's layout ``[kt * 9, Cout, Cin]``, contiguous: tap-major in
+    -> the packed layout ``[kt * 9, Cout, Cin]``, contiguous: tap-major in
     (kt, dh, dw) order, the input channel fastest, so that a tap's
-    ``[Cout, Cin]`` slice is the B operand of its matrix product."""
+    ``[Cout, Cin]`` slice is the B operand of its matrix product (the kernel
+    reads it as :func:`weight_image` lays it out)."""
     if w.shape[-4:-2] != (3, 3) or w.ndim not in (4, 5):
         raise ValueError(f"expected [kt, 3, 3, Cin, Cout] weights, got {tuple(w.shape)}")
     cin, cout = w.shape[-2:]
@@ -204,6 +295,8 @@ def conv_taps_launch(
                              f"type, got {name} {t.dtype} beside x {x.dtype}")
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {x.device}")
+    if x.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned (TMA)")
     if not kernel_supports(cin, cout):
         raise ValueError(
             f"the CUDA kernel takes Cin % {CIN_MULTIPLE} == 0 and Cout % "
@@ -220,8 +313,9 @@ def conv_taps_launch(
     for name, t in (("addend", addend), ("bias", bias)):
         if t is not None and (t.device != x.device or not t.is_contiguous()):
             raise ValueError(f"{name} must be contiguous on {x.device}")
-    if B * Fo > 65535:
-        raise ValueError(f"B * Fo = {B * Fo} exceeds the grid's 65535")
+    if B > 65535 or x[0].numel() // cin + 2 * TILE_M >= 2**31:
+        raise ValueError(f"x {tuple(x.shape)} exceeds the grid's 65535 windows or "
+                         "a window's 2^31 flat rows")
     shape = (B, cout, Fo, Ho, Wo) if channels_first else (B, Fo, Ho, Wo, cout)
     out = torch.empty(shape, dtype=out_dtype, device=x.device)
     if channels_first:
@@ -229,18 +323,19 @@ def conv_taps_launch(
     else:
         osb, osf, osh, osw, osc = out.stride()
     lib = _library()
+    image = weight_image(w_packed)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         dims = (B, Fo, Ho, Wo, cin, cout, kt, int(out_dtype == torch.float32))
         strides = (osb, osf, osh, osw, osc, stream)
         if quantized:
             rc = lib.dove_conv3d_w8a8(
-                x.data_ptr(), w_packed.data_ptr(), scale.data_ptr(),
+                x.data_ptr(), image.data_ptr(), scale.data_ptr(),
                 None if addend is None else addend.data_ptr(),
                 None if bias is None else bias.data_ptr(), out.data_ptr(), *dims,
                 min(Ho, 3), min(Wo, 3), *strides)
         else:
-            rc = lib.dove_conv3d_bf16(x.data_ptr(), w_packed.data_ptr(),
+            rc = lib.dove_conv3d_bf16(x.data_ptr(), image.data_ptr(),
                                       out.data_ptr(), *dims, *strides)
     if rc != 0:
         raise RuntimeError(f"conv3d_taps kernel launch failed: cudaError_t {rc}")
@@ -318,7 +413,7 @@ def quantize_pack_launch(
             raise ValueError(f"eq_inv must hold {C} channels, got {tuple(eq_inv.shape)}")
     x = x.contiguous()
     out = torch.empty(shape, dtype=torch.int8, device=x.device)
-    lib = _library()
+    lib = _quant_library()
     with torch.cuda.device(x.device):
         rc = lib.dove_quant_pack(
             x.data_ptr(), None if mult is None else mult.data_ptr(),

@@ -376,7 +376,7 @@ def test_qlinear_on_card_matches_cpu(rows):
                                rtol=1e-6, atol=1e-6)
 
 
-# K4 and K5 (csrc/conv3d_taps.cu): (B, Fo, Ho, Wo, Cin, Cout, kt)
+# K4 and K5 (csrc/conv3d_taps_sm90.cu): (B, Fo, Ho, Wo, Cin, Cout, kt)
 CONV_CASES = [
     (1, 2, 16, 32, 128, 128, 3),  # whole 8x16 tiles
     (2, 1, 13, 21, 256, 128, 3),  # ragged rows and columns, Fo = 1, a batch
@@ -460,6 +460,82 @@ def test_k5_within_bars_on_card(case):
     jax_form = tconv.conv3d_bf16(x[0].float(), w.view(3, 3, 3, *w.shape[1:])
                                  .permute(0, 1, 2, 4, 3).float(), torch.float32)
     assert torch.equal(jax_form, out[0].permute(1, 2, 3, 0))
+
+
+# Around the kernel's tiles (384 flat positions q = f * Hp * Wp + h * Wp + w,
+# in 64-row blocks): heights and widths at the block and tile edges, then
+# two windows, Cin 64 to 512, Cout 256 and k_t = 1.
+CONV_RAGGED_HW = (1, 63, 64, 65, 127, 128, 129, 383, 384, 385)
+CONV_RAGGED = [(1, 1, h, w, 64, 128, 3) for h in CONV_RAGGED_HW for w in CONV_RAGGED_HW] + [
+    (2, 2, 65, 129, 128, 256, 3),
+    (2, 1, 63, 385, 256, 128, 1),
+    (1, 3, 127, 64, 512, 128, 3),
+    (2, 1, 1, 383, 64, 256, 1),
+    (1, 2, 384, 1, 128, 128, 3),
+]
+
+
+def _k5_bar(ref: torch.Tensor, kt: int, cin: int) -> float:
+    """2e-5 of the largest output (tests/test_conv_kernel.py), times the
+    square root of a sum longer than 27 x 256 products."""
+    return 2e-5 * max(1.0, (kt * 9 * cin / (27 * 256)) ** 0.5) * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CONV_RAGGED)
+def test_conv_kernels_at_ragged_shapes_on_card(case):
+    """K4 equal to its plain version in its three output forms (the VAE's
+    NCDHW with offset term and bias, fp32 NCDHW, bf16 NDHWC), K5 within its
+    bars, at every shape of the sweep."""
+    dev = _card()
+    B, Fo, Ho, Wo, cin, cout, kt = case
+    x, w, scale = _conv_case(case, 11, dev, int8=True)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    addend = torch.randn((cout, min(Ho, 3), min(Wo, 3)), generator=gen, device=dev)
+    bias = torch.randn(cout, generator=gen, device=dev)
+    out = tconv.conv_taps(x, w, scale * 1e3, kt, torch.bfloat16, True, addend=addend,
+                          bias=bias)
+    out_f32 = tconv.conv_taps(x, w, scale, kt, torch.float32, channels_first=True)
+    out_bf = tconv.conv_taps(x, w, scale, kt, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(out, tconv.conv_taps_plain(x, w, scale * 1e3, kt, torch.bfloat16,
+                                                  True, addend=addend, bias=bias))
+    ref = tconv.conv_taps_plain(x, w, scale, kt, torch.float32, channels_first=True)
+    assert torch.equal(out_f32, ref)
+    assert torch.equal(out_bf.permute(0, 4, 1, 2, 3), ref.to(torch.bfloat16))
+    assert not torch.equal(ref, tconv.conv_taps_plain(x, w, scale, kt, torch.float32, True,
+                                                      skip_tap=kt * 9 - 1))
+    x, w, _ = _conv_case(case, 13, dev, int8=False)
+    out = tconv.conv_taps(x, w, None, kt, torch.float32, channels_first=True)
+    torch.cuda.synchronize()
+    ref = tconv.conv_taps_plain(x, w, None, kt, torch.float32, channels_first=True)
+    bar = _k5_bar(ref, kt, cin)
+    assert float((out - ref).abs().max()) <= bar
+    short = tconv.conv_taps_plain(x, w, None, kt, torch.float32, True, skip_tap=kt * 9 - 1)
+    assert float((short - ref).abs().max()) > bar  # the bar can fail
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kt", [3, 1])
+@pytest.mark.parametrize("window,frames", [(0, slice(None)), (1, slice(-1, None))])
+def test_k5_stores_nothing_it_read_across_a_window_or_frame(kt, window, frames):
+    """Tiles run across frames and windows and compute positions they never
+    store. With NaN in all of one window, or in the last frame of the other,
+    every output whose taps read no NaN is finite and within K5's bars of
+    its plain version."""
+    dev = _card()
+    case = (2, 3, 37, 53, 128, 128, kt)
+    x, w, _ = _conv_case(case, 14, dev, int8=False)
+    x[window, frames] = float("nan")
+    out = tconv.conv_taps(x, w, None, kt, torch.float32, channels_first=True)
+    torch.cuda.synchronize()
+    ref = tconv.conv_taps_plain(x, w, None, kt, torch.float32, channels_first=True)
+    clean = torch.isfinite(ref)
+    B, Fo, Ho, Wo, _, cout, _ = case
+    per_frame = Ho * Wo * cout
+    assert int(clean.sum()) == Fo * per_frame + (0 if window == 0 else (Fo - 1) * per_frame)
+    assert bool(torch.isfinite(out[clean]).all())
+    assert float((out[clean] - ref[clean]).abs().max()) <= _k5_bar(ref[clean], kt, 128)
 
 
 @pytest.mark.cuda
