@@ -7,14 +7,15 @@ Phases, one result line each; any failure exits non-zero:
 
 1. device and build: the card's name and power limit, and the nvcc builds of
    every kernel source under dove_tpu_torch/csrc/, one nvcc each, started
-   together (flash_fwd_sm90 holds K1, flash_fwd K2, flash_bwd_sm90 K3a and
-   K3b, conv3d_taps_sm90 K4 and K5, conv3d_taps the int8 quantizer's pass),
+   together (flash_fwd_sm90 holds K1 and K2, flash_bwd_sm90 K3a and K3b,
+   conv3d_taps_sm90 K4 and K5, conv3d_taps the int8 quantizer's pass),
    with ptxas's registers, shared memory and spills for each kernel form,
    and each form's count of HGMMA / IGMMA (wgmma on bf16 / int8), UTMALDG
    (TMA load), UBLKCP (bulk copy) and HMMA / IMMA (mma.sync) in its SASS
-   where the toolkit has cuobjdump: every K1, K3a, K3b, K4 and K5 form must
-   issue wgmma and TMA loads and no mma.sync, and spill nothing; which media
-   packages (PIL, torchvision.io, av, imageio) the card's Python imports;
+   where the toolkit has cuobjdump: every K1, K2, K3a, K3b, K4 and K5 form
+   must issue wgmma and TMA loads and no mma.sync, and spill nothing (K2
+   both int8 and bf16 wgmma); which media packages (PIL, torchvision.io,
+   av, imageio) the card's Python imports;
 2. K1 (the bf16 flash-attention forward, wgmma/TMA) against its plain
    PyTorch version on the card, bounded and online-softmax forms, at the
    main path's shape, 4097 and 200, and at every Sq, Skv around its
@@ -27,8 +28,10 @@ Phases, one result line each; any failure exits non-zero:
    180x320 clip (720p out), with the kernels' launches counted;
 5. K2 (the int8 Q K^T flash-attention forward) against its plain version on
    the same int8 codes, at the main path's shape, 4097 and a ragged 200, at
-   K1's bars; its drift from K1 on the same bf16 inputs; kernel, plain and
-   SDPA times beside the bound;
+   K1's bars, and at every Sq, Skv of phase 2 and beside heads whose K codes
+   are all 127 and V NaN; its drift from K1 on the same bf16 inputs; K2 and
+   K1 timed in interleaved windows, the quantizer on its own, plain and SDPA
+   times beside the bound and the exp floor;
 6. the int8-dit pipeline at full widths and 2 DiT layers, through K2 and
    through K2's plain version, compared by PSNR;
 7. the int8-dit main path: the 5B DiT quantized on the card (W8A8 linears,
@@ -82,6 +85,7 @@ from __future__ import annotations
 
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -106,6 +110,9 @@ PSNR_BAR_DB = 40.0
 # K2 against K1 on the same bf16 inputs: the drift of per-tensor int8 Q K^T
 # itself, held to the bar of tests/test_flash_attention.py:94 (RMS relative).
 K2_DRIFT_TOL = 2e-2
+# K2 and K1 bounded are timed in this many interleaved 10-launch windows
+# each (phase 5) and compared by their medians.
+K2_WINDOWS = 5
 # K1's logsumexp against its plain version: both fp32 from the same bf16
 # inputs, apart in summation order and ex2.approx; 1e-3 keeps p = exp(s -
 # lse) in the backward within 0.1%.
@@ -238,13 +245,14 @@ def main_path_seq_len(cfg) -> int:
 # Phase 1: device and build
 # ---------------------------------------------------------------------------
 
-# kernel forms by their mangled names: flash_fwd_sm90_kernel<kBounded, kLse>
+# kernel forms by their mangled names:
+# flash_fwd_sm90_kernel<QK, kBounded, kLse>
 KERNEL_FORMS = {
-    "flash_fwd_sm90_kernelILb1ELb0E": "K1 bounded",
-    "flash_fwd_sm90_kernelILb0ELb0E": "K1 online",
-    "flash_fwd_sm90_kernelILb1ELb1E": "K1 bounded lse",
-    "flash_fwd_sm90_kernelILb0ELb1E": "K1 online lse",
-    "flash_fwd_qk8_kernel": "K2",
+    "flash_fwd_sm90_kernelI13__nv_bfloat16Lb1ELb0E": "K1 bounded",
+    "flash_fwd_sm90_kernelI13__nv_bfloat16Lb0ELb0E": "K1 online",
+    "flash_fwd_sm90_kernelI13__nv_bfloat16Lb1ELb1E": "K1 bounded lse",
+    "flash_fwd_sm90_kernelI13__nv_bfloat16Lb0ELb1E": "K1 online lse",
+    "flash_fwd_sm90_kernelIaLb1ELb0E": "K2",
     "flash_bwd_dq_sm90_kernel": "K3a",
     "flash_bwd_dkv_sm90_kernel": "K3b",
     "conv3d_taps_sm90_kernelIaiLi3E": "K4 k_t=3",
@@ -254,12 +262,14 @@ KERNEL_FORMS = {
     "quant_pack_kernelI13__nv_bfloat16E": "quantizer bf16",
     "quant_pack_kernelIfE": "quantizer fp32",
 }
-SOURCES = ("flash_fwd_sm90", "flash_fwd", "flash_bwd_sm90", "conv3d_taps_sm90",
-           "conv3d_taps")
+SOURCES = ("flash_fwd_sm90", "flash_bwd_sm90", "conv3d_taps_sm90", "conv3d_taps")
 # the kernels that must issue wgmma and TMA loads, no mma.sync, and spill
 # nothing
 HOPPER_FORMS = ("K1 bounded", "K1 online", "K1 bounded lse", "K1 online lse",
-                "K3a", "K3b", "K4 k_t=3", "K4 k_t=1", "K5 k_t=3", "K5 k_t=1")
+                "K2", "K3a", "K3b", "K4 k_t=3", "K4 k_t=1", "K5 k_t=3",
+                "K5 k_t=1")
+# the forms whose wgmma must be both int8 (Q K^T) and bf16 (P V)
+MIXED_FORMS = ("K2",)
 # the packages a media route for the CLI could use on the card
 MEDIA_PACKAGES = ("PIL", "torchvision.io", "av", "imageio")
 # SASS opcodes counted per kernel form: Hopper's warpgroup MMA (HGMMA on
@@ -343,11 +353,12 @@ def phase_build() -> None:
             if m:
                 spills[form] = spills.get(form, 0) + int(m.group(1)) + int(m.group(2))
     smem = ctypes.CDLL(str(kernels.library_path("flash_fwd_sm90"))
-                       ).dove_flash_fwd_sm90_smem_bytes()
-    log(f"  K1 (all four forms): {smem} bytes of dynamic shared memory a CTA "
+                       ).dove_flash_fwd_sm90_smem_bytes
+    log(f"  K1 (all four forms): {smem(0)} bytes of dynamic shared memory a CTA "
         "(a 192-row Q tile, three stages of 128-key K and V tiles, alignment "
         "slack), 512 threads: producer warpgroup at 24 registers, three "
-        "consumer warpgroups at 160 (setmaxnreg)")
+        f"consumer warpgroups at 160 (setmaxnreg); K2: {smem(1)} bytes (Q and K "
+        "as int8 codes in 64-byte rows, V bf16), the same threads and registers")
     bwd_smem = ctypes.CDLL(str(kernels.library_path("flash_bwd_sm90"))
                            ).dove_flash_bwd_sm90_smem_bytes
     log(f"  K3a: {bwd_smem(0)} bytes of dynamic shared memory a CTA (Q and dO of "
@@ -368,7 +379,7 @@ def phase_build() -> None:
         raise AssertionError(f"register spills in {bad_spills}")
     if not all(built[n][1] for n in ("flash_fwd_sm90", "flash_bwd_sm90",
                                      "conv3d_taps_sm90")):
-        log("  ptxas: K1, K3 or K4/K5 was built before this run; spills not checked")
+        log("  ptxas: K1/K2, K3 or K4/K5 was built before this run; spills not checked")
     elif not all(f in spills for f in HOPPER_FORMS):
         raise AssertionError(f"no ptxas report for some of {HOPPER_FORMS}: {spills}")
     log(f"  media packages on this machine: {json.dumps(media_packages())}")
@@ -386,14 +397,17 @@ def phase_build() -> None:
         bad = [f for f in HOPPER_FORMS if f not in counts
                or not (counts[f]["HGMMA"] or counts[f]["IGMMA"])
                or not counts[f]["UTMALDG"] or counts[f]["HMMA"] or counts[f]["IMMA"]]
+        bad += [f for f in MIXED_FORMS
+                if f in counts and not (counts[f]["HGMMA"] and counts[f]["IGMMA"])]
         if bad:
-            raise AssertionError(f"K1, K3a, K3b, K4 or K5 forms without wgmma and TMA "
-                                 f"loads, or with mma.sync: {bad}")
+            raise AssertionError(f"K1, K2, K3a, K3b, K4 or K5 forms without wgmma and "
+                                 f"TMA loads, or with mma.sync: {bad}")
     log("phase 1 build: " + ", ".join(
         f"{name} {seconds:.2f}s" for name, (seconds, _) in built.items())
-        + f" of nvcc, {wall:.2f}s wall (flash_fwd_sm90: K1 in its four forms; "
-        "flash_fwd: K2; flash_bwd_sm90: K3a and K3b; conv3d_taps_sm90: K4 and K5 "
-        "at k_t = 3 and 1; conv3d_taps: the int8 quantizer's pass)")
+        + f" of nvcc, {wall:.2f}s wall (flash_fwd_sm90: K1 in its four forms and "
+        "K2; flash_bwd_sm90: K3a and K3b; "
+        "conv3d_taps_sm90: K4 and K5 at k_t = 3 and 1; conv3d_taps: the int8 "
+        "quantizer's pass)")
 
 
 # ---------------------------------------------------------------------------
@@ -666,7 +680,7 @@ def phase_main_path(profile_dir: str | None = None) -> dict:
 
 
 KERNEL_KINDS = (  # (kind, substrings of CUDA kernel names), first match wins
-    ("k2_flash_fwd_qk8", ("flash_fwd_qk8_kernel",)),
+    ("k2_flash_fwd_qk8", ("flash_fwd_sm90_kernel<signed char",)),
     ("k1_flash_fwd", ("flash_fwd_sm90_kernel",)),
     ("k3a_flash_bwd_dq", ("flash_bwd_dq_sm90_kernel",)),
     ("k3b_flash_bwd_dkv", ("flash_bwd_dkv_sm90_kernel",)),
@@ -768,6 +782,56 @@ def profile_run(run, out_dir: str, name: str, phase: str) -> None:
 # Phase 5: K2 against its plain version
 # ---------------------------------------------------------------------------
 
+def k2_edge_cases() -> dict:
+    """K2 against its plain version at every (Sq, Skv) of RAGGED (B*H = 3), and beside a poisoned head: int8 codes carry no
+    NaN, so head 1's K codes are all 127 (logits far past any other) and its
+    V is NaN. A K or V tile read across a head's end would carry them into
+    heads 0 or 2, a store across it would overwrite head 1's NaN output."""
+    from dove_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(22)
+    scale = 64 ** -0.5
+    worst = dict(max_abs=0.0, rel_max=0.0, rel_rms=0.0)
+
+    def rand(s):
+        return torch.randn((1, 3, s, 64), generator=gen, device=dev, dtype=torch.bfloat16)
+
+    def run(q8, k8, v, factor, ref, what, heads=slice(None)):
+        out = fa.flash_qk8_launch(q8, k8, v, factor)
+        torch.cuda.synchronize()
+        err = attn_errors(out[:, heads], ref)
+        if not bool(torch.isfinite(out[:, heads]).all()) or not within_bars(err):
+            raise AssertionError(f"K2 disagrees with its plain version at {what}: {err}")
+        for key in worst:
+            worst[key] = max(worst[key], err[key])
+        return out
+
+    for sq in RAGGED:
+        for skv in RAGGED:
+            q, k, v = rand(sq), rand(skv), rand(skv)
+            q8, k8, factor = fa.quantize_qk_pair(q, k, scale)
+            ref = fa.flash_attention_qk8_plain(q8, k8, v, factor)
+            run(q8, k8, v, factor, ref, f"sq={sq} skv={skv}")
+    for sq, skv in ((129, 193), (193, 65), (4097, 129)):
+        q, k, v = rand(sq), rand(skv), rand(skv)
+        q8, k8, factor = fa.quantize_qk_pair(q, k, scale)
+        k8[:, 1] = 127
+        v[:, 1] = float("nan")
+        ends = [t[:, 0::2].contiguous() for t in (q8, k8, v)]
+        ref = fa.flash_attention_qk8_plain(*ends, factor)
+        out = run(q8, k8, v, factor, ref, f"poisoned head 1 sq={sq} skv={skv}",
+                  heads=slice(0, None, 2))
+        if not bool(torch.isnan(out[:, 1].float()).all()):
+            raise AssertionError(f"K2 wrote into the poisoned head's output at sq={sq}")
+    cases = len(RAGGED) ** 2 + 3
+    log(f"  K2 at every Sq, Skv in {RAGGED} (B*H = 3) and beside a poisoned head "
+        f"(K codes 127, V NaN): {cases} launches within the bars, "
+        "the poisoned head's output NaN; worst "
+        + json.dumps({k: float(f"{x:.3e}") for k, x in worst.items()}))
+    return worst
+
+
 def phase_k2(seq_main: int, heads: int) -> dict:
     from dove_tpu_torch.ops import flash_attention as fa
 
@@ -790,9 +854,9 @@ def phase_k2(seq_main: int, heads: int) -> dict:
         drift = attn_errors(out, fa.flash_attention(q, k, v, bounded_logits=True))
         finite = bool(torch.isfinite(out).all())
         log(f"  K2 S={S}: max_abs_err {err['max_abs']:.3e}, / max|ref| "
-            f"{err['rel_max']:.3e}, rms err / rms ref {err['rel_rms']:.3e}, "
-            f"finite {finite}; drift from K1 (int8 Q K^T): rms "
-            f"{drift['rel_rms']:.3e} (bar {K2_DRIFT_TOL}), max_abs "
+            f"{err['rel_max']:.3e}, rms err / rms ref {err['rel_rms']:.3e}; "
+            f"finite {finite}; drift from K1 (int8 Q K^T): "
+            f"rms {drift['rel_rms']:.3e} (bar {K2_DRIFT_TOL}), max_abs "
             f"{drift['max_abs']:.3e}")
         if not finite or not within_bars(err):
             raise AssertionError(f"K2 disagrees with its plain version: S={S} {err}")
@@ -810,11 +874,21 @@ def phase_k2(seq_main: int, heads: int) -> dict:
             if within_bars(miss):
                 raise AssertionError(f"K2 bars accept a dropped KV tile: {miss}")
             del dropped
-            kernel_ms = cuda_ms(lambda: fa.flash_qk8_launch(q8, k8, v, factor), 10)
+
+            # K2 and K1 bounded by one rule: K2_WINDOWS 10-launch windows
+            # each, in turns, and the median of each; the clock moves within
+            # a call, so one window of each would compare two clocks
+            k2_windows, k1_windows = [], []
+            for _ in range(K2_WINDOWS):
+                k2_windows.append(cuda_ms(lambda: fa.flash_qk8_launch(q8, k8, v, factor), 10))
+                k1_windows.append(cuda_ms(
+                    lambda: fa.flash_attention(q, k, v, bounded_logits=True), 10))
+            kernel_ms = statistics.median(k2_windows)
+            k1_ms = statistics.median(k1_windows)
+            clock = sm_clock_mhz()
+            quantize_ms = cuda_ms(lambda: fa.quantize_qk_pair(q, k, scale), 10)
             wrapper_ms = cuda_ms(lambda: fa.flash_attention(
                 q, k, v, bounded_logits=True, qk_int8=True), 10)
-            k1_ms = cuda_ms(
-                lambda: fa.flash_attention(q, k, v, bounded_logits=True), 10)
             plain_ms = cuda_ms(
                 lambda: fa.flash_attention_qk8_plain(q8, k8, v, factor), 1, warmup=0)
             sdpa_ms = cuda_ms(
@@ -825,22 +899,29 @@ def phase_k2(seq_main: int, heads: int) -> dict:
             macs = float(S) * S * 64 * heads
             ops_s = 2 * macs / PEAK_INT8_OPS + 2 * macs / PEAK_BF16_FLOPS
             nbytes = heads * S * 64 * (1 + 1 + 2 + 2)
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
             timing = dict(
-                kernel_ms=kernel_ms, wrapper_ms=wrapper_ms, k1_same_call_ms=k1_ms,
+                kernel_ms=kernel_ms, kernel_windows_ms=k2_windows,
+                k1_same_call_ms=k1_ms, k1_windows_ms=k1_windows,
+                quantize_ms=quantize_ms, wrapper_ms=wrapper_ms,
                 plain_ms=plain_ms, sdpa_ms=sdpa_ms,
                 bound_ms=max(ops_s, nbytes / PEAK_BYTES) * 1e3,
                 bound_by="operations" if ops_s >= nbytes / PEAK_BYTES else "bytes",
-                shape=[1, heads, S, 64],
+                exp_floor_ms=float(S) * S * heads / (16 * sms * clock * 1e6) * 1e3,
+                sm_clock_mhz=clock, shape=[1, heads, S, 64],
             )
         del q, k, v, q8, k8, out, ref
+    edges = k2_edge_cases()
     fa.launches.reset()
     fa.launches_qk8.reset()
     log(f"phase 5 K2: worst max_abs_err {worst:.3e} (K1's bars), worst drift "
-        f"from K1 {worst_drift:.3e}; SDPA is bf16 attention, a yardstick of a "
-        "different function; "
-        + json.dumps({k: (round(x, 4) if isinstance(x, float) else x)
-                      for k, x in timing.items()}))
-    return dict(max_abs_err=worst, **timing)
+        f"from K1 {worst_drift:.3e}; kernel_ms and k1_same_call_ms are the "
+        f"medians of {K2_WINDOWS} interleaved 10-launch windows each; quantize_ms "
+        "is quantize_qk_pair alone (amax and quantize over q and k), wrapper_ms "
+        "the quantizer and K2 together; SDPA is bf16 attention, a yardstick of "
+        "a different function; "
+        + json.dumps(rounded(timing)))
+    return dict(max_abs_err=max(worst, edges["max_abs"]), **timing)
 
 
 # ---------------------------------------------------------------------------
@@ -1320,7 +1401,6 @@ def lora_round_trip(tr, out_dir: str) -> str:
 
 def phase_train_recipe(profile_dir: str | None = None) -> dict:
     import shutil
-    import statistics
 
     from dove_tpu_torch.train import lora as lora_mod
     from dove_tpu_torch.train.trainer import DOVES1Trainer
@@ -2101,7 +2181,7 @@ def main(argv: list[str] | None = None) -> int:
     }, {
         "name": "flash_fwd_qk8",
         "route": "cuda",
-        "source": "dove_tpu_torch/csrc/flash_fwd.cu",
+        "source": "dove_tpu_torch/csrc/flash_fwd_sm90.cu",
         "replaces": "dove_tpu/ops/pallas/flash_attention.py:107",
         "launches": int8_main["launches"],
         "launches_streamed": streamed["launches"],
@@ -2113,6 +2193,14 @@ def main(argv: list[str] | None = None) -> int:
         "library_ms": k2["sdpa_ms"],
         "library_call": "scaled_dot_product_attention on the bf16 q, k, v: "
                         "a yardstick of a different function (bf16 Q K^T)",
+        "timing": f"ms and k1_same_call_ms: medians of {K2_WINDOWS} interleaved "
+                  "10-launch windows each",
+        "k1_same_call_ms": k2["k1_same_call_ms"],
+        "quantize_ms": k2["quantize_ms"],
+        "wrapper_ms": k2["wrapper_ms"],
+        "exp_floor_ms": k2["exp_floor_ms"],
+        "sm_clock_mhz": k2["sm_clock_mhz"],
+        "shape": k2["shape"],
     }]
     sdpa_bwd = ("scaled_dot_product_attention forward plus backward minus its "
                 "forward: dq, dk and dv in one call")

@@ -8,11 +8,12 @@ five int8 serving modes (``quantize="int8"``, ``"int8-dit"``, ``"int8-vae"``,
 or cut into chunks; and stage-1 training, LoRA or SFT
 (``train/trainer.py``: ``DOVES1Trainer``). Its TPU kernels are hand-written
 CUDA kernels: the flash-attention forward in bf16 (K1, with the logsumexp in
-its training form) in ``csrc/flash_fwd_sm90.cu`` and with int8 Q K^T (K2) in
-``csrc/flash_fwd.cu``, the flash-attention backward (K3a, K3b; like K1 on
-wgmma and TMA) in ``csrc/flash_bwd_sm90.cu`` (bound in
-``ops/flash_attention.py``), and the 3x3x3 tap convolution in int8 (K4) and
-bf16 (K5) in ``csrc/conv3d_taps.cu`` (bound in ``ops/conv3d_int8.py``).
+its training form) and with int8 Q K^T (K2, the same kernel template with s8
+wgmma and int8 TMA maps) in ``csrc/flash_fwd_sm90.cu``, the flash-attention
+backward (K3a, K3b; like K1 on wgmma and TMA) in ``csrc/flash_bwd_sm90.cu``
+(bound in ``ops/flash_attention.py``), and the 3x3x3 tap convolution in int8
+(K4) and bf16 (K5) in ``csrc/conv3d_taps_sm90.cu`` (bound in
+``ops/conv3d_int8.py``).
 Entry points run on the card unless the caller passes ``device="cpu"``.
 Checkpoints are read and written by the port's own ``safetensors_io``.
 """

@@ -1,6 +1,6 @@
-// K1: the bf16 flash-attention forward for Hopper (sm_90a), head dim 64.
+// K1 and K2: the flash-attention forward for Hopper (sm_90a), head dim 64.
 //
-// Replaces the TPU kernel dove_tpu/ops/pallas/flash_attention.py:_fwd_kernel
+// K1 replaces the TPU kernel dove_tpu/ops/pallas/flash_attention.py:_fwd_kernel
 // (pallas_call in _flash_fwd) in its four bf16 forms: the bounded-logits form
 // (no running max, p = exp2(s * scale * log2 e)) that every inference call
 // takes, the online-softmax form (a running max in log2 units), and each of
@@ -9,13 +9,44 @@
 // Non-causal softmax(scale Q K^T) V with fp32 logits, fp32 row sums, P
 // rounded to bf16 before P V, an fp32 accumulator and a bf16 output.
 //
-// What bounds it on the H100. At the main-path shape [1, 48, 19426, 64] one
-// launch does 4 S^2 D H = 4.64 TFLOP of bf16 tensor-core work (4.69 ms at
-// 989 TFLOP/s) and S^2 H = 1.81e10 exponentials; the SFU retires 16 ex2 a
-// clock per SM, 4.3-4.9 ms at the clocks the card runs. At D = 64 the two are
-// co-bounds of about the same size, so the kernel reaches either only if the
-// exponentials run while the tensor cores work. The bytes (0.48 GB) are
-// ~0.15 ms.
+// K2 is the same kernel with int8 Q and K: the qk8 branch of _fwd_kernel
+// (flash_attention.py:107-114), the int8-dit serving mode's attention.
+// q and k arrive as per-tensor symmetric int8 codes (the wrapper quantizes
+// them, as the TPU wrapper does outside its pallas_call), Q K^T is exact in
+// int32, and the logits are float(q8 . k8) * factor, factor = (s_q s_k) *
+// fp32(scale log2 e) one fp32 value the kernel reads from device memory (the
+// TPU kernel reads it from SMEM), so the host never waits for it. Bounded
+// form only, V bf16, as on the TPU. Where it differs from K1:
+// - Q and K come through 3-D TMA maps of int8 (64-byte rows, 64B swizzle):
+//   Q is 12 KB, a K tile 8 KB, V stays K1's 16 KB bf16 tile.
+// - S = Q K^T is wgmma m64n128k32 .s32.s8.s8, two k32 steps of 32 bytes into
+//   each 64-byte row, both operands K-major from shared memory (the only
+//   layout wgmma takes for 8-bit operands); the s32 accumulator has the fp32
+//   one's fragment layout, so K1's softmax and P packing apply.
+// - int32 -> fp32 by a preset instead of a conversion: |q8 . k8| <=
+//   127^2 * 64 = 1,032,256 < 2^22, so an accumulator preset to 0x4B400000
+//   (the bits of 1.5 * 2^23) holds, read as fp32, exactly 12582912 + x. One
+//   FFMA with factor and -12582912 * factor gives the log2 logit. The
+//   factor is first rounded to 22 significant bits (a relative change of at
+//   most 2^-22), which makes -12582912 * factor exact, so the FFMA yields
+//   x * factor rounded once. With the factor as it is, the rounding of
+//   -12582912 * factor would shift every logit alike; that does not cancel
+//   in p / l, because P is rounded to bf16 before P V and l sums the
+//   unrounded p, and at one key (out = bf16(p) / p * v) it showed as one-ulp
+//   flips of the bf16 output. Subtracting 12582912 first and multiplying
+//   (JAX's float(x) * factor bit for bit) costs one more FADD an element
+//   and measured slower in this three-stage ring; so did cvt.rn.f32.s32
+//   with no preset (it lowers to I2FP.F32.S32 here, an ALU op, not the
+//   quarter-rate I2F).
+//
+// What bounds them on the H100. At the main-path shape [1, 48, 19426, 64] one
+// K1 launch does 4 S^2 D H = 4.64 TFLOP of bf16 tensor-core work (4.69 ms at
+// 989 TFLOP/s), one K2 launch half that in int8 at twice the rate and half
+// in bf16 (3.52 ms); both take S^2 H = 1.81e10 exponentials, which the SFU
+// retires at 16 ex2 a clock per SM, 4.3-4.9 ms at the clocks the card runs.
+// At D = 64 the two are co-bounds of about the same size, so the kernel
+// reaches either only if the exponentials run while the tensor cores work.
+// The bytes (0.48 GB for K1, 0.36 GB for K2) are ~0.15 ms.
 //
 // Design (one CTA per (192-query tile, b*h), 512 threads):
 // - Warp specialisation. Warpgroup 0 is the producer: it gives up registers
@@ -26,16 +57,16 @@
 //   warpgroup to fill the tensor cores while the others exponentiate, and
 //   K and V read once for 192 queries.
 // - TMA and an mbarrier ring. Q (192 x 64) is loaded once; K and V tiles of
-//   128 keys x 64 (16 KB, 128-byte rows, 128B swizzle) stream through a
-//   three-stage ring (two stages starve the consumers) with full barriers
-//   (K and V apart, so Q K^T starts before V lands) and one empty barrier
-//   per stage. No __syncthreads in the loop. The maps are 3-D over [b*h, S,
-//   64], so a tile past the end of a head reads zeros, never the next
-//   head's keys.
-// - S = Q K^T is wgmma m64n128k16 with both operands in shared memory, K
-//   K-major as stored. O += P V is wgmma m64n64k16 with A = P from registers
-//   (the S accumulator's fragment packs to bf16 in the A-register layout)
-//   and B = V read MN-major (the transpose bit).
+//   128 keys x 64 (16 KB of bf16 in 128-byte rows, 128B swizzle) stream
+//   through a three-stage ring (two stages starve the consumers) with full
+//   barriers (K and V apart, so Q K^T starts before V lands) and one empty
+//   barrier per stage. No __syncthreads in the loop. The maps are 3-D over
+//   [b*h, S, 64], so a tile past the end of a head reads zeros, never the
+//   next head's keys.
+// - S = Q K^T is wgmma m64n128k16 (K2: m64n128k32 s8) with both operands in
+//   shared memory, K K-major as stored. O += P V is wgmma m64n64k16 with A =
+//   P from registers (the S accumulator's fragment packs to bf16 in the
+//   A-register layout) and B = V read MN-major (the transpose bit).
 // - Overlap. A consumer issues Q K_j^T together with P_{j-1} V_{j-1}, then
 //   exponentiates S_j. Named barriers pass the issue turn round the three
 //   consumers (ping-pong), so their GEMMs take the tensor cores in turn
@@ -50,10 +81,13 @@
 //   the packed bf16 P (one max per pair), that no p exceeds 2^8; only then
 //   (the first tile, and rarely after) does it take the exact row maxima
 //   from S, which is kept, move them, and redo those rows. l and O carry
-//   the same offset, so the result is the same softmax. The bounded form
-//   keeps per-thread partial row sums and reduces them once at the end. A
-//   share of the exponentials as a polynomial on the FMA pipes ran slower:
-//   the loop is bound by instruction issue and latency, not by the SFU.
+//   the same offset, so the result is the same softmax. K2 needs the mask
+//   as much as K1: a key past the end reads as zero codes, x = 0, p = 1.
+//   The bounded form keeps per-thread partial row sums and reduces them
+//   once at the end. A share of the exponentials as a polynomial on the FMA
+//   pipes ran slower: the loop is bound by instruction issue and latency,
+//   not by the SFU. K2's preset adds a move a logit, placed by ptxas between
+//   the wait for K and the issue turn; moving it beside the ex2 was slower.
 // - Query rows past the end are computed on zeros and not stored: the
 //   epilogue writes O / l as bf16 pairs straight from registers, guarded
 //   per row, and the lse per row in the kLse forms only.
@@ -63,17 +97,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <initializer_list>
+#include <type_traits>
+
 namespace {
 
-constexpr int kD = 64;                   // head dim: one 128-byte row
+constexpr int kD = 64;                   // head dim
 constexpr int kBM = 192;                 // query rows per CTA
 constexpr int kBN = 128;                 // keys per tile
 constexpr int kStages = 3;               // K/V ring depth
 constexpr int kConsumers = kBM / 64;     // consumer warpgroups, 64 rows each
 constexpr int kThreads = 128 * (1 + kConsumers);
-constexpr int kQBytes = kBM * kD * 2;     // 24 KB
-constexpr int kTileBytes = kBN * kD * 2;  // 16 KB, a K or a V tile
-constexpr int kSmemBytes = 1024 + kQBytes + 2 * kStages * kTileBytes;  // + align
+constexpr int kVTileBytes = kBN * kD * 2;  // 16 KB, a bf16 V tile
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 160;
 // The online form lets p reach 2^kLazyLog2 before a row moves its running
@@ -83,6 +118,27 @@ constexpr float kLazyMax = 1 << kLazyLog2;
 
 static_assert(128 * kProducerRegs + 128 * kConsumers * kConsumerRegs <= 65536,
               "register split exceeds the SM's file");
+
+// K2's int32 -> fp32 route: an accumulator preset to these bits holds, read
+// as fp32, exactly kMagic + x for |x| < 2^22 (|q8 . k8| <= 127^2 * 64).
+constexpr uint32_t kMagicBits = 0x4B400000u;
+constexpr float kMagic = 12582912.f;  // 1.5 * 2^23
+static_assert(127 * 127 * kD < (1 << 22), "int8 logits leave the exact range");
+
+// Shared-memory geometry by the element type of Q and K: bf16 (K1) or int8
+// codes (K2). A row of 64 values is 128 or 64 bytes, TMA's swizzle as wide.
+template <typename QK>
+struct Geometry {
+  static constexpr bool kInt8 = std::is_same<QK, int8_t>::value;
+  static constexpr int kRowBytes = kD * static_cast<int>(sizeof(QK));
+  static constexpr int kQBytes = kBM * kRowBytes;      // 24 or 12 KB
+  static constexpr int kKTileBytes = kBN * kRowBytes;  // 16 or 8 KB
+  // + slack to align the tiles to 1024 bytes
+  static constexpr int kSmemBytes =
+      1024 + kQBytes + kStages * (kKTileBytes + kVTileBytes);
+  // the S accumulator: fp32, or s32 read back as fp32 bits
+  using Acc = typename std::conditional<kInt8, uint32_t, float>::type;
+};
 
 struct Barriers {
   uint64_t full_q;
@@ -177,18 +233,22 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
-// Shared-memory matrix descriptor, 128B swizzle: start address, leading and
-// stride byte offsets, all in 16-byte units. Tiles start 1024-aligned.
+// Shared-memory matrix descriptor: start address, leading and stride byte
+// offsets, all in 16-byte units, and the swizzle mode (1: 128B, 2: 64B).
+// Tiles start 1024-aligned.
 __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
+                                              uint32_t sbo, uint64_t mode = 1) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (mode << 62);
 }
 
-// K-major (Q, K): a k16 step is 32 bytes into each swizzled 128-byte row;
-// 8-row groups are 1024 bytes apart; the leading offset is unused.
+// K-major (Q, K): a k step (16 bf16 or 32 int8 values) is 32 bytes into each
+// swizzled row; 8-row groups are 8 rows apart, 1024 bytes in bf16's 128B
+// swizzle and 512 in int8's 64B one; the leading offset is unused.
+template <typename QK>
 __device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
+  if constexpr (Geometry<QK>::kInt8) return make_desc(addr, 16, 512, 2);
   return make_desc(addr, 16, 1024);
 }
 
@@ -234,6 +294,41 @@ __device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// d[64 x 128] += A[64 x 32] B[32 x 128], int8 codes, int32 sums (exact); A,
+// B from shared memory, K-major (8-bit operands have no transpose bit).
+__device__ __forceinline__ void wgmma_qk(uint32_t (&d)[64], uint64_t desc_a,
+                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
 // d[64 x 64] += A[64 x 16] B[16 x 64]; A from registers (bf16 pairs), B from
 // shared memory MN-major (transpose bit set).
 __device__ __forceinline__ void wgmma_pv(float (&d)[32], uint32_t a0,
@@ -269,19 +364,25 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <bool kBounded, bool kLse>
+// QK = __nv_bfloat16: K1, scale_log2 = scale * log2 e, factor unused.
+// QK = int8_t: K2 (kBounded, no lse), the logits scaled by *factor with one
+// FFMA (the header).
+template <typename QK, bool kBounded, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                           const __grid_constant__ CUtensorMap map_k,
                           const __grid_constant__ CUtensorMap map_v,
                           __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                          int sq, int skv, float scale_log2) {
+                          int sq, int skv, float scale_log2,
+                          const float* __restrict__ factor_ptr) {
+  using G = Geometry<QK>;
+  static_assert(!G::kInt8 || (kBounded && !kLse), "K2 is the bounded form only");
   extern __shared__ uint8_t smem_raw[];
   __shared__ Barriers bars;
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_tile = base;
-  const uint32_t k_tiles = base + kQBytes;
-  const uint32_t v_tiles = k_tiles + kStages * kTileBytes;
+  const uint32_t k_tiles = base + G::kQBytes;
+  const uint32_t v_tiles = k_tiles + kStages * G::kKTileBytes;
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * kBM;
   const int ntiles = (skv + kBN - 1) / kBN;
@@ -303,15 +404,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     // ---------------- producer: one thread issues every load ----------------
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (threadIdx.x == 0) {
-      mbar_expect_tx(&bars.full_q, kQBytes);
+      mbar_expect_tx(&bars.full_q, G::kQBytes);
       tma_load(q_tile, &map_q, &bars.full_q, q0, bh);
       for (int j = 0; j < ntiles; ++j) {
         const int st = j % kStages;
         mbar_wait(&bars.empty[st], ((j / kStages) & 1) ^ 1);
-        mbar_expect_tx(&bars.full_k[st], kTileBytes);
-        tma_load(k_tiles + st * kTileBytes, &map_k, &bars.full_k[st], j * kBN, bh);
-        mbar_expect_tx(&bars.full_v[st], kTileBytes);
-        tma_load(v_tiles + st * kTileBytes, &map_v, &bars.full_v[st], j * kBN, bh);
+        mbar_expect_tx(&bars.full_k[st], G::kKTileBytes);
+        tma_load(k_tiles + st * G::kKTileBytes, &map_k, &bars.full_k[st], j * kBN, bh);
+        mbar_expect_tx(&bars.full_v[st], kVTileBytes);
+        tma_load(v_tiles + st * kVTileBytes, &map_v, &bars.full_v[st], j * kBN, bh);
       }
     }
   } else {
@@ -327,32 +428,56 @@ __global__ void __launch_bounds__(kThreads, 1)
     // passes the turn on to the next one
     const int my_bar = 1 + c;
     const int next_bar = 1 + (c + 1) % kConsumers;
-    const uint32_t q_rows = q_tile + c * 64 * kD * 2;
+    const uint32_t q_rows = q_tile + c * 64 * G::kRowBytes;
+    // K2: the factor on the int32 logits, and the offset that the preset's
+    // kMagic contributes; read once, no host sync. The factor is rounded to
+    // 22 significant bits, which makes kMagic * factor (3 * 2^22 * factor)
+    // exact, so that the FFMA gives x * factor rounded once.
+    float factor = 0.f, offset = 0.f;
+    if constexpr (G::kInt8) {
+      factor = *factor_ptr;
+      factor = __uint_as_float((__float_as_uint(factor) + 2u) & ~3u);
+      offset = -kMagic * factor;
+    }
 
     // Accumulator fragments: element i of s (and of acc) is row g + 8 * ((i
     // >> 1) & 1) of the warp's 16, column 8 * (i >> 2) + 2 * tig + (i & 1).
     float acc[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-    float s[64];
+    typename G::Acc s[64];
     // P as bf16 pairs in the A-register layout: pair k holds s[2k], s[2k + 1],
     // of row (k & 1).
     uint32_t p[32];
     float lsum[2] = {0.f, 0.f};              // this thread's partial row sums
     float mrow[2] = {-INFINITY, -INFINITY};  // online form: running max (log2)
 
-    // Q K_j^T into s (4 k16 steps over d).
+    // Q K_j^T into s: 32 bytes of each row a step, 4 k16 steps over d in
+    // bf16 (the first overwrites s), 2 k32 steps in int8 (accumulating onto
+    // the preset).
     auto issue_qk = [&](int st) {
-      const uint32_t kt = k_tiles + st * kTileBytes;
+      const uint32_t kt = k_tiles + st * G::kKTileBytes;
 #pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
-        wgmma_qk(s, desc_kmajor(q_rows + kk * 32), desc_kmajor(kt + kk * 32),
-                 kk > 0);
+      for (int kk = 0; kk < G::kRowBytes / 32; ++kk) {
+        const uint64_t da = desc_kmajor<QK>(q_rows + kk * 32);
+        const uint64_t db = desc_kmajor<QK>(kt + kk * 32);
+        if constexpr (G::kInt8) {
+          wgmma_qk(s, da, db);
+        } else {
+          wgmma_qk(s, da, db, kk > 0);
+        }
+      }
+    };
+    // K2: s = kMagicBits before Q K^T, so that it comes out as kMagic + x.
+    auto preset = [&]() {
+      if constexpr (G::kInt8) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) s[i] = kMagicBits;
       }
     };
     // acc += P V_st (8 k16 steps over the tile's keys).
     auto issue_pv = [&](int st) {
-      const uint32_t vt = v_tiles + st * kTileBytes;
+      const uint32_t vt = v_tiles + st * kVTileBytes;
 #pragma unroll
       for (int kk = 0; kk < kBN / 16; ++kk) {
         wgmma_pv(acc, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
@@ -385,14 +510,28 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int kv0 = j * kBN;
 #pragma unroll
         for (int i = 0; i < 64; ++i) {
-          if (kv0 + (i >> 2) * 8 + tig * 2 + (i & 1) >= skv) s[i] = -INFINITY;
+          if (kv0 + (i >> 2) * 8 + tig * 2 + (i & 1) >= skv) {
+            if constexpr (G::kInt8) {
+              s[i] = __float_as_uint(-INFINITY);
+            } else {
+              s[i] = -INFINITY;
+            }
+          }
         }
       }
+      // the bounded form's logit in log2 units
+      auto logit2 = [&](int i) -> float {
+        if constexpr (!G::kInt8) {
+          return s[i] * scale_log2;
+        } else {
+          return fmaf(__uint_as_float(s[i]), factor, offset);
+        }
+      };
       if constexpr (kBounded) {
 #pragma unroll
         for (int k = 0; k < 32; ++k) {
-          const float e0 = ex2(s[2 * k] * scale_log2);
-          const float e1 = ex2(s[2 * k + 1] * scale_log2);
+          const float e0 = ex2(logit2(2 * k));
+          const float e1 = ex2(logit2(2 * k + 1));
           lsum[k & 1] += e0;
           lsum[k & 1] += e1;
           p[k] = pack_bf16x2(e0, e1);
@@ -458,6 +597,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     mbar_wait(&bars.full_q, 0);
 
     // tile 0: Q K_0^T alone
+    preset();
     mbar_wait(&bars.full_k[0], 0);
     bar_sync(my_bar);
     wgmma_fence();
@@ -475,6 +615,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int j = 1; j < ntiles; ++j) {
       const int st = j % kStages;
       const int pst = (j - 1) % kStages;
+      preset();
       mbar_wait(&bars.full_k[st], (j / kStages) & 1);
       mbar_wait(&bars.full_v[pst], ((j - 1) / kStages) & 1);
       bar_sync(my_bar);
@@ -566,42 +707,59 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// A 3-D map over a contiguous bf16 [bh, s, 64]: boxes of `rows` rows of one
-// head, 128B-swizzled; rows past s read as zeros.
-bool make_map(CUtensorMap* map, const void* ptr, int bh, int s, int rows) {
+// A 3-D map over a contiguous [bh, s, 64] of bf16 (128-byte rows, 128B
+// swizzle) or int8 codes (64-byte rows, 64B swizzle): boxes of `rows` rows of
+// one head; rows past s read as zeros.
+bool make_map(CUtensorMap* map, const void* ptr, int bh, int s, int rows,
+              bool int8 = false) {
   EncodeTiled encode = encoder();
   if (encode == nullptr) return false;
+  const cuuint64_t row_bytes = int8 ? kD : kD * 2;
   const cuuint64_t dims[3] = {kD, static_cast<cuuint64_t>(s),
                               static_cast<cuuint64_t>(bh)};
-  const cuuint64_t strides[2] = {kD * 2, static_cast<cuuint64_t>(s) * kD * 2};
+  const cuuint64_t strides[2] = {row_bytes, static_cast<cuuint64_t>(s) * row_bytes};
   const cuuint32_t box[3] = {kD, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-                dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  return encode(map,
+                int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                3, const_cast<void*>(ptr), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                int8 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <bool kBounded, bool kLse>
+template <typename QK, bool kBounded, bool kLse>
 cudaError_t launch(const CUtensorMap& mq, const CUtensorMap& mk,
                    const CUtensorMap& mv, void* o, void* lse, int bh, int sq,
-                   int skv, float scale_log2, cudaStream_t stream) {
-  auto kernel = flash_fwd_sm90_kernel<kBounded, kLse>;
+                   int skv, float scale_log2, const void* factor,
+                   cudaStream_t stream) {
+  auto kernel = flash_fwd_sm90_kernel<QK, kBounded, kLse>;
+  constexpr int kSmemBytes = Geometry<QK>::kSmemBytes;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((sq + kBM - 1) / kBM, bh);
   kernel<<<grid, kThreads, kSmemBytes, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), sq,
-      skv, scale_log2);
+      skv, scale_log2, static_cast<const float*>(factor));
   return cudaGetLastError();
+}
+
+bool bad_args(int head_dim, int bh, int sq, int skv,
+              std::initializer_list<const void*> ptrs) {
+  bool bad = head_dim != kD || bh <= 0 || sq <= 0 || skv <= 0 || bh > 65535;
+  for (const void* p : ptrs) bad = bad || (reinterpret_cast<uintptr_t>(p) & 15) != 0;
+  return bad;
 }
 
 }  // namespace
 
-// The dynamic shared memory a K1 launch asks for (Q, the K/V ring, and
-// slack to align the tiles to 1024 bytes).
-extern "C" int dove_flash_fwd_sm90_smem_bytes() { return kSmemBytes; }
+// The dynamic shared memory a K1 (qk8 = 0) or K2 (qk8 = 1) launch asks for
+// (Q, the K/V ring, and slack to align the tiles to 1024 bytes).
+extern "C" int dove_flash_fwd_sm90_smem_bytes(int qk8) {
+  return qk8 ? Geometry<int8_t>::kSmemBytes : Geometry<__nv_bfloat16>::kSmemBytes;
+}
 
 // K1. q, k, v: bf16 [bh, sq|skv, 64], o: bf16 [bh, sq, 64]; lse: fp32
 // [bh, sq], or null for the inference forms that write none. All contiguous
@@ -611,11 +769,7 @@ extern "C" int dove_flash_fwd_bf16(const void* q, const void* k, const void* v,
                                    void* o, void* lse, int bh, int sq, int skv,
                                    int head_dim, float scale, int bounded,
                                    void* stream) {
-  const auto misaligned = [](const void* p) {
-    return (reinterpret_cast<uintptr_t>(p) & 15) != 0;
-  };
-  if (head_dim != kD || bh <= 0 || sq <= 0 || skv <= 0 || bh > 65535 ||
-      misaligned(q) || misaligned(k) || misaligned(v) || misaligned(o)) {
+  if (bad_args(head_dim, bh, sq, skv, {q, k, v, o})) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   CUtensorMap mq, mk, mv;
@@ -623,17 +777,39 @@ extern "C" int dove_flash_fwd_bf16(const void* q, const void* k, const void* v,
       !make_map(&mv, v, bh, skv, kBN)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  using BF = __nv_bfloat16;
   const float scale_log2 = scale * 1.4426950408889634f;
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (lse != nullptr && bounded) {
-    err = launch<true, true>(mq, mk, mv, o, lse, bh, sq, skv, scale_log2, s);
+    err = launch<BF, true, true>(mq, mk, mv, o, lse, bh, sq, skv, scale_log2, nullptr, s);
   } else if (lse != nullptr) {
-    err = launch<false, true>(mq, mk, mv, o, lse, bh, sq, skv, scale_log2, s);
+    err = launch<BF, false, true>(mq, mk, mv, o, lse, bh, sq, skv, scale_log2, nullptr, s);
   } else if (bounded) {
-    err = launch<true, false>(mq, mk, mv, o, lse, bh, sq, skv, scale_log2, s);
+    err = launch<BF, true, false>(mq, mk, mv, o, lse, bh, sq, skv, scale_log2, nullptr, s);
   } else {
-    err = launch<false, false>(mq, mk, mv, o, lse, bh, sq, skv, scale_log2, s);
+    err = launch<BF, false, false>(mq, mk, mv, o, lse, bh, sq, skv, scale_log2, nullptr, s);
   }
+  return static_cast<int>(err);
+}
+
+// K2. q8, k8: int8 codes [bh, sq|skv, 64]; v: bf16 [bh, skv, 64]; o: bf16
+// [bh, sq, 64]; factor: one fp32 on the device, (s_q * s_k) * fp32(scale *
+// log2 e). All contiguous on the device and 16-byte aligned. Launches on
+// `stream`, returns the cudaError_t of the launch, does not synchronise.
+extern "C" int dove_flash_fwd_qk8(const void* q8, const void* k8, const void* v,
+                                  void* o, int bh, int sq, int skv, int head_dim,
+                                  const void* factor, void* stream) {
+  if (bad_args(head_dim, bh, sq, skv, {q8, k8, v, o}) || factor == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, q8, bh, sq, kBM, true) || !make_map(&mk, k8, bh, skv, kBN, true) ||
+      !make_map(&mv, v, bh, skv, kBN)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      launch<int8_t, true, false>(mq, mk, mv, o, nullptr, bh, sq, skv, 0.f, factor, s);
   return static_cast<int>(err);
 }

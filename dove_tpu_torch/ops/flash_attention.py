@@ -4,9 +4,10 @@ Counterpart of ``dove_tpu/ops/pallas/flash_attention.py`` (``flash_attention``
 with its custom VJP). K1 is the bf16 forward (kernel ``_fwd_kernel``), with
 the per-row logsumexp in its training form; K2 its ``qk8`` form (per-tensor
 int8 q and k, int32 Q K^T), the int8-dit serving mode's attention; K3a and
-K3b are the backward (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``). K1 lives in
-``csrc/flash_fwd_sm90.cu`` and K3a and K3b in ``csrc/flash_bwd_sm90.cu``
-(wgmma, TMA, warp-specialised), K2 in ``csrc/flash_fwd.cu``; each note says
+K3b are the backward (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``). K1 and K2
+live in ``csrc/flash_fwd_sm90.cu`` (one kernel template, K2 its int8
+instantiation with an s8 wgmma for Q K^T) and K3a and K3b in
+``csrc/flash_bwd_sm90.cu`` (wgmma, TMA, warp-specialised); each note says
 what bounds the kernels on the H100 and how they differ from the TPU
 schedule.
 
@@ -65,8 +66,8 @@ def _library() -> ctypes.CDLL:
 
 
 def _qk8_library() -> ctypes.CDLL:
-    """K2's library."""
-    lib = kernels.load("flash_fwd")
+    """K2's library: K1's, whose kernel K2 is an instantiation of."""
+    lib = kernels.load("flash_fwd_sm90")
     fn = lib.dove_flash_fwd_qk8
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
@@ -165,13 +166,21 @@ def flash_qk8_launch(
 ) -> torch.Tensor:
     """Launch K2 on int8 codes (the kernel alone, no quantizer): the CUDA
     counterpart of :func:`flash_attention_qk8_plain`. The factor stays on
-    the device; nothing here waits for it."""
+    the device; nothing here waits for it. The kernel's TMA loads need
+    16-byte aligned data.
+
+    The kernel reads each int32 logit x as the fp32 12582912 + x and scales
+    it with one FFMA by the factor rounded to 22 significant bits, which
+    gives x * factor within a relative 2^-22 of JAX's ``float(x) * factor``."""
     if q8.device.type != "cuda":
         raise ValueError(f"K2 runs on cuda, not {q8.device}")
     B, H, Sq, Skv, D = _check_cuda_inputs(q8, k8, v, torch.int8)
     if (factor.device != q8.device or factor.dtype != torch.float32
             or factor.numel() != 1):
         raise ValueError("the logit factor must be one fp32 value on q's device")
+    for name, t in (("q8", q8), ("k8", k8), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}'s data is not 16-byte aligned")
     out = torch.empty(q8.shape, dtype=v.dtype, device=v.device)
     lib = _qk8_library()
     with torch.cuda.device(q8.device):

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from dove_tpu.ops.pallas import flash_attention as jfa
 from dove_tpu.ops.pallas.flash_attention import flash_attention as jax_flash
 from dove_tpu_torch import kernels
 from dove_tpu_torch.ops import attention as tattn
@@ -102,6 +103,98 @@ def test_qk8_plain_matches_pallas_interpret(sq, skv):
     assert fa.launches.count == 0 and fa.launches_qk8.count == 0
 
 
+# K2's int32 -> fp32 route (csrc/flash_fwd_sm90.cu): the Q K^T accumulator is
+# preset to the bits of 1.5 * 2^23, so the s32 sum x comes out as those bits
+# plus x.
+MAGIC_BITS = 0x4B400000
+MAGIC = np.float32(12582912.0)
+QK8_MAX = 127 * 127 * 64  # the largest |q8 . k8| at head dim 64
+
+
+def test_qk8_logits_convert_exactly_through_the_magic_preset():
+    """Over the whole range |x| <= 127^2 * 64 (< 2^22), the bits 0x4B400000 +
+    x read as fp32, less 12582912, are float32(x): the conversion K2 makes
+    without a conversion instruction is exact."""
+    assert QK8_MAX < 2 ** 22
+    x = np.arange(-QK8_MAX, QK8_MAX + 1, dtype=np.int64)
+    as_f32 = (MAGIC_BITS + x).astype(np.uint32).view(np.float32)
+    np.testing.assert_array_equal(as_f32 - MAGIC, x.astype(np.float32))
+    assert as_f32[0] - MAGIC == -QK8_MAX and as_f32[-1] - MAGIC == QK8_MAX
+
+
+def _jax_qk8_inputs(monkeypatch, q, k, scale):
+    """The int8 codes of q and k and the fp32 logit factor as dove_tpu's
+    wrapper makes them (flash_attention.py:181-197, factor as its kernel
+    forms it), from a pallas_call stub that hands back its inputs."""
+    captured = {}
+
+    def stub(kernel, *, out_shape, **kw):
+        def run(*inputs):
+            captured["inputs"] = inputs
+            return [jnp.zeros(s.shape, s.dtype) for s in out_shape]
+        return run
+
+    monkeypatch.setattr(jfa.pl, "pallas_call", stub)
+
+    def tpu_inputs(q, k):
+        jfa._flash_fwd(q, k, k, scale, 128, 128, with_lse=False, bounded=True, qk8=True)
+        return captured["inputs"][:3]
+
+    sqk, q8, k8 = jax.jit(tpu_inputs)(jnp.asarray(q), jnp.asarray(k))
+    factor = np.float32(np.asarray(sqk)[0]) * np.float32(scale * fa.LOG2E)
+    return np.array(q8), np.array(k8), factor
+
+
+def _factor_22_bits(factor: np.float32) -> np.float32:
+    """The factor as K2's FFMA uses it: rounded to 22 significant
+    bits, so that 12582912 * factor (3 * 2^22 * factor) is exact."""
+    bits = np.array(factor, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(2)) & ~np.uint32(3)).view(np.float32)[()]
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_qk8_logit_conversion_keeps_the_softmax(monkeypatch, wide):
+    """K2's logit route emulated on JAX's own codes and factor, v = 12582912
+    + x as the preset accumulator reads: one FFMA fl(v * f22 - 12582912 *
+    f22) with the factor rounded to 22 significant bits is fl(x * f22),
+    within a relative 2^-22 (and one rounding) of JAX's logits. Its softmax,
+    P rounded to bf16 before P V as the kernel does, is within K1's bars of
+    flash_attention_qk8_plain, for logits of unit size and for wide ones
+    (q three times larger, p over many octaves)."""
+    rng = np.random.default_rng(11)
+    scale = 64 ** -0.5
+    q = rng.standard_normal((2, 256, 64)).astype(np.float32) * (3.0 if wide else 1.0)
+    k = rng.standard_normal((2, 384, 64)).astype(np.float32)
+    v = torch.from_numpy(rng.standard_normal((1, 2, 384, 64)).astype(np.float32)
+                         ).to(torch.bfloat16)
+    q8, k8, factor = _jax_qk8_inputs(monkeypatch, q, k, scale)
+    x = np.einsum("hqd,hkd->hqk", q8.astype(np.int64), k8.astype(np.int64))
+    as_f32 = (MAGIC_BITS + x).astype(np.uint32).view(np.float32)
+    jax_logits = x.astype(np.float32) * factor
+    f22 = _factor_22_bits(factor)
+    assert abs(np.float64(f22) / np.float64(factor) - 1) <= 2.0 ** -22
+    offset = np.float32(-MAGIC * f22)
+    assert np.float64(offset) == -np.float64(MAGIC) * np.float64(f22)  # exact
+    # the FFMA: the product exact in float64, one rounding to fp32
+    logits = (as_f32.astype(np.float64) * np.float64(f22)
+              + np.float64(offset)).astype(np.float32)
+    np.testing.assert_array_equal(
+        logits, (x.astype(np.float64) * np.float64(f22)).astype(np.float32))
+    gap = np.abs(logits.astype(np.float64) - jax_logits.astype(np.float64))
+    assert (gap <= np.abs(jax_logits) * 2.0 ** -22
+            + np.spacing(np.abs(jax_logits))).all()
+    p = torch.from_numpy(np.exp2(logits))[None]
+    ours = ((p.to(torch.bfloat16).float() @ v.float()) / p.sum(-1, keepdim=True)
+            ).to(torch.bfloat16)
+    ref = fa.flash_attention_qk8_plain(
+        torch.from_numpy(q8)[None], torch.from_numpy(k8)[None], v,
+        torch.tensor(factor))
+    diff, ref = ours.float() - ref.float(), ref.float()
+    max_abs = float(diff.abs().max())
+    assert max_abs <= 3e-2 and max_abs <= 2e-2 * float(ref.abs().max())
+    assert float(diff.square().mean().sqrt()) <= 1e-2 * float(ref.square().mean().sqrt())
+
+
 def test_auto_dispatch_on_cpu_takes_the_naive_path():
     """On the CPU even a long sequence takes the naive path, and the
     launch counter does not move."""
@@ -143,10 +236,10 @@ def test_imports_and_runs_without_nvcc_or_cuda():
 
 
 def test_library_path_tracks_the_source():
-    path = kernels.library_path("flash_fwd")
+    path = kernels.library_path("flash_fwd_sm90")
     assert path.parent == kernels.BUILD_DIR
-    assert path.name.startswith("libflash_fwd-") and path.suffix == ".so"
-    assert (kernels.CSRC / "flash_fwd.cu").is_file()
+    assert path.name.startswith("libflash_fwd_sm90-") and path.suffix == ".so"
+    assert (kernels.CSRC / "flash_fwd_sm90.cu").is_file()
 
 
 def test_build_reuses_a_built_library_and_needs_nvcc_otherwise(tmp_path, monkeypatch):
@@ -157,19 +250,35 @@ def test_build_reuses_a_built_library_and_needs_nvcc_otherwise(tmp_path, monkeyp
     if Path("/usr/local/cuda/bin/nvcc").exists():
         pytest.skip("a CUDA toolkit is installed here")
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        kernels.build("flash_fwd")
-    kernels.library_path("flash_fwd").touch()  # as if built before
-    assert kernels.build("flash_fwd") == (0.0, "")
+        kernels.build("flash_fwd_sm90")
+    kernels.library_path("flash_fwd_sm90").touch()  # as if built before
+    assert kernels.build("flash_fwd_sm90") == (0.0, "")
 
 
-def test_k1_lives_in_its_own_source():
-    """K1 (bf16, wgmma/TMA) and K2 (int8 Q K^T) build from separate sources
-    into separate libraries, each named by its source and flags."""
-    paths = {name: kernels.library_path(name) for name in ("flash_fwd_sm90", "flash_fwd")}
-    for name, path in paths.items():
-        assert (kernels.CSRC / f"{name}.cu").is_file()
-        assert path.name.startswith(f"lib{name}-")
-    assert paths["flash_fwd_sm90"] != paths["flash_fwd"]
+def test_k1_lives_in_its_own_source(monkeypatch):
+    """K1's source, csrc/flash_fwd_sm90.cu, holds K2 too (its int8
+    instantiation), and the wrappers of both load its library; the mma.sync
+    source that held K2 is gone."""
+    assert (kernels.CSRC / "flash_fwd_sm90.cu").is_file()
+    assert not (kernels.CSRC / "flash_fwd.cu").exists()
+    text = (kernels.CSRC / "flash_fwd_sm90.cu").read_text()
+    for entry in ("dove_flash_fwd_bf16", "dove_flash_fwd_qk8"):
+        assert f'extern "C" int {entry}(' in text
+    assert "m64n128k32.s32.s8.s8" in text and "mma.sync" not in text
+
+    class Fn:
+        argtypes = restype = None
+
+    loaded = []
+
+    def fake_load(name):
+        loaded.append(name)
+        return type("Lib", (), {"dove_flash_fwd_bf16": Fn(), "dove_flash_fwd_qk8": Fn()})
+
+    monkeypatch.setattr(kernels, "load", fake_load)
+    fa._library()
+    fa._qk8_library()
+    assert loaded == ["flash_fwd_sm90", "flash_fwd_sm90"]
 
 
 def test_k1_launcher_refuses_cpu_tensors_before_building():
