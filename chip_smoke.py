@@ -40,7 +40,8 @@ Phases, one result line each; any failure exits non-zero:
    (105 frames padded, 27 latents, four 10-latent DiT windows);
 9. the training attention: K1's logsumexp form, K3a and K3b (the backward)
    against their plain versions at the stage-1 training shape
-   [2, 48, 3426, 64] and at a ragged Sq != Skv, at K1's bars (and an
+   [2, 48, 3426, 64], at stage 2's [1, 48, 1026, 64] (timed too) and at a
+   ragged Sq != Skv, at K1's bars (and an
    absolute bar on the logsumexp), with the bars shown to reject a dropped
    tile; K1's training forms, K3a and K3b also at every Sq, Skv of phase 2
    and beside NaN heads; kernel, plain and SDPA times beside the bounds,
@@ -72,7 +73,18 @@ Phases, one result line each; any failure exits non-zero:
 14. the int8-dit-dec main path: the 5B model at all 42 layers, the decoder
    int8 outside the "lowres" exclusion set and equalized from synthetic
    calibration stats, the 32-frame clip of phase 4;
-15. K5 opt-in: the bf16 pipeline of phase 3 with hand_conv on and off.
+15. K5 opt-in: the bf16 pipeline of phase 3 with hand_conv on and off;
+16. one stage-2 SFT step (DOVES2Trainer: per-frame encode, one DiT pass,
+   the decode with gradients, DISTS on a seeded VGG16, frame differences) at
+   full width and 2 DiT layers on a 2x320x640 clip pair and on an image
+   pair, each through the kernels and through the plain attention: loss
+   terms and every DiT gradient compared; the decode with and without
+   checkpointing per level compared;
+17. the stage-2 recipe (scripts/train_s2.sh): CogVideoX1.5-5B at full
+   width, all 42 layers, SFT of the whole DiT with AdamW, three steps
+   through DOVES2Trainer.train_step from a seed whose coin gives both an
+   image step and a video step, with the split, launches and loss terms per
+   step and the peak memory.
 
 Then one JSON line with the kernels' numbers, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}.
@@ -136,6 +148,15 @@ CLIP_FRAMES, CLIP_H, CLIP_W = 32, 180, 320
 TRAIN_BATCH, TRAIN_FRAMES, TRAIN_H, TRAIN_W = 2, 25, 320, 640
 TRAIN_SEQ = 3426
 TRAIN_STEPS = 3
+# Stage-2 training (scripts/train_s2.sh): a clip pair of 2x320x640 and an
+# image pair of 1x320x640, batch 1; every frame encodes as a clip of its own.
+S2_FRAMES, S2_H, S2_W = 2, 320, 640
+S2_STEPS = 3
+# The decode with gradients, with and without checkpointing per level
+# (phase 16): the same convs on the same inputs, recomputed; pixels and the
+# gradient held to 1e-3 of their RMS (bit for bit is expected; the bar
+# allows cuDNN a different algorithm on the recompute).
+REMAT_REL_RMS_TOL = 1e-3
 # The streamed clip: 100 frames pad to 105, 27 latents, 4 DiT windows.
 STREAM_FRAMES = 100
 # K5 against its plain version: fp32 products summed in another order, the
@@ -239,6 +260,17 @@ def main_path_seq_len(cfg) -> int:
     h = (CLIP_H + pad_h) * cfg.upscale // patch
     w = (CLIP_W + pad_w) * cfg.upscale // patch
     return cfg.dit.max_text_seq_length + lat // pt * h * w
+
+
+def stage2_seq_len(cfg) -> int:
+    """Joint text+video tokens of a stage-2 DiT pass: the clip's frames are
+    one latent each, padded to patch_size_t (an image's one latent by a copy
+    of itself), so both kinds of step see one latent pair of 40x80 latents
+    in 20x40 patches."""
+    pt = cfg.dit.patch_size_t
+    lat = S2_FRAMES + (pt - S2_FRAMES % pt) % pt
+    patch = cfg.vae.spatial_scale * cfg.dit.patch_size
+    return cfg.dit.max_text_seq_length + lat // pt * (S2_H // patch) * (S2_W // patch)
 
 
 # ---------------------------------------------------------------------------
@@ -1141,18 +1173,83 @@ def k3_edge_cases() -> dict:
     return worst
 
 
-def phase_k3(heads: int) -> dict:
+def _time_training_attention(q, k, v, do, lse, delta, forms: bool) -> dict:
+    """K1's training form, K3a and K3b timed beside their plain versions,
+    SDPA's forward and its backward on the same tensors, and their bounds;
+    with ``forms`` also each K1 form with the exp floor."""
+    from dove_tpu_torch.ops import flash_attention as fa
+
+    B, heads, sq, _ = q.shape
+    skv = k.shape[2]
+    scale = 64 ** -0.5
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qq, kk, vv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+    def sdpa_fwd_bwd():
+        sdpa(qq, kk, vv).backward(do)
+
+    t = {}
+    if forms:
+        k1_forms = time_k1_forms(q, k, v)
+        t.update(k1_lse_ms=k1_forms["forms_ms"]["online_lse"],
+                 k1_online_ms=k1_forms["forms_ms"]["online"], k1_forms=k1_forms)
+    else:
+        t["k1_lse_ms"] = cuda_ms(lambda: fa.flash_attention(q, k, v, with_lse=True), 10)
+    t.update(
+        k3a_ms=cuda_ms(lambda: fa.flash_bwd_dq_launch(q, k, v, do, lse, delta, scale), 10),
+        k3b_ms=cuda_ms(lambda: fa.flash_bwd_dkv_launch(q, k, v, do, lse, delta, scale), 10),
+        k1_lse_plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v, with_lse=True), 1, 0),
+        k3a_plain_ms=cuda_ms(lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, scale), 1, 0),
+        k3b_plain_ms=cuda_ms(lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, scale), 1, 0),
+        sdpa_fwd_ms=cuda_ms(lambda: sdpa(q, k, v), 10),
+        sdpa_fwd_bwd_ms=cuda_ms(sdpa_fwd_bwd, 10),
+    )
+    t["sdpa_bwd_ms"] = t["sdpa_fwd_bwd_ms"] - t["sdpa_fwd_ms"]
+    bh, mm = B * heads, 2.0 * sq * skv * 64  # FLOPs of one S x S x D product per head
+    q_bytes, kv_bytes, row_bytes = sq * 64 * 2, skv * 64 * 2, sq * 4
+    for name, n_mm, nbytes in (
+            # q, k, v in; out and lse out
+            ("k1_lse", 2, 2 * q_bytes + 2 * kv_bytes + row_bytes),
+            # q, k, v, dO, lse, delta in; dq out
+            ("k3a", 3, 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes),
+            # q, k, v, dO, lse, delta in; dk, dv out
+            ("k3b", 4, 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes)):
+        t[f"{name}_flops"] = bh * n_mm * mm
+        t[f"{name}_bound_ms"], t[f"{name}_bound_by"] = _bound(
+            bh * n_mm * mm, bh * nbytes)
+    t["shape"] = [B, heads, sq, 64]
+    return t
+
+
+def _fwd_bwd_ms(q, k, v, do) -> dict:
+    """ops.attention.full_attention's forward and backward through the
+    kernels ("flash": K1-lse, K3a, K3b) and through the naive path (fp32
+    logits under autograd), which the automatic rule takes below 2048
+    tokens."""
+    from dove_tpu_torch.ops import attention as tattn
+
+    qq, kk, vv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+    def run(backend):
+        tattn.full_attention(qq, kk, vv, backend=backend).backward(do)
+
+    return {f"{b}_fwd_bwd_ms": cuda_ms(lambda b=b: run(b), 10) for b in ("flash", "naive")}
+
+
+def phase_k3(heads: int, seq_s2: int) -> dict:
     """K1's training form and the backward kernels against their plain
     versions, on the same bf16 inputs; the backward takes the kernel's own
-    out and lse, as in training."""
+    out and lse, as in training. Timed at the stage-1 shape [2, 48, 3426,
+    64] and at stage 2's [1, 48, seq_s2, 64]."""
     from dove_tpu_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(9)
     scale = 64 ** -0.5
     worst = {"k1_lse": 0.0, "lse": 0.0, "k3a": 0.0, "k3b": 0.0}
-    timing = {}
-    for B, sq, skv in ((TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ), (1, 1111, 2345)):
+    timing, timing_s2 = {}, {}
+    for B, sq, skv in ((TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ), (1, 1111, 2345),
+                       (1, seq_s2, seq_s2)):
         q = torch.randn((B, heads, sq, 64), generator=gen, device=dev,
                         dtype=torch.bfloat16)
         k, v = (torch.randn((B, heads, skv, 64), generator=gen, device=dev,
@@ -1204,40 +1301,10 @@ def phase_k3(heads: int) -> dict:
                 f"{miss_dv['rel_rms']:.3e} (dv)")
             if any(within_bars(m) for m in (miss_dq, miss_dk, miss_dv)):
                 raise AssertionError("the K3 bars accept a dropped tile")
-            qq, kk, vv = (t.detach().clone().requires_grad_() for t in (q, k, v))
-
-            def sdpa_fwd_bwd():
-                torch.nn.functional.scaled_dot_product_attention(qq, kk, vv).backward(do)
-
-            forms = time_k1_forms(q, k, v)
-            t = dict(
-                k1_lse_ms=forms["forms_ms"]["online_lse"],
-                k1_online_ms=forms["forms_ms"]["online"],
-                k1_forms=forms,
-                k3a_ms=cuda_ms(lambda: fa.flash_bwd_dq_launch(q, k, v, do, lse, delta, scale), 10),
-                k3b_ms=cuda_ms(lambda: fa.flash_bwd_dkv_launch(q, k, v, do, lse, delta, scale), 10),
-                k1_lse_plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v, with_lse=True), 1, 0),
-                k3a_plain_ms=cuda_ms(lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, scale), 1, 0),
-                k3b_plain_ms=cuda_ms(lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, scale), 1, 0),
-                sdpa_fwd_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), 10),
-                sdpa_fwd_bwd_ms=cuda_ms(sdpa_fwd_bwd, 10),
-            )
-            t["sdpa_bwd_ms"] = t["sdpa_fwd_bwd_ms"] - t["sdpa_fwd_ms"]
-            bh, mm = B * heads, 2.0 * sq * skv * 64  # FLOPs of one S x S x D product per head
-            q_bytes, kv_bytes, row_bytes = sq * 64 * 2, skv * 64 * 2, sq * 4
-            for name, n_mm, nbytes in (
-                    # q, k, v in; out and lse out
-                    ("k1_lse", 2, 2 * q_bytes + 2 * kv_bytes + row_bytes),
-                    # q, k, v, dO, lse, delta in; dq out
-                    ("k3a", 3, 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes),
-                    # q, k, v, dO, lse, delta in; dk, dv out
-                    ("k3b", 4, 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes)):
-                t[f"{name}_flops"] = bh * n_mm * mm
-                t[f"{name}_bound_ms"], t[f"{name}_bound_by"] = _bound(
-                    bh * n_mm * mm, bh * nbytes)
-            t["shape"] = [B, heads, sq, 64]
-            timing = t
-            del qq, kk, vv
+            timing = _time_training_attention(q, k, v, do, lse, delta, forms=True)
+        elif sq == seq_s2:
+            timing_s2 = _time_training_attention(q, k, v, do, lse, delta, forms=False)
+            timing_s2.update(_fwd_bwd_ms(q, k, v, do))
         del q, k, v, do, out, lse, ref, ref_lse, dq, dk, dv, ref_dq, ref_dk, ref_dv
     edges = k1_edge_cases(with_lse=True)
     worst["k1_lse"] = max(worst["k1_lse"], edges["max_abs"])
@@ -1248,8 +1315,9 @@ def phase_k3(heads: int) -> dict:
         c.reset()
     torch.cuda.empty_cache()
     log("phase 9 K1-lse, K3a, K3b: worst max_abs_err " + json.dumps(
-        {k: float(f"{x:.3e}") for k, x in worst.items()}) + "; " + json.dumps(rounded(timing)))
-    return dict(worst=worst, **timing)
+        {k: float(f"{x:.3e}") for k, x in worst.items()}) + "; " + json.dumps(rounded(timing))
+        + "; stage 2: " + json.dumps(rounded(timing_s2)))
+    return dict(worst=worst, stage2=timing_s2, **timing)
 
 
 # ---------------------------------------------------------------------------
@@ -1274,21 +1342,21 @@ def _train_args(out_dir: str):
     )
 
 
-def train_batch(seed: int) -> dict[str, torch.Tensor]:
-    """Seeded smooth HQ clips [2, 25, 320, 640, 3] in [-1, 1] and their LQ in
-    the dataset's layout: 4x area-down, then bilinear back up to HQ size
-    (dove_tpu/data/datasets.py). Made on the card."""
+def train_batch(seed: int, batch: int = TRAIN_BATCH, frames: int = TRAIN_FRAMES,
+                h: int = TRAIN_H, w: int = TRAIN_W) -> dict[str, torch.Tensor]:
+    """Seeded smooth HQ clips [batch, frames, h, w, 3] in [-1, 1] and their
+    LQ in the dataset's layout: 4x area-down, then bilinear back up to HQ
+    size (dove_tpu/data/datasets.py). Made on the card."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    coarse = torch.rand((TRAIN_BATCH, 3, 7, TRAIN_H // 32, TRAIN_W // 32),
-                        generator=gen, device="cuda")
-    hq = F.interpolate(coarse, size=(TRAIN_FRAMES, TRAIN_H, TRAIN_W),
-                       mode="trilinear", align_corners=False) * 2 - 1
-    frames = hq.permute(0, 2, 1, 3, 4).reshape(-1, 3, TRAIN_H, TRAIN_W)
-    lq = F.interpolate(F.avg_pool2d(frames, 4), scale_factor=4, mode="bilinear",
+    coarse = torch.rand((batch, 3, 7, h // 32, w // 32), generator=gen, device="cuda")
+    hq = F.interpolate(coarse, size=(frames, h, w), mode="trilinear",
+                       align_corners=False) * 2 - 1
+    flat = hq.permute(0, 2, 1, 3, 4).reshape(-1, 3, h, w)
+    lq = F.interpolate(F.avg_pool2d(flat, 4), scale_factor=4, mode="bilinear",
                        align_corners=False)
-    lq = lq.reshape(TRAIN_BATCH, TRAIN_FRAMES, 3, TRAIN_H, TRAIN_W)
+    lq = lq.reshape(batch, frames, 3, h, w)
 
     def layout(x):  # -> [B, F, H, W, 3]
         return x.permute(0, 1, 3, 4, 2).contiguous()
@@ -1498,6 +1566,297 @@ def phase_train_recipe(profile_dir: str | None = None) -> dict:
     torch.cuda.empty_cache()
     return dict(launches=launches, steps=steps, step_median_s=median,
                 peak_bytes=peak)
+
+
+# ---------------------------------------------------------------------------
+# Phases 16 and 17: stage-2 SFT through DOVES2Trainer
+# ---------------------------------------------------------------------------
+
+def _s2_args(out_dir: str, seed: int):
+    """scripts/train_s2.sh, less what this slice does not run (the image and
+    video datasets, the stage-1 export it starts from): SFT of the whole DiT,
+    batch 1 of 2x320x640, bf16, gradient checkpointing, AdamW (0.9, 0.95),
+    lr 5e-6 constant with 10 warmup steps, max_grad_norm 0.1, t = 399, no
+    noise, image_ratio 0.8, DISTS weight 1.0 on a seeded VGG16 (no DISTS
+    weights are in the repo: allow_random_perceptual), frame difference 1.0."""
+    from dove_tpu_torch.train.args import Args
+
+    return Args(
+        model_path="no-checkpoint", model_name="dove-s2", training_type="sft",
+        output_dir=out_dir, train_resolution=(S2_FRAMES, S2_H, S2_W), batch_size=1,
+        train_steps=S2_STEPS, learning_rate=5e-6, lr_scheduler="constant_with_warmup",
+        lr_warmup_steps=10, max_grad_norm=0.1, mixed_precision="bf16",
+        gradient_checkpointing=True, checkpointing_steps=100, sr_noise_step=399,
+        noise_step=0, image_ratio=0.8, use_perceptual_loss=True, dists_weight=1.0,
+        frame_diff_weight=1.0, allow_random_perceptual=True, num_workers=0, seed=seed,
+    )
+
+
+def s2_pairs(seed: int) -> tuple[dict, dict]:
+    """A clip pair and an image pair, seeded, on the card: the video step's
+    and the image step's batch as DOVES2Trainer.train_step hands them on."""
+    clip = train_batch(seed, 1, S2_FRAMES, S2_H, S2_W)
+    image = train_batch(seed + 1, 1, 1, S2_H, S2_W)
+    return clip, image
+
+
+def _s2_trainer(cfg, seed: int):
+    import os
+
+    from dove_tpu_torch.models import vae as vae_mod
+    from dove_tpu_torch.train.trainer import DOVES2Trainer
+
+    # the seeded VGG16 of the recipe's opt-in, whatever this shell exports
+    os.environ.pop("DOVE_DISTS_WEIGHTS", None)
+    vae_mod.set_pallas_conv(False)  # K5 has no backward
+    tr = DOVES2Trainer(_s2_args("build/chip_smoke_s2", seed), pipeline_config=cfg,
+                       device="cuda")
+    tr.load_components()
+    return tr
+
+
+def _remat_decode_check(cfg, vae) -> dict:
+    """The decode with gradients at the stage-2 shape (two 1-frame latents
+    of 40x80) with and without checkpointing per level: pixels, the gradient
+    with respect to the latent, and the peak memory of each."""
+    from dove_tpu_torch.models import vae as vae_mod
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    z = torch.randn((S2_FRAMES, 1, S2_H // 8, S2_W // 8, cfg.vae.latent_channels),
+                    generator=gen, device="cuda", dtype=torch.bfloat16)
+    cot = torch.randn((S2_FRAMES, 1, S2_H, S2_W, 3), generator=gen, device="cuda",
+                      dtype=torch.bfloat16)
+    runs = {}
+    for remat in (False, True):
+        zz = z.clone().requires_grad_()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        px = vae_mod.decode(cfg.vae, vae, zz, remat=remat)
+        (g,) = torch.autograd.grad(px, zz, cot)
+        torch.cuda.synchronize()
+        runs[remat] = (px.detach(), g, time.perf_counter() - t0,
+                       torch.cuda.max_memory_allocated() - base)
+    (p0, g0, t_off, m_off), (p1, g1, t_on, m_on) = runs[False], runs[True]
+    out = dict(px_rel_rms=_rel_rms(p1, p0), grad_rel_rms=_rel_rms(g1, g0),
+               px_equal=bool(torch.equal(p1, p0)), grad_equal=bool(torch.equal(g1, g0)),
+               wall_s={"off": t_off, "on": t_on},
+               peak_gib={"off": m_off / 2**30, "on": m_on / 2**30})
+    if not (out["px_rel_rms"] <= REMAT_REL_RMS_TOL and out["grad_rel_rms"] <= REMAT_REL_RMS_TOL
+            and bool(torch.isfinite(g1).all())):
+        raise AssertionError(f"phase 16: the decode with remat differs: {out}")
+    return out
+
+
+def _dit_part(tr, batch, cot):
+    """The DiT's part of a stage-2 step alone: x0 from the batch's per-frame
+    encode (the posterior mean) and every DiT parameter's gradient for the
+    cotangent ``cot`` on x0 (zeros where a parameter gets none)."""
+    from dove_tpu_torch.train import losses
+
+    lq = tr._encode(batch["lq_video"], None, per_frame=True).to(tr.dtype)
+    params = list(tr.dit.parameters())
+    x0 = losses.one_step_x0_latent(tr.config, tr.schedule, tr.dit, lq,
+                                   batch["prompt_embeds"], None, **tr.dit_kwargs())
+    grads = torch.autograd.grad(x0, params, cot.to(x0.dtype), allow_unused=True)
+    return x0.detach(), [torch.zeros_like(p) if g is None else g
+                         for p, g in zip(params, grads)]
+
+
+def _worst_rel(names, grads, refs) -> tuple[dict, list]:
+    """Each nonzero reference gradient's rms err / rms ref, and the names of
+    those that are zero in the reference (and must be in ``grads`` too)."""
+    rel, zero = {}, []
+    for n, g, h in zip(names, grads, refs):
+        if float(h.float().abs().max()) == 0.0:
+            zero.append(n)
+            if float(g.float().abs().max()) != 0.0:
+                raise AssertionError(f"{n} has a gradient in one run only")
+        else:
+            rel[n] = _rel_rms(g, h)
+    return rel, zero
+
+
+def phase_s2_kernel_vs_plain() -> None:
+    """One stage-2 SFT step at full width and 2 DiT layers, as a video step
+    and as an image step, through the kernels, the plain attention and the
+    naive one. The loss terms of the whole step are compared at phase 10's
+    bar. The DiT gradients are compared on the DiT's own part of the step
+    (x0 and the gradients for one seeded cotangent on it), at phase 10's
+    bar: the loss's gradient with respect to x0 is not continuous in x0
+    (the frame difference's L1 sign, the clamp, VGG's relus, all on bf16
+    pixels), so a one-ulp change of a pixel moves it, and the whole step's
+    DiT gradients of the kernel run and of the naive one are both shown
+    beside the plain run's. Then the decode with and without remat."""
+    import dataclasses
+
+    from dove_tpu_torch import cogvideox1_5_5b
+
+    base = cogvideox1_5_5b()
+    cfg = dataclasses.replace(base, dit=dataclasses.replace(base.dit, num_layers=2))
+    tr = _s2_trainer(cfg, seed=0)
+    clip, image = s2_pairs(seed=16)
+    layers = cfg.dit.num_layers
+    want = {"k1": 0, "k1_lse": 2 * layers, "k2": 0, "k3a": layers, "k3b": layers}
+    none = dict.fromkeys(want, 0)
+    names = [n for n, _ in tr.dit.named_parameters()]
+    gen = torch.Generator(device="cuda").manual_seed(161)
+    for kind, pair in (("video", clip), ("image", image)):
+        batch = tr.device_batch(pair)
+        runs = {}
+        # the trainer's own attention on the card; the reference; a second one
+        for backend in ("flash", "plain", "naive"):
+            tr.attention_backend = backend
+            for c in _k3_counters().values():
+                c.reset()
+            loss, aux, grads = tr.loss_and_grads(batch)
+            counts = {n: c.count for n, c in _k3_counters().items()}
+            if counts != (want if backend == "flash" else none):
+                raise AssertionError(f"phase 16 {kind} {backend} launches {counts}")
+            runs[backend] = ({k: float(v) for k, v in aux.items()}, grads)
+        terms = {"loss", "loss_pixel", "loss_perceptual"} | (
+            {"loss_frame_diff"} if kind == "video" else set())
+        (k_aux, k_grads), (p_aux, p_grads), (_, n_grads) = (
+            runs["flash"], runs["plain"], runs["naive"])
+        if set(k_aux) != terms or set(p_aux) != terms:
+            raise AssertionError(f"phase 16 {kind} loss terms {sorted(k_aux)}")
+        loss_rel = {k: abs(k_aux[k] - p_aux[k]) / abs(p_aux[k]) for k in terms}
+        step_k, _ = _worst_rel(names, k_grads, p_grads)
+        step_n, _ = _worst_rel(names, n_grads, p_grads)
+        del runs, k_grads, p_grads, n_grads
+        # the DiT's part of the step, one cotangent for both runs
+        lat = pair["lq_video"].shape[1]
+        cot = torch.randn((1, lat, S2_H // 8, S2_W // 8, cfg.vae.latent_channels),
+                          generator=gen, device="cuda")
+        parts = {}
+        for backend in ("flash", "plain"):
+            tr.attention_backend = backend
+            parts[backend] = _dit_part(tr, batch, cot)
+        (k_x0, k_g), (p_x0, p_g) = parts["flash"], parts["plain"]
+        x0_rel = _rel_rms(k_x0, p_x0)
+        rel, zero = _worst_rel(names, k_g, p_g)
+        worst = max(rel, key=rel.get)
+        log(f"  {kind} step (S = {stage2_seq_len(cfg)}): loss {k_aux['loss']:.6f} vs "
+            f"{p_aux['loss']:.6f}, term rel "
+            f"{json.dumps({k: float(f'{x:.2e}') for k, x in loss_rel.items()})} (bar "
+            f"{TRAIN_LOSS_REL_TOL}); the DiT's part: x0 rms err / rms ref {x0_rel:.2e}, "
+            f"worst DiT grad {rel[worst]:.2e} ({worst}; {len(rel)} tensors, {len(zero)} "
+            f"zero in both; bar {TRAIN_GRAD_REL_RMS_TOL}); the whole step's DiT grads "
+            f"against the plain run's, worst / median: kernels "
+            f"{max(step_k.values()):.2e} / {statistics.median(step_k.values()):.2e}, "
+            f"naive attention {max(step_n.values()):.2e} / "
+            f"{statistics.median(step_n.values()):.2e}")
+        if not all(x <= TRAIN_LOSS_REL_TOL for x in loss_rel.values()) or not (
+                x0_rel <= TRAIN_LOSS_REL_TOL) or not all(
+                x <= TRAIN_GRAD_REL_RMS_TOL for x in rel.values()):
+            raise AssertionError(f"phase 16: the kernels' {kind} step disagrees with "
+                                 "the plain one")
+        if len(rel) < len(names) // 2:
+            raise AssertionError(f"phase 16 {kind}: {len(zero)} of {len(names)} DiT "
+                                 "gradients are zero")
+        del parts, k_g, p_g, batch
+    tr.attention_backend = "flash"
+    remat = _remat_decode_check(cfg, tr.vae)
+    log(f"phase 16 stage-2 step kernel vs plain (SFT, 2 layers, full width, clip "
+        f"1x{S2_FRAMES}x{S2_H}x{S2_W} and image 1x1x{S2_H}x{S2_W}): video and image "
+        f"steps within the bars; decode remat on vs off at [{S2_FRAMES}, 1, "
+        f"{S2_H // 8}, {S2_W // 8}, 16]: pixels rms err / rms {remat['px_rel_rms']:.2e}, "
+        f"grad {remat['grad_rel_rms']:.2e} (bar {REMAT_REL_RMS_TOL}; equal bit for bit: "
+        f"pixels {remat['px_equal']}, grad {remat['grad_equal']}), wall "
+        f"{json.dumps(rounded(remat['wall_s'], 3))} s, peak above the weights "
+        f"{json.dumps(rounded(remat['peak_gib'], 3))} GiB")
+    del tr
+    torch.cuda.empty_cache()
+
+
+def phase_s2_recipe(profile_dir: str | None = None) -> dict:
+    """scripts/train_s2.sh's SFT step at 42 layers: S2_STEPS steps through
+    DOVES2Trainer.train_step from a seed whose steps take both the image
+    pair and the clip, with launches, the split and the loss terms per
+    step, and the peak memory."""
+    from dove_tpu_torch import cogvideox1_5_5b
+    from dove_tpu_torch.train.trainer import DOVES2Trainer
+
+    def coins(seed: int) -> list[bool]:  # a trainer's coin needs no components
+        tr = DOVES2Trainer(_s2_args("build/chip_smoke_s2", seed), device="cuda")
+        return [tr.image_step(s) for s in range(S2_STEPS)]
+
+    seed = next(s for s in range(1000) if len(set(coins(s))) == 2)
+    resident = torch.cuda.memory_allocated()  # what earlier phases left: ~0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = _s2_trainer(cogvideox1_5_5b(), seed)
+    tr.prepare_optimizer(S2_STEPS)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated()
+    layers = tr.config.dit.num_layers
+    n_params = sum(p.numel() for p in tr.trainable_tensors())
+    kinds = ["image" if tr.image_step(s) else "video" for s in range(S2_STEPS)]
+    clip, image = s2_pairs(seed=17)
+    batch = tr.device_batch({**clip, "hq_image": image["hq_video"],
+                             "lq_image": image["lq_video"]})
+    counters = _k3_counters()
+    want = {"k1": 0, "k1_lse": 2 * layers, "k2": 0, "k3a": layers, "k3b": layers}
+    watch = tr.dit.proj_out.weight.detach().clone()
+    for c in counters.values():
+        c.reset()
+    steps = []
+    for kind in kinds:
+        before = {n: c.count for n, c in counters.items()}
+        t0 = time.perf_counter()
+        loss, aux, gnorm = tr.train_step(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tr.global_step += 1
+        per_step = {n: c.count - before[n] for n, c in counters.items()}
+        terms = {k: float(v) for k, v in aux.items()}
+        steps.append(dict(kind=kind, wall_s=wall, loss=float(loss), terms=terms,
+                          grad_norm=float(gnorm), split_s=dict(tr.step_times),
+                          launches=per_step))
+        log(f"  step {tr.global_step} ({kind}): loss terms "
+            f"{json.dumps({k: round(v, 6) for k, v in terms.items()})}, grad_norm "
+            f"{float(gnorm):.4e}, wall {wall:.3f}s, split "
+            f"{json.dumps({k: round(v, 3) for k, v in tr.step_times.items()})}, "
+            f"launches {per_step}")
+        if per_step != want:
+            raise AssertionError(f"launches per step {per_step}, want {want}")
+        if ("loss_frame_diff" in terms) != (kind == "video"):
+            raise AssertionError(f"step {tr.global_step} ({kind}): terms {sorted(terms)}")
+        if not all(math.isfinite(v) for v in terms.values()) or not float(gnorm) > 0:
+            raise AssertionError(f"step {tr.global_step}: terms {terms}, grad_norm "
+                                 f"{float(gnorm)}")
+    peak = torch.cuda.max_memory_allocated()
+    launches = {n: c.count for n, c in counters.items()}
+    moved = float((tr.dit.proj_out.weight.detach().float() - watch.float()).abs().max())
+    if not moved > 0:
+        raise AssertionError("the DiT did not move")
+    if profile_dir is not None:
+        def run() -> dict:
+            tr.train_step(batch)
+            tr.global_step += 1
+            return tr.step_times
+
+        profile_run(run, profile_dir, "s2_train_step", "phase 17")
+    walls = [s["wall_s"] for s in steps[1:]]
+    median = statistics.median(walls)
+    by_kind = {k: [round(s["wall_s"], 3) for s in steps if s["kind"] == k]
+               for k in ("image", "video")}
+    log(f"phase 17 stage-2 recipe (5B SFT, {layers} layers, {n_params / 1e9:.3f}B bf16 "
+        f"parameters with bf16 gradients and AdamW moments; seed {seed}: steps "
+        f"{kinds}; attention [1, {tr.config.dit.num_attention_heads}, "
+        f"{stage2_seq_len(tr.config)}, 64]): step wall "
+        f"median of steps 2-{S2_STEPS} {median:.3f}s, by kind {json.dumps(by_kind)}, "
+        f"first step {steps[0]['wall_s']:.3f}s; peak {peak / 2**30:.2f} GiB of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f} "
+        f"(weights and optimizer state {held / 2**30:.2f} GiB before the first step; "
+        f"{resident / 2**30:.2f} GiB held before the phase), launches {launches}, "
+        f"max |d proj_out| {moved:.3e}; init {init_s:.1f}s")
+    del tr, batch, watch
+    torch.cuda.empty_cache()
+    return dict(launches=launches, steps=steps, step_median_s=median, peak_bytes=peak,
+                held_bytes=held, seed=seed, kinds=kinds, n_params=n_params)
 
 
 # ---------------------------------------------------------------------------
@@ -2086,10 +2445,11 @@ def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
         "--profile", metavar="DIR", default=None,
-        help="after phases 4, 7, 11 and 14, time a warm run and profile one "
-             "more; write the top kernels to DIR/main_path_profile.txt, "
-             "DIR/int8_main_path_profile.txt, DIR/train_step_profile.txt and "
-             "DIR/int8_dit_dec_main_path_profile.txt")
+        help="after phases 4, 7, 11, 14 and 17, time a warm run and profile "
+             "one more; write the top kernels to DIR/main_path_profile.txt, "
+             "DIR/int8_main_path_profile.txt, DIR/train_step_profile.txt, "
+             "DIR/int8_dit_dec_main_path_profile.txt and "
+             "DIR/s2_train_step_profile.txt")
     parser.add_argument(
         "--phases", metavar="N,N", default=None,
         help="development: run only these phases (after the build) and print "
@@ -2109,6 +2469,7 @@ def main(argv: list[str] | None = None) -> int:
     phase_build()
     cfg = cogvideox1_5_5b()
     seq, heads = main_path_seq_len(cfg), cfg.dit.num_attention_heads
+    seq_s2 = stage2_seq_len(cfg)
     if args.phases is not None:
         # a development run of some phases: no kernels line, no ok line
         chosen = {int(p) for p in args.phases.split(",")}
@@ -2119,13 +2480,15 @@ def main(argv: list[str] | None = None) -> int:
                 ({5}, lambda: phase_k2(seq, heads)),
                 ({6}, phase_k2_pipeline),
                 ({7, 8}, lambda: phase_int8_paths(args.profile)),
-                ({9}, lambda: phase_k3(heads)),
+                ({9}, lambda: phase_k3(heads, seq_s2)),
                 ({10}, phase_train_kernel_vs_plain),
                 ({11}, lambda: phase_train_recipe(args.profile)),
                 ({12}, phase_conv_kernels),
                 ({13}, phase_k4_pipeline),
                 ({14}, lambda: phase_int8_dit_dec(args.profile)),
-                ({15}, phase_hand_conv)):
+                ({15}, phase_hand_conv),
+                ({16}, phase_s2_kernel_vs_plain),
+                ({17}, lambda: phase_s2_recipe(args.profile))):
             if numbers & chosen:
                 t0 = time.perf_counter()
                 run()
@@ -2138,13 +2501,15 @@ def main(argv: list[str] | None = None) -> int:
     k2 = phase_k2(seq, heads)
     phase_k2_pipeline()
     int8_main, streamed = phase_int8_paths(args.profile)
-    k3 = phase_k3(heads)
+    k3 = phase_k3(heads, seq_s2)
     phase_train_kernel_vs_plain()
     train = phase_train_recipe(args.profile)
     k4, k5, quantizer = phase_conv_kernels()
     phase_k4_pipeline()
     dit_dec = phase_int8_dit_dec(args.profile)
     hand = phase_hand_conv()
+    phase_s2_kernel_vs_plain()
+    s2 = phase_s2_recipe(args.profile)
     log(f"all phases took {time.perf_counter() - t_start:.1f}s")
 
     kernels = [{
@@ -2178,6 +2543,15 @@ def main(argv: list[str] | None = None) -> int:
         "lse_forms_ms": k3["k1_forms"]["forms_ms"],
         "lse_library_ratio": k3["k1_forms"]["sdpa_ratio"],
         "lse_exp_floor_ms": k3["k1_forms"]["exp_floor_ms"],
+        # the same form at the stage-2 shape, and its launches in phase 17
+        "s2_shape": k3["stage2"]["shape"],
+        "s2_lse_launches": s2["launches"]["k1_lse"],
+        "s2_lse_launches_per_step": s2["launches"]["k1_lse"] // S2_STEPS,
+        "s2_lse_ms": k3["stage2"]["k1_lse_ms"],
+        "s2_lse_plain_ms": k3["stage2"]["k1_lse_plain_ms"],
+        "s2_lse_bound_ms": k3["stage2"]["k1_lse_bound_ms"],
+        "s2_lse_bound_by": k3["stage2"]["k1_lse_bound_by"],
+        "s2_lse_library_ms": k3["stage2"]["sdpa_fwd_ms"],
     }, {
         "name": "flash_fwd_qk8",
         "route": "cuda",
@@ -2220,6 +2594,14 @@ def main(argv: list[str] | None = None) -> int:
             "library_ms": k3["sdpa_bwd_ms"],
             "library_call": sdpa_bwd,
             "shape": k3["shape"],
+            "s2_shape": k3["stage2"]["shape"],
+            "s2_launches": s2["launches"][key],
+            "s2_launches_per_step": s2["launches"][key] // S2_STEPS,
+            "s2_ms": k3["stage2"][f"{key}_ms"],
+            "s2_plain_ms": k3["stage2"][f"{key}_plain_ms"],
+            "s2_bound_ms": k3["stage2"][f"{key}_bound_ms"],
+            "s2_bound_by": k3["stage2"][f"{key}_bound_by"],
+            "s2_library_ms": k3["stage2"]["sdpa_bwd_ms"],
         })
     conv_source = "dove_tpu_torch/csrc/conv3d_taps_sm90.cu"
     kernels.append({

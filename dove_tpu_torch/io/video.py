@@ -1,10 +1,11 @@
 """Host-side media I/O (decode/encode) for the VSR pipeline.
 
-A copy of ``dove_tpu/io/video.py`` built on OpenCV, with ``cv2`` imported
-inside the functions that use it: a machine without OpenCV can import the
-port and run everything that does not read or write media files. Lossless
-output falls back to PNG sequences when no lossless video codec is available
-through OpenCV.
+A copy of ``dove_tpu/io/video.py``. Still images (an image folder, a single
+image, PNG frame dumps) are read and written through PIL, which the GPU
+machine has; video files through OpenCV, imported inside the functions that
+use it, so a machine without OpenCV can import the port and run everything
+but video-file I/O. Lossless output falls back to PNG sequences when no
+lossless video codec is available through OpenCV.
 """
 
 from __future__ import annotations
@@ -71,9 +72,19 @@ def read_video_frames(path: str | Path) -> np.ndarray:
     return np.stack(frames).astype(np.float32) / 255.0
 
 
-def read_image_folder(folder: str | Path) -> np.ndarray:
-    import cv2
+def _read_image(path: Path) -> np.ndarray:
+    """One image -> [H, W, 3] uint8 RGB, as cv2.imread(IMREAD_COLOR) reads
+    it: EXIF orientation applied, gray replicated, alpha dropped."""
+    from PIL import Image, ImageOps, UnidentifiedImageError
 
+    try:
+        with Image.open(path) as img:
+            return np.asarray(ImageOps.exif_transpose(img).convert("RGB"))
+    except (UnidentifiedImageError, OSError) as e:
+        raise ValueError(f"unreadable image: {path}") from e
+
+
+def read_image_folder(folder: str | Path) -> np.ndarray:
     files = sorted(
         p for p in Path(folder).iterdir() if p.suffix.lower() in IMAGE_EXTS
     )
@@ -81,12 +92,7 @@ def read_image_folder(folder: str | Path) -> np.ndarray:
         # frame dumps use {i:03d}.png (reference convention) — clips with
         # 1000+ frames need numeric order, lexicographic puts 1000 < 999
         files.sort(key=lambda p: int(p.stem))
-    frames = []
-    for p in files:
-        img = cv2.imread(str(p), cv2.IMREAD_COLOR)
-        if img is None:  # imread never raises — name the offending file
-            raise ValueError(f"unreadable image: {p}")
-        frames.append(cv2.cvtColor(img, cv2.COLOR_BGR2RGB))
+    frames = [_read_image(p) for p in files]
     if not frames:
         raise ValueError(f"no images in {folder}")
     return np.stack(frames).astype(np.float32) / 255.0
@@ -94,8 +100,6 @@ def read_image_folder(folder: str | Path) -> np.ndarray:
 
 def load_sequence(path: str | Path) -> np.ndarray:
     """Folder of images, video file, or single image -> [F, H, W, 3] in [0,1]."""
-    import cv2
-
     path = Path(path)
     if path.is_dir():
         return read_image_folder(path)
@@ -103,11 +107,7 @@ def load_sequence(path: str | Path) -> np.ndarray:
         if is_video_file(path):
             return read_video_frames(path)
         if path.suffix.lower() in IMAGE_EXTS:
-            raw = cv2.imread(str(path), cv2.IMREAD_COLOR)
-            if raw is None:  # imread never raises — name the offending file
-                raise ValueError(f"unreadable image: {path}")
-            img = cv2.cvtColor(raw, cv2.COLOR_BGR2RGB)
-            return img[None].astype(np.float32) / 255.0
+            return _read_image(path)[None].astype(np.float32) / 255.0
     raise ValueError(f"Unsupported input: {path}")
 
 
@@ -144,12 +144,12 @@ def i420_to_rgb(video: np.ndarray) -> np.ndarray:
 
 def save_frames_as_png(video: np.ndarray, out_dir: str | Path) -> None:
     """video: [F, H, W, 3] float [0,1]; writes 000.png, 001.png, ..."""
-    import cv2
+    from PIL import Image
 
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     for i, frame in enumerate(_to_uint8(video)):
-        cv2.imwrite(str(out_dir / f"{i:03d}.png"), cv2.cvtColor(frame, cv2.COLOR_RGB2BGR))
+        Image.fromarray(np.ascontiguousarray(frame)).save(out_dir / f"{i:03d}.png")
 
 
 def save_video(

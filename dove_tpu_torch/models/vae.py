@@ -14,6 +14,10 @@ Counterpart of ``dove_tpu/models/vae.py`` without the ``tiled_*`` and
     an int8 convolution (``ops.quant.qconv``: K4 on the card);
   * :func:`set_pallas_conv` routes the eligible float 3x3x3 convs through K5,
     the hand-written bf16 conv, instead of cuDNN (off by default);
+  * the decode runs with gradients through its activations (stage 2's pixel
+    loss; the parameters stay frozen), optionally checkpointed a decoder
+    level at a time (``remat``). K4 and K5 have no backward, so an int8 conv
+    or K5 on an input that needs a gradient raises;
   * :func:`calibrate` and :func:`attribute_quant_error` run a forward with
     taps on every named conv: per-input-channel activation amax and tap
     autocorrelation for ``quantize_vae``, or each quantizable conv's own int8
@@ -36,6 +40,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from dove_tpu_torch.config import VAEConfig
 from dove_tpu_torch.ops import conv3d_int8, quant
@@ -295,6 +300,10 @@ def causal_conv3d(
         return y, new_cache
     quantized = isinstance(conv, quant.QConv3d)
     kt, kh, kw = (conv.kt, 3, 3) if quantized else conv.weight.shape[2:]
+    hand = (not quantized and _HAND_BF16_CONV and (kt, kh, kw) == (3, 3, 3)
+            and conv.in_channels % 128 == 0 and conv.out_channels % 128 == 0)
+    if quantized or hand:
+        _refuse_grad(x, "K4, the int8 conv" if quantized else "K5 (hand_conv)")
     new_cache = None
     if kt > 1:
         if cache is None:
@@ -306,11 +315,20 @@ def causal_conv3d(
             new_cache = x[:, :, -(kt - 1):].clone()
     if quantized:
         return quant.qconv(conv, x, stride=1, padding=1), new_cache
-    if (_HAND_BF16_CONV and (kt, kh, kw) == (3, 3, 3)
-            and conv.in_channels % 128 == 0 and conv.out_channels % 128 == 0):
+    if hand:
         return _hand_conv3d(conv, x), new_cache
     y = F.conv3d(x, conv.weight, conv.bias, padding=(0, (kh - 1) // 2, (kw - 1) // 2))
     return y, new_cache
+
+
+def _refuse_grad(x: torch.Tensor, route: str) -> None:
+    """K4 and K5 have no backward (nor have the JAX package's Pallas convs):
+    a conv on their route whose input needs a gradient raises, rather than
+    run on another route than the one asked for."""
+    if x.requires_grad:
+        raise RuntimeError(
+            f"{route} has no backward: a VAE pass with gradients (stage 2's "
+            "decode) needs the float VAE with hand_conv off")
 
 
 def _hand_conv3d(conv: nn.Conv3d, x: torch.Tensor) -> torch.Tensor:
@@ -339,6 +357,7 @@ def _conv_per_frame(
         _qerr_record(name, y, y_q)
         return y
     if isinstance(p.conv, quant.QConv3d):
+        _refuse_grad(x, "K4, the int8 conv")
         return quant.qconv(p.conv, x, stride, padding)
     w = p.conv.weight.unsqueeze(2)
     return F.conv3d(x, w, p.conv.bias, stride=(1, stride, stride),
@@ -487,28 +506,59 @@ def encoder_forward(
 
 def decoder_forward(
     cfg: VAEConfig, dec: Decoder, z: torch.Tensor, cache: Cache | None,
-    keep_cache: bool = True,
+    keep_cache: bool = True, remat: bool = False,
 ) -> tuple[torch.Tensor, Cache]:
     """Latent [B, latent, F', h, w] -> pixels [B, 3, F, H, W] in [-1, 1].
 
     ``cache is None`` marks the clip's first segment (its leading latent is
     the causally special first frame); with a cache this is a continuation
-    segment: uniform temporal upsampling, conv left context from the cache."""
+    segment: uniform temporal upsampling, conv left context from the cache.
+
+    ``remat`` checkpoints each decoder LEVEL (the mid block, then each up
+    level with its upsampler; ``torch.utils.checkpoint``, non-reentrant), as
+    the JAX package does: the backward of a decode with gradients then keeps
+    the level inputs, 4-16x coarser than the full-resolution activations a
+    per-resnet checkpoint would keep, and recomputes one level at a time.
+    The conv cache a level writes is taken from its forward's return value;
+    the recompute writes a dict of its own that is dropped, so the cache
+    holds none of the recompute's tensors."""
     _set_scope("decoder")
     first = cache is None
     cache = cache or {}
     nc: Cache = {}
+
+    def run_level(fn, h: torch.Tensor) -> torch.Tensor:
+        if not remat:
+            return fn(h, z, nc)
+
+        def pure(hh, zz):
+            nc2: Cache = {}
+            return fn(hh, zz, nc2), nc2
+
+        h, nc2 = checkpoint(pure, h, z, use_reentrant=False)
+        nc.update(nc2)
+        return h
+
     h, nc["conv_in"] = causal_conv3d(dec.conv_in, z, cache.get("conv_in"), keep_cache,
                                      name="conv_in")
-    for j, res in enumerate(dec.mid_block.resnets):
-        h = _resnet(res, h, z, cache, nc, f"mid.{j}", first, keep_cache)
+
+    def mid_level(h, zq, nc2):
+        for j, res in enumerate(dec.mid_block.resnets):
+            h = _resnet(res, h, zq, cache, nc2, f"mid.{j}", first, keep_cache)
+        return h
+
+    h = run_level(mid_level, h)
     n_blocks = len(cfg.block_out_channels)
     for i, level in enumerate(dec.up_blocks):
-        for j, res in enumerate(level.resnets):
-            h = _resnet(res, h, z, cache, nc, f"up.{i}.res.{j}", first, keep_cache)
-        if i < n_blocks - 1:
-            h = _upsample(level.upsamplers[0], h, i < cfg.temporal_compress_level, first,
-                          name=f"up.{i}.upsample")
+        def up_level(h, zq, nc2, i=i, level=level):
+            for j, res in enumerate(level.resnets):
+                h = _resnet(res, h, zq, cache, nc2, f"up.{i}.res.{j}", first, keep_cache)
+            if i < n_blocks - 1:
+                h = _upsample(level.upsamplers[0], h, i < cfg.temporal_compress_level,
+                              first, name=f"up.{i}.upsample")
+            return h
+
+        h = run_level(up_level, h)
     h = F.silu(_spatial_norm3d(dec.norm_out, h, z, first))
     h, nc["conv_out"] = causal_conv3d(dec.conv_out, h, cache.get("conv_out"), keep_cache,
                                       name="conv_out")
@@ -593,17 +643,18 @@ def decode_cached(
     cache: Cache | None,
     chunk_frames: int | None = None,
     return_cache: bool = True,
+    remat: bool = False,
 ) -> tuple[torch.Tensor, Cache | None]:
     """Segment decode threading the causal conv cache across calls.
     latent: [B, F', h, w, C] (already divided by scaling_factor) ->
-    pixels [B, F, H, W, 3]."""
+    pixels [B, F, H, W, 3]. ``remat``: see :func:`decoder_forward`."""
     chunk = chunk_frames or cfg.latent_frames_batch_size
     z = latent.permute(0, 4, 1, 2, 3)
     spans = _frame_chunks(latent.shape[1], chunk)
     outs = []
     for n, (s, e) in enumerate(spans):
         keep = return_cache or n < len(spans) - 1
-        y, cache = decoder_forward(cfg, vae.decoder, z[:, :, s:e], cache, keep)
+        y, cache = decoder_forward(cfg, vae.decoder, z[:, :, s:e], cache, keep, remat)
         outs.append(y)
     pixels = outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
     return pixels.permute(0, 2, 3, 4, 1), (cache if return_cache else None)
@@ -611,12 +662,13 @@ def decode_cached(
 
 def decode(
     cfg: VAEConfig, vae: AutoencoderKLCogVideoX, latent: torch.Tensor,
-    chunk_frames: int | None = None,
+    chunk_frames: int | None = None, remat: bool = False,
 ) -> torch.Tensor:
     """Full-clip decode with latent-frame chunking. latent: [B, F', h, w, C]
-    already divided by scaling_factor."""
+    already divided by scaling_factor. ``remat``: see
+    :func:`decoder_forward`."""
     pixels, _ = decode_cached(cfg, vae, latent, None, chunk_frames,
-                              return_cache=False)
+                              return_cache=False, remat=remat)
     return pixels
 
 

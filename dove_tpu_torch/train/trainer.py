@@ -1,8 +1,15 @@
-"""DOVE training, stage 1, in PyTorch.
+"""DOVE training in PyTorch: stage 1 and stage 2, LoRA or SFT.
 
-Counterpart of ``dove_tpu/train/trainer.py`` for stage 1 (latent MSE after
-one DiT pass at t = 399; reference lora_one_s1_trainer.py:116-209), LoRA or
-SFT. The API is the JAX trainer's::
+Counterpart of ``dove_tpu/train/trainer.py``. Stage 1 (``dove-s1``,
+``DOVES1Trainer``) is the latent MSE after one DiT pass at t = 399
+(reference lora_one_s1_trainer.py:116-209). Stage 2 (``dove-s2``,
+``DOVES2Trainer``) encodes every LQ frame as a clip of its own, decodes
+x-hat_0 frame by frame with gradients and takes the pixel MSE, one
+perceptual term (DISTS or LPIPS, optionally on Sobel edges) and the
+frame-difference L1 (reference lora_one_s2_trainer.py:124-297); a batch
+that carries ``hq_image`` / ``lq_image`` trains on the image pair instead of
+the clip with probability ``image_ratio``, by a coin keyed on (seed, step).
+The API is the JAX trainer's::
 
     trainer = DOVES1Trainer(args, device="cuda")   # the card unless "cpu"
     trainer.load_components()
@@ -22,8 +29,7 @@ with JSONL logging, checkpoints every ``checkpointing_steps`` and on SIGTERM.
 
 Not ported yet (they raise, naming their slice): the dataset
 (``prepare_dataset``; a caller may set ``trainer.loader``), validation,
-stage 2 (``dove-s2``), gradient accumulation and the optimizers other than
-AdamW and Adam.
+gradient accumulation and the optimizers other than AdamW and Adam.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
+import os
 import signal
 import time
 from pathlib import Path
@@ -64,7 +71,7 @@ PRESETS = {
     "cogvideox-2b": cfg_mod.cogvideox_2b,
     "tiny": cfg_mod.tiny_test,
 }
-BATCH_KEYS = ("hq_video", "lq_video", "hq_latent", "lq_latent")
+BATCH_KEYS = ("hq_video", "lq_video", "hq_image", "lq_image", "hq_latent", "lq_latent")
 
 
 # ---------------------------------------------------------------------------
@@ -79,11 +86,6 @@ def register(model_name: str, training_type: str, cls: type) -> None:
 
 
 def get_model_cls(model_name: str, training_type: str) -> type:
-    if model_name == "dove-s2":
-        raise NotImplementedError(
-            "stage 2 (dove-s2) is not ported yet: it needs the VAE decode with "
-            "gradients, DISTS/LPIPS and the image-video data (ROADMAP queue A, "
-            "the stage-2 slice)")
     try:
         return SUPPORTED_MODELS[model_name][training_type]
     except KeyError:
@@ -120,7 +122,12 @@ class Trainer:
             self.config, sr_noise_step=args.sr_noise_step, noise_step=args.noise_step)
         self.schedule = Schedule.create(self.config.scheduler)
         self.global_step = 0
-        self.attention_backend: str | None = None  # ops/attention.py's choice
+        # ops/attention.py's automatic rule takes the kernels from 2048 tokens,
+        # the JAX package's TPU threshold, and the naive path below it; a
+        # stage-2 pass has 1026. On the card the trainer takes the kernels
+        # (K1 with the logsumexp, K3a, K3b) at every length: O(S) memory,
+        # and faster than the naive path at 1026 (PERF.md, phase 9).
+        self.attention_backend: str | None = "flash" if self.device.type == "cuda" else None
         self.loader = None
         self.step_times: dict[str, float] = {}
         self._lap_t = 0.0
@@ -241,12 +248,29 @@ class Trainer:
             _seed(self.args.seed or 0, step, stream))
 
     def _encode(self, video: torch.Tensor, generator: torch.Generator | None,
-                ) -> torch.Tensor:
+                per_frame: bool = False) -> torch.Tensor:
         """Pixels [B, F, H, W, 3] in [-1, 1] -> scaled latent [B, F', h, w, C],
-        sampled from the posterior (its mean when generator is None)."""
+        sampled from the posterior (its mean when generator is None).
+
+        per_frame encodes each frame as a 1-frame clip of its own (stage 2:
+        reference lora_one_s2_trainer.py:141-145), so F' == F."""
+        B, F = video.shape[:2]
+        if per_frame:
+            video = video.reshape((B * F, 1) + video.shape[2:])
         with torch.no_grad():
             moments = encode_moments(self.config.vae, self.vae, video.to(self.dtype))
-            return sample_latent(moments, generator, self.config.vae.scaling_factor)
+            lat = sample_latent(moments, generator, self.config.vae.scaling_factor)
+        return lat.reshape((B, F) + lat.shape[2:]) if per_frame else lat
+
+    def _noise(self, lq_lat: torch.Tensor, step: int) -> torch.Tensor | None:
+        """The noise added at ``noise_step`` ([B, F' + pad, C, h, w], the DiT's
+        layout), or None when noise_step is 0."""
+        if self.config.noise_step == 0:
+            return None
+        B, F, h, w, C = lq_lat.shape
+        pt = self.config.dit.patch_size_t
+        return torch.randn((B, F + (pt - F % pt) % pt, C, h, w),
+                           generator=self.generator(step, 2), device=self.device)
 
     def _barrier(self) -> None:
         if self.device.type == "cuda":
@@ -461,18 +485,90 @@ class DOVES1Trainer(Trainer):
                 hq_lat = self._encode(batch["hq_video"], self.generator(step, 1))
         self._lap("encode")
         lq_lat = lq_lat.to(self.dtype)
-        noise = None
-        if self.config.noise_step != 0:
-            B, F, h, w, C = lq_lat.shape
-            pt = self.config.dit.patch_size_t
-            noise = torch.randn((B, F + (pt - F % pt) % pt, C, h, w),
-                                generator=self.generator(step, 2), device=self.device)
         loss_batch = {"lq_latent": lq_lat, "hq_latent": hq_lat,
                       "prompt_embeds": batch["prompt_embeds"]}
         with record_function("dove.train.dit_fwd"):
-            return losses.stage1_loss(self.config, self.schedule, self.dit,
-                                      loss_batch, noise, **self.dit_kwargs())
+            return losses.stage1_loss(self.config, self.schedule, self.dit, loss_batch,
+                                      self._noise(lq_lat, step), **self.dit_kwargs())
 
 
-register("dove-s1", "lora", DOVES1Trainer)
-register("dove-s1", "sft", DOVES1Trainer)  # SFT: the same math, the whole DiT trains
+class DOVES2Trainer(Trainer):
+    """Stage 2: the pixel-space composite loss (reference
+    lora_one_s2_trainer.py)."""
+
+    stage = 2
+
+    def load_components(self) -> None:
+        super().load_components()
+        a = self.args
+        self.perceptual_fn = None
+        weights_on = any(w > 0 for w in (a.dists_weight, a.ea_dists_weight,
+                                          a.lpips_weight, a.ea_lpips_weight))
+        if a.use_perceptual_loss and not weights_on:
+            logger.warning(
+                "use_perceptual_loss=True but every perceptual weight is 0 "
+                "— the term contributes nothing (set e.g. --dists_weight)")
+        if not (a.use_perceptual_loss or weights_on):
+            return
+        if a.ea_dists_weight > 0 or a.dists_weight > 0:
+            kind, edge = "dists", a.ea_dists_weight > 0
+            wpath = os.environ.get("DOVE_DISTS_WEIGHTS")
+        else:
+            kind, edge = "lpips", a.ea_lpips_weight > 0
+            wpath = os.environ.get("DOVE_LPIPS_WEIGHTS")
+        if not wpath and not a.allow_random_perceptual:
+            raise RuntimeError(
+                f"stage-2 perceptual loss requested but no pretrained "
+                f"{kind} weights found (set DOVE_{kind.upper()}_WEIGHTS). "
+                "A run that silently optimizes random-VGG feature "
+                "distance is almost never what you want; pass "
+                "--allow_random_perceptual true to opt in explicitly.")
+        if not wpath:
+            logger.warning(
+                "allow_random_perceptual: using RANDOM %s/VGG features "
+                "(set DOVE_%s_WEIGHTS for the published recipe)", kind, kind.upper())
+        self.perceptual_fn = losses.make_perceptual_fn(
+            kind, edge_aware=edge, weights_path=wpath or None, device=self.device)
+
+    def image_step(self, step: int) -> bool:
+        """The image-vs-video coin of ``step`` (reference
+        lora_one_s2_trainer.py:125), keyed on (seed, step) as in the JAX
+        package, so a resumed run makes the same decisions."""
+        seed = self.args.seed or 0
+        return bool(np.random.default_rng((seed, step)).uniform() < self.args.image_ratio)
+
+    def train_step(self, batch: dict[str, torch.Tensor]):
+        """One update on the batch's image pair when it has one and this
+        step's coin says so, else on its clip."""
+        if "hq_image" in batch and self.image_step(self.global_step):
+            batch = {**batch, "hq_video": batch["hq_image"],
+                     "lq_video": batch["lq_image"]}
+        batch = {k: v for k, v in batch.items()
+                 if k in ("hq_video", "lq_video", "prompt_embeds")}
+        return super().train_step(batch)
+
+    def compute_loss(self, batch: dict[str, torch.Tensor], step: int):
+        with record_function("dove.train.encode"):
+            lq_lat = self._encode(batch["lq_video"], self.generator(step, 0),
+                                  per_frame=True)
+        self._lap("encode")
+        lq_lat = lq_lat.to(self.dtype)
+        loss_batch = {"lq_latent": lq_lat, "hq_video": batch["hq_video"],
+                      "prompt_embeds": batch["prompt_embeds"]}
+        a = self.args
+        # the reference takes exactly ONE perceptual term, by elif precedence
+        # (lora_one_s2_trainer.py:245-277: ea_dists > dists > ea_lpips > lpips)
+        perceptual_weight = next(
+            (w for w in (a.ea_dists_weight, a.dists_weight, a.ea_lpips_weight,
+                         a.lpips_weight) if w > 0), 0.0)
+        return losses.stage2_loss(
+            self.config, self.schedule, self.dit, self.vae, loss_batch,
+            self._noise(lq_lat, step), pixel_weight=1.0,
+            perceptual_weight=perceptual_weight,
+            frame_diff_weight=a.frame_diff_weight, perceptual_fn=self.perceptual_fn,
+            **self.dit_kwargs())
+
+
+for _name, _cls in (("dove-s1", DOVES1Trainer), ("dove-s2", DOVES2Trainer)):
+    register(_name, "lora", _cls)
+    register(_name, "sft", _cls)  # SFT: the same math, the whole DiT trains

@@ -14,7 +14,8 @@ the port's DiT then carries the same codes and scales in ``QLinear`` or
 ``W8Linear`` modules. A VAE tree that ``quantize_vae`` made (conv leaves
 with ``kernel_q``, ``kernel_scale`` and optionally ``kernel_ksum`` and
 ``equalize_inv``) likewise gives a VAE with the same codes in ``QConv3d``s.
-``from_jax_lora`` carries the JAX package's LoRA tree across, and
+``from_jax_lora`` carries the JAX package's LoRA tree across, ``from_jax_vgg``
+its VGG16 and perceptual heads, and
 ``fuse_lora_into_dit`` fuses a peft adapter (the trained LoRA's export) into
 a DiT so that the pipeline serves it.
 
@@ -27,7 +28,7 @@ from __future__ import annotations
 import json
 import re
 from pathlib import Path
-from typing import Any, Mapping
+from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -35,6 +36,7 @@ from torch import nn
 
 from dove_tpu_torch import safetensors_io
 from dove_tpu_torch.config import DiTConfig, PipelineConfig, VAEConfig
+from dove_tpu_torch.eval.vgg import VGG16, vgg_from_kernels
 from dove_tpu_torch.models.dit import CogVideoXTransformer3D
 from dove_tpu_torch.models.vae import AutoencoderKLCogVideoX
 from dove_tpu_torch.ops import quant
@@ -278,6 +280,24 @@ def from_jax_params(
                       quantized)
     vae = convert_vae(jax_vae_to_diffusers(vae_tree), cfg.vae, dtype, device)
     return dit, vae
+
+
+def from_jax_vgg(
+    vgg_params: Sequence[Sequence[Mapping[str, Any]]],
+    heads: Sequence[Sequence[Any]] = (),
+    device="cpu",
+) -> tuple[VGG16, list[list[torch.Tensor]]]:
+    """The JAX package's VGG16 parameter list (per stage, per conv
+    {"kernel": [3, 3, Cin, Cout] HWIO, "bias": [Cout]}, NumPy leaves) and its
+    perceptual heads (DISTS's ``(alpha, beta)`` or LPIPS's ``(lins,)``, each
+    a list of per-scale [C] vectors) -> (the port's frozen fp32 VGG16, the
+    heads as fp32 tensors in the same nesting)."""
+    convs = [(np.transpose(np.asarray(c["kernel"], np.float32), (3, 2, 0, 1)),
+              np.asarray(c["bias"], np.float32))
+             for stage in vgg_params for c in stage]
+    heads_t = [[torch.tensor(np.asarray(v, np.float32), device=device) for v in head]
+               for head in heads]
+    return vgg_from_kernels(convs, device), heads_t
 
 
 # ---------------------------------------------------------------------------

@@ -267,6 +267,105 @@ def test_k3_at_ragged_lengths_on_card(sq, skv):
                 _assert_within_bars(got, want, grad=True)
 
 
+def _stage2_seq_len(h: int, w: int) -> int:
+    """Joint tokens of a stage-2 DiT pass on h x w frames: every frame is a
+    clip of its own, one latent; a clip of two frames (or an image and its
+    copy) is one latent pair."""
+    from dove_tpu_torch import cogvideox1_5_5b
+
+    cfg = cogvideox1_5_5b()
+    patch = cfg.vae.spatial_scale * cfg.dit.patch_size
+    return cfg.dit.max_text_seq_length + (h // patch) * (w // patch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bounded", [False, True])
+def test_k1_lse_and_k3_at_the_stage2_shape(bounded):
+    """scripts/train_s2.sh's attention, [1, 48, 1026, 64] (226 text tokens
+    and 20 x 40 patches of 320 x 640 frames): K1's training form, K3a and K3b
+    against their plain versions at K1's bars."""
+    dev = _card()
+    S = _stage2_seq_len(320, 640)
+    assert S == 1026
+    q, k, v, do = (_randn((1, 48, S, 64), seed, dev) for seed in (130, 131, 132, 133))
+    (out, lse), (ref, ref_lse) = _k1_form(q, k, v, bounded, True)
+    _assert_within_bars(out, ref)
+    assert float((lse - ref_lse).abs().max()) <= LSE_TOL
+    grads, (lse, delta) = _k3_case(q, k, v, do, bounded)
+    for got, want in zip(grads, _k3_plain(q, k, v, do, lse, delta)):
+        assert bool(torch.isfinite(got).all())
+        _assert_within_bars(got, want, grad=True)
+
+
+@pytest.mark.cuda
+def test_stage2_step_through_kernels_matches_plain(tmp_path):
+    """One DOVES2Trainer SFT step (per-frame encode, DiT, decode with
+    gradients, DISTS on a seeded VGG16, frame differences) at full width and
+    2 DiT layers on a 2 x 160 x 320 clip, through the kernels and through the
+    plain attention: the whole step's loss terms within 1e-2 and its
+    launches (two K1-lse per layer under checkpointing, one K3a and one
+    K3b); on the DiT's part of the step (x0, and the gradients for one
+    seeded cotangent on it) x0 within 1e-2 RMS and every DiT gradient within
+    5e-2 RMS, chip_smoke.py's bars for the training step (phase 16 says why
+    the whole step's gradients are not held to them)."""
+    import dataclasses
+
+    from dove_tpu_torch import cogvideox1_5_5b
+    from dove_tpu_torch.train import losses
+    from dove_tpu_torch.train.args import Args
+    from dove_tpu_torch.train.trainer import DOVES2Trainer
+
+    dev = _card()
+    base = cogvideox1_5_5b()
+    cfg = dataclasses.replace(base, dit=dataclasses.replace(base.dit, num_layers=2))
+    args = Args(model_path=tmp_path / "none", model_name="dove-s2", training_type="sft",
+                output_dir=tmp_path / "out", train_resolution=(2, 160, 320),
+                batch_size=1, mixed_precision="bf16", gradient_checkpointing=True,
+                sr_noise_step=399, noise_step=0, dists_weight=1.0, frame_diff_weight=1.0,
+                allow_random_perceptual=True, num_workers=0)
+    tr = DOVES2Trainer(args, pipeline_config=cfg, device=dev)
+    tr.load_components()
+    assert tr.attention_backend == "flash"
+    hq = _randn((1, 2, 160, 320, 3), 140, dev, torch.float32).clamp(-1, 1)
+    lq = _randn((1, 2, 160, 320, 3), 141, dev, torch.float32).clamp(-1, 1)
+    batch = tr.device_batch({"hq_video": hq, "lq_video": lq})
+    cot = _randn((1, 2, 20, 40, 16), 142, dev)
+    params = list(tr.dit.parameters())
+    counters = (fa.launches_lse, fa.launches_bwd_dq, fa.launches_bwd_dkv)
+    runs = {}
+    for backend in ("flash", "plain"):
+        tr.attention_backend = backend
+        before = [c.count for c in counters]
+        _, aux, _ = tr.loss_and_grads(batch)
+        counts = [c.count - b for c, b in zip(counters, before)]
+        lq_lat = tr._encode(batch["lq_video"], None, per_frame=True).to(tr.dtype)
+        x0 = losses.one_step_x0_latent(cfg, tr.schedule, tr.dit, lq_lat,
+                                       batch["prompt_embeds"], None, **tr.dit_kwargs())
+        grads = torch.autograd.grad(x0, params, cot, allow_unused=True)
+        runs[backend] = ({k: float(v) for k, v in aux.items()}, counts, x0.detach(),
+                         [torch.zeros_like(p) if g is None else g
+                          for p, g in zip(params, grads)])
+    (k_aux, k_counts, k_x0, k_grads), (p_aux, p_counts, p_x0, p_grads) = (
+        runs["flash"], runs["plain"])
+    assert k_counts == [4, 2, 2] and p_counts == [0, 0, 0]
+    assert set(k_aux) == {"loss", "loss_pixel", "loss_perceptual", "loss_frame_diff"}
+    for key, x in k_aux.items():
+        assert abs(x - p_aux[key]) <= 1e-2 * abs(p_aux[key])
+
+    def rms(t):
+        return float(t.float().square().mean().sqrt())
+
+    assert rms(k_x0 - p_x0.float()) <= 1e-2 * rms(p_x0)
+    nonzero = 0
+    for name, g, h in zip([n for n, _ in tr.dit.named_parameters()], k_grads, p_grads):
+        if float(h.abs().max()) == 0.0:
+            assert float(g.abs().max()) == 0.0, name
+            continue
+        nonzero += 1
+        assert rms(g.float() - h.float()) <= 5e-2 * rms(h), name
+    assert nonzero >= len(k_grads) // 2
+
+
 # the residue that a zero gradient may show: fp32 dot products of 64 bf16
 # products of unit-variance values, apart in summation order, times |k|
 ZERO_GRAD_TOL = 1e-4

@@ -160,6 +160,8 @@ def test_port_imports_no_jax():
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for p in (REPO / "dove_tpu_torch").rglob("*.py")
     )
+    assert {"dove_tpu_torch.eval.vgg", "dove_tpu_torch.eval.dists",
+            "dove_tpu_torch.eval.lpips"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -440,8 +440,8 @@ def test_args_of_later_slices_raise(later):
 def test_registry_views_and_unported_parts(tmp_path):
     assert ttrainer.get_model_cls("dove-s1", "lora") is ttrainer.DOVES1Trainer
     assert ttrainer.get_model_cls("dove-s1", "sft") is ttrainer.DOVES1Trainer
-    with pytest.raises(NotImplementedError, match="stage 2"):
-        ttrainer.get_model_cls("dove-s2", "lora")
+    assert ttrainer.get_model_cls("dove-s2", "lora") is ttrainer.DOVES2Trainer
+    assert ttrainer.get_model_cls("dove-s2", "sft") is ttrainer.DOVES2Trainer
     with pytest.raises(ValueError):
         ttrainer.get_model_cls("nope", "lora")
 
@@ -483,9 +483,10 @@ def test_sft_trains_the_whole_dit_and_exports(tmp_path):
 
 
 def test_port_imports_nothing_the_card_lacks():
-    """The machine with the card has no pydantic, PyYAML, optax, orbax or
-    safetensors: importing every module of the port (and chip_smoke.py)
-    loads none of them, nor JAX."""
+    """The machine with the card has no pydantic, PyYAML, optax, orbax,
+    safetensors or cv2: importing every module of the port (and
+    chip_smoke.py), the stage-2 ones included, loads none of them, nor
+    JAX."""
     import subprocess
     import sys
     from pathlib import Path
@@ -493,7 +494,10 @@ def test_port_imports_nothing_the_card_lacks():
     repo = Path(__file__).resolve().parents[1]
     mods = sorted(".".join(p.relative_to(repo).with_suffix("").parts)
                   for p in (repo / "dove_tpu_torch").rglob("*.py"))
-    banned = ("jax", "dove_tpu", "pydantic", "yaml", "optax", "orbax", "safetensors")
+    assert {"dove_tpu_torch.eval.vgg", "dove_tpu_torch.eval.dists",
+            "dove_tpu_torch.eval.lpips", "dove_tpu_torch.train.losses"} <= set(mods)
+    banned = ("jax", "dove_tpu", "pydantic", "yaml", "optax", "orbax", "safetensors",
+              "cv2")
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
