@@ -84,7 +84,27 @@ Phases, one result line each; any failure exits non-zero:
    width, all 42 layers, SFT of the whole DiT with AdamW, three steps
    through DOVES2Trainer.train_step from a seed whose coin gives both an
    image step and a video step, with the split, launches and loss terms per
-   step and the peak memory.
+   step and the peak memory;
+18. the fused outer-tile path (no --is_vae_st) at full widths and 2 DiT
+   layers on the 32-frame 180x320 clip in 256x256 tiles of 16-frame chunks,
+   two tiles a call, every DiT pass under 2048 tokens: through K1 and
+   through the plain attention, then under int8-dit through K2 and
+   "plain-qk8", compared by PSNR, with the launches held to layers x the
+   calls and tokens measured in the run; then under quantize="int8" on a
+   9x64x128 clip, K4 on the tiles' convs against its plain version and K2
+   against "plain-qk8"; and the staged path at --upscale 1 on a 720x1280
+   input, its pipeline built by the CLI's load_pipeline;
+19. the fused path at full width and depth (42 layers), built by the CLI's
+   load_pipeline from its docstring's flags (384x384 tiles, 16-frame
+   chunks), on the clip of phase 4, through K1 and through the plain
+   attention on the same weights, compared by PSNR, with K1's launches and
+   the peak memory; then the same clip untiled (one spatial tile, 16-frame
+   chunks) and through the staged path; then K1 and K2 against their plain
+   versions at every q shape the fused and untiled runs launched K1 at;
+20. scoring on the card: psnr, ssim, lpips and dists (on seeded VGG16 state
+   dicts the phase writes) of phase 19's fused clip against its staged
+   clip, in-process, and through ``python -m dove_tpu_torch.eval_metrics``
+   on the two clips written as PNG folders: the same averages.
 
 Then one JSON line with the kernels' numbers, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}.
@@ -157,6 +177,15 @@ S2_STEPS = 3
 # gradient held to 1e-3 of their RMS (bit for bit is expected; the bar
 # allows cuDNN a different algorithm on the recompute).
 REMAT_REL_RMS_TOL = 1e-3
+# The fused outer-tile path (phases 18-19): phase 18's 2-layer tiles of
+# 256x256 in 16-frame chunks, two tiles a call, whose DiT passes are all under
+# 2048 tokens; phase 19 the CLI docstring's 384x384 tiles and 16-frame chunks.
+FUSED_2L = dict(tile_size_hw=(256, 256), chunk_len=16, tile_batch=2)
+FUSED_CLI = ["--tile_size_hw", "384", "384", "--chunk_len", "16"]
+# Scoring (phase 20): the in-process metrics against the eval_metrics CLI's
+# on the same frames read back from PNG; PSNR and SSIM are float64, LPIPS
+# and DISTS fp32 through VGG16 in two processes.
+SCORE_REL_TOL = {"psnr": 1e-6, "ssim": 1e-6, "lpips": 1e-5, "dists": 1e-5}
 # The streamed clip: 100 frames pad to 105, 27 latents, 4 DiT windows.
 STREAM_FRAMES = 100
 # K5 against its plain version: fp32 products summed in another order, the
@@ -2230,9 +2259,14 @@ def predicted_conv_launches(pipe, frames: int, h: int, w: int) -> dict:
     stride-1 QConv3ds (the encoder's k_t = 1 ones are its stride-2
     downsamplers, an int8 matrix product); K5, when switched on, the float
     3x3x3 convs with both channel counts multiples of 128."""
+    return _conv_launches(pipe, *_vae_passes(pipe, frames, h, w))
+
+
+def _conv_launches(pipe, enc_passes: int, dec_passes: int) -> dict:
+    """K4, K5 and quantizer launches of that many encoder and decoder
+    forwards."""
     from dove_tpu_torch.ops.quant import QConv3d
 
-    enc_passes, dec_passes = _vae_passes(pipe, frames, h, w)
     want = {"k4": 0, "k4_kt1": 0, "k5": 0, "quantize": 0}
     for half, passes in ((pipe.vae.encoder, enc_passes), (pipe.vae.decoder, dec_passes)):
         for mod in half.modules():
@@ -2439,6 +2473,473 @@ def phase_hand_conv() -> dict:
                 stage_s_off=outs[False][2])
 
 
+# ---------------------------------------------------------------------------
+# Phases 18-20: the fused outer-tile path and scoring
+# ---------------------------------------------------------------------------
+
+def fused_plan(cfg, frames: int, h: int, w: int, upscale: int, tile_size_hw=(0, 0),
+               chunk_len: int = 0, overlap_t: int = 8, overlap_hw=(32, 32),
+               tile_batch: int = 1, **_) -> dict:
+    """What DovePipeline's fused path will run on a clip, from the plan
+    alone: its device calls (same-shaped tiles in batches of tile_batch) and
+    the joint text+video tokens of each geometry's DiT pass."""
+    from dove_tpu_torch import tiling
+
+    pad_f, pad_h, pad_w = tiling.compute_padding(frames, h, w)
+    tiles = tiling.plan_tiles(frames + pad_f, (h + pad_h) * upscale,
+                              (w + pad_w) * upscale, chunk_len, tile_size_hw,
+                              overlap_t, overlap_hw)
+    geoms = tiling.tile_geometries(tiles)
+    ratio, pt = cfg.vae.temporal_compression_ratio, cfg.dit.patch_size_t
+    patch = cfg.vae.spatial_scale * cfg.dit.patch_size
+    tokens = {}
+    for f, th, tw in geoms:
+        f = tiling.next_valid_frames(f)
+        lat = f // ratio if f % (2 * ratio) == 0 else (f - 1) // ratio + 1
+        lat += (pt - lat % pt) % pt
+        tokens[(f, th, tw)] = (cfg.dit.max_text_seq_length
+                               + lat // pt * (th // patch) * (tw // patch))
+    calls = sum(-(-n // tile_batch) for n in geoms.values())
+    return dict(tiles=len(tiles), geometries=len(geoms), calls=calls,
+                max_tokens=max(tokens.values()), min_tokens=min(tokens.values()))
+
+
+def _check_float_clip(out: np.ndarray, shape: tuple, what: str) -> None:
+    if out.shape != shape or out.dtype != np.float32:
+        raise AssertionError(f"{what}: output {out.shape} {out.dtype}, want {shape}")
+    if not (np.isfinite(out).all() and out.min() >= 0.0 and out.max() <= 1.0):
+        raise AssertionError(f"{what}: output not finite in [0, 1]")
+    if float(out.std()) == 0.0:
+        raise AssertionError(f"{what}: output is constant")
+
+
+def _u8(x: np.ndarray) -> np.ndarray:
+    return np.round(x * 255.0).astype(np.uint8)
+
+
+def _drive_fused(pipe, clip: np.ndarray, **kw) -> tuple[np.ndarray, dict]:
+    """process_frames with what the run did measured: the device calls and
+    their tile shapes (sr_tile wrapped on this pipeline), every kernel's
+    launches, and the q shapes K1 and K2 were launched at (the counters'
+    shape records)."""
+    from dove_tpu_torch.ops import flash_attention as fa
+
+    calls = []
+    sr_tile = pipe.sr_tile
+    pipe.sr_tile = lambda tile, gen: calls.append(tuple(tile.shape)) or sr_tile(tile, gen)
+    counters = _conv_counters()
+    for c in counters.values():
+        c.reset()
+    fa.launches.shapes, fa.launches_qk8.shapes = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        out = pipe.process_frames(clip, **kw)
+        wall = time.perf_counter() - t0
+        q_shapes = fa.launches.shapes + fa.launches_qk8.shapes
+    finally:
+        del pipe.sr_tile
+        fa.launches.shapes = fa.launches_qk8.shapes = None
+    tokens = [shape[2] for shape in q_shapes]
+    rec = dict(wall_s=wall, calls=len(calls), call_shapes=calls,
+               tile_shapes=sorted(set(calls)),
+               q_shapes=sorted(set(q_shapes)),
+               min_tokens=min(tokens, default=None), max_tokens=max(tokens, default=None),
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               **{n: c.count for n, c in counters.items()})
+    return out, rec
+
+
+def _check_attention_launches(rec: dict, kernel: str | None, layers: int,
+                              plan: dict | None, what: str,
+                              passes: int | None = None) -> None:
+    """One launch of ``kernel`` ("k1", "k2" or None) per layer per DiT pass
+    and none of the other: a pass per measured device call of the fused
+    path, or ``passes`` on the staged path; the plan's calls and token range
+    held to the measured ones as a second check."""
+    passes = rec["calls"] if passes is None else passes
+    want = {"k1": 0, "k2": 0}
+    if kernel is not None:
+        want[kernel] = layers * passes
+    got = {"k1": rec["k1"], "k2": rec["k2"]}
+    if got != want or passes == 0:
+        raise AssertionError(f"{what}: launches {got} over {passes} DiT passes, "
+                             f"want {want}")
+    if plan is None:
+        return
+    measured = dict(calls=rec["calls"])
+    planned = dict(calls=plan["calls"])
+    if kernel is not None:
+        measured.update(min_tokens=rec["min_tokens"], max_tokens=rec["max_tokens"])
+        planned.update(min_tokens=plan["min_tokens"], max_tokens=plan["max_tokens"])
+    if measured != planned:
+        raise AssertionError(f"{what}: measured {measured}, the plan says {planned}")
+
+
+def _fused_conv_launches(pipe, tile_shapes: list) -> dict:
+    """K4 and quantizer launches of the fused path's measured device calls:
+    each call encodes its tile in frame chunks and decodes its latents in
+    latent chunks, the batch of tiles in one launch per conv."""
+    from dove_tpu_torch.models.vae import _frame_chunks
+
+    vcfg = pipe.config.vae
+    want = {"k4": 0, "k4_kt1": 0, "k5": 0, "quantize": 0}
+    for _, frames, _, _, _ in tile_shapes:
+        enc = len(_frame_chunks(frames, vcfg.sample_frames_batch_size))
+        dec = len(_frame_chunks(vcfg.latent_frames(frames),
+                                vcfg.latent_frames_batch_size))
+        for key, n in _conv_launches(pipe, enc, dec).items():
+            want[key] += n
+    return want
+
+
+def phase_fused_kernel_vs_plain() -> dict:
+    """The fused path at full widths and 2 DiT layers on the 32-frame 180x320
+    clip, in 256x256 tiles of 16-frame chunks, two tiles a call: every DiT
+    pass is under 2048 tokens (measured from K1's launches), where the
+    automatic rule would take the naive attention; the fused path takes K1.
+    Once through the kernels and once through attention_backend="plain",
+    then the same under int8-dit with K2 against "plain-qk8", compared by
+    PSNR; the launches held to layers x the measured calls. Then the fused
+    path under quantize="int8" on a 9x64x128 clip (two geometries): K4 on
+    the tiles' convs against its plain version, K2 against "plain-qk8". Then
+    the staged path with --upscale 1 on a 720x1280 input, the pipeline built
+    by the CLI's load_pipeline."""
+    from dove_tpu_torch.inference import build_parser, load_pipeline
+    from dove_tpu_torch.ops import flash_attention as fa
+    from dove_tpu_torch.pipeline import DovePipeline
+
+    cfg, dit, vae = _two_layer_models()
+    layers = cfg.dit.num_layers
+    clip = np.random.default_rng(18).uniform(
+        0, 1, (CLIP_FRAMES, CLIP_H, CLIP_W, 3)).astype(np.float32)
+    plan = fused_plan(cfg, CLIP_FRAMES, CLIP_H, CLIP_W, cfg.upscale, **FUSED_2L)
+    prompt = torch.zeros((cfg.dit.max_text_seq_length, cfg.dit.text_embed_dim),
+                         dtype=torch.bfloat16)
+    expect = (CLIP_FRAMES, CLIP_H * cfg.upscale, CLIP_W * cfg.upscale, 3)
+    result = {}
+    for mode, backends in ((None, (None, "plain")), ("int8-dit", (None, "plain-qk8"))):
+        outs = {}
+        for backend in backends:  # the int8 runs share the DiT quantized by the first
+            pipe = DovePipeline(
+                config=cfg, dit=dit, vae=vae, prompt_embedding=prompt,
+                dtype=torch.bfloat16, device="cuda", attention_backend=backend,
+                sample_posterior=False, quantize=mode)
+            out, rec = _drive_fused(pipe, clip, seed=0, **FUSED_2L)
+            _check_float_clip(out, expect, f"phase 18 {mode} {backend}")
+            outs[backend] = (out, rec)
+        (k_out, k_rec), (p_out, p_rec) = outs.values()
+        name = mode or "bf16"
+        _check_attention_launches(k_rec, "k1" if mode is None else "k2", layers,
+                                  plan, f"phase 18 {name} kernel run")
+        _check_attention_launches(p_rec, None, layers, plan,
+                                  f"phase 18 {name} {backends[1]} run")
+        if not k_rec["max_tokens"] < 2048:
+            raise AssertionError(f"phase 18 tiles reach {k_rec['max_tokens']} tokens")
+        psnr = psnr_u8(_u8(k_out), _u8(p_out))
+        max_diff = float(np.abs(k_out - p_out).max())
+        log(f"phase 18 fused path {name} (2 layers, full width, {plan['tiles']} "
+            f"tiles in {plan['geometries']} geometries; measured: {k_rec['calls']} "
+            f"calls of {len(k_rec['tile_shapes'])} tile shapes, K1/K2 at "
+            f"{k_rec['min_tokens']}-{k_rec['max_tokens']} tokens): kernels vs "
+            f"{backends[1]} PSNR {psnr:.2f} dB (bar {PSNR_BAR_DB}), max |diff| "
+            f"{max_diff:.4f}, launches K1 {k_rec['k1']} K2 {k_rec['k2']}, wall "
+            f"{k_rec['wall_s']:.2f}s (plain {p_rec['wall_s']:.2f}s)")
+        if not psnr >= PSNR_BAR_DB:
+            raise AssertionError(f"phase 18 {name} PSNR {psnr} below {PSNR_BAR_DB}")
+        result[name] = dict(psnr_db=psnr, k1=k_rec["k1"], k2=k_rec["k2"],
+                            calls=k_rec["calls"], tokens=[k_rec["min_tokens"],
+                                                          k_rec["max_tokens"]],
+                            wall_s=k_rec["wall_s"], plain_wall_s=p_rec["wall_s"])
+        del pipe, outs, k_out, p_out
+
+    # quantize="int8": K4 on the tiles' encoder and decoder convs, K2 in the DiT
+    small = np.random.default_rng(21).uniform(0, 1, (9, 64, 128, 3)).astype(np.float32)
+    small_plan = fused_plan(cfg, *small.shape[:3], cfg.upscale, **FUSED_2L)
+    outs = {}
+    for name, backend, conv_backend in (("kernels", None, None),
+                                        ("plain conv", None, "plain"),
+                                        ("plain qk8", "plain-qk8", None)):
+        pipe = _pipeline(cfg, dit, vae, backend, sample_posterior=False,
+                         quantize="int8", conv_backend=conv_backend)
+        out, rec = _drive_fused(pipe, small, seed=0, **FUSED_2L)
+        _check_float_clip(out, (9, 256, 512, 3), f"phase 18 int8 {name}")
+        outs[name] = (out, rec)
+    k_out, k_rec = outs["kernels"]
+    convs = _fused_conv_launches(pipe, k_rec["call_shapes"])
+    del pipe
+    no_conv = dict(k4=0, k4_kt1=0, k5=0, quantize=0)
+    for name, kernel, want in (("kernels", "k2", convs), ("plain conv", "k2", no_conv),
+                               ("plain qk8", None, convs)):
+        rec = outs[name][1]
+        _check_attention_launches(rec, kernel, layers, small_plan,
+                                  f"phase 18 int8 {name} run")
+        got = {n: rec[n] for n in want}
+        if got != want or (name == "kernels" and not got["k4"] > 0):
+            raise AssertionError(f"phase 18 int8 {name} run: conv launches {got}, "
+                                 f"want {want}")
+    identical = bool(np.array_equal(k_out, outs["plain conv"][0]))
+    psnr = psnr_u8(_u8(k_out), _u8(outs["plain qk8"][0]))
+    log(f"phase 18 fused path int8 (2 layers, full width, int8 DiT + encoder + "
+        f"decoder, 9x64x128 -> 256x512; measured: {k_rec['calls']} calls, tiles "
+        f"{k_rec['tile_shapes']}): K4 vs its plain version identical {identical}; "
+        f"K2 vs plain-qk8 PSNR {psnr:.2f} dB (bar {PSNR_BAR_DB}); launches "
+        f"{json.dumps({n: k_rec[n] for n in ('k1', 'k2', *convs)})} as the measured "
+        f"calls give; wall {k_rec['wall_s']:.2f}s")
+    if not identical:
+        diff = np.abs(k_out - outs["plain conv"][0])
+        raise AssertionError(f"phase 18 int8: K4 and its plain version give "
+                             f"different outputs (max {diff.max():.3e})")
+    if not psnr >= PSNR_BAR_DB:
+        raise AssertionError(f"phase 18 int8 PSNR {psnr} below {PSNR_BAR_DB}")
+    result["int8"] = dict(psnr_db=psnr, k2=k_rec["k2"], k4=k_rec["k4"],
+                          k4_kt1=k_rec["k4_kt1"], calls=k_rec["calls"])
+    del outs, k_out, dit, vae
+    torch.cuda.empty_cache()
+
+    # the staged path at --upscale 1 through the CLI's loader: 42 layers
+    args = build_parser().parse_args(
+        ["--input_dir", ".", "--is_vae_st", "--upscale", "1", "--png_save"])
+    pipe = load_pipeline(args)
+    up1 = np.random.default_rng(19).uniform(0, 1, (9, 720, 1280, 3)).astype(np.float32)
+    fa.launches.reset()
+    t0 = time.perf_counter()
+    out = pipe.process_frames(up1, seed=args.seed, upscale=args.upscale)
+    wall = time.perf_counter() - t0
+    n_layers = pipe.config.dit.num_layers
+    if out.shape != (9, 720, 1280, 3) or out.dtype != np.uint8 or out.std() == 0:
+        raise AssertionError(f"phase 18 upscale 1: output {out.shape} {out.dtype}")
+    if fa.launches.count != n_layers:
+        raise AssertionError(f"phase 18 upscale 1: K1 launches {fa.launches.count}")
+    log(f"phase 18 staged --upscale 1 via load_pipeline ({n_layers} layers): 9x720x1280 "
+        f"-> {out.shape} uint8, K1 launches {fa.launches.count}, wall {wall:.2f}s, "
+        f"stages {json.dumps({k: round(v, 3) for k, v in pipe.stage_times.items()})}")
+    result["upscale1"] = dict(wall_s=wall, k1=fa.launches.count)
+    del pipe
+    torch.cuda.empty_cache()
+    return result
+
+
+def _attention_at(q_shapes: list) -> dict:
+    """K1 (bounded, as the DiT calls it) and K2 against their plain versions
+    at each q shape a run launched them at, on seeded unit-normal q, k, v."""
+    from dove_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    scale = 64 ** -0.5
+    worst = {"k1": 0.0, "k2": 0.0}
+    for shape in q_shapes:
+        q, k, v = (torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+                   for _ in range(3))
+        q8, k8, factor = fa.quantize_qk_pair(q, k, scale)
+        for name, out, ref in (
+                ("k1", fa.flash_attention(q, k, v, scale=scale, bounded_logits=True),
+                 fa.flash_attention_plain(q, k, v, scale, bounded_logits=True)),
+                ("k2", fa.flash_qk8_launch(q8, k8, v, factor),
+                 fa.flash_attention_qk8_plain(q8, k8, v, factor))):
+            err = attn_errors(out, ref)
+            if not bool(torch.isfinite(out).all()) or not within_bars(err):
+                raise AssertionError(f"{name} disagrees with its plain version at "
+                                     f"{list(shape)}: {err}")
+            worst[name] = max(worst[name], err["max_abs"])
+        del q, k, v, q8, k8
+    return worst
+
+
+def phase_fused_main_path() -> dict:
+    """The fused path at full width and depth: CogVideoX1.5-5B, 42 layers,
+    seeded bf16 weights, built by the CLI's load_pipeline from the CLI
+    docstring's flags (384x384 tiles, 16-frame chunks) and run with the
+    flags main() forwards, on the 32-frame clip of phase 4: through the
+    kernels, then through attention_backend="plain" on the same weights,
+    compared by PSNR. Then the same clip untiled (tile_size_hw 0 0, in the
+    CLI's 16-frame chunks) and through the staged path, for seconds and peak
+    memory side by side. Last, K1 and K2 against their plain versions at
+    every q shape the fused and untiled runs launched K1 at."""
+    from dove_tpu_torch.inference import build_parser, load_pipeline, process_kwargs
+
+    args = build_parser().parse_args(["--input_dir", "."] + FUSED_CLI)
+    t0 = time.perf_counter()
+    pipe = load_pipeline(args)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = pipe.config
+    layers = cfg.dit.num_layers
+    kw = process_kwargs(args)
+    clip = np.random.default_rng(4).uniform(
+        0, 1, (CLIP_FRAMES, CLIP_H, CLIP_W, 3)).astype(np.float32)
+    expect = (CLIP_FRAMES, CLIP_H * cfg.upscale, CLIP_W * cfg.upscale, 3)
+
+    def run(what: str, kernel: str | None, plan: dict | None,
+            passes: int | None = None, **over):
+        out, rec = _drive_fused(pipe, clip, **{**kw, **over})
+        _check_attention_launches(rec, kernel, layers, plan, f"phase 19 {what}",
+                                  passes)
+        _check_float_clip(out, expect, f"phase 19 {what}")
+        log(f"  phase 19 {what}: {rec['wall_s']:.2f}s, {rec['calls']} sr_tile calls, K1 "
+            f"launches {rec['k1']} at {rec['min_tokens']}-{rec['max_tokens']} "
+            f"tokens, peak {rec['peak_bytes'] / 2**30:.2f} GiB")
+        return out, rec
+
+    plan = fused_plan(cfg, CLIP_FRAMES, CLIP_H, CLIP_W, **kw)
+    fused, warm = run("fused", "k1", plan)
+    pipe.attention_backend = "plain"
+    plain_out, plain = run("fused, plain attention", None, plan)
+    pipe.attention_backend = None
+    psnr = psnr_u8(_u8(fused), _u8(plain_out))
+    max_diff = float(np.abs(fused - plain_out).max())
+    del plain_out
+    log(f"  phase 19 kernels vs plain attention: PSNR {psnr:.2f} dB (bar "
+        f"{PSNR_BAR_DB}), max |diff| {max_diff:.4f}")
+    if not psnr >= PSNR_BAR_DB:
+        raise AssertionError(f"phase 19 kernels vs plain PSNR {psnr} below {PSNR_BAR_DB}")
+    # one spatial tile, the CLI's 16-frame chunks: the whole 33-frame clip in
+    # one call does not fit the card (its decoder asked for 15.47 GiB more
+    # with 67.78 GiB in use on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md)
+    untiled_kw = dict(tile_size_hw=(0, 0))
+    untiled_plan = fused_plan(cfg, CLIP_FRAMES, CLIP_H, CLIP_W, **{**kw, **untiled_kw})
+    _, untiled = run("untiled", "k1", untiled_plan, **untiled_kw)
+    pipe.vae_tiling = True  # the staged path on the same weights
+    # one DiT pass over the whole clip, no sr_tile call
+    staged, staged_rec = run("staged", "k1", None, passes=1, tile_size_hw=(0, 0),
+                             chunk_len=0)
+    staged_rec["stages_s"] = dict(pipe.stage_times)
+    del pipe
+    torch.cuda.empty_cache()
+    shapes = sorted(set(warm["q_shapes"]) | set(untiled["q_shapes"]))
+    t0 = time.perf_counter()
+    worst = _attention_at(shapes)
+    held_s = time.perf_counter() - t0
+
+    def gib(rec):
+        return f"{rec['peak_bytes'] / 2**30:.2f} GiB"
+
+    log(f"phase 19 fused main path (5B, {layers} layers, bf16, load_pipeline "
+        f"{' '.join(FUSED_CLI)}; measured: {warm['calls']} calls of "
+        f"{len(warm['tile_shapes'])} tile shapes, K1 at {warm['min_tokens']}-"
+        f"{warm['max_tokens']} tokens): {warm['wall_s']:.2f}s, K1 launches "
+        f"{warm['k1']}, peak {gib(warm)}; kernels vs plain attention PSNR "
+        f"{psnr:.2f} dB (bar {PSNR_BAR_DB}), max |diff| {max_diff:.4f}, plain "
+        f"{plain['wall_s']:.2f}s; untiled in 16-frame chunks ({untiled['calls']} "
+        f"calls, {untiled['min_tokens']}-{untiled['max_tokens']} tokens) "
+        f"{untiled['wall_s']:.2f}s, peak {gib(untiled)}; staged "
+        f"{staged_rec['wall_s']:.2f}s, peak {gib(staged_rec)}, stages "
+        f"{json.dumps({k: round(v, 3) for k, v in staged_rec['stages_s'].items()})}; "
+        f"K1 and K2 within the bars at the {len(shapes)} q shapes launched "
+        f"{[list(sh) for sh in shapes]}, worst max_abs_err "
+        f"{json.dumps({k: float(f'{x:.3e}') for k, x in worst.items()})} "
+        f"({held_s:.1f}s); init {init_s:.1f}s")
+    return dict(plan=plan, warm=warm, plain=plain, psnr_db=psnr, untiled=untiled,
+                untiled_plan=untiled_plan, staged=staged_rec, held_shapes=shapes,
+                held_worst=worst, fused_out=fused, staged_out=staged)
+
+
+def _seeded_metric_weights(out_dir) -> dict[str, str]:
+    """LPIPS and DISTS state dicts from a seeded VGG16 and seeded heads,
+    written in the exported layouts (torchvision ``features.*``, lpips's
+    ``lin{k}``), as the env vars the metric factories read."""
+    from pathlib import Path
+
+    from dove_tpu_torch import safetensors_io
+    from dove_tpu_torch.eval import vgg as vgg_mod
+
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    vgg = vgg_mod.init_vgg16(0, "cpu")
+    convs = [c for stage in vgg.stages for c in stage]
+    idx = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+    sd = {}
+    for i, conv in zip(idx, convs):
+        sd[f"features.{i}.weight"] = conv.weight.detach().contiguous()
+        sd[f"features.{i}.bias"] = conv.bias.detach().contiguous()
+    gen = torch.Generator().manual_seed(20)
+    chans = [3] + [c for c, _ in vgg_mod.VGG16_STAGES]
+    dists = dict(sd, alpha=torch.rand((1, sum(chans), 1, 1), generator=gen),
+                 beta=torch.rand((1, sum(chans), 1, 1), generator=gen))
+    lpips = dict(sd)
+    for k, (c, _) in enumerate(vgg_mod.VGG16_STAGES):
+        lpips[f"lin{k}.model.1.weight"] = torch.rand((1, c, 1, 1), generator=gen)
+    paths = {}
+    for name, tensors, env in (("dists", dists, "DOVE_DISTS_WEIGHTS"),
+                               ("lpips", lpips, "DOVE_LPIPS_WEIGHTS")):
+        path = out_dir / f"{name}.safetensors"
+        safetensors_io.save_file(tensors, path)
+        paths[env] = str(path)
+    return paths
+
+
+def phase_scoring(fused: np.ndarray, staged: np.ndarray) -> dict:
+    """Scoring on the card: a MetricAccumulator with psnr, ssim, lpips and
+    dists scores phase 19's fused clip against its staged clip (LPIPS and
+    DISTS on seeded VGG16 state dicts this phase writes); both clips are
+    written with save_frames_as_png, and ``python -m
+    dove_tpu_torch.eval_metrics`` on those folders must give the same
+    averages as the accumulator on the same 8-bit frames."""
+    import os
+    import shutil
+    from pathlib import Path
+
+    from dove_tpu_torch.eval.metrics import MetricAccumulator
+    from dove_tpu_torch.io import video as video_io
+
+    root = Path("build/chip_smoke_eval")
+    shutil.rmtree(root, ignore_errors=True)
+    env = _seeded_metric_weights(root / "weights")
+    os.environ.update(env)
+    names = ["psnr", "ssim", "lpips", "dists"]
+    # the frames as the PNGs hold them
+    pred = video_io._to_uint8(fused).astype(np.float32) / 255.0
+    gt = video_io._to_uint8(staged).astype(np.float32) / 255.0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    acc = MetricAccumulator(names, device="cuda")
+    vals = acc.add("clip", pred, gt)
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    video_io.save_frames_as_png(fused, root / "pred" / "clip")
+    video_io.save_frames_as_png(staged, root / "gt" / "clip")
+    png_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "dove_tpu_torch.eval_metrics",
+         "--pred_dir", str(root / "pred"), "--gt_dir", str(root / "gt"),
+         "--metrics", ",".join(names), "--output", str(root / "metrics.json")],
+        env={**os.environ, **env}, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"phase 20 eval_metrics failed: {res.stderr[-3000:]}")
+    cli = json.loads((root / "metrics.json").read_text())
+    errs = {n: abs(cli["average"][n] - vals[n]) / max(abs(vals[n]), 1e-30)
+            for n in names}
+    log(f"phase 20 scoring ({CLIP_FRAMES}x720x1280, fused vs staged, seeded "
+        f"VGG16): {json.dumps(rounded(vals, 6))} in {score_s:.2f}s on the card "
+        f"(peak {peak / 2**30:.2f} GiB); eval_metrics CLI on the PNG folders "
+        f"{json.dumps(rounded(cli['average'], 6))} in {cli_s:.1f}s (count "
+        f"{cli['count']}), rel diffs {json.dumps({k: f'{v:.1e}' for k, v in errs.items()})}; "
+        f"PNG write {png_s:.1f}s")
+    if cli["count"] != 1 or cli["per_sample_names"] != ["clip"]:
+        raise AssertionError(f"phase 20 eval_metrics counted {cli['count']}")
+    bad = {n: e for n, e in errs.items() if not e <= SCORE_REL_TOL[n]}
+    if bad:
+        raise AssertionError(f"phase 20 CLI and accumulator disagree: {bad}")
+    if not all(math.isfinite(v) for v in vals.values()):
+        raise AssertionError(f"phase 20 scores {vals}")
+    return dict(scores=vals, cli=cli["average"], score_s=score_s, cli_s=cli_s,
+                peak_bytes=peak)
+
+
+def phases_fused_and_scoring() -> tuple[dict, dict]:
+    """Phase 19, then phase 20 on its clips."""
+    fused = phase_fused_main_path()
+    scores = phase_scoring(fused.pop("fused_out"), fused.pop("staged_out"))
+    return fused, scores
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -2488,7 +2989,9 @@ def main(argv: list[str] | None = None) -> int:
                 ({14}, lambda: phase_int8_dit_dec(args.profile)),
                 ({15}, phase_hand_conv),
                 ({16}, phase_s2_kernel_vs_plain),
-                ({17}, lambda: phase_s2_recipe(args.profile))):
+                ({17}, lambda: phase_s2_recipe(args.profile)),
+                ({18}, phase_fused_kernel_vs_plain),
+                ({19, 20}, phases_fused_and_scoring)):
             if numbers & chosen:
                 t0 = time.perf_counter()
                 run()
@@ -2510,6 +3013,8 @@ def main(argv: list[str] | None = None) -> int:
     hand = phase_hand_conv()
     phase_s2_kernel_vs_plain()
     s2 = phase_s2_recipe(args.profile)
+    fused_2l = phase_fused_kernel_vs_plain()
+    fused, _ = phases_fused_and_scoring()
     log(f"all phases took {time.perf_counter() - t_start:.1f}s")
 
     kernels = [{
@@ -2526,6 +3031,16 @@ def main(argv: list[str] | None = None) -> int:
         "library_ms": k1["library_ms"],
         "forms_ms": k1["forms_ms"],
         "library_ratio": k1["sdpa_ratio"],
+        # the fused outer-tile path: phase 19's clip at 42 layers, and phase
+        # 18's 2-layer clip whose passes are all under 2048 tokens; calls and
+        # tokens as measured (sr_tile's calls, the q shapes K1 launched at)
+        "fused_launches": fused["warm"]["k1"],
+        "fused_calls": fused["warm"]["calls"],
+        "fused_tokens": [fused["warm"]["min_tokens"], fused["warm"]["max_tokens"]],
+        "fused_max_abs_err": fused["held_worst"]["k1"],
+        "fused_2l_launches": fused_2l["bf16"]["k1"],
+        "fused_2l_calls": fused_2l["bf16"]["calls"],
+        "fused_2l_tokens": fused_2l["bf16"]["tokens"],
         "exp_floor_ms": k1["exp_floor_ms"],
         "sm_clock_mhz": k1["sm_clock_mhz"],
         # the training form, with the logsumexp, at the stage-1 shape
@@ -2559,6 +3074,11 @@ def main(argv: list[str] | None = None) -> int:
         "replaces": "dove_tpu/ops/pallas/flash_attention.py:107",
         "launches": int8_main["launches"],
         "launches_streamed": streamed["launches"],
+        "fused_2l_launches": fused_2l["int8-dit"]["k2"],
+        "fused_2l_calls": fused_2l["int8-dit"]["calls"],
+        "fused_2l_tokens": fused_2l["int8-dit"]["tokens"],
+        "fused_int8_launches": fused_2l["int8"]["k2"],
+        "fused_max_abs_err": fused["held_worst"]["k2"],
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["kernel_ms"],
         "plain_ms": k2["plain_ms"],
@@ -2611,6 +3131,8 @@ def main(argv: list[str] | None = None) -> int:
         "replaces": "dove_tpu/ops/pallas/conv3d_int8.py:244",
         "launches": dit_dec["launches"]["k4"],
         "launches_kt1": dit_dec["launches"]["k4_kt1"],
+        "fused_int8_launches": fused_2l["int8"]["k4"],
+        "fused_int8_launches_kt1": fused_2l["int8"]["k4_kt1"],
         "max_abs_err": k4["max_abs_err"],
         "ms": k4["ms"],
         "plain_ms": k4["plain_ms"],

@@ -1,13 +1,17 @@
 """dove_tpu_torch: DOVE one-step video super-resolution in PyTorch and CUDA.
 
 The port of ``dove_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100. It
-imports neither JAX nor ``dove_tpu``. What is ported so far is the staged
-inference path of CogVideoX1.5-5B in bf16 or fp32, unquantized or in the
+imports neither JAX nor ``dove_tpu``. What is ported so far is inference
+with CogVideoX1.5-5B, staged (``vae_tiling=True``) or on the fused
+outer-tile path (the default), through ``python -m dove_tpu_torch.inference``
+with the JAX CLI's flags, in bf16 or fp32, unquantized or in the
 five int8 serving modes (``quantize="int8"``, ``"int8-dit"``, ``"int8-vae"``,
 ``"int8w"``, ``"int8-dit-dec"``; ``ops/quant.py``), with long clips streamed
 or cut into chunks; and both training stages, LoRA or SFT
 (``train/trainer.py``: ``DOVES1Trainer``, and ``DOVES2Trainer`` with the VAE
-decode under autograd and the VGG16 perceptual losses of ``eval/``). Its TPU kernels are hand-written
+decode under autograd and the VGG16 perceptual losses of ``eval/``); and the
+full-reference metrics (``eval/metrics.py``, ``python -m
+dove_tpu_torch.eval_metrics``). Its TPU kernels are hand-written
 CUDA kernels: the flash-attention forward in bf16 (K1, with the logsumexp in
 its training form) and with int8 Q K^T (K2, the same kernel template with s8
 wgmma and int8 TMA maps) in ``csrc/flash_fwd_sm90.cu``, the flash-attention

@@ -257,6 +257,29 @@ def _read_state_dict(path: str | Path) -> dict[str, torch.Tensor]:
     return dict(sd)
 
 
+# frames per VGG16 pass of a metric: a 720p frame's first-stage features
+# are 236 MB in fp32, so a clip goes through in slices
+METRIC_FRAMES = 8
+
+
+def _per_frame_mean(distance, pred: np.ndarray, gt: np.ndarray, device) -> float:
+    """The mean over frames of distance(x, y) -> [n] on [n, H, W, 3] fp32
+    slices of ``METRIC_FRAMES`` frames on ``device``. cuDNN's convolutions
+    run in full fp32 here (no TF32, PyTorch's default for them), so that a
+    score does not depend on the process's settings."""
+    cudnn = torch.backends.cudnn
+    vals = []
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                     deterministic=cudnn.deterministic, allow_tf32=False):
+        for s in range(0, len(pred), METRIC_FRAMES):
+            x = torch.as_tensor(np.asarray(pred[s:s + METRIC_FRAMES], np.float32),
+                                device=device)
+            y = torch.as_tensor(np.asarray(gt[s:s + METRIC_FRAMES], np.float32),
+                                device=device)
+            vals.append(distance(x, y))
+    return float(torch.cat(vals).mean())
+
+
 def load_lpips(path: str | Path, device=None):
     """An exported lpips(net='vgg') state dict -> metric (pred, gt) -> float;
     videos enter as [F, H, W, 3] in [0, 1]. Runs on the card unless
@@ -275,9 +298,9 @@ def load_lpips(path: str | Path, device=None):
 
     @torch.no_grad()
     def metric(pred: np.ndarray, gt: np.ndarray) -> float:
-        x = torch.as_tensor(np.asarray(pred, np.float32), device=device) * 2 - 1
-        y = torch.as_tensor(np.asarray(gt, np.float32), device=device) * 2 - 1
-        return float(lpips_distance(vgg, lins, x, y).mean())
+        return _per_frame_mean(
+            lambda x, y: lpips_distance(vgg, lins, x * 2 - 1, y * 2 - 1),
+            pred, gt, device)
 
     return metric
 
@@ -295,8 +318,7 @@ def load_dists(path: str | Path, device=None):
 
     @torch.no_grad()
     def metric(pred: np.ndarray, gt: np.ndarray) -> float:
-        x = torch.as_tensor(np.asarray(pred, np.float32), device=device)
-        y = torch.as_tensor(np.asarray(gt, np.float32), device=device)
-        return float(dists_distance(vgg, alpha, beta, x, y).mean())
+        return _per_frame_mean(
+            lambda x, y: dists_distance(vgg, alpha, beta, x, y), pred, gt, device)
 
     return metric

@@ -1,23 +1,40 @@
 """Inference CLI of the PyTorch port: one-step 4x video super-resolution.
 
-    python -m dove_tpu_torch.inference --input_dir clips/ --output_path out/ --is_vae_st
+    python -m dove_tpu_torch.inference --input_dir clips/ --output_path out/ \
+        --tile_size_hw 384 384 --chunk_len 16
 
-The subset of ``scripts/inference.py``'s flags that the port supports: the
-staged path (``--is_vae_st``, required) in bf16 or fp32, unquantized or in
-one of the five int8 serving modes (``--quantize``; the ones that quantize
-the VAE also take ``--vae_calib`` and ``--vae_exclude``), with clips of more
-than 33 frames streamed or cut into overlapping chunks (``--streaming``),
-and ``--hand_conv`` for the hand-written bf16 conv in a float VAE. Without
-``--model_path`` the weights are seeded random ones and the prompt embedding
-is zeros of shape (max_text_seq_length, text_embed_dim) unless the cached
-empty-prompt embedding is found under ``pretrained_models/``.
+The flags of ``scripts/inference.py``, served on the card (``--device cpu``
+asks for the CPU). Without ``--is_vae_st`` the fused outer-tile path runs
+(``--tile_size_hw``, ``--overlap_hw``, ``--chunk_len``, ``--overlap_t``,
+``--tile_batch``, ``--upscale_mode``); with it, the staged path, with clips
+of more than 33 frames streamed or cut into overlapping chunks
+(``--streaming``). Both take bf16 or fp32, unquantized or in one of the five
+int8 serving modes (``--quantize``; the ones that quantize the VAE also take
+``--vae_calib`` and ``--vae_exclude``), ``--lora_path`` (fused into the DiT),
+``--noise_step`` / ``--sr_noise_step`` / ``--upscale``, and inline scoring
+against ``--gt_dir`` (``--eval_metrics psnr,ssim,lpips,dists``). The port's
+own flags: ``--device`` and ``--hand_conv`` (the hand-written bf16 conv in a
+float VAE).
+
+Without ``--model_path`` the weights are seeded random ones and the prompt
+embedding is zeros of shape (max_text_seq_length, text_embed_dim) unless the
+cached empty-prompt embedding is found under ``pretrained_models/``. Input
+clips are video files, read through OpenCV.
+
+Not ported yet, refused with the ROADMAP item: ``--data_parallel`` and
+``--tensor_parallel`` above 1 (A.12), ``--preset cogvideox-2b`` (A.10),
+``--dtype float16`` (K1 and K2 take bf16 only), and non-empty prompts
+through a T5 text encoder (A.13).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
 import logging
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -33,18 +50,47 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--input_dir", type=str, required=True)
-    p.add_argument("--output_path", type=str, default="./results")
+    p.add_argument("--input_json", type=str, default=None,
+                   help="JSON {video_name: prompt}; non-empty prompts need a "
+                        "T5 text encoder, which the port lacks")
+    p.add_argument("--gt_dir", type=str, default=None)
+    p.add_argument("--eval_metrics", type=str, default="",
+                   help="comma list, e.g. psnr,ssim,lpips,dists")
     p.add_argument("--model_path", type=str, default=None,
                    help="diffusers-layout checkpoint directory")
+    p.add_argument("--lora_path", type=str, default=None,
+                   help="pytorch_lora_weights.safetensors, or its directory")
     p.add_argument("--preset", type=str, default="cogvideox1.5-5b",
-                   choices=["cogvideox1.5-5b", "tiny"])
-    p.add_argument("--dtype", type=str, default="bfloat16", choices=sorted(DTYPES))
+                   choices=["cogvideox1.5-5b", "cogvideox-2b", "tiny"])
+    p.add_argument("--output_path", type=str, default="./results")
+    p.add_argument("--fps", type=int, default=16)
+    p.add_argument("--dtype", type=str, default="bfloat16",
+                   choices=["float16", "bfloat16", "float32"])
     p.add_argument("--seed", type=int, default=42)
-    p.add_argument("--is_vae_st", action="store_true", required=True,
-                   help="staged path with internal VAE tiling (the only "
-                        "path the port has)")
-    p.add_argument("--device", type=str, default="cuda",
-                   help="cuda (default) or cpu")
+    p.add_argument("--upscale_mode", type=str, default="bilinear",
+                   help="bilinear runs on the device; bicubic, nearest, area "
+                        "and lanczos through OpenCV on the host")
+    p.add_argument("--upscale", type=int, default=4)
+    p.add_argument("--noise_step", type=int, default=0)
+    p.add_argument("--sr_noise_step", type=int, default=399)
+    p.add_argument("--is_cpu_offload", action="store_true",
+                   help="accepted for parity; it has no effect")
+    p.add_argument("--is_vae_st", action="store_true",
+                   help="the staged path: a full-frame DiT with feathered "
+                        "VAE windows (the reference's default mode); without "
+                        "it, the fused outer-tile path")
+    p.add_argument("--png_save", action="store_true")
+    p.add_argument("--save_format", type=str, default="yuv444p",
+                   choices=["yuv444p", "yuv420p", "lossless"],
+                   help="yuv444p/yuv420p: the best mp4 encoder OpenCV has "
+                        "(staged clips leave the device as I420); lossless: "
+                        "FFV1/mkv, bit-exact")
+    p.add_argument("--tile_size_hw", type=int, nargs=2, default=(0, 0))
+    p.add_argument("--overlap_hw", type=int, nargs=2, default=(32, 32))
+    p.add_argument("--chunk_len", type=int, default=0)
+    p.add_argument("--overlap_t", type=int, default=8)
+    p.add_argument("--tile_batch", type=int, default=1,
+                   help="same-shaped tiles run together through one call")
     p.add_argument("--quantize", type=str, default=None,
                    choices=["int8", "int8-dit", "int8-vae", "int8w", "int8-dit-dec"],
                    help="int8 serving modes: 'int8' quantizes DiT and VAE; "
@@ -62,35 +108,75 @@ def build_parser() -> argparse.ArgumentParser:
                    help="comma list of VAE conv names kept in --dtype inside "
                         "a quantized VAE, or the literal 'lowres' for every "
                         "decoder conv below the two full-resolution levels")
+    p.add_argument("--data_parallel", type=int, default=0,
+                   help="not ported yet: values above 1 are refused")
+    p.add_argument("--tensor_parallel", type=int, default=0,
+                   help="not ported yet: values above 1 are refused")
+    p.add_argument("--streaming", type=str, default="auto",
+                   choices=["auto", "on", "off"],
+                   help="clips over 33 frames on the staged path: stream "
+                        "contiguous segments with the VAE's causal caches "
+                        "carried across them (on), or run overlapping "
+                        "33-frame chunks (off); auto streams with an int8 DiT")
+    p.add_argument("--dec_window_cap", type=int, nargs=2, default=None,
+                   metavar=("H", "W"),
+                   help="cap the staged decode window (latents)")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (default) or cpu")
     p.add_argument("--hand_conv", action="store_true",
                    help="run the float VAE's eligible 3x3x3 convs through the "
                         "hand-written bf16 conv kernel (K5) instead of cuDNN")
-    p.add_argument("--streaming", type=str, default="auto",
-                   choices=["auto", "on", "off"],
-                   help="clips over 33 frames: stream contiguous segments "
-                        "with the VAE's causal caches carried across them "
-                        "(on), or run overlapping 33-frame chunks (off); "
-                        "auto streams with an int8 DiT")
     return p
+
+
+def check_ported(args) -> None:
+    """Refuse what the port does not have yet, naming its ROADMAP item."""
+    if args.data_parallel > 1 or args.tensor_parallel > 1:
+        raise NotImplementedError(
+            "--data_parallel / --tensor_parallel are not ported yet (ROADMAP A.12)")
+    if args.preset == "cogvideox-2b":
+        raise NotImplementedError(
+            "--preset cogvideox-2b is not ported yet (ROADMAP A.10)")
+    if args.dtype == "float16":
+        raise NotImplementedError(
+            "--dtype float16 is not ported yet: K1 and K2 take bf16 only "
+            "(ROADMAP A.14)")
 
 
 def load_pipeline(args):
     from dove_tpu_torch import config as cfg_mod
-    from dove_tpu_torch import weights
+    from dove_tpu_torch import safetensors_io, weights
     from dove_tpu_torch.models.dit import init_dit_params
     from dove_tpu_torch.models.vae import init_vae_params
     from dove_tpu_torch.pipeline import DovePipeline, resolve_device
 
+    check_ported(args)
     device = resolve_device(args.device)
     dtype = DTYPES[args.dtype]
     if args.model_path:
         cfg = cfg_mod.pipeline_config_from_pretrained(args.model_path)
+    elif args.preset == "tiny":
+        cfg = cfg_mod.tiny_test()
+    else:
+        cfg = cfg_mod.cogvideox1_5_5b()
+    cfg = dataclasses.replace(
+        cfg, sr_noise_step=args.sr_noise_step, noise_step=args.noise_step,
+        upscale=args.upscale,
+    )
+    if args.model_path:
         dit = weights.load_dit(args.model_path, cfg.dit, dtype, device)
+        if args.lora_path:
+            lora_file = Path(args.lora_path)
+            if lora_file.is_dir():
+                lora_file = lora_file / "pytorch_lora_weights.safetensors"
+            weights.fuse_lora_into_dit(dit, safetensors_io.load_file(lora_file))
+            logging.info("fused LoRA weights from %s", lora_file)
         vae = weights.load_vae(args.model_path, cfg.vae, dtype, device)
     else:
-        cfg = cfg_mod.tiny_test() if args.preset == "tiny" else cfg_mod.cogvideox1_5_5b()
         logging.warning("no --model_path: seeded random weights, %s preset",
                         args.preset)
+        if args.lora_path:
+            logging.warning("--lora_path ignored without --model_path")
         dit = init_dit_params(cfg.dit, args.seed, device, dtype)
         vae = init_vae_params(cfg.vae, args.seed + 1, device, dtype)
 
@@ -107,23 +193,41 @@ def load_pipeline(args):
     return DovePipeline(
         config=cfg, dit=dit, vae=vae, prompt_embedding=prompt_embedding,
         dtype=dtype, device=device, vae_tiling=args.is_vae_st,
-        output_uint8=True,
-        # as scripts/inference.py: a plain mp4 takes planar I420 from the
-        # device (the H.264 encoder consumes yuv420); the reference keeps RGB
-        # for PNG, lossless and metrics outputs, which the port does not write yet
-        output_i420=args.is_vae_st,
+        # writers take uint8; keep float when metrics need [0, 1]
+        output_uint8=args.is_vae_st and not args.eval_metrics,
+        # a plain mp4 takes planar I420 from the device (the H.264 encoder
+        # consumes yuv420); RGB stays for PNG, lossless and metrics outputs
+        output_i420=(args.is_vae_st and not args.eval_metrics
+                     and not args.png_save and args.save_format != "lossless"),
         quantize=args.quantize, streaming=args.streaming,
         vae_exclude=tuple(n.strip() for n in args.vae_exclude.split(",") if n.strip()),
         vae_calib=({k: torch.from_numpy(v) for k, v in np.load(args.vae_calib).items()}
                    if args.vae_calib else None),
+        dec_window_cap=tuple(args.dec_window_cap) if args.dec_window_cap else None,
         hand_conv=args.hand_conv,
+    )
+
+
+def process_kwargs(args) -> dict:
+    """The flags that go to ``DovePipeline.process_frames``."""
+    return dict(
+        upscale=args.upscale,
+        chunk_len=args.chunk_len,
+        tile_size_hw=tuple(args.tile_size_hw),
+        overlap_t=args.overlap_t,
+        overlap_hw=tuple(args.overlap_hw),
+        seed=args.seed,
+        tile_batch=args.tile_batch,
+        upscale_mode=args.upscale_mode,
     )
 
 
 def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO)
     args = build_parser().parse_args(argv)
+    check_ported(args)
 
+    from dove_tpu_torch.eval.metrics import MetricAccumulator
     from dove_tpu_torch.io import video as video_io
 
     videos = video_io.list_videos(args.input_dir)
@@ -131,17 +235,71 @@ def main(argv=None) -> None:
         raise SystemExit(f"No video files found in {args.input_dir}")
     out_dir = Path(args.output_path)
     out_dir.mkdir(parents=True, exist_ok=True)
+
+    prompt_map = {}
+    if args.input_json:
+        prompt_map = json.loads(Path(args.input_json).read_text())
+        if any(prompt_map.values()) and args.model_path and (
+                Path(args.model_path) / "text_encoder").exists():
+            raise NotImplementedError(
+                "non-empty prompts need the T5 text encoder, which is not "
+                "ported yet (ROADMAP A.13)")
+
     pipe = load_pipeline(args)
+    if args.gt_dir and not args.png_save and args.save_format != "lossless":
+        logging.warning(
+            "--gt_dir with --save_format %s: the written mp4 is lossy, so "
+            "re-scoring the files under-reports quality; the inline "
+            "--eval_metrics use the exact frames, and --save_format lossless "
+            "or --png_save write exact files.", args.save_format)
+    metric_names = [m.strip() for m in args.eval_metrics.split(",") if m.strip()]
+    accumulator = (MetricAccumulator(metric_names, device=pipe.device)
+                   if metric_names else None)
+
+    save_pool = ThreadPoolExecutor(max_workers=1)
+    save_futures = []
     for vpath in videos:
+        if prompt_map.get(vpath.name, prompt_map.get(vpath.stem, "")):
+            logging.warning("prompt for %s ignored (no text_encoder in "
+                            "--model_path)", vpath.name)
         t0 = time.perf_counter()
-        out = pipe.process_video_file(vpath, seed=args.seed)
+        out = pipe.process_video_file(vpath, **process_kwargs(args))
         dt = time.perf_counter() - t0
         logging.info("%s: %s in %.2fs (%.2f frames/s) stages %s", vpath.name,
                      out.shape, dt, out.shape[0] / dt, pipe.stage_times)
-        # explicit: the pipeline falls back to RGB on odd dims
-        video_io.save_video(out, out_dir / (vpath.stem + ".mp4"),
-                            pixel_format="i420" if (pipe.output_i420 and out.ndim == 3)
-                            else "rgb")
+        if accumulator is not None:
+            gt = None
+            if args.gt_dir:
+                gt = video_io.load_sequence(Path(args.gt_dir) / vpath.name)
+            accumulator.add(vpath.name, out, gt)
+        # the host's encode and write of this clip overlap the next clip's
+        # device work
+        if args.png_save:
+            save_futures.append(save_pool.submit(
+                video_io.save_frames_as_png, out, out_dir / vpath.stem))
+        elif args.save_format == "lossless":
+            save_futures.append(save_pool.submit(
+                video_io.save_video_lossless, out,
+                out_dir / (vpath.stem + ".mkv"), args.fps))
+        else:
+            save_futures.append(save_pool.submit(
+                video_io.save_video, out, out_dir / (vpath.stem + ".mp4"),
+                args.fps,
+                # explicit: the pipeline falls back to RGB on odd dims
+                "i420" if (pipe.output_i420 and out.ndim == 3) else "rgb"))
+
+    if accumulator is not None:
+        summary = accumulator.summary()
+        print("\n=== Overall Average Metrics ===")
+        for name, val in summary["average"].items():
+            print(f"{name.upper()}: {val:.4f}")
+        out_name = "metrics_" + "_".join(metric_names) + ".json"
+        (out_dir / out_name).write_text(json.dumps(summary, indent=2))
+
+    save_pool.shutdown(wait=True)
+    # surface write failures: shutdown() alone swallows them
+    for fut in save_futures:
+        fut.result()
     print("All videos processed.")
 
 

@@ -143,13 +143,24 @@ def i420_to_rgb(video: np.ndarray) -> np.ndarray:
 
 
 def save_frames_as_png(video: np.ndarray, out_dir: str | Path) -> None:
-    """video: [F, H, W, 3] float [0,1]; writes 000.png, 001.png, ..."""
+    """video: [F, H, W, 3] float [0,1]; writes 000.png, 001.png, ...
+    (zlib level 1: lossless like any level, and faster to write than PIL's
+    default level 6). Frames are encoded in threads (PIL's encoder releases
+    the GIL); a failed write raises."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from PIL import Image
 
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
-    for i, frame in enumerate(_to_uint8(video)):
-        Image.fromarray(np.ascontiguousarray(frame)).save(out_dir / f"{i:03d}.png")
+    frames = _to_uint8(video)
+
+    def write(i: int) -> None:
+        Image.fromarray(np.ascontiguousarray(frames[i])).save(
+            out_dir / f"{i:03d}.png", compress_level=1)
+
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        list(pool.map(write, range(len(frames))))
 
 
 def save_video(
@@ -260,11 +271,18 @@ def bilinear_upscale(
     frames: np.ndarray, scale: int, mode: str = "bilinear"
 ) -> np.ndarray:
     """[F, H, W, 3] -> [F, H*s, W*s, 3]; half-pixel sampling (matches
-    torch.nn.functional.interpolate(..., align_corners=False))."""
-    import cv2
-
+    torch.nn.functional.interpolate(..., align_corners=False)). Through
+    OpenCV's resize: without OpenCV it raises, naming the mode."""
+    if mode not in _UPSCALE_MODES:
+        raise ValueError(f"unknown upscale mode {mode!r}; one of {sorted(_UPSCALE_MODES)}")
     if scale == 1:
         return frames
+    try:
+        import cv2
+    except ImportError as e:
+        raise RuntimeError(
+            f"upscale mode {mode!r} needs OpenCV (cv2), which this machine "
+            "lacks; the default 'bilinear' runs on the device without it") from e
     interp = getattr(cv2, _UPSCALE_MODES[mode])
     F, H, W, _ = frames.shape
     out = np.empty((F, H * scale, W * scale, frames.shape[3]), dtype=frames.dtype)

@@ -1,7 +1,6 @@
 """CogVideoX 3D causal VAE in PyTorch: bf16/fp32, or with int8 convs.
 
-Counterpart of ``dove_tpu/models/vae.py`` without the ``tiled_*`` and
-``*_host`` APIs:
+Counterpart of ``dove_tpu/models/vae.py``:
 
   * 8x spatial / 4x temporal compression, 16 latent channels;
   * causal 3D convs: at a clip's start the first frame is replicated as
@@ -21,7 +20,10 @@ Counterpart of ``dove_tpu/models/vae.py`` without the ``tiled_*`` and
   * :func:`calibrate` and :func:`attribute_quant_error` run a forward with
     taps on every named conv: per-input-channel activation amax and tap
     autocorrelation for ``quantize_vae``, or each quantizable conv's own int8
-    error.
+    error;
+  * the feathered spatial tilers of diffusers' ``enable_tiling`` semantics,
+    assembled on the device (``tiled_encode_moments``, ``tiled_decode``);
+    the JAX package's host-assembled ``*_host`` twins are not ported.
 
 The parameters live in ``nn.Module``s named like the diffusers checkpoint
 (``encoder.down_blocks.0.resnets.1.conv1.conv.weight``, ...), so a released
@@ -670,6 +672,112 @@ def decode(
     pixels, _ = decode_cached(cfg, vae, latent, None, chunk_frames,
                               return_cache=False, remat=remat)
     return pixels
+
+
+# ---------------------------------------------------------------------------
+# Spatially tiled encode / decode with feathered blending: diffusers'
+# AutoencoderKLCogVideoX.enable_tiling() semantics, the VAE's own memory
+# tiler (linear feathers in the overlap band), distinct from the pipeline's
+# outer exact-coverage tiles (tiling.py). Host-side loops over per-tile calls.
+# ---------------------------------------------------------------------------
+
+def _blend_v(a: torch.Tensor, b: torch.Tensor, extent: int) -> torch.Tensor:
+    """Linear vertical feather: blend b's top `extent` rows with a's bottom."""
+    extent = min(a.shape[2], b.shape[2], extent)
+    if extent <= 0:
+        return b
+    w = (torch.arange(extent, dtype=torch.float32, device=b.device)
+         / extent).reshape(1, 1, -1, 1, 1)
+    top = a[:, :, -extent:].float() * (1 - w) + b[:, :, :extent].float() * w
+    return torch.cat([top.to(b.dtype), b[:, :, extent:]], dim=2)
+
+
+def _blend_h(a: torch.Tensor, b: torch.Tensor, extent: int) -> torch.Tensor:
+    """Linear horizontal feather: blend b's left `extent` cols with a's right."""
+    extent = min(a.shape[3], b.shape[3], extent)
+    if extent <= 0:
+        return b
+    w = (torch.arange(extent, dtype=torch.float32, device=b.device)
+         / extent).reshape(1, 1, 1, -1, 1)
+    left = a[:, :, :, -extent:].float() * (1 - w) + b[:, :, :, :extent].float() * w
+    return torch.cat([left.to(b.dtype), b[:, :, :, extent:]], dim=3)
+
+
+def _assemble_rows(rows, blend_h: int, blend_w: int, row_limit_h: int,
+                   row_limit_w: int, out_h: int, out_w: int) -> torch.Tensor:
+    """Feather each tile into its upper and left neighbours, crop it to the
+    stride grid and concatenate: [B, F, out_h, out_w, C]."""
+    result_rows = []
+    for i, row in enumerate(rows):
+        out_row = []
+        for j, tile in enumerate(row):
+            if i > 0:
+                tile = _blend_v(rows[i - 1][j], tile, blend_h)
+            if j > 0:
+                tile = _blend_h(row[j - 1], tile, blend_w)
+            out_row.append(tile[:, :, :row_limit_h, :row_limit_w])
+        result_rows.append(torch.cat(out_row, dim=3))
+    return torch.cat(result_rows, dim=2)[:, :, :out_h, :out_w]
+
+
+def tiled_encode_moments(
+    cfg: VAEConfig, vae: AutoencoderKLCogVideoX, video: torch.Tensor,
+    chunk_frames: int | None = None, encode_fn=None,
+) -> torch.Tensor:
+    """Tiled full-clip encode. video: [B, F, H, W, 3] -> moments (feathered).
+
+    encode_fn overrides the per-tile encoder (tile -> moments)."""
+    if encode_fn is None:
+        encode_fn = lambda tile: encode_moments(cfg, vae, tile, chunk_frames)  # noqa: E731
+    H, W = video.shape[2], video.shape[3]
+    s = cfg.spatial_scale
+    tile_h, tile_w = cfg.tile_sample_min_height, cfg.tile_sample_min_width
+    if H <= tile_h and W <= tile_w:
+        return encode_fn(video)
+    lat_h, lat_w = tile_h // s, tile_w // s
+    # the sampling stride derives from the placement size (latents * s), so
+    # sampled and assembled tile positions align exactly
+    blend_h, stride_h = cfg.tile_geometry(lat_h, cfg.tile_overlap_factor_height)
+    blend_w, stride_w = cfg.tile_geometry(lat_w, cfg.tile_overlap_factor_width)
+    rows = [
+        [encode_fn(video[:, :, i:i + tile_h, j:j + tile_w])
+         for j in range(0, W, stride_w * s)]
+        for i in range(0, H, stride_h * s)
+    ]
+    return _assemble_rows(rows, blend_h, blend_w, lat_h - blend_h,
+                          lat_w - blend_w, H // s, W // s)
+
+
+def _decode_tile_geometry(cfg: VAEConfig):
+    """(lat_h, lat_w, blend_lat_h, stride_h, blend_lat_w, stride_w) of the
+    tiled decode, in latents."""
+    s = cfg.spatial_scale
+    lat_h = cfg.decode_tile_latent_height or cfg.tile_sample_min_height // s
+    lat_w = cfg.decode_tile_latent_width or cfg.tile_sample_min_width // s
+    blend_h, stride_h = cfg.tile_geometry(lat_h, cfg.tile_overlap_factor_height)
+    blend_w, stride_w = cfg.tile_geometry(lat_w, cfg.tile_overlap_factor_width)
+    return lat_h, lat_w, blend_h, stride_h, blend_w, stride_w
+
+
+def tiled_decode(
+    cfg: VAEConfig, vae: AutoencoderKLCogVideoX, latent: torch.Tensor,
+    chunk_frames: int | None = None, decode_fn=None,
+) -> torch.Tensor:
+    """Tiled full-clip decode. latent: [B, F', h, w, C] (unscaled) -> pixels."""
+    if decode_fn is None:
+        decode_fn = lambda tile: decode(cfg, vae, tile, chunk_frames)  # noqa: E731
+    h, w = latent.shape[2], latent.shape[3]
+    s = cfg.spatial_scale
+    lat_h, lat_w, blend_h, stride_h, blend_w, stride_w = _decode_tile_geometry(cfg)
+    if h <= lat_h and w <= lat_w:
+        return decode_fn(latent)
+    rows = [
+        [decode_fn(latent[:, :, i:i + lat_h, j:j + lat_w])
+         for j in range(0, w, stride_w)]
+        for i in range(0, h, stride_h)
+    ]
+    return _assemble_rows(rows, blend_h * s, blend_w * s, (lat_h - blend_h) * s,
+                          (lat_w - blend_w) * s, h * s, w * s)
 
 
 # ---------------------------------------------------------------------------

@@ -37,13 +37,20 @@ HEAD_DIM = 64
 
 class LaunchCounter:
     """Number of kernel launches: the wrapper adds one per launch, and only
-    there, so a run can show that its path went through the kernel."""
+    there, so a run can show that its path went through the kernel. Set
+    ``shapes`` to a list to have each launch also append its input's shape."""
 
     def __init__(self) -> None:
         self.count = 0
+        self.shapes: list | None = None
 
     def reset(self) -> None:
         self.count = 0
+
+    def add(self, shape: torch.Size) -> None:
+        self.count += 1
+        if self.shapes is not None:
+            self.shapes.append(tuple(shape))
 
 
 launches = LaunchCounter()  # K1, inference forms (no logsumexp)
@@ -191,7 +198,7 @@ def flash_qk8_launch(
         )
     if rc != 0:
         raise RuntimeError(f"flash_fwd_qk8 kernel launch failed: cudaError_t {rc}")
-    launches_qk8.count += 1
+    launches_qk8.add(q8.shape)
     return out
 
 
@@ -310,7 +317,7 @@ def flash_fwd_launch(
         )
     if rc != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: cudaError_t {rc}")
-    (launches_lse if with_lse else launches).count += 1
+    (launches_lse if with_lse else launches).add(q.shape)
     return out, lse
 
 
@@ -345,7 +352,7 @@ def flash_bwd_dq_launch(q, k, v, do, lse, delta, scale: float) -> torch.Tensor:
         )
     if rc != 0:
         raise RuntimeError(f"flash_bwd_dq kernel launch failed: cudaError_t {rc}")
-    launches_bwd_dq.count += 1
+    launches_bwd_dq.add(q.shape)
     return dq
 
 
@@ -367,7 +374,7 @@ def flash_bwd_dkv_launch(
         )
     if rc != 0:
         raise RuntimeError(f"flash_bwd_dkv kernel launch failed: cudaError_t {rc}")
-    launches_bwd_dkv.count += 1
+    launches_bwd_dkv.add(q.shape)
     return dk, dv
 
 

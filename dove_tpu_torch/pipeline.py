@@ -1,13 +1,15 @@
-"""DOVE one-step video super-resolution, the staged path, in PyTorch.
+"""DOVE one-step video super-resolution in PyTorch.
 
-Counterpart of ``dove_tpu/pipeline.py``'s staged branch (``vae_tiling=True``,
-the reference's ``--is_vae_st`` default) for bf16 or fp32, unquantized or in
+Counterpart of ``dove_tpu/pipeline.py`` for bf16 or fp32, unquantized or in
 one of the JAX package's five int8 serving modes (``quantize``): the DiT's
 linears W8A8 with K2's int8 Q K^T attention (``"int8-dit"``) or weight-only
 (``"int8w"``), the VAE's hot convs int8 through K4 (``"int8-vae"``), both
 (``"int8"``), or the int8 DiT with an int8 decoder and a float encoder
-(``"int8-dit-dec"``). A clip of up to 33 frames is one pass of three stages,
-each ended by a device synchronisation (the stage barrier):
+(``"int8-dit-dec"``). Two paths, as in the JAX package:
+
+The staged path (``vae_tiling=True``, the reference's ``--is_vae_st``, with
+no outer tiles). A clip of up to 33 frames is one pass of three stages, each
+ended by a device synchronisation (the stage barrier):
 
   * enc: 4x bilinear upscale on the device, VAE encode over feathered
     spatial windows, feathered assembly of the moments;
@@ -22,12 +24,23 @@ overlap midpoints (the reference's temporal stitching), or streamed
 whose causal conv caches carry across segment calls, so the VAE touches
 every frame once, and only the DiT runs on overlapping latent windows. The
 window plans are the JAX package's (its 16 GB plans), so seams fall where
-they fall there. On the card the DiT's attention takes K1 (bf16) or, with a
-W8A8 DiT, K2; both take bf16 only, so an fp32 pipeline there needs
-``attention_backend="plain"``.
+they fall there.
 
-Not ported yet (each raises): the fused outer-tile path (vae_tiling=False or
-tile_size_hw) and mesh serving.
+The fused outer-tile path (``vae_tiling=False``, the default, or any
+``tile_size_hw``): the padded LQ clip is upscaled once (on the device for
+the default bilinear mode), cut into overlapping temporal chunks and spatial
+tiles (``tiling.plan_tiles``), and each batch of same-shaped tiles runs
+:meth:`DovePipeline.sr_tile` (encode, one DiT pass, decode) in one go; the
+tiles' trimmed interiors are stitched on the device, every pixel exactly
+once, and the clip crosses to the host once, as float in [0, 1].
+
+On the card the DiT's attention takes K1 (bf16) or, with a W8A8 DiT, K2;
+both take bf16 only, so an fp32 pipeline there needs
+``attention_backend="plain"``. The staged path keeps the JAX package's
+automatic rule (the kernel from 2048 tokens); the fused path, whose tiles
+fall below that, takes the kernel at every length.
+
+Not ported yet: mesh serving (raises).
 """
 
 from __future__ import annotations
@@ -221,7 +234,8 @@ def bilinear_upscale(x: torch.Tensor, factor: int) -> torch.Tensor:
 
 @dataclasses.dataclass
 class DovePipeline:
-    """One-step 4x VSR, staged path (``vae_tiling=True``)."""
+    """One-step 4x VSR: the staged path (``vae_tiling=True``) or the fused
+    outer-tile path."""
 
     config: PipelineConfig
     dit: CogVideoXTransformer3D
@@ -231,7 +245,9 @@ class DovePipeline:
     device: Any = None  # None = "cuda" (raises without a card); "cpu" on request
     attention_backend: str | None = None
     sample_posterior: bool = True  # the reference samples latent_dist
-    vae_tiling: bool = True  # --is_vae_st: the staged path (False raises)
+    # --is_vae_st: the staged path (internal VAE windows, no outer tiles);
+    # False serves the fused outer-tile path, as the JAX package's default
+    vae_tiling: bool = False
     output_uint8: bool = False
     # planar BT.601 studio-swing I420 [F, H*3//2, W] instead of RGB
     output_i420: bool = False
@@ -427,26 +443,54 @@ class DovePipeline:
         )
         return self._denoise(latent, generator)
 
+    def _draw_noise(self, shape: tuple, generator: torch.Generator) -> torch.Tensor:
+        """The noise added at ``noise_step``: fp32 normals in the DiT layout."""
+        return torch.randn(shape, generator=generator, device=self.device,
+                           dtype=torch.float32)
+
     def _denoise(
-        self, latent: torch.Tensor, generator: torch.Generator | None
+        self, latent: torch.Tensor, generator: torch.Generator | None,
+        attention_backend: str | None = None,
     ) -> torch.Tensor:
-        """Scaled latent [B, F', h, w, C] -> unscaled x-hat_0, one DiT pass."""
+        """Scaled latent [B, F', h, w, C] -> unscaled x-hat_0, one DiT pass
+        (``attention_backend`` None: the pipeline's)."""
         cfg = self.config
         B, Fl, h, w, C = latent.shape
         text = self.prompt_embedding[None].expand(B, -1, -1)
         noise = None
         if cfg.noise_step != 0 and generator is not None:
             pt = cfg.dit.patch_size_t
-            noise = torch.randn(
-                (B, Fl + (pt - Fl % pt) % pt, C, h, w), generator=generator,
-                device=latent.device, dtype=torch.float32,
-            )
+            noise = self._draw_noise((B, Fl + (pt - Fl % pt) % pt, C, h, w),
+                                     generator)
         x0 = one_step_x0_latent(
             cfg, self.schedule, self.dit, latent, text, noise,
-            attention_backend=self.attention_backend,
+            attention_backend=attention_backend or self.attention_backend,
             bounded_logits=True,  # frozen qk-layernorm gains at inference
         )
         return x0 / torch.tensor(cfg.vae.scaling_factor, dtype=x0.dtype)
+
+    def sr_tile(self, tile: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+        """The fused path's one device call: tile [B, F, H, W, 3] in [-1, 1]
+        (model dtype, F a causal-VAE length) -> [B, F, H, W, 3] fp32 in
+        [0, 1]. Encode (frame-chunked, causal cache), sample, one DiT pass
+        over the B tiles at ``sr_noise_step`` (noise added at ``noise_step``
+        first when it is nonzero), decode.
+
+        On the card the attention is the kernel at every length, as in the
+        trainer: the automatic rule's 2048-token threshold would send the
+        tiles' shorter passes to the naive path. An explicit
+        ``attention_backend`` wins."""
+        cfg = self.config
+        moments = vae_mod.encode_moments(cfg.vae, self.vae, tile)
+        latent = vae_mod.sample_latent(
+            moments, generator if self.sample_posterior else None,
+            cfg.vae.scaling_factor)
+        backend = self.attention_backend
+        if backend is None and self.device.type == "cuda":
+            backend = "flash"
+        x0 = self._denoise(latent, generator, backend)
+        pixels = vae_mod.decode(cfg.vae, self.vae, x0)
+        return (pixels.float() * 0.5 + 0.5).clamp(0.0, 1.0)
 
     def dec_float(self, z: torch.Tensor) -> torch.Tensor:
         """z: [B, F', h, w, C] unscaled latent -> [B, F, H, W, 3] fp32 in
@@ -660,6 +704,74 @@ class DovePipeline:
         self._add_time("dec", time.perf_counter() - t2)
         return out
 
+    def _upscale_input(self, padded: np.ndarray, upscale: int,
+                       upscale_mode: str) -> torch.Tensor:
+        """The fused path's input: padded [F, H, W, 3] in [0, 1] -> [F, H*u,
+        W*u, 3] fp32 in [-1, 1] on the device. Bilinear runs on the device
+        (half-pixel, edge-clamped: what the JAX package's host upscale,
+        ``native.upscale_bilinear`` or cv2's INTER_LINEAR, computes on float
+        input); the other modes take the host's cv2 resize, as there."""
+        if upscale_mode == "bilinear":
+            x = torch.as_tensor(padded, dtype=torch.float32).to(self.device)
+            if upscale != 1:
+                x = bilinear_upscale(x[None], upscale)[0]
+        else:
+            x = torch.as_tensor(
+                video_io.bilinear_upscale(padded, upscale, upscale_mode),
+                dtype=torch.float32).to(self.device)
+        return x * 2.0 - 1.0
+
+    @torch.inference_mode()
+    def _sr_fused(
+        self, padded: np.ndarray, upscale: int, chunk_len: int,
+        tile_size_hw: tuple[int, int], overlap_t: int,
+        overlap_hw: tuple[int, int], seed: int, tile_batch: int,
+        upscale_mode: str,
+    ) -> torch.Tensor:
+        """The fused outer-tile path over a padded clip -> stitched [3, F,
+        H*u, W*u] fp32 on the device. Same-shaped tiles run in batches of
+        ``tile_batch`` (the last one padded with repeats of its last tile,
+        their outputs dropped); each batch takes the generator's next draws.
+        Nothing is pulled to the host: the stitch runs on the device."""
+        up = self._upscale_input(padded, upscale, upscale_mode)
+        F_, H, W, _ = up.shape
+        tiles = tiling.plan_tiles(F_, H, W, chunk_len, tile_size_hw, overlap_t,
+                                  overlap_hw)
+        effective_ot = overlap_t if chunk_len > 0 else 0
+        geoms = tiling.tile_geometries(tiles)
+        logger.info(
+            "clip: %d frames %dx%d -> %d tiles (batch %d), %d geometries %s",
+            F_, H, W, len(tiles), tile_batch, len(geoms), sorted(geoms),
+        )
+        stitcher = tiling.TorchStitcher(3, F_, H, W, effective_ot, overlap_hw,
+                                        device=self.device)
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+
+        def tile_data(t: tiling.Tile) -> tuple[torch.Tensor, int]:
+            data = up[t.t_start:t.t_end, t.h_start:t.h_end, t.w_start:t.w_end]
+            # causal-VAE frame rule: pad an odd-length chunk (a merged tail)
+            # up to the next length the roundtrip keeps, trim after
+            nf = data.shape[0]
+            valid_nf = tiling.next_valid_frames(nf)
+            if valid_nf != nf:
+                data = torch.cat([data, data[-1:].expand(valid_nf - nf, -1, -1, -1)])
+            return data, nf
+
+        by_geom: dict[tuple, list[tiling.Tile]] = {}
+        for t in tiles:
+            by_geom.setdefault(t.shape, []).append(t)
+        for group in by_geom.values():
+            for batch_tiles in _groups(group, tile_batch):
+                datas, nfs = zip(*(tile_data(t) for t in batch_tiles))
+                n_real = len(datas)
+                if n_real < tile_batch:
+                    datas = datas + (datas[-1],) * (tile_batch - n_real)
+                out = self.sr_tile(torch.stack(datas).to(self.dtype), generator)
+                for t, nf, o in zip(batch_tiles, nfs, out[:n_real]):
+                    stitcher.add(t, o[:nf].permute(3, 0, 1, 2))
+                del out
+        return stitcher.finalize()
+
     def process_frames(
         self,
         frames: np.ndarray,  # [F, H, W, 3] float32 in [0, 1] (LQ input)
@@ -667,20 +779,36 @@ class DovePipeline:
         upscale: int | None = None,
         chunk_len: int = 0,
         tile_size_hw: tuple[int, int] = (0, 0),
+        # None: 8 frames for the chunked paths, the pipeline's
+        # dit_overlap_latents for streaming; an explicit value (0 included)
+        # is honoured by every path
         overlap_t: int | None = None,
+        overlap_hw: tuple[int, int] = (32, 32),
         seed: int = 42,
+        tile_batch: int = 1,
         mesh=None,
+        upscale_mode: str = "bilinear",
     ) -> np.ndarray:
-        """Full one-step SR of a clip -> [F, H*u, W*u, 3] float32 in [0, 1],
-        or uint8 (RGB, or I420 [F, H*u*3//2, W*u]) with output_uint8."""
-        if not self.vae_tiling or tuple(tile_size_hw) != (0, 0):
-            raise NotImplementedError(
-                "only the staged path (vae_tiling=True, no outer tiles) is "
-                "ported; the fused outer-tile path is not"
-            )
+        """Full one-step SR of a clip -> [F, H*u, W*u, 3] float32 in [0, 1];
+        on the staged path uint8 (RGB, or I420 [F, H*u*3//2, W*u]) with
+        output_uint8. The staged path runs when ``vae_tiling`` is set and
+        ``tile_size_hw`` is (0, 0), the fused outer-tile path otherwise
+        (``overlap_hw``, ``tile_batch`` and ``upscale_mode`` apply to it)."""
         if mesh is not None:
-            raise NotImplementedError("mesh serving is not ported yet")
+            raise NotImplementedError("mesh serving is not ported yet (ROADMAP A.12)")
         upscale = self.config.upscale if upscale is None else upscale
+        if not (self.vae_tiling and tuple(tile_size_hw) == (0, 0)):
+            t0 = time.perf_counter()
+            padded, (pad_f, pad_h, pad_w) = tiling.pad_video(frames)
+            out = self._sr_fused(
+                padded, upscale, chunk_len, tuple(tile_size_hw),
+                8 if overlap_t is None else overlap_t, tuple(overlap_hw), seed,
+                max(1, tile_batch), upscale_mode)
+            out = tiling.unpad_video(out, pad_f, pad_h * upscale, pad_w * upscale)
+            # [3, F, H, W] -> [F, H, W, 3], then one pull to the host
+            result = out.permute(1, 2, 3, 0).contiguous().cpu().numpy()
+            self.stage_times = {"fused": time.perf_counter() - t0}
+            return result
         if upscale != self.config.upscale:
             raise ValueError(
                 "the staged path upscales on the device using config.upscale; "

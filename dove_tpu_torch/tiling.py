@@ -1,15 +1,21 @@
-"""Host-side frame and chunk geometry of the staged path (NumPy).
+"""Frame, chunk and tile geometry of the pipeline's host driver.
 
-A copy of what the staged pipeline uses from ``dove_tpu/tiling.py``: the
-pre-pipeline padding rules, the causal-VAE frame rule, the overlapping
-temporal chunk plan and its half-overlap trim, and the I420 crop.
+A copy of ``dove_tpu/tiling.py``: the pre-pipeline padding rules, the
+causal-VAE frame rule, the overlapping temporal chunks and spatial tiles of
+the fused outer-tile path with their half-overlap trim, the distinct tile
+geometries, the I420 crop, and ``Stitcher``, which writes each tile's valid
+region into the output volume and checks that every pixel is written exactly
+once. ``Stitcher`` is the NumPy version; ``TorchStitcher`` does the same on
+the pipeline's device, so that the finished clip crosses to the host once.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from collections.abc import Sequence
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -22,6 +28,14 @@ class Tile:
     h_end: int
     w_start: int
     w_end: int
+
+    @property
+    def shape(self) -> tuple[int, int, int]:
+        return (
+            self.t_end - self.t_start,
+            self.h_end - self.h_start,
+            self.w_end - self.w_start,
+        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +66,76 @@ def temporal_chunks(num_frames: int, chunk_len: int, overlap_t: int = 8) -> list
     return chunks
 
 
+def _axis_tiles(size: int, tile: int, overlap: int) -> list[int]:
+    """Start offsets of tiles along one spatial axis."""
+    stride = tile - overlap
+    if stride <= 0:
+        raise ValueError("tile size must be greater than overlap")
+    starts = list(range(0, size - overlap, stride))
+    if not starts or starts[-1] + tile < size:
+        # max(..., 0): an axis shorter than the tile is one tile from 0
+        starts.append(max(size - tile, 0))
+    if len(starts) >= 2 and starts[-1] + tile > size:
+        starts.pop()
+    return starts
+
+
+def spatial_tiles(
+    height: int,
+    width: int,
+    tile_size_hw: tuple[int, int],
+    overlap_hw: tuple[int, int] = (32, 32),
+) -> list[tuple[int, int, int, int]]:
+    """Overlapping (h_start, h_end, w_start, w_end) tiles covering H x W.
+
+    tile_size_hw == (0, 0) disables tiling. An edge tile whose next stride
+    would run past the border is extended to the border, so the last tile of
+    an axis may be larger than tile_size."""
+    th, tw = tile_size_hw
+    if th == 0 or tw == 0:
+        return [(0, height, 0, width)]
+    oh, ow = overlap_hw
+    tiles = []
+    for hs in _axis_tiles(height, th, oh):
+        he = min(hs + th, height)
+        if he + (th - oh) > height:
+            he = height
+        for ws in _axis_tiles(width, tw, ow):
+            we = min(ws + tw, width)
+            if we + (tw - ow) > width:
+                we = width
+            tiles.append((hs, he, ws, we))
+    return tiles
+
+
+def plan_tiles(
+    num_frames: int,
+    height: int,
+    width: int,
+    chunk_len: int = 0,
+    tile_size_hw: tuple[int, int] = (0, 0),
+    overlap_t: int = 8,
+    overlap_hw: tuple[int, int] = (32, 32),
+) -> list[Tile]:
+    """Full work list: the cross product of temporal chunks and spatial tiles."""
+    ot = overlap_t if chunk_len > 0 else 0
+    chunks = temporal_chunks(num_frames, chunk_len, ot)
+    tiles2d = spatial_tiles(height, width, tile_size_hw, overlap_hw)
+    return [
+        Tile(ts, te, hs, he, ws, we)
+        for (ts, te) in chunks
+        for (hs, he, ws, we) in tiles2d
+    ]
+
+
+def tile_geometries(tiles: Sequence[Tile]) -> dict[tuple[int, int, int], int]:
+    """Distinct tile shapes -> counts."""
+    out: dict[tuple[int, int, int], int] = {}
+    for t in tiles:
+        out[t.shape] = out.get(t.shape, 0) + 1
+    return out
+
+
 def valid_region(
     tile: Tile,
     full_shape: tuple[int, int, int],
@@ -77,6 +161,88 @@ def valid_region(
     sh, dh = _axis(tile.h_start, tile.h_end, H, oh)
     sw, dw = _axis(tile.w_start, tile.w_end, W, ow)
     return ValidRegion(src=(st, sh, sw), dst=(dt, dh, dw))
+
+
+class Stitcher:
+    """Accumulates processed tiles into the output volume [C, F, H, W]
+    (NumPy), checking that every pixel is written exactly once."""
+
+    def __init__(
+        self,
+        channels: int,
+        num_frames: int,
+        height: int,
+        width: int,
+        overlap_t: int,
+        overlap_hw: tuple[int, int],
+        dtype=np.float32,
+    ):
+        self._full = (num_frames, height, width)
+        self._overlap_t = overlap_t
+        self._overlap_hw = overlap_hw
+        self.output = np.zeros((channels, num_frames, height, width), dtype=dtype)
+        self._count = np.zeros((num_frames, height, width), dtype=np.uint8)
+
+    def add(self, tile: Tile, data: np.ndarray) -> None:
+        """data: [C, f, h, w] result for this tile (already super-resolved)."""
+        if data.shape[1:] != tile.shape:
+            raise ValueError(f"tile data shape {data.shape[1:]} != tile {tile.shape}")
+        r = valid_region(tile, self._full, self._overlap_t, self._overlap_hw)
+        self.output[(slice(None),) + r.dst] = data[(slice(None),) + r.src]
+        self._count[r.dst] += 1
+
+    def finalize(self) -> np.ndarray:
+        """The stitched volume, after checking exact coverage."""
+        if (self._count == 0).any():
+            raise RuntimeError("tile stitching left uncovered pixels")
+        if (self._count > 1).any():
+            raise RuntimeError("tile stitching wrote some pixels more than once")
+        return self.output
+
+
+class TorchStitcher:
+    """``Stitcher`` on a device: the output [C, F, H, W] and the uint8 write
+    count live on ``device``, so tiles are stitched where they were made and
+    the finished clip is pulled to the host once."""
+
+    def __init__(
+        self,
+        channels: int,
+        num_frames: int,
+        height: int,
+        width: int,
+        overlap_t: int,
+        overlap_hw: tuple[int, int],
+        device="cpu",
+        dtype=torch.float32,
+    ):
+        self._full = (num_frames, height, width)
+        self._overlap_t = overlap_t
+        self._overlap_hw = overlap_hw
+        self.output = torch.zeros((channels, num_frames, height, width),
+                                  dtype=dtype, device=device)
+        self._count = torch.zeros((num_frames, height, width), dtype=torch.uint8,
+                                  device=device)
+
+    def add(self, tile: Tile, data: torch.Tensor) -> None:
+        """data: [C, f, h, w] result for this tile, on any device."""
+        if tuple(data.shape[1:]) != tile.shape:
+            raise ValueError(
+                f"tile data shape {tuple(data.shape[1:])} != tile {tile.shape}")
+        r = valid_region(tile, self._full, self._overlap_t, self._overlap_hw)
+        self.output[(slice(None),) + r.dst] = data[(slice(None),) + r.src]
+        self._count[r.dst] += 1
+
+    def finalize(self) -> torch.Tensor:
+        """The stitched volume, after checking exact coverage (one host sync
+        for both checks)."""
+        uncovered, doubled = torch.stack(
+            [(self._count == 0).any(), (self._count > 1).any()]).tolist()
+        if uncovered:
+            raise RuntimeError("tile stitching left uncovered pixels")
+        if doubled:
+            raise RuntimeError("tile stitching wrote some pixels more than once")
+        return self.output
 
 
 def next_valid_frames(n: int, temporal_ratio: int = 4) -> int:

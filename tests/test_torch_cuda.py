@@ -755,3 +755,67 @@ def test_qconv_on_card_matches_cpu(stride):
     out = quant.qconv(conv.to(dev), x.to(dev), stride, 2 - stride)
     assert out.shape == ref.shape
     torch.testing.assert_close(out.cpu(), ref, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_torch_stitcher_on_card_equals_numpy():
+    """The fused path's stitcher on the card against the NumPy one: the same
+    plan's tiles (each shifted by its own offset), bit for bit, and the same
+    refusal of a pixel written twice."""
+    import numpy as np
+
+    from dove_tpu_torch import tiling
+
+    dev = _card()
+    args = (33, 192, 320, 16, (128, 128), 8, (32, 32))
+    tiles = tiling.plan_tiles(*args)
+    video = np.random.default_rng(0).standard_normal((3, 33, 192, 320)).astype(np.float32)
+    ref = tiling.Stitcher(3, 33, 192, 320, 8, (32, 32))
+    ours = tiling.TorchStitcher(3, 33, 192, 320, 8, (32, 32), device=dev)
+    for i, t in enumerate(tiles):
+        d = video[:, t.t_start:t.t_end, t.h_start:t.h_end, t.w_start:t.w_end] + i
+        ref.add(t, d)
+        ours.add(t, torch.from_numpy(d).to(dev))
+    out = ours.finalize()
+    assert out.device.type == "cuda"
+    assert np.array_equal(out.cpu().numpy(), ref.finalize())
+    ours.add(tiles[0], torch.zeros((3,) + tiles[0].shape, device=dev))
+    with pytest.raises(RuntimeError, match="more than once"):
+        ours.finalize()
+
+
+@pytest.mark.cuda
+def test_fused_pass_at_a_short_tile_launches_k1():
+    """The fused path on a tile whose DiT pass is far under 2048 tokens takes
+    K1 (the automatic rule would take the naive attention), one launch a
+    layer a call, and agrees with attention_backend="plain" (PSNR >= 40 dB
+    on 8-bit output, chip_smoke.py's bar)."""
+    import dataclasses
+
+    import numpy as np
+
+    from dove_tpu_torch import init_dit_params, init_vae_params, tiny_test
+    from dove_tpu_torch.pipeline import DovePipeline
+
+    dev = _card()
+    base = tiny_test()
+    cfg = dataclasses.replace(base, dit=dataclasses.replace(
+        base.dit, num_attention_heads=2, attention_head_dim=64))
+    dit = init_dit_params(cfg.dit, 0, dev, torch.bfloat16)
+    vae = init_vae_params(cfg.vae, 1, dev, torch.bfloat16)
+    prompt = torch.zeros((cfg.dit.max_text_seq_length, cfg.dit.text_embed_dim))
+    clip = np.random.default_rng(1).uniform(0, 1, (9, 16, 32, 3)).astype(np.float32)
+    outs = {}
+    for backend in (None, "plain"):
+        pipe = DovePipeline(config=cfg, dit=dit, vae=vae, prompt_embedding=prompt,
+                            dtype=torch.bfloat16, device=dev, attention_backend=backend,
+                            sample_posterior=False)
+        before = fa.launches.count
+        outs[backend] = pipe.process_frames(clip, tile_size_hw=(64, 64), tile_batch=2)
+        outs[backend, "k1"] = fa.launches.count - before
+    # three 64x64 tiles of 9 frames: two calls (2 + 1 padded to 2)
+    assert outs[None, "k1"] == cfg.dit.num_layers * 2
+    assert outs["plain", "k1"] == 0
+    a, b = (np.round(outs[k] * 255.0) for k in (None, "plain"))
+    mse = float(np.mean((a - b) ** 2))
+    assert mse == 0 or 10 * np.log10(255.0**2 / mse) >= 40.0

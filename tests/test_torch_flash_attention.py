@@ -52,6 +52,18 @@ def test_plain_matches_pallas_interpret(S, bounded):
     assert fa.launches.count == 0  # the CPU never launches the kernel
 
 
+def test_launch_counter_records_shapes_only_when_asked():
+    counter = fa.LaunchCounter()
+    counter.add(torch.Size((1, 2, 3, 64)))
+    assert counter.count == 1 and counter.shapes is None
+    counter.shapes = []
+    counter.add(torch.Size((2, 48, 994, 64)))
+    counter.reset()
+    counter.add(torch.Size((2, 48, 738, 64)))
+    assert counter.count == 1
+    assert counter.shapes == [(2, 48, 994, 64), (2, 48, 738, 64)]
+
+
 def test_plain_cross_lengths_match_naive():
     """Sq != Skv (the kernel takes both); the plain version vs softmax."""
     q, k, v = _qkv(130, seed=7, Skv=300)

@@ -57,7 +57,8 @@ def _torch_pipe(models, **flags) -> DovePipeline:
     return DovePipeline(
         config=tcfg.tiny_test(), dit=dit, vae=vae,
         prompt_embedding=torch.from_numpy(prompt), dtype=torch.float32,
-        device="cpu", sample_posterior=False, output_uint8=True, **flags,
+        device="cpu", sample_posterior=False, vae_tiling=True,
+        output_uint8=True, **flags,
     )
 
 
@@ -118,7 +119,7 @@ def _wide_pipes(wide_models, windows=None, **flags):
     tp = DovePipeline(
         config=cfg_t, dit=dit, vae=vae, prompt_embedding=torch.from_numpy(prompt),
         dtype=torch.float32, device="cpu", sample_posterior=False,
-        output_uint8=True, **flags,
+        vae_tiling=True, output_uint8=True, **flags,
     )
     if windows is not None:
         for pipe in (jp, tp):
@@ -241,6 +242,28 @@ def test_int8_vae_modes_match_jax(wide_models, mode):
                             tf.process_frames(frames, seed=0),
                             jf.process_frames(frames, seed=0),
                             float_encoder=mode == "int8-dit-dec")
+
+
+def test_fused_path_under_int8_matches_jax(wide_models):
+    """The fused outer-tile path under quantize="int8" (int8 DiT, encoder and
+    decoder): 9 frames of 16x16 -> 64x64 in two 64x48 tiles, one call of
+    batch 2, so the int8 convs run at the tile's shape on both sides. Float
+    output, held as the staged int8 modes are, on its 8-bit rounding."""
+    jp, tp = _wide_pipes(wide_models, quantize="int8")
+    jf, tf = _wide_pipes(wide_models)
+    assert (_n_qconvs(tp.vae.encoder), _n_qconvs(tp.vae.decoder)) == (8, 14)
+    calls = []
+    sr_tile = tp.sr_tile
+    tp.sr_tile = lambda tile, gen: calls.append(tuple(tile.shape)) or sr_tile(tile, gen)
+    frames = _clip(9, 16, 16, 11)
+    kw = dict(seed=0, tile_size_hw=(64, 48), overlap_hw=(32, 32), tile_batch=2)
+    outs = [p.process_frames(frames, **kw) for p in (tp, jp, tf, jf)]
+    assert calls == [(2, 9, 64, 48, 3)]
+    for out in outs:
+        assert out.shape == (9, 64, 64, 3) and out.dtype == np.float32
+    ours, ref, ours_float, ref_float = (
+        np.round(np.asarray(o) * 255.0).astype(np.uint8) for o in outs)
+    _assert_int8_vae_parity(ours, ref, ours_float, ref_float, float_encoder=False)
 
 
 def test_int8_dit_dec_lowres_calibrated_matches_jax():

@@ -1,16 +1,20 @@
-"""Parity of the PyTorch port's staged pipeline with dove_tpu's (fp32, CPU).
+"""Parity of the PyTorch port's pipeline with dove_tpu's (fp32, CPU).
 
-A 9-frame 64x64 LQ clip makes a 256x256 output and a 32x32 latent, so the
-decode stage plans 2x2 windows and the feathered assembly runs. Both sides
-take the posterior mean (the two frameworks' RNGs cannot match) and the same
-tiny_test() weights. Stage outputs before uint8 quantization are held at
-atol 1e-4; quantized outputs within one LSB, since a 1e-6 difference can
+The staged path: a 9-frame 64x64 LQ clip makes a 256x256 output and a 32x32
+latent, so the decode stage plans 2x2 windows and the feathered assembly
+runs. The fused outer-tile path: untiled, in spatial tiles and temporal
+chunks, batched with a padded last batch, with noise added at noise_step,
+and at upscale 1. Both sides take the posterior mean (the two frameworks'
+RNGs cannot match) and the same tiny_test() weights. Float outputs are held
+at atol 1e-4; quantized outputs within one LSB, since a 1e-6 difference can
 move a value across a rounding boundary.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import re
 import subprocess
 import sys
@@ -135,12 +139,150 @@ def test_multi_chunk_clip_matches_jax(models):
 def test_unported_paths_raise(models):
     _, tp = _pipes(models)
     frames = _clip(1, 16, 16, 4)
-    with pytest.raises(NotImplementedError):
-        tp.process_frames(frames, tile_size_hw=(64, 64))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="A.12"):
         tp.process_frames(frames, mesh=object())
-    with pytest.raises(NotImplementedError):  # the fused tile path
-        dataclasses.replace(tp, vae_tiling=False).process_frames(frames)
+    with pytest.raises(NotImplementedError, match="A.12"):
+        dataclasses.replace(tp, vae_tiling=False).process_frames(frames, mesh=object())
+
+
+# The fused outer-tile path. Each case keeps to one or two tile geometries
+# (JAX compiles once per geometry): 17 frames in 8-frame chunks with an
+# overlap of 4 are chunks of 8, 8 and 9 frames; a 64x96 output at 64x64 tiles
+# with a 32-pixel overlap is two tiles, a 64x128 one three.
+FUSED_CASES = {
+    "untiled": (9, 16, 16, {}),
+    "tiles_and_chunks": (17, 16, 24, dict(tile_size_hw=(64, 64), chunk_len=8,
+                                          overlap_t=4)),
+    "tile_batch_padded": (9, 16, 32, dict(tile_size_hw=(64, 64), tile_batch=2)),
+    "noise_step": (9, 16, 16, {}),
+    "upscale_1": (9, 32, 32, dict(upscale=1)),
+}
+NOISE_STEP = 100
+
+# The JAX side of the fused cases, in a process of its own: tests/conftest.py
+# compiles this process's XLA programs at --xla_backend_optimization_level=0,
+# and the tiny random encoder amplifies rounding ~100x, so that on the 8-frame
+# chunks JAX at level 0 is 2.3e-4 from JAX as it serves (the default level),
+# past the 1e-4 bar. The reference is JAX as it serves.
+_JAX_FUSED = """
+import json, sys
+import jax
+jax.config.update("jax_platforms", "cpu")
+import jax.numpy as jnp
+import numpy as np
+from dove_tpu import config as jcfg
+from dove_tpu.models import dit as jdit, vae as jvae
+from dove_tpu.pipeline import DovePipeline
+cases, noise_step, out = json.loads(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+cfg = jcfg.tiny_test()
+dit = jdit.init_dit_params(jax.random.PRNGKey(0), cfg.dit)
+vae = jvae.init_vae_params(jax.random.PRNGKey(1), cfg.vae)
+prompt = np.random.default_rng(0).standard_normal((7, 32)).astype(np.float32)
+drawn = []
+def normal(key, shape, dtype=jnp.float32):
+    drawn.append(list(shape))
+    return jnp.asarray(np.random.default_rng(7).standard_normal(tuple(shape)), dtype)
+jax.random.normal = normal
+res = {}
+for name, (n, h, w, kw) in cases.items():
+    step = noise_step if name == "noise_step" else 0
+    import dataclasses
+    pipe = DovePipeline(config=dataclasses.replace(cfg, noise_step=step),
+                        dit_params=dit, vae_params=vae,
+                        prompt_embedding=jnp.asarray(prompt), dtype=jnp.float32,
+                        sample_posterior=False, donate_weights=False)
+    frames = np.random.default_rng(8).uniform(0, 1, (n, h, w, 3)).astype(np.float32)
+    kw = {k: tuple(v) if isinstance(v, list) else v for k, v in kw.items()}
+    res[name] = pipe.process_frames(frames, seed=0, **kw)
+res["drawn"] = np.asarray(drawn)
+np.savez(out, **res)
+"""
+
+
+@pytest.fixture(scope="module")
+def jax_fused(tmp_path_factory):
+    out = tmp_path_factory.mktemp("fused") / "ref.npz"
+    env = dict(os.environ)
+    env["XLA_FLAGS"] = " ".join(
+        f for f in env.get("XLA_FLAGS", "").split()
+        if not f.startswith("--xla_backend_optimization_level"))
+    res = subprocess.run(
+        [sys.executable, "-c", _JAX_FUSED, json.dumps(FUSED_CASES),
+         str(NOISE_STEP), str(out)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-4000:]
+    return dict(np.load(out))
+
+
+def _fused_pipe(noise_step: int = 0) -> DovePipeline:
+    """The port's tiny_test() pipeline, from the weights JAX's pipeline
+    makes (jax.random keys 0 and 1), with the default vae_tiling."""
+    cfg_j = jcfg.tiny_test()
+    dit_tree = jax.tree.map(np.asarray,
+                            jdit.init_dit_params(jax.random.PRNGKey(0), cfg_j.dit))
+    vae_tree = jax.tree.map(np.asarray,
+                            jvae.init_vae_params(jax.random.PRNGKey(1), cfg_j.vae))
+    prompt = np.random.default_rng(0).standard_normal((7, 32)).astype(np.float32)
+    cfg_t = dataclasses.replace(tcfg.tiny_test(), noise_step=noise_step)
+    dit, vae = tweights.from_jax_params(cfg_t, dit_tree, vae_tree)
+    tp = DovePipeline(
+        config=cfg_t, dit=dit, vae=vae, prompt_embedding=torch.from_numpy(prompt),
+        dtype=torch.float32, device="cpu", sample_posterior=False,
+    )
+    assert not tp.vae_tiling  # the default is the fused path, as in JAX
+    return tp
+
+
+def _noise(shape) -> np.ndarray:
+    return np.random.default_rng(7).standard_normal(tuple(shape)).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", list(FUSED_CASES))
+def test_fused_path_matches_jax(jax_fused, case):
+    """process_frames on the fused path, float output at atol 1e-4. With
+    noise_step != 0 both sides add the same seeded noise at that step."""
+    frames_n, h, w, kw = FUSED_CASES[case]
+    tp = _fused_pipe(NOISE_STEP if case == "noise_step" else 0)
+    drawn = []
+    tp._draw_noise = lambda shape, gen: drawn.append(shape) or torch.from_numpy(
+        _noise(shape))
+    frames = np.random.default_rng(8).uniform(0, 1, (frames_n, h, w, 3)).astype(np.float32)
+    ours = tp.process_frames(frames, seed=0, **kw)
+    ref = jax_fused[case]
+    u = kw.get("upscale", 4)
+    assert ours.shape == ref.shape == (frames_n, h * u, w * u, 3)
+    assert ours.dtype == np.float32
+    np.testing.assert_allclose(ours, ref, atol=ATOL, rtol=0)
+    if case == "noise_step":  # one draw each: [B, F' + 1 copy, C, h, w]
+        assert drawn == [(1, 4, 8, 8, 8)]
+        assert jax_fused["drawn"].tolist() == [[1, 4, 8, 8, 8]]
+    else:
+        assert drawn == []
+
+
+def test_fused_batches_same_shaped_tiles(monkeypatch):
+    """Three tiles of one geometry at tile_batch 2: two calls of batch 2, the
+    second padded with a repeat whose output is dropped."""
+    tp = _fused_pipe()
+    batches = []
+    sr_tile = tp.sr_tile
+    monkeypatch.setattr(tp, "sr_tile", lambda tile, gen: batches.append(
+        tuple(tile.shape)) or sr_tile(tile, gen))
+    tp.process_frames(_clip(9, 16, 32, 8), tile_size_hw=(64, 64), tile_batch=2)
+    assert batches == [(2, 9, 64, 64, 3), (2, 9, 64, 64, 3)]
+
+
+def test_staged_matches_fused_when_untiled():
+    """The port's staged path against its fused path on an untiled clip, at
+    the JAX package's own bar (tests/test_pipeline.py): the staged path
+    upscales on the device in the model's frame and returns uint8."""
+    tp = _fused_pipe()
+    frames = np.random.default_rng(0).random((9, 8, 8, 3)).astype(np.float32)
+    out_fused = tp.process_frames(frames)
+    out_staged = dataclasses.replace(tp, vae_tiling=True).process_frames(frames)
+    assert out_fused.shape == out_staged.shape == (9, 32, 32, 3)
+    np.testing.assert_allclose(out_fused, out_staged, atol=0.02)
+    assert np.abs(out_fused - out_staged).mean() < 0.005
 
 
 def test_device_defaults_to_cuda():
@@ -161,7 +303,9 @@ def test_port_imports_no_jax():
         for p in (REPO / "dove_tpu_torch").rglob("*.py")
     )
     assert {"dove_tpu_torch.eval.vgg", "dove_tpu_torch.eval.dists",
-            "dove_tpu_torch.eval.lpips"} <= set(mods)
+            "dove_tpu_torch.eval.lpips", "dove_tpu_torch.eval.metrics",
+            "dove_tpu_torch.eval.color_fix", "dove_tpu_torch.eval_metrics",
+            "dove_tpu_torch.tiling"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
