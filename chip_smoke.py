@@ -15,7 +15,8 @@ Phases, one result line each; any failure exits non-zero:
    where the toolkit has cuobjdump: every K1, K2, K3a, K3b, K4 and K5 form
    must issue wgmma and TMA loads and no mma.sync, and spill nothing (K2
    both int8 and bf16 wgmma); which media packages (PIL, torchvision.io,
-   av, imageio) the card's Python imports;
+   av, imageio) and tool packages (transformers, regex, ftfy, scipy.io) the
+   card's Python imports, and whether an ffmpeg binary is on the PATH;
 2. K1 (the bf16 flash-attention forward, wgmma/TMA) against its plain
    PyTorch version on the card, bounded and online-softmax forms, at the
    main path's shape, 4097 and 200, and at every Sq, Skv around its
@@ -86,7 +87,10 @@ Phases, one result line each; any failure exits non-zero:
    image step and a video step, with the split, launches and loss terms per
    step and the peak memory;
 18. the fused outer-tile path (no --is_vae_st) at full widths and 2 DiT
-   layers on the 32-frame 180x320 clip in 256x256 tiles of 16-frame chunks,
+   layers: first on a 9x64x128 clip under each --upscale_mode but bilinear
+   (bicubic, nearest, area, lanczos: ops/resize.py on the card, held to the
+   same op on the CPU), K1's launches held to the measured calls; then on
+   the 32-frame 180x320 clip in 256x256 tiles of 16-frame chunks,
    two tiles a call, every DiT pass under 2048 tokens: through K1 and
    through the plain attention, then under int8-dit through K2 and
    "plain-qk8", compared by PSNR, with the launches held to layers x the
@@ -104,7 +108,16 @@ Phases, one result line each; any failure exits non-zero:
 20. scoring on the card: psnr, ssim, lpips and dists (on seeded VGG16 state
    dicts the phase writes) of phase 19's fused clip against its staged
    clip, in-process, and through ``python -m dove_tpu_torch.eval_metrics``
-   on the two clips written as PNG folders: the same averages.
+   on the two clips written as PNG folders: the same averages;
+21. the no-reference scores on the card: clipiqa (a CLIP ViT-B/32 snapshot),
+   niqe, musiq, maniqa and ewarp (RAFT) on seeded checkpoints at the
+   published widths, written in the published layouts, of phase 19's fused
+   clip read back from phase 20's PNGs: through ``python -m
+   dove_tpu_torch.eval_metrics`` with no --gt_dir and in-process through a
+   MetricAccumulator, the same scores; clipiqa also on an OpenAI RN50 .pt,
+   both ways; seconds and peak memory per metric; one RAFT pass over
+   ewarp's chunk of pairs timed through cuDNN and through PyTorch's own
+   convolutions (the port's route).
 
 Then one JSON line with the kernels' numbers, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}.
@@ -186,6 +199,18 @@ FUSED_CLI = ["--tile_size_hw", "384", "384", "--chunk_len", "16"]
 # on the same frames read back from PNG; PSNR and SSIM are float64, LPIPS
 # and DISTS fp32 through VGG16 in two processes.
 SCORE_REL_TOL = {"psnr": 1e-6, "ssim": 1e-6, "lpips": 1e-5, "dists": 1e-5}
+# ops/resize.py against cv2.resize on float32, tests/test_torch_resize.py's
+# bars; phase 18 holds the device resize to the same op on the CPU by them
+RESIZE_ATOL = {"linear": 1e-6, "nearest": 0.0, "area": 1e-6, "cubic": 3e-6,
+               "lanczos4": 1e-6}
+# The no-reference scores (phase 21): the CLI's against the in-process
+# accumulator's on the same PNG frames, relative.
+NR_METRICS = ("clipiqa", "niqe", "musiq", "maniqa", "ewarp")
+NR_REL_TOL = 1e-6
+# RAFT's iterations in phase 21's cuDNN comparison (ewarp's chunk of pairs)
+RAFT_CUDNN_ITERS = 2
+# OpenAI CLIP RN50: stem width, attention-pool heads, embedding width
+RN50_WIDTH, RN50_HEADS, RN50_OUT = 64, 32, 1024
 # The streamed clip: 100 frames pad to 105, 27 latents, 4 DiT windows.
 STREAM_FRAMES = 100
 # K5 against its plain version: fp32 products summed in another order, the
@@ -333,6 +358,8 @@ HOPPER_FORMS = ("K1 bounded", "K1 online", "K1 bounded lse", "K1 online lse",
 MIXED_FORMS = ("K2",)
 # the packages a media route for the CLI could use on the card
 MEDIA_PACKAGES = ("PIL", "torchvision.io", "av", "imageio")
+# what a tokenizer (CLIP-IQA, T5) or NIQE's .mat params could lean on there
+TOOL_PACKAGES = ("transformers", "regex", "ftfy", "scipy.io")
 # SASS opcodes counted per kernel form: Hopper's warpgroup MMA (HGMMA on
 # floating-point operands, IGMMA on int8), its TMA tensor load (UTMALDG) and
 # bulk copy (UBLKCP), and the pre-Hopper mma.sync (HMMA, IMMA)
@@ -371,13 +398,13 @@ def sass_counts(lib_path) -> dict[str, dict[str, int]] | None:
     return counts
 
 
-def media_packages() -> dict[str, str]:
-    """Which of MEDIA_PACKAGES this Python imports: each one's version, or
-    the error, from a child process (nothing is loaded into this one)."""
+def import_probe(names) -> dict[str, str]:
+    """Which of ``names`` this Python imports: each one's version, or the
+    error, from a child process (nothing is loaded into this one)."""
     code = (
         "import importlib, json\n"
         "out = {}\n"
-        f"for name in {MEDIA_PACKAGES!r}:\n"
+        f"for name in {tuple(names)!r}:\n"
         "    try:\n"
         "        m = importlib.import_module(name)\n"
         "        top = importlib.import_module(name.split('.')[0])\n"
@@ -443,7 +470,11 @@ def phase_build() -> None:
         log("  ptxas: K1/K2, K3 or K4/K5 was built before this run; spills not checked")
     elif not all(f in spills for f in HOPPER_FORMS):
         raise AssertionError(f"no ptxas report for some of {HOPPER_FORMS}: {spills}")
-    log(f"  media packages on this machine: {json.dumps(media_packages())}")
+    import shutil
+
+    log(f"  media packages on this machine: {json.dumps(import_probe(MEDIA_PACKAGES))}")
+    log(f"  tool packages on this machine: {json.dumps(import_probe(TOOL_PACKAGES))}; "
+        f"ffmpeg binary: {shutil.which('ffmpeg')}")
     counts = sass_counts(kernels.library_path("flash_fwd_sm90"))
     if counts is None:
         log("  SASS: no cuobjdump in this toolkit; opcode counts not taken")
@@ -2594,6 +2625,44 @@ def _fused_conv_launches(pipe, tile_shapes: list) -> dict:
     return want
 
 
+def _fused_upscale_modes(cfg, dit, vae, prompt) -> dict:
+    """The fused path under each --upscale_mode but bilinear, at 2 layers on
+    a 9x64x128 clip through K1, its launches held to layers x the measured
+    calls; each mode's device resize (``_upscale_input``) held to the same
+    op on the CPU tensor at tests/test_torch_resize.py's bars (doubled: the
+    input is mapped to [-1, 1])."""
+    from types import SimpleNamespace
+
+    from dove_tpu_torch.io.video import UPSCALE_MODES
+    from dove_tpu_torch.pipeline import DovePipeline
+
+    layers = cfg.dit.num_layers
+    small = np.random.default_rng(22).uniform(0, 1, (9, 64, 128, 3)).astype(np.float32)
+    plan = fused_plan(cfg, *small.shape[:3], cfg.upscale, **FUSED_2L)
+    pipe = DovePipeline(config=cfg, dit=dit, vae=vae, prompt_embedding=prompt,
+                        dtype=torch.bfloat16, device="cuda", sample_posterior=False)
+    cpu = SimpleNamespace(device=torch.device("cpu"))
+    out = {}
+    for mode in ("bicubic", "nearest", "area", "lanczos"):
+        dev = pipe._upscale_input(small, cfg.upscale, mode).cpu()
+        ref = DovePipeline._upscale_input(cpu, small, cfg.upscale, mode)
+        err = float((dev - ref).abs().max())
+        if not err <= 2 * RESIZE_ATOL[UPSCALE_MODES[mode]]:
+            raise AssertionError(f"phase 18 {mode}: the device resize is {err:.3e} "
+                                 "from the CPU's")
+        clip, rec = _drive_fused(pipe, small, seed=0, upscale_mode=mode, **FUSED_2L)
+        _check_float_clip(clip, (9, 256, 512, 3), f"phase 18 {mode}")
+        _check_attention_launches(rec, "k1", layers, plan, f"phase 18 {mode} run")
+        out[mode] = dict(resize_max_abs_err=err, k1=rec["k1"], calls=rec["calls"],
+                         wall_s=rec["wall_s"])
+    log("phase 18 fused path per --upscale_mode (2 layers, full width, 9x64x128 -> "
+        "256x512 through K1, the resize on the card): " + json.dumps(
+            {m: {k: (f"{v:.2e}" if k.endswith("err") else rounded(v, 3))
+                 for k, v in r.items()} for m, r in out.items()}))
+    del pipe
+    return out
+
+
 def phase_fused_kernel_vs_plain() -> dict:
     """The fused path at full widths and 2 DiT layers on the 32-frame 180x320
     clip, in 256x256 tiles of 16-frame chunks, two tiles a call: every DiT
@@ -2618,7 +2687,7 @@ def phase_fused_kernel_vs_plain() -> dict:
     prompt = torch.zeros((cfg.dit.max_text_seq_length, cfg.dit.text_embed_dim),
                          dtype=torch.bfloat16)
     expect = (CLIP_FRAMES, CLIP_H * cfg.upscale, CLIP_W * cfg.upscale, 3)
-    result = {}
+    result = {"modes": _fused_upscale_modes(cfg, dit, vae, prompt)}
     for mode, backends in ((None, (None, "plain")), ("int8-dit", (None, "plain-qk8"))):
         outs = {}
         for backend in backends:  # the int8 runs share the DiT quantized by the first
@@ -2933,10 +3002,368 @@ def phase_scoring(fused: np.ndarray, staged: np.ndarray) -> dict:
                 peak_bytes=peak)
 
 
+def _renamed(module, rules) -> dict:
+    """A module's state dict under a published layout's names: each name's
+    first matching (pattern, replacement) regex rule applied."""
+    import re
+
+    out = {}
+    for name, t in module.state_dict().items():
+        for pat, rep in rules:
+            if re.fullmatch(pat, name):
+                name = re.sub(pat, rep, name)
+                break
+        out[name] = t.detach().clone().contiguous()
+    return out
+
+
+def _seeded_bn(sd: dict, prefix: str, c: int, gen) -> None:
+    sd[f"{prefix}.weight"] = 1 + 0.1 * torch.randn(c, generator=gen)
+    sd[f"{prefix}.bias"] = 0.1 * torch.randn(c, generator=gen)
+    sd[f"{prefix}.running_mean"] = 0.1 * torch.randn(c, generator=gen)
+    sd[f"{prefix}.running_var"] = torch.rand(c, generator=gen) + 0.5
+    sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+
+
+def _raft_things_sd(gen) -> dict:
+    """Seeded weights in raft-things.pth's layout at its full channels: the
+    feature net on instance norms (no weights), the context net on
+    BatchNorms with running statistics; He-normal convs, the flow head's
+    last conv scaled by 0.01, so that the flow stays within a few pixels over
+    the 12 iterations (at 1, the updates add up to ~50 px, every pixel fails
+    the occlusion check and the score is 0)."""
+    sd = {}
+
+    def conv(name, cout, cin, kh, kw=None, scale=1.0):
+        kw = kh if kw is None else kw
+        sd[f"{name}.weight"] = (torch.randn(cout, cin, kh, kw, generator=gen)
+                                * (2.0 / (kh * kw * cin)) ** 0.5 * scale)
+        sd[f"{name}.bias"] = torch.zeros(cout)
+
+    for net, out_ch in (("fnet", 256), ("cnet", 256)):
+        norm = (lambda name, c: _seeded_bn(sd, name, c, gen)) if net == "cnet" else (
+            lambda name, c: None)
+        conv(f"{net}.conv1", 64, 3, 7)
+        norm(f"{net}.norm1", 64)
+        cin = 64
+        for i, cout in ((1, 64), (2, 96), (3, 128)):
+            for j in range(2):
+                pre = f"{net}.layer{i}.{j}"
+                conv(f"{pre}.conv1", cout, cin if j == 0 else cout, 3)
+                conv(f"{pre}.conv2", cout, cout, 3)
+                norm(f"{pre}.norm1", cout)
+                norm(f"{pre}.norm2", cout)
+                if j == 0 and i > 1:
+                    conv(f"{pre}.downsample.0", cout, cin, 1)
+                    norm(f"{pre}.norm3", cout)
+            cin = cout
+        conv(f"{net}.conv2", out_ch, 128, 1)
+    e = "update_block.encoder"
+    conv(f"{e}.convc1", 256, 324, 1)
+    conv(f"{e}.convc2", 192, 256, 3)
+    conv(f"{e}.convf1", 128, 2, 7)
+    conv(f"{e}.convf2", 64, 128, 3)
+    conv(f"{e}.conv", 126, 256, 3)
+    for gate in "zrq":
+        conv(f"update_block.gru.conv{gate}1", 128, 384, 1, 5)
+        conv(f"update_block.gru.conv{gate}2", 128, 384, 5, 1)
+    conv("update_block.flow_head.conv1", 256, 128, 3)
+    conv("update_block.flow_head.conv2", 2, 256, 3, scale=0.01)
+    conv("update_block.mask.0", 256, 128, 3)
+    conv("update_block.mask.2", 576, 256, 1)
+    return sd
+
+
+def _seeded_nr_weights(out_dir) -> dict[str, str]:
+    """Seeded checkpoints at the published widths, in the published
+    layouts, as the env vars the no-reference metrics read: a HuggingFace
+    CLIP ViT-B/32 snapshot and an OpenAI CLIP RN50 .pt (width 64, layers 3,
+    4, 6, 3, 32 attention-pool heads, 1024 out), each beside a vocab.json /
+    merges.txt that spells the two prompts; MUSIQ at MUSIQConfig(), MANIQA
+    at MANIQAConfig() (the official module's names), RAFT at full channels
+    (raft-things.pth's), and a NIQE .npz (seeded mean, SPD covariance).
+    The modules start from torch's default initialisation under a seed."""
+    import dataclasses
+    from pathlib import Path
+
+    from dove_tpu_torch import safetensors_io
+    from dove_tpu_torch.eval import clip as tclip
+    from dove_tpu_torch.eval import maniqa as tmaniqa
+    from dove_tpu_torch.eval import musiq as tmusiq
+    from dove_tpu_torch.eval.clip_tokenizer import write_bpe_files
+
+    out_dir = Path(out_dir)
+    gen = torch.Generator().manual_seed(21)
+    torch.manual_seed(21)
+    paths = {}
+
+    def normal_(t, std):
+        with torch.no_grad():
+            t.copy_(torch.randn(t.shape, generator=gen) * std)
+
+    # CLIP ViT-B/32 as a HF CLIPModel snapshot
+    cfg = tclip.CLIPConfig()
+    vit = tclip.CLIP(cfg)
+    for t, std in ((vit.vision.class_embed, 0.02), (vit.vision.pos_embed, 0.02),
+                   (vit.text.pos_embed, 0.01), (vit.text.token_embed.weight, 0.02)):
+        normal_(t, std)
+    hf = {"ln1": "layer_norm1", "ln2": "layer_norm2", "q": "self_attn.q_proj",
+          "k": "self_attn.k_proj", "v": "self_attn.v_proj", "out": "self_attn.out_proj",
+          "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
+    rules = [(rf"(vision|text)\.blocks\.(\d+)\.{ours}\.(weight|bias)",
+              rf"\1_model.encoder.layers.\2.{theirs}.\3") for ours, theirs in hf.items()]
+    rules += [(r"vision\.patch_embed\.weight", "vision_model.embeddings.patch_embedding.weight"),
+              (r"vision\.class_embed", "vision_model.embeddings.class_embedding"),
+              (r"vision\.pos_embed", "vision_model.embeddings.position_embedding.weight"),
+              (r"vision\.pre_ln\.(.*)", r"vision_model.pre_layrnorm.\1"),
+              (r"vision\.post_ln\.(.*)", r"vision_model.post_layernorm.\1"),
+              (r"text\.token_embed\.weight", "text_model.embeddings.token_embedding.weight"),
+              (r"text\.pos_embed", "text_model.embeddings.position_embedding.weight"),
+              (r"text\.final_ln\.(.*)", r"text_model.final_layer_norm.\1")]
+    vit_dir = out_dir / "clip_vit"
+    write_bpe_files(vit_dir, ("good", "bad", "photo"), cfg.vocab_size)
+    safetensors_io.save_file(_renamed(vit, rules), vit_dir / "model.safetensors")
+    (vit_dir / "config.json").write_text(json.dumps({
+        "projection_dim": cfg.projection_dim,
+        "vision_config": {"image_size": cfg.image_size, "patch_size": cfg.patch_size,
+                          "hidden_size": cfg.vision_width,
+                          "num_hidden_layers": cfg.vision_layers,
+                          "num_attention_heads": cfg.vision_heads},
+        "text_config": {"vocab_size": cfg.vocab_size,
+                        "max_position_embeddings": cfg.context_length,
+                        "hidden_size": cfg.text_width, "num_hidden_layers": cfg.text_layers,
+                        "num_attention_heads": cfg.text_heads}}))
+    paths["vit"] = str(vit_dir)
+    del vit
+
+    # CLIP RN50 as an OpenAI state dict (BatchNorms with seeded statistics)
+    rn50 = tclip.CLIP(dataclasses.replace(cfg, projection_dim=RN50_OUT),
+                      tclip.VisionRN50(RN50_WIDTH, RN50_HEADS, RN50_OUT))
+    normal_(rn50.text.pos_embed, 0.01)
+    normal_(rn50.text.token_embed.weight, 0.02)
+    sd = {}
+    own = rn50.state_dict()
+    for name, t in own.items():
+        if name.endswith(".scale"):
+            continue
+        if name.endswith(".bias") and name.removesuffix(".bias") + ".scale" in own:
+            _seeded_bn(sd, _openai_rn50_name(name.removesuffix(".bias")), t.shape[0], gen)
+            continue
+        sd[_openai_rn50_name(name)] = t.detach().clone()
+    for i in range(cfg.text_layers):
+        pre = f"transformer.resblocks.{i}"
+        sd[f"{pre}.attn.in_proj_weight"] = torch.cat(
+            [sd.pop(f"{pre}.attn.{n}.weight") for n in "qkv"])
+        sd[f"{pre}.attn.in_proj_bias"] = torch.cat(
+            [sd.pop(f"{pre}.attn.{n}.bias") for n in "qkv"])
+    sd["text_projection"] = sd.pop("text_projection.weight").T.contiguous()
+    sd["visual.attnpool.positional_embedding"] = torch.randn(
+        50, 32 * RN50_WIDTH, generator=gen) * 0.01
+    rn50_dir = out_dir / "clip_rn50"
+    write_bpe_files(rn50_dir, ("good", "bad", "photo"), cfg.vocab_size)
+    torch.save(sd, rn50_dir / "RN50.pt")
+    paths["rn50"] = str(rn50_dir / "RN50.pt")
+    del rn50, sd
+
+    # MUSIQ in the canonical flat layout
+    musiq = tmusiq.MUSIQ(tmusiq.MUSIQConfig())
+    for t in (musiq.cls_token, musiq.spatial_embedding, musiq.scale_embedding):
+        normal_(t, 0.02)
+    blk = {"norm1": "norm1", "qkv": "attn.qkv", "proj": "attn.proj", "norm2": "norm2",
+           "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
+    torch.save(_renamed(musiq, [(rf"blocks\.(\d+)\.{o}\.(.*)", rf"transformer.\1.{t}.\2")
+                                for o, t in blk.items()]), out_dir / "musiq.pt")
+    paths["musiq"] = str(out_dir / "musiq.pt")
+    del musiq
+
+    # MANIQA in the official module's layout
+    mcfg = tmaniqa.MANIQAConfig()
+    maniqa = tmaniqa.MANIQA(mcfg)
+    normal_(maniqa.cls_token, 0.02)
+    normal_(maniqa.pos_embed, 0.02)
+    for stage in (maniqa.swin1, maniqa.swin2):
+        for layer in stage.layers:
+            for b in layer:
+                normal_(b.rel_bias_table, 0.02)
+    rules = [(rf"blocks\.(\d+)\.{o}\.(.*)", rf"vit.blocks.\1.{t}.\2") for o, t in blk.items()]
+    rules += [(rf"swin([12])\.layers\.(\d+)\.(\d+)\.{o}\.(.*)",
+               rf"swintransformer\1.layers.\2.blocks.\3.{t}.\4") for o, t in blk.items()]
+    rules += [(r"swin([12])\.layers\.(\d+)\.(\d+)\.rel_bias_table",
+               r"swintransformer\1.layers.\2.blocks.\3.attn.relative_position_bias_table"),
+              (r"patch_embed\.(.*)", r"vit.patch_embed.proj.\1"),
+              (r"fc_(score|weight)\.1\.(.*)", r"fc_\1.3.\2")]
+    sd = _renamed(maniqa, rules)
+    sd["vit.cls_token"] = sd.pop("cls_token")[None]
+    sd["vit.pos_embed"] = sd.pop("pos_embed")[None]
+    torch.save(sd, out_dir / "maniqa.pt")
+    paths["maniqa"] = str(out_dir / "maniqa.pt")
+    del maniqa, sd
+
+    torch.save(_raft_things_sd(gen), out_dir / "raft-things.pth")
+    rng = np.random.default_rng(21)
+    a = rng.normal(0, 1, (36, 36))
+    np.savez(out_dir / "niqe.npz", mu=rng.normal(0, 1, 36), cov=a @ a.T / 36 + 0.1 * np.eye(36))
+    return {"DOVE_CLIP_WEIGHTS": paths["vit"], "DOVE_MUSIQ_WEIGHTS": paths["musiq"],
+            "DOVE_MANIQA_WEIGHTS": paths["maniqa"],
+            "DOVE_RAFT_WEIGHTS": str(out_dir / "raft-things.pth"),
+            "DOVE_NIQE_PARAMS": str(out_dir / "niqe.npz"), "rn50": paths["rn50"]}
+
+
+def _openai_rn50_name(name: str) -> str:
+    """The port's RN50 CLIP tensor (or BatchNorm) name -> OpenAI's."""
+    import re
+
+    m = re.fullmatch(r"vision\.layers\.(\d+)\.(\d+)\.(.*)", name)
+    if m:
+        rest = m[3].replace("down_conv", "downsample.0").replace("down_bn", "downsample.1")
+        return f"visual.layer{int(m[1]) + 1}.{m[2]}.{rest}"
+    for pat, rep in (
+            (r"vision\.(q|k|v|c)\.(weight|bias)", r"visual.attnpool.\1_proj.\2"),
+            (r"vision\.(.*)", r"visual.\1"),
+            (r"text\.token_embed\.weight", "token_embedding.weight"),
+            (r"text\.pos_embed", "positional_embedding"),
+            (r"text\.final_ln\.(.*)", r"ln_final.\1"),
+            (r"text\.blocks\.(\d+)\.ln([12])\.(.*)", r"transformer.resblocks.\1.ln_\2.\3"),
+            (r"text\.blocks\.(\d+)\.(q|k|v)\.(.*)", r"transformer.resblocks.\1.attn.\2.\3"),
+            (r"text\.blocks\.(\d+)\.out\.(.*)", r"transformer.resblocks.\1.attn.out_proj.\2"),
+            (r"text\.blocks\.(\d+)\.fc1\.(.*)", r"transformer.resblocks.\1.mlp.c_fc.\2"),
+            (r"text\.blocks\.(\d+)\.fc2\.(.*)", r"transformer.resblocks.\1.mlp.c_proj.\2")):
+        if re.fullmatch(pat, name):
+            return re.sub(pat, rep, name)
+    return name
+
+
+def _raft_with_and_without_cudnn(path: str, frames: np.ndarray) -> dict:
+    """Why RAFT skips cuDNN: the consecutive pairs of ``frames`` (ewarp's
+    chunk) through RAFT with the convolutions on cuDNN and on PyTorch's own
+    kernels (what ``raft_flow`` takes), each timed warm, in full fp32."""
+    from dove_tpu_torch.eval.vgg import full_fp32
+    from dove_tpu_torch.models import raft as traft
+
+    w = traft.load_raft(path, "cuda")
+    x = torch.as_tensor(frames, device="cuda")
+    out = {}
+    with torch.no_grad(), full_fp32():
+        for name, fn in (("cudnn", traft._raft_flow), ("native", traft.raft_flow)):
+            for _ in range(2):  # the second call is timed
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out[name] = fn(w, x[:-1], x[1:], RAFT_CUDNN_ITERS)
+                torch.cuda.synchronize()
+                out[f"{name}_s"] = time.perf_counter() - t
+    out["max_abs_diff"] = float((out.pop("cudnn") - out.pop("native")).abs().max())
+    return out
+
+
+def phase_nr_scoring(png_dir) -> dict:
+    """The no-reference scores on the card: phase 19's fused 32-frame 720p
+    clip, read back from its PNG dump (phase 20's), scored by clipiqa (ViT),
+    niqe, musiq, maniqa and ewarp on seeded checkpoints at the published
+    widths, through ``python -m dove_tpu_torch.eval_metrics`` with no
+    --gt_dir (the VideoLQ route of scripts/inference.sh) and in-process
+    through a MetricAccumulator: the same scores within NR_REL_TOL, every
+    one finite, clipiqa in (0, 1); then clipiqa on the RN50 .pt, both ways.
+    The CLI's child reports that it imported no cv2 and no transformers.
+    Seconds and peak memory per metric are the in-process run's."""
+    import os
+    import shutil
+    from pathlib import Path
+
+    from dove_tpu_torch.eval.ewarp import PAIR_CHUNK
+    from dove_tpu_torch.eval.metrics import MetricAccumulator
+    from dove_tpu_torch.io.video import load_sequence
+
+    root = Path("build/chip_smoke_nr")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    env = _seeded_nr_weights(root / "weights")
+    rn50 = env.pop("rn50")
+    weights_s = time.perf_counter() - t0
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    frames = load_sequence(Path(png_dir) / "clip")
+
+    def in_process(names) -> tuple[dict, dict]:
+        acc = MetricAccumulator(names, device="cuda")
+        stats = {}
+        for name, fn in list(acc._fns.items()):
+            def timed(pred, _fn=fn, _name=name):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t = time.perf_counter()
+                val = _fn(pred)
+                torch.cuda.synchronize()
+                stats[_name] = dict(s=time.perf_counter() - t,
+                                    peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+                return val
+            acc._fns[name] = timed
+        return acc.add("clip", frames, None), stats
+
+    def cli(names, extra_env) -> tuple[dict, list, float]:
+        out = root / f"cli_{'_'.join(names)}.json"
+        code = (
+            "import json, sys\n"
+            "from dove_tpu_torch import eval_metrics\n"
+            f"eval_metrics.main({['--pred_dir', str(png_dir), '--metrics', ','.join(names), '--output', str(out)]!r})\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('cv2', 'transformers'))\n"
+            "print('IMPORTED ' + json.dumps(bad))\n")
+        t = time.perf_counter()
+        res = subprocess.run([sys.executable, "-c", code], env={**os.environ, **extra_env},
+                             capture_output=True, text=True, timeout=900)
+        if res.returncode != 0:
+            raise AssertionError(f"phase 21 eval_metrics failed: {res.stderr[-3000:]}")
+        imported = json.loads(res.stdout.split("IMPORTED ")[-1].strip())
+        summary = json.loads(out.read_text())
+        if summary["count"] != 1 or summary["per_sample_names"] != ["clip"]:
+            raise AssertionError(f"phase 21 eval_metrics counted {summary['count']}")
+        return summary["average"], imported, time.perf_counter() - t
+
+    raft_cudnn = _raft_with_and_without_cudnn(env["DOVE_RAFT_WEIGHTS"],
+                                              frames[:PAIR_CHUNK + 1])
+    try:
+        vals, stats = in_process(list(NR_METRICS))
+        cli_vals, imported, cli_s = cli(list(NR_METRICS), {})
+        os.environ["DOVE_CLIP_WEIGHTS"] = rn50
+        rn_vals, rn_stats = in_process(["clipiqa"])
+        rn_cli, rn_imported, rn_cli_s = cli(["clipiqa"], {})
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    vals["clipiqa_rn50"], cli_vals["clipiqa_rn50"] = rn_vals["clipiqa"], rn_cli["clipiqa"]
+    stats["clipiqa_rn50"] = rn_stats["clipiqa"]
+    errs = {n: abs(cli_vals[n] - v) / max(abs(v), 1e-30) for n, v in vals.items()}
+    log(f"phase 21 no-reference scores ({CLIP_FRAMES}x720x1280, phase 19's fused clip "
+        f"from PNG, seeded checkpoints at the published widths, {weights_s:.1f}s to "
+        f"write): {json.dumps(rounded(vals, 6))}; per metric in-process "
+        f"{json.dumps({n: {'s': round(st['s'], 3), 'peak_gib': round(st['peak_gib'], 2)} for n, st in stats.items()})}; "
+        f"eval_metrics CLI without --gt_dir {cli_s:.1f}s (RN50 clipiqa {rn_cli_s:.1f}s), "
+        f"rel diffs {json.dumps({k: f'{v:.1e}' for k, v in errs.items()})}; the CLI's "
+        f"child imported {imported + rn_imported or 'no cv2 and no transformers'}; "
+        f"RAFT, {PAIR_CHUNK} 720x1280 pairs, {RAFT_CUDNN_ITERS} iterations, warm: through "
+        f"cuDNN {raft_cudnn['cudnn_s']:.3f}s, through PyTorch's own convolutions "
+        f"(the port's route) {raft_cudnn['native_s']:.3f}s, flows "
+        f"{raft_cudnn['max_abs_diff']:.2e} px apart")
+    if imported or rn_imported:
+        raise AssertionError(f"phase 21: the eval CLI imported {imported + rn_imported}")
+    bad = {n: e for n, e in errs.items() if not e <= NR_REL_TOL}
+    if bad:
+        raise AssertionError(f"phase 21 CLI and accumulator disagree: {bad}")
+    if not all(math.isfinite(v) for v in vals.values()):
+        raise AssertionError(f"phase 21 scores {vals}")
+    if not all(0.0 < vals[n] < 1.0 for n in ("clipiqa", "clipiqa_rn50")):
+        raise AssertionError(f"phase 21 clipiqa outside (0, 1): {vals}")
+    return dict(scores=vals, cli=cli_vals, stats=stats, cli_s=cli_s, rn50_cli_s=rn_cli_s,
+                weights_s=weights_s, raft_cudnn=raft_cudnn)
+
+
 def phases_fused_and_scoring() -> tuple[dict, dict]:
-    """Phase 19, then phase 20 on its clips."""
+    """Phase 19, then phases 20 and 21 on its clips."""
     fused = phase_fused_main_path()
     scores = phase_scoring(fused.pop("fused_out"), fused.pop("staged_out"))
+    scores["nr"] = phase_nr_scoring("build/chip_smoke_eval/pred")
     return fused, scores
 
 
@@ -2991,7 +3418,7 @@ def main(argv: list[str] | None = None) -> int:
                 ({16}, phase_s2_kernel_vs_plain),
                 ({17}, lambda: phase_s2_recipe(args.profile)),
                 ({18}, phase_fused_kernel_vs_plain),
-                ({19, 20}, phases_fused_and_scoring)):
+                ({19, 20, 21}, phases_fused_and_scoring)):
             if numbers & chosen:
                 t0 = time.perf_counter()
                 run()

@@ -8,7 +8,11 @@ unless the caller asks for the CPU: the five windowed sums of a clip are one
 batched convolution instead of a NumPy sliding window per frame. LPIPS and
 DISTS are the VGG16 distances of ``eval/vgg.py`` (weights from
 ``DOVE_LPIPS_WEIGHTS`` / ``DOVE_DISTS_WEIGHTS``). The no-reference metrics
-(clipiqa, niqe, maniqa, musiq) and ewarp are not ported yet and raise.
+score a clip alone: clipiqa (``eval/clip.py``, ``DOVE_CLIP_WEIGHTS``), niqe
+(``eval/niqe.py``, ``DOVE_NIQE_PARAMS``), maniqa (``eval/maniqa.py``,
+``DOVE_MANIQA_WEIGHTS``), musiq (``eval/musiq.py``, ``DOVE_MUSIQ_WEIGHTS``)
+and ewarp, RAFT's warping error (``eval/ewarp.py``, ``DOVE_RAFT_WEIGHTS``).
+Every learned metric runs on the card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -20,8 +24,6 @@ import torch
 import torch.nn.functional as F
 
 FULL_REFERENCE = ("psnr", "ssim", "lpips", "dists")
-NOT_PORTED = ("clipiqa", "niqe", "maniqa", "musiq", "ewarp", "e*warp",
-              "warping_error")
 
 
 def _to_y(rgb: np.ndarray) -> np.ndarray:
@@ -95,8 +97,9 @@ def match_resolution(pred: np.ndarray, gt: np.ndarray, mode: str = "top-left"):
 
 
 def get_metric(name: str, device=None) -> Callable:
-    """A metric by name -> fn(pred, gt) (full-reference). ``device`` is where
-    SSIM, LPIPS and DISTS run (None: the card)."""
+    """A metric by name -> fn(pred, gt) for the full-reference ones, fn(pred)
+    for the others. ``device`` is where the metrics past PSNR run (None: the
+    card)."""
     name = name.lower()
     if name == "psnr":
         return psnr
@@ -110,8 +113,37 @@ def get_metric(name: str, device=None) -> Callable:
         from dove_tpu_torch.eval.dists import dists_metric
 
         return dists_metric(device)
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"metric {name} is not ported yet (ROADMAP A.9)")
+    if name == "clipiqa":
+        from dove_tpu_torch.eval.clip import clipiqa_metric
+
+        return clipiqa_metric(device=device)
+    if name == "niqe":
+        from dove_tpu_torch.eval.niqe import niqe_metric
+
+        return niqe_metric(device=device)
+    if name == "maniqa":
+        from dove_tpu_torch.eval.maniqa import maniqa_metric
+
+        return maniqa_metric(device=device)
+    if name == "musiq":
+        from dove_tpu_torch.eval.musiq import musiq_metric
+
+        return musiq_metric(device=device)
+    if name in ("ewarp", "e*warp", "warping_error"):
+        import os
+
+        path = os.environ.get("DOVE_RAFT_WEIGHTS")
+        if not path or not os.path.exists(path):
+            raise NotImplementedError(
+                "E*warp needs RAFT weights: set DOVE_RAFT_WEIGHTS to a local "
+                "raft-things.pth (the reference uses the same checkpoint)"
+            )
+        from dove_tpu_torch.eval.ewarp import ewarp_clip
+        from dove_tpu_torch.models.raft import load_raft
+        from dove_tpu_torch.pipeline import resolve_device
+
+        weights = load_raft(path, resolve_device(device))
+        return lambda pred, _gt=None: ewarp_clip(weights, pred)
     raise ValueError(
         f"unknown metric '{name}'; available: psnr, ssim, lpips, dists, "
         "clipiqa, niqe, maniqa, musiq, ewarp"
@@ -131,11 +163,15 @@ class MetricAccumulator:
     def add(self, name: str, pred: np.ndarray, gt: np.ndarray | None) -> dict:
         # every metric is computed before anything is recorded, so that a
         # failure on one sample leaves no list ragged against the count
-        # (every ported metric is full-reference)
-        if gt is None:
-            raise ValueError(f"metrics {self.names} need --gt_dir")
-        p, g = match_resolution(pred, gt)
-        out = {metric: float(self._fns[metric](p, g)) for metric in self.names}
+        out = {}
+        for metric in self.names:
+            if metric in FULL_REFERENCE:
+                if gt is None:
+                    raise ValueError(f"metric {metric} needs --gt_dir")
+                val = self._fns[metric](*match_resolution(pred, gt))
+            else:
+                val = self._fns[metric](pred)
+            out[metric] = float(val)
         self.sample_names.append(name)
         for metric, val in out.items():
             self.per_sample[metric].append(val)

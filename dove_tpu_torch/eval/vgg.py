@@ -25,6 +25,7 @@ activations are NCHW for ``F.conv2d``. Everything is differentiable, so
 
 from __future__ import annotations
 
+import contextlib
 from pathlib import Path
 from typing import Mapping, Sequence
 
@@ -262,15 +263,28 @@ def _read_state_dict(path: str | Path) -> dict[str, torch.Tensor]:
 METRIC_FRAMES = 8
 
 
+@contextlib.contextmanager
+def full_fp32():
+    """cuDNN's convolutions and cuBLAS's fp32 products in full fp32 (no TF32,
+    which PyTorch allows for convolutions by default) inside the block, so
+    that a score does not depend on the process's settings."""
+    cudnn = torch.backends.cudnn
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.allow_tf32
+    matmul.allow_tf32 = False
+    try:
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic, allow_tf32=False):
+            yield
+    finally:
+        matmul.allow_tf32 = saved
+
+
 def _per_frame_mean(distance, pred: np.ndarray, gt: np.ndarray, device) -> float:
     """The mean over frames of distance(x, y) -> [n] on [n, H, W, 3] fp32
-    slices of ``METRIC_FRAMES`` frames on ``device``. cuDNN's convolutions
-    run in full fp32 here (no TF32, PyTorch's default for them), so that a
-    score does not depend on the process's settings."""
-    cudnn = torch.backends.cudnn
+    slices of ``METRIC_FRAMES`` frames on ``device``, in full fp32."""
     vals = []
-    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                     deterministic=cudnn.deterministic, allow_tf32=False):
+    with full_fp32():
         for s in range(0, len(pred), METRIC_FRAMES):
             x = torch.as_tensor(np.asarray(pred[s:s + METRIC_FRAMES], np.float32),
                                 device=device)

@@ -1,19 +1,25 @@
-"""Full-reference quality metrics of SR outputs against ground truth: the
-counterpart of ``scripts/eval_metrics.py``.
+"""Quality metrics of SR outputs: the counterpart of
+``scripts/eval_metrics.py``.
 
     python -m dove_tpu_torch.eval_metrics --pred_dir results/UDM10 \
-        --gt_dir datasets/UDM10/GT --metrics psnr,ssim,lpips,dists \
+        --gt_dir datasets/UDM10/GT --metrics psnr,ssim,lpips,dists,clipiqa \
         --output results/UDM10_metrics.json
+    python -m dove_tpu_torch.eval_metrics --pred_dir results/VideoLQ \
+        --metrics clipiqa,niqe,musiq,maniqa,ewarp
 
-Predictions and ground truth are matched by name: a frame folder by its
-name, a video file by its stem. Both are cropped to their common size
-(top-left or centered), optionally less a border, and scored per sample;
-the JSON holds ``per_sample``, ``average``, ``count`` and
-``per_sample_names``. Frame folders are read through PIL, video files
-through OpenCV, so on a machine without OpenCV the samples are frame
-folders. SSIM, LPIPS and DISTS run on the card unless ``--device cpu``;
-LPIPS and DISTS read exported weights from ``DOVE_LPIPS_WEIGHTS`` and
-``DOVE_DISTS_WEIGHTS``. The no-reference metrics are not ported yet.
+With a full-reference metric (psnr, ssim, lpips, dists) predictions and
+ground truth are matched by name (a frame folder by its name, a video file
+by its stem), a prediction without one skipped; both are cropped to their
+common size (top-left or centered), optionally less a border. The
+no-reference metrics (clipiqa, niqe, musiq, maniqa, ewarp) score the
+prediction alone, so they need no ``--gt_dir``. The JSON holds
+``per_sample``, ``average``, ``count`` and ``per_sample_names``. Frame
+folders are read through PIL, video files through OpenCV, so on a machine
+without OpenCV the samples are frame folders. Every metric past PSNR runs
+on the card unless ``--device cpu``; the learned ones read their weights
+from ``DOVE_LPIPS_WEIGHTS``, ``DOVE_DISTS_WEIGHTS``, ``DOVE_CLIP_WEIGHTS``,
+``DOVE_NIQE_PARAMS``, ``DOVE_MUSIQ_WEIGHTS``, ``DOVE_MANIQA_WEIGHTS`` and
+``DOVE_RAFT_WEIGHTS``.
 """
 
 from __future__ import annotations
@@ -49,7 +55,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="PSNR on the Y channel instead of RGB")
     ap.add_argument("--output", default=None)
     ap.add_argument("--device", default="cuda",
-                    help="where SSIM, LPIPS and DISTS run: cuda (default) or cpu")
+                    help="where the metrics past PSNR run: cuda (default) or cpu")
     return ap
 
 
@@ -57,6 +63,7 @@ def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
 
     from dove_tpu_torch.eval.metrics import (
+        FULL_REFERENCE,
         MetricAccumulator,
         match_resolution,
         psnr_y,
@@ -70,17 +77,20 @@ def main(argv=None) -> dict:
 
     preds = collect_samples(Path(args.pred_dir))
     gts = collect_samples(Path(args.gt_dir)) if args.gt_dir else {}
+    needs_gt = any(m in FULL_REFERENCE for m in acc.names)
     for stem, pred_path in preds.items():
         gt_path = gts.get(stem)
-        if gt_path is None:
+        if needs_gt and gt_path is None:
             print(f"skip {stem}: no GT match", file=sys.stderr)
             continue
-        pred, gt = match_resolution(load_sequence(pred_path),
-                                    load_sequence(gt_path), args.match_mode)
-        if args.crop_border:
-            b = args.crop_border
-            pred = pred[:, b:-b, b:-b]
-            gt = gt[:, b:-b, b:-b]
+        pred = load_sequence(pred_path)
+        gt = load_sequence(gt_path) if gt_path is not None else None
+        if gt is not None:
+            pred, gt = match_resolution(pred, gt, args.match_mode)
+            if args.crop_border:
+                b = args.crop_border
+                pred = pred[:, b:-b, b:-b]
+                gt = gt[:, b:-b, b:-b]
         vals = acc.add(stem, pred, gt)
         print(stem, {k: round(v, 4) for k, v in vals.items()})
 

@@ -17,6 +17,7 @@ import sys
 from pathlib import Path
 
 import numpy as np
+import torch
 
 logger = logging.getLogger(__name__)
 
@@ -257,38 +258,32 @@ def save_video_lossless(
     return out_path.with_suffix("")
 
 
-# cv2 interpolation flag names, resolved inside bilinear_upscale
-_UPSCALE_MODES = {
-    "bilinear": "INTER_LINEAR",
-    "bicubic": "INTER_CUBIC",
-    "nearest": "INTER_NEAREST",
-    "area": "INTER_AREA",
-    "lanczos": "INTER_LANCZOS4",
+# the CLI's --upscale_mode names -> ops/resize.py's modes
+UPSCALE_MODES = {
+    "bilinear": "linear",
+    "bicubic": "cubic",
+    "nearest": "nearest",
+    "area": "area",
+    "lanczos": "lanczos4",
 }
 
 
 def bilinear_upscale(
     frames: np.ndarray, scale: int, mode: str = "bilinear"
 ) -> np.ndarray:
-    """[F, H, W, 3] -> [F, H*s, W*s, 3]; half-pixel sampling (matches
-    torch.nn.functional.interpolate(..., align_corners=False)). Through
-    OpenCV's resize: without OpenCV it raises, naming the mode."""
-    if mode not in _UPSCALE_MODES:
-        raise ValueError(f"unknown upscale mode {mode!r}; one of {sorted(_UPSCALE_MODES)}")
+    """[F, H, W, 3] -> [F, H*s, W*s, 3]: what the JAX package's cv2.resize
+    computes with the mode's interpolation (bilinear: half-pixel sampling),
+    through ``ops/resize.py`` on the CPU, without OpenCV."""
+    from dove_tpu_torch.ops.resize import resize
+
+    if mode not in UPSCALE_MODES:
+        raise ValueError(f"unknown upscale mode {mode!r}; one of {sorted(UPSCALE_MODES)}")
     if scale == 1:
         return frames
-    try:
-        import cv2
-    except ImportError as e:
-        raise RuntimeError(
-            f"upscale mode {mode!r} needs OpenCV (cv2), which this machine "
-            "lacks; the default 'bilinear' runs on the device without it") from e
-    interp = getattr(cv2, _UPSCALE_MODES[mode])
-    F, H, W, _ = frames.shape
-    out = np.empty((F, H * scale, W * scale, frames.shape[3]), dtype=frames.dtype)
-    for i in range(F):
-        out[i] = cv2.resize(frames[i], (W * scale, H * scale), interpolation=interp)
-    return out
+    F_, H, W, _ = frames.shape
+    x = torch.from_numpy(np.ascontiguousarray(frames, np.float32))
+    return resize(x, (H * scale, W * scale), UPSCALE_MODES[mode]).numpy().astype(
+        frames.dtype, copy=False)
 
 
 def list_videos(input_dir: str | Path) -> list[Path]:

@@ -65,6 +65,7 @@ from dove_tpu_torch.models import vae as vae_mod
 from dove_tpu_torch.models.dit import CogVideoXTransformer3D
 from dove_tpu_torch.models.vae import AutoencoderKLCogVideoX
 from dove_tpu_torch.ops import quant
+from dove_tpu_torch.ops.resize import resize
 from dove_tpu_torch.ops.scheduler import Schedule
 from dove_tpu_torch.train.losses import one_step_x0_latent
 
@@ -707,18 +708,16 @@ class DovePipeline:
     def _upscale_input(self, padded: np.ndarray, upscale: int,
                        upscale_mode: str) -> torch.Tensor:
         """The fused path's input: padded [F, H, W, 3] in [0, 1] -> [F, H*u,
-        W*u, 3] fp32 in [-1, 1] on the device. Bilinear runs on the device
-        (half-pixel, edge-clamped: what the JAX package's host upscale,
-        ``native.upscale_bilinear`` or cv2's INTER_LINEAR, computes on float
-        input); the other modes take the host's cv2 resize, as there."""
-        if upscale_mode == "bilinear":
-            x = torch.as_tensor(padded, dtype=torch.float32).to(self.device)
-            if upscale != 1:
-                x = bilinear_upscale(x[None], upscale)[0]
-        else:
-            x = torch.as_tensor(
-                video_io.bilinear_upscale(padded, upscale, upscale_mode),
-                dtype=torch.float32).to(self.device)
+        W*u, 3] fp32 in [-1, 1] on the device, every mode through
+        ``ops/resize.py``: the counterpart of the cv2 resize the JAX package
+        calls (bilinear: also of ``native.upscale_bilinear``)."""
+        if upscale_mode not in video_io.UPSCALE_MODES:
+            raise ValueError(f"unknown upscale mode {upscale_mode!r}; one of "
+                             f"{sorted(video_io.UPSCALE_MODES)}")
+        x = torch.as_tensor(padded, dtype=torch.float32).to(self.device)
+        if upscale != 1:
+            x = resize(x, (x.shape[1] * upscale, x.shape[2] * upscale),
+                       video_io.UPSCALE_MODES[upscale_mode])
         return x * 2.0 - 1.0
 
     @torch.inference_mode()

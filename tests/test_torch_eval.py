@@ -142,10 +142,22 @@ def test_accumulator_summaries_match_jax(metric_weights, monkeypatch):
             assert _err(k, a, b) <= TOL[k]
 
 
+NO_REFERENCE_ENV = {"clipiqa": "DOVE_CLIP_WEIGHTS", "niqe": "DOVE_NIQE_PARAMS",
+                    "maniqa": "DOVE_MANIQA_WEIGHTS", "musiq": "DOVE_MUSIQ_WEIGHTS",
+                    "ewarp": "DOVE_RAFT_WEIGHTS"}
+
+
 def test_metric_router_errors(monkeypatch):
-    for name in ("clipiqa", "niqe", "maniqa", "musiq", "ewarp"):
-        with pytest.raises(NotImplementedError, match=r"not ported yet \(ROADMAP A\.9\)"):
+    """Without its weights each no-reference metric raises the JAX package's
+    message (the port's own converter named where JAX names its), naming its
+    environment variable; unknown names and missing --gt_dir raise."""
+    for name, env in NO_REFERENCE_ENV.items():
+        monkeypatch.delenv(env, raising=False)
+        with pytest.raises(NotImplementedError, match=env) as ours:
             tmetrics.get_metric(name, device="cpu")
+        with pytest.raises(NotImplementedError) as ref:
+            jmetrics.get_metric(name)
+        assert str(ours.value).replace("dove_tpu_torch/", "dove_tpu/") == str(ref.value)
     for mod in (tmetrics, jmetrics):
         with pytest.raises(ValueError, match="unknown metric 'psnrr'"):
             mod.get_metric("psnrr")
@@ -153,7 +165,7 @@ def test_metric_router_errors(monkeypatch):
     with pytest.raises(NotImplementedError, match="DOVE_LPIPS_WEIGHTS"):
         tmetrics.get_metric("lpips", device="cpu")
     acc = tmetrics.MetricAccumulator(["psnr", "ssim"], device="cpu")
-    with pytest.raises(ValueError, match="need --gt_dir"):
+    with pytest.raises(ValueError, match="needs --gt_dir"):
         acc.add("x", *_clip_pair(9)[:1], None)
     assert acc.summary()["count"] == 0 and acc.per_sample == {"psnr": [], "ssim": []}
 

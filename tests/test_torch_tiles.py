@@ -232,14 +232,41 @@ def test_device_upscale_matches_the_host_upscales(scale):
 
 
 def test_host_upscale_modes(monkeypatch):
-    """bicubic goes through cv2 as in JAX; without cv2 a non-bilinear mode
-    raises, naming the mode; an unknown mode raises."""
+    """Every --upscale_mode runs through ops/resize.py with cv2 absent, each
+    within tests/test_torch_resize.py's bar of the JAX package's cv2 resize;
+    an unknown mode raises."""
+    from test_torch_resize import ATOL as RESIZE_ATOL
+
     frames = np.random.default_rng(6).uniform(0, 1, (2, 8, 8, 3)).astype(np.float32)
-    np.testing.assert_array_equal(tvideo.bilinear_upscale(frames, 4, "bicubic"),
-                                  jvideo.bilinear_upscale(frames, 4, "bicubic"))
+    refs = {mode: jvideo.bilinear_upscale(frames, 4, mode)
+            for mode in tvideo.UPSCALE_MODES}
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    for mode, ref in refs.items():
+        ours = tvideo.bilinear_upscale(frames, 4, mode)
+        assert ours.shape == ref.shape == (2, 32, 32, 3) and ours.dtype == np.float32
+        np.testing.assert_allclose(ours, ref, rtol=0,
+                                   atol=RESIZE_ATOL[tvideo.UPSCALE_MODES[mode]])
     with pytest.raises(ValueError, match="unknown upscale mode"):
         tvideo.bilinear_upscale(frames, 4, "sinc")
+
+
+def test_fused_upscale_input_takes_every_mode_without_cv2(monkeypatch):
+    """DovePipeline._upscale_input, the fused path's input, with cv2 absent:
+    every mode equals the JAX package's host upscale (cv2) times 2 minus 1
+    within tests/test_torch_resize.py's bars."""
+    from types import SimpleNamespace
+
+    from dove_tpu_torch.pipeline import DovePipeline
+    from test_torch_resize import ATOL as RESIZE_ATOL
+
+    padded = np.random.default_rng(7).uniform(0, 1, (3, 8, 12, 3)).astype(np.float32)
+    refs = {mode: jvideo.bilinear_upscale(padded, 4, mode) * 2.0 - 1.0
+            for mode in tvideo.UPSCALE_MODES}
     monkeypatch.setitem(sys.modules, "cv2", None)
-    for mode in ("bicubic", "area", "lanczos"):
-        with pytest.raises(RuntimeError, match=f"'{mode}' needs OpenCV"):
-            tvideo.bilinear_upscale(frames, 4, mode)
+    host = SimpleNamespace(device=torch.device("cpu"))
+    for mode, ref in refs.items():
+        ours = DovePipeline._upscale_input(host, padded, 4, mode).numpy()
+        atol = max(2 * RESIZE_ATOL[tvideo.UPSCALE_MODES[mode]], UPSCALE_ATOL)
+        np.testing.assert_allclose(ours, ref, rtol=0, atol=atol, err_msg=mode)
+    with pytest.raises(ValueError, match="unknown upscale mode"):
+        DovePipeline._upscale_input(host, padded, 1, "sinc")
