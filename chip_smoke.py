@@ -14,9 +14,10 @@ Phases, one result line each; any failure exits non-zero:
    (TMA load), UBLKCP (bulk copy) and HMMA / IMMA (mma.sync) in its SASS
    where the toolkit has cuobjdump: every K1, K2, K3a, K3b, K4 and K5 form
    must issue wgmma and TMA loads and no mma.sync, and spill nothing (K2
-   both int8 and bf16 wgmma); which media packages (PIL, torchvision.io,
-   av, imageio) and tool packages (transformers, regex, ftfy, scipy.io) the
-   card's Python imports, and whether an ffmpeg binary is on the PATH;
+   both int8 and bf16 wgmma); which media packages (PIL, cv2,
+   torchvision.io, av, imageio) and tool packages (transformers, regex, ftfy, scipy.io) the
+   card's Python imports, whether an ffmpeg binary is on the PATH, and
+   whether the port's io/video.py writes an mp4 and reads it back;
 2. K1 (the bf16 flash-attention forward, wgmma/TMA) against its plain
    PyTorch version on the card, bounded and online-softmax forms, at the
    main path's shape, 4097 and 200, and at every Sq, Skv around its
@@ -117,7 +118,27 @@ Phases, one result line each; any failure exits non-zero:
    MetricAccumulator, the same scores; clipiqa also on an OpenAI RN50 .pt,
    both ways; seconds and peak memory per metric; one RAFT pass over
    ewarp's chunk of pairs timed through cuDNN and through PyTorch's own
-   convolutions (the port's route).
+   convolutions (the port's route);
+22. the training data pipeline at the stage-1 recipe's size: RealSRDataset
+   (a subclass whose read_clip makes seeded smooth 40x540x960 clips: the
+   card decoded no video file before) cropping 35x480x960 for 25x320x640,
+   with configs/degradation.yaml (where OpenCV does not import, less mpeg4:
+   its share moved to libx264 and h264, as mpeg4 needs OpenCV's writer);
+   one item's seconds by op, items/s in this process and through the
+   DataLoader at 8 worker processes (and at the host's core count), the
+   workers' first batch equal to the in-process one, the peak host RSS, a
+   stage-2 item with its image pair from a PNG file, Pillow's libjpeg;
+23. the training entry point at 42 layers: ``python -m
+   dove_tpu_torch.train``'s main with scripts/train_s1.sh's flags (4 steps,
+   a checkpoint every 2, validation every 2 on two PNG-folder clips with
+   GT, psnr and ssim, items made in this process) on phase 22's dataset:
+   step walls,
+   the loader's wait, K1-lse / K3a / K3b launches per step and K1 launches
+   per validation (layers x DiT passes), validation seconds and peak; a
+   resume from checkpoint-2 repeating steps 3 and 4; 2 steps of the
+   is_latent route (the cache filled in this process); 2 steps of
+   scripts/train_s2.sh's flags; and phase 22's first two batches through 2
+   layers with the kernels and with the plain attention.
 
 Then one JSON line with the kernels' numbers, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}.
@@ -137,6 +158,8 @@ import time
 
 import numpy as np
 import torch
+
+from dove_tpu_torch.data.datasets import RealSRDataset, RealSRImageVideoDataset
 
 # H100 SXM data sheet (dense): 989 TFLOP/s bf16 and 1,979 TOP/s int8 on the
 # tensor cores, 3.35 TB/s HBM.
@@ -211,6 +234,23 @@ NR_REL_TOL = 1e-6
 RAFT_CUDNN_ITERS = 2
 # OpenAI CLIP RN50: stem width, attention-pool heads, embedding width
 RN50_WIDTH, RN50_HEADS, RN50_OUT = 64, 32, 1024
+# The data pipeline and the training entry point (phases 22, 23): seeded
+# source clips of 40x540x960 (crops of 35x480x960 for 25x320x640), 16
+# manifest entries for the loader's rates, 4 for the recipe runs (two steps
+# an epoch, so a resume at step 2 starts an epoch; phase 23 makes its items
+# in its own process, where 8 threads make one in ~4 s, against ~40 s in
+# a one-thread worker), DIV2K-sized PNG images,
+# two 9x180x320 validation clips; the stage-1 step the loader must keep up
+# with (PERF.md section 5, G1); a resumed step against the first run's at one
+# bf16 ulp, relative.
+DATA_DIR = "build/chip_smoke_data"
+SOURCE_FRAMES, SOURCE_H, SOURCE_W = 40, 540, 960
+DATA_CLIPS, RECIPE_CLIPS = 16, 4
+IMAGE_HW = (1356, 2040)
+VAL_CLIPS, VAL_FRAMES, VAL_H, VAL_W = 2, 9, 180, 320
+LOADER_WORKERS = 8
+STEP_S1_S = 2.100
+RESUME_LOSS_REL_TOL = 2.0 ** -8
 # The streamed clip: 100 frames pad to 105, 27 latents, 4 DiT windows.
 STREAM_FRAMES = 100
 # K5 against its plain version: fp32 products summed in another order, the
@@ -357,7 +397,7 @@ HOPPER_FORMS = ("K1 bounded", "K1 online", "K1 bounded lse", "K1 online lse",
 # the forms whose wgmma must be both int8 (Q K^T) and bf16 (P V)
 MIXED_FORMS = ("K2",)
 # the packages a media route for the CLI could use on the card
-MEDIA_PACKAGES = ("PIL", "torchvision.io", "av", "imageio")
+MEDIA_PACKAGES = ("PIL", "cv2", "torchvision.io", "av", "imageio")
 # what a tokenizer (CLIP-IQA, T5) or NIQE's .mat params could lean on there
 TOOL_PACKAGES = ("transformers", "regex", "ftfy", "scipy.io")
 # SASS opcodes counted per kernel form: Hopper's warpgroup MMA (HGMMA on
@@ -420,6 +460,26 @@ def import_probe(names) -> dict[str, str]:
     return json.loads(res.stdout.strip().splitlines()[-1])
 
 
+def video_probe() -> str:
+    """Whether the port's video-file I/O (``io/video.py``, through OpenCV)
+    writes an mp4 here and reads it back, in a child process."""
+    code = (
+        "import numpy as np\n"
+        "from dove_tpu_torch.io import video\n"
+        "clip = np.linspace(0, 1, 5 * 48 * 64 * 3, dtype=np.float32).reshape(5, 48, 64, 3)\n"
+        "path = video.save_video(clip, 'build/video_probe.mp4')\n"
+        "back = video.read_video_frames(path)\n"
+        "err = float(np.abs(back - clip).max())\n"
+        "print(f'{path.name} written as {video._MP4_FOURCC}, {len(back)} of 5 frames "
+        "read back, max abs err {err:.3f}')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120)
+    if res.returncode != 0:
+        return f"fails: {res.stderr.strip().splitlines()[-1][-160:]}"
+    return res.stdout.strip().splitlines()[-1]
+
+
 def phase_build() -> None:
     import ctypes
     import re
@@ -475,6 +535,7 @@ def phase_build() -> None:
     log(f"  media packages on this machine: {json.dumps(import_probe(MEDIA_PACKAGES))}")
     log(f"  tool packages on this machine: {json.dumps(import_probe(TOOL_PACKAGES))}; "
         f"ffmpeg binary: {shutil.which('ffmpeg')}")
+    log(f"  video files through the port's io/video.py: {video_probe()}")
     counts = sass_counts(kernels.library_path("flash_fwd_sm90"))
     if counts is None:
         log("  SASS: no cuobjdump in this toolkit; opcode counts not taken")
@@ -3367,6 +3428,509 @@ def phases_fused_and_scoring() -> tuple[dict, dict]:
     return fused, scores
 
 
+# ---------------------------------------------------------------------------
+# Phases 22 and 23: the training data pipeline and the training entry point
+# ---------------------------------------------------------------------------
+
+class SmoothClips(RealSRDataset):
+    """The stage-1 dataset with each manifest entry's frames made from a seed
+    (the card decodes no video file, ROADMAP C.2): only ``read_clip`` is
+    replaced."""
+
+    def read_clip(self, path, max_frames: int) -> torch.Tensor:
+        return smooth_clip(_clip_seed(path))[:max_frames]
+
+
+class SmoothClipsWithImages(RealSRImageVideoDataset):
+    """The stage-2 dataset: seeded clips for the video entries, the image
+    entries read from their PNG files through Pillow."""
+
+    def read_clip(self, path, max_frames: int) -> torch.Tensor:
+        if str(path).lower().endswith(".png"):
+            return super().read_clip(path, max_frames)
+        return smooth_clip(_clip_seed(path))[:max_frames]
+
+
+def _clip_seed(path) -> int:
+    return int(str(path).rsplit("_", 1)[-1].split(".")[0])
+
+
+def smooth_clip(seed: int, frames: int = SOURCE_FRAMES, h: int = SOURCE_H,
+                w: int = SOURCE_W) -> torch.Tensor:
+    """A seeded smooth clip [frames, h, w, 3] in [0, 1] on the host: a coarse
+    random grid, trilinearly upsampled."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator().manual_seed(seed)
+    coarse = torch.rand((1, 3, 6, max(h // 40, 2), max(w // 40, 2)), generator=gen)
+    clip = F.interpolate(coarse, size=(frames, h, w), mode="trilinear",
+                         align_corners=False)
+    return clip[0].permute(1, 2, 3, 0).contiguous()
+
+
+def _write_png(array01, path) -> None:
+    from PIL import Image
+
+    u8 = (np.asarray(array01) * 255.0).clip(0, 255).astype(np.uint8)
+    Image.fromarray(u8).save(path, compress_level=1)
+
+
+def prepare_data_dir() -> dict:
+    """build/chip_smoke_data: manifests of seeded clip entries (empty files:
+    SmoothClips makes the frames), DIV2K-sized PNG images, the validation
+    set (PNG folders of 9x180x320 with 9x720x1280 GT), and the degradation
+    configs: the published ones where OpenCV imports, else with mpeg4's
+    codec share moved to libx264 and h264 (C.2)."""
+    import shutil
+    from pathlib import Path
+
+    import torch.nn.functional as F
+
+    root = Path(DATA_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "clips").mkdir(parents=True)
+    for i in range(DATA_CLIPS):
+        (root / "clips" / f"clip_{i}.mp4").touch()
+    (root / "loader.txt").write_text("".join(f"clips/clip_{i}.mp4\n"
+                                             for i in range(DATA_CLIPS)))
+    (root / "HQ-VSR.txt").write_text("".join(f"clips/clip_{i}.mp4\n"
+                                             for i in range(RECIPE_CLIPS)))
+    div2k = root / "DIV2K"
+    div2k.mkdir()
+    for i in range(RECIPE_CLIPS):
+        _write_png(smooth_clip(100 + i, 1, *IMAGE_HW)[0], div2k / f"{i:04d}.png")
+    (div2k / "DIV2K.txt").write_text("".join(f"{i:04d}.png\n"
+                                             for i in range(RECIPE_CLIPS)))
+    for k in range(VAL_CLIPS):
+        gt = smooth_clip(200 + k, VAL_FRAMES, VAL_H * 4, VAL_W * 4)
+        lq = F.interpolate(gt.permute(0, 3, 1, 2), size=(VAL_H, VAL_W), mode="area")
+        lq = lq.permute(0, 2, 3, 1)
+        for kind, frames in (("GT", gt), ("LQ", lq)):
+            d = root / "UDM10" / kind / f"clip{k}"
+            d.mkdir(parents=True)
+            for t in range(VAL_FRAMES):
+                _write_png(frames[t], d / f"{t:03d}.png")
+    # mpeg4 round-trips through OpenCV's writer: where OpenCV is missing, its
+    # codec share moves to libx264 and h264 (the MJPEG round trip)
+    try:
+        import cv2  # noqa: F401
+
+        mpeg4 = True
+    except ImportError:
+        mpeg4 = False
+    configs = {}
+    for name in ("degradation.yaml", "degradation_image_video.yaml"):
+        configs[name] = Path("configs", name)
+        if mpeg4:
+            continue
+        text = configs[name].read_text()
+        moved = text.replace("codec_prob: [0.3333, 0.3333, 0.3334]",
+                             "codec_prob: [0.5, 0.5, 0.0]")
+        if moved.count("codec_prob: [0.5, 0.5, 0.0]") != text.count("codec_prob:"):
+            raise AssertionError(f"{name}: a codec_prob line is not the published one")
+        configs[name] = root / name.replace(".yaml", "_no_mpeg4.yaml")
+        configs[name].write_text(moved)
+    return {"root": root, "configs": configs, "mpeg4": mpeg4}
+
+
+class _TimedOps:
+    """For the length of a ``with``: every degradation op class's ``__call__``
+    adds its seconds to ``seconds`` under the class's name."""
+
+    def __init__(self):
+        from dove_tpu_torch.data import degradation as deg_mod
+
+        self.classes = [deg_mod.RandomBlur, deg_mod.RandomResize, deg_mod.RandomNoise,
+                        deg_mod.RandomJPEGCompression, deg_mod.RandomVideoCompression]
+        self.seconds: dict[str, float] = {}
+
+    def __enter__(self):
+        self.saved = [cls.__call__ for cls in self.classes]
+        for cls, call in zip(self.classes, self.saved):
+            def timed(op, frames, rng, call=call, name=cls.__name__):
+                t0 = time.perf_counter()
+                out = call(op, frames, rng)
+                self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
+                return out
+
+            cls.__call__ = timed
+        return self
+
+    def __exit__(self, *exc):
+        for cls, call in zip(self.classes, self.saved):
+            cls.__call__ = call
+
+
+def _peak_rss_gib() -> tuple[float, float]:
+    import resource
+
+    kib = [resource.getrusage(w).ru_maxrss for w in (resource.RUSAGE_SELF,
+                                                      resource.RUSAGE_CHILDREN)]
+    return kib[0] / 2**20, kib[1] / 2**20
+
+
+def _loader_run(dataset, workers: int, batches: int) -> tuple[list, dict]:
+    """The first ``batches`` batches of a Loader of TRAIN_BATCH with
+    ``workers`` processes: (the batches, items/s whole and after the first
+    batch, seconds to the first batch)."""
+    from dove_tpu_torch.data.loader import Loader
+
+    loader = Loader(dataset, batch_size=TRAIN_BATCH, num_workers=workers, seed=42)
+    out = []
+    t0 = time.perf_counter()
+    it = iter(loader)
+    for _ in range(batches):
+        out.append(next(it))
+        if len(out) == 1:
+            t_first = time.perf_counter()
+    del it
+    t_end = time.perf_counter()
+    n = batches * TRAIN_BATCH
+    rest = (n - TRAIN_BATCH) / (t_end - t_first) if batches > 1 else None
+    return out, dict(items=n, items_per_s=n / (t_end - t0), after_first_per_s=rest,
+                     first_batch_s=t_first - t0)
+
+
+def phase_data_pipeline() -> dict:
+    """Phase 22: the data pipeline at the stage-1 recipe's size (train
+    resolution 25x320x640, so a 35x480x960 crop of each 40x540x960 source)."""
+    import os
+
+    from PIL import features
+
+    data = prepare_data_dir()
+    root = data["root"]
+    cfg = data["configs"]["degradation.yaml"]
+    ds = SmoothClips(root, root / "loader.txt", TRAIN_FRAMES, TRAIN_H, TRAIN_W, cfg,
+                     seed=42)
+    # the loader's first batch made in this process: items/s at 0 workers,
+    # and the first item's seconds by op
+    from dove_tpu_torch.data.loader import BatchPlan
+
+    first_idx = BatchPlan(len(ds), TRAIN_BATCH, seed=42).batches()[0]
+    t0 = time.perf_counter()
+    with _TimedOps() as timed:
+        inline = [ds[first_idx[0]]]
+        item_s = time.perf_counter() - t0
+    inline.append(ds[first_idx[1]])
+    rates = {0: dict(items=TRAIN_BATCH, items_per_s=TRAIN_BATCH / (time.perf_counter() - t0))}
+    op_s = dict(timed.seconds)
+    op_s["read, crops and the final resize"] = item_s - sum(op_s.values())
+    if inline[0]["lq_video"].shape != (TRAIN_FRAMES, TRAIN_H, TRAIN_W, 3):
+        raise AssertionError(f"phase 22 item {inline[0]['lq_video'].shape}")
+    kept = None
+    for workers in sorted({LOADER_WORKERS, os.cpu_count() or LOADER_WORKERS}):
+        n_batches = min(max(2, workers // TRAIN_BATCH), DATA_CLIPS // TRAIN_BATCH)
+        batches, rates[workers] = _loader_run(ds, workers, n_batches)
+        if not all(np.array_equal(batches[0][k][i], inline[i][k])
+                   for k in ("hq_video", "lq_video") for i in range(TRAIN_BATCH)):
+            raise AssertionError(f"phase 22: the first batch of {workers} workers "
+                                 "differs from the in-process batch")
+        if workers == LOADER_WORKERS:
+            kept = batches[:2]
+    rss_self, rss_children = _peak_rss_gib()
+
+    # the stage-2 image branch on PNG files read through Pillow
+    s2cfg = data["configs"]["degradation_image_video.yaml"]
+    ds2 = SmoothClipsWithImages(
+        root, root / "HQ-VSR.txt", S2_FRAMES, S2_H, S2_W, s2cfg,
+        image_data_root=root / "DIV2K", image_manifest=root / "DIV2K" / "DIV2K.txt",
+        seed=42)
+    t0 = time.perf_counter()
+    item2 = ds2[0]
+    s2_item_s = time.perf_counter() - t0
+    if item2["lq_image"].shape != (1, S2_H, S2_W, 3):
+        raise AssertionError(f"phase 22 image pair {item2['lq_image'].shape}")
+    need = TRAIN_BATCH / STEP_S1_S
+    keeps_up = rates[LOADER_WORKERS]["items_per_s"] >= need
+    jpeg = f"libjpeg {features.version('jpg')} (turbo: {features.check_feature('libjpeg_turbo')})"
+    log(f"phase 22 data pipeline (stage-1 recipe: {TRAIN_FRAMES}x{TRAIN_H}x{TRAIN_W}, "
+        f"crops of {ds.inter_frames}x{ds.inter_height}x{ds.inter_width} from "
+        f"{SOURCE_FRAMES}x{SOURCE_H}x{SOURCE_W} seeded "
+        f"clips, configs/degradation.yaml{'' if data['mpeg4'] else ', mpeg4 moved to libx264/h264 (no OpenCV)'}): "
+        f"one item {item_s:.2f}s in this process, by op "
+        f"{json.dumps({k: round(v, 3) for k, v in op_s.items()})}; loader "
+        f"{json.dumps({w: {k: (round(v, 3) if isinstance(v, float) else v) for k, v in r.items()} for w, r in rates.items()})} "
+        f"(workers: items/s over the run and after the first batch); the first batch of "
+        f"{LOADER_WORKERS} workers equal to the in-process one; the stage-1 step needs "
+        f"{need:.3f} items/s ({TRAIN_BATCH} per {STEP_S1_S} s, PERF.md section 5): "
+        f"{'kept up' if keeps_up else 'NOT kept up'} at {LOADER_WORKERS} workers; "
+        f"stage-2 item (a 2x320x640 pair and an image pair from a "
+        f"{IMAGE_HW[0]}x{IMAGE_HW[1]} PNG) {s2_item_s:.2f}s; peak RSS this process "
+        f"{rss_self:.2f} GiB, largest worker {rss_children:.2f} GiB; Pillow {jpeg}; "
+        f"{os.cpu_count()} host cores")
+    return dict(data, batches=kept, rates=rates, op_s=op_s, item_s=item_s,
+                s2_item_s=s2_item_s, keeps_up=keeps_up)
+
+
+def script_argv(name: str, env: dict) -> list[str]:
+    """The argv that scripts/<name> hands scripts/train.py, as bash expands
+    it with ``env``."""
+    import os
+    from pathlib import Path
+
+    text = Path("scripts", name).read_text().replace("python scripts/train.py",
+                                                     "printf '%s\\n'")
+    out = subprocess.run(["bash", "-c", text], capture_output=True, text=True,
+                         check=True, timeout=60, env={**os.environ, **env})
+    return out.stdout.splitlines()
+
+
+class _TrainProbe:
+    """Wraps Trainer.train_step and validate, and DovePipeline's DiT pass,
+    for the length of a ``with``: per step its wall (after a synchronise)
+    and the attention launches, per validation its wall, peak memory, K1
+    launches and DiT passes."""
+
+    def __init__(self):
+        from dove_tpu_torch.pipeline import DovePipeline
+        from dove_tpu_torch.train import trainer as tr_mod
+
+        self.targets = [(tr_mod.Trainer, "train_step"), (tr_mod.Trainer, "validate"),
+                        (DovePipeline, "_denoise")]
+        self.steps: list[dict] = []
+        self.validations: list[dict] = []
+        self.passes = 0
+
+    def __enter__(self):
+        self.saved = [getattr(cls, name) for cls, name in self.targets]
+        train_step, validate, denoise = self.saved
+        probe = self
+        counters = _k3_counters()
+
+        def timed_step(tr, batch):
+            before = {n: c.count for n, c in counters.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = train_step(tr, batch)
+            torch.cuda.synchronize()
+            probe.steps.append(dict(
+                wall_s=time.perf_counter() - t0,
+                launches={n: c.count - before[n] for n, c in counters.items()}))
+            return out
+
+        def timed_validate(tr, step):
+            k1, passes = counters["k1"].count, probe.passes
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = validate(tr, step)
+            torch.cuda.synchronize()
+            probe.validations.append(dict(
+                step=step, wall_s=time.perf_counter() - t0, summary=out,
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                k1=counters["k1"].count - k1, passes=probe.passes - passes))
+            return out
+
+        def counted_denoise(pipe, *a, **kw):
+            probe.passes += 1
+            return denoise(pipe, *a, **kw)
+
+        for (cls, name), fn in zip(self.targets, (timed_step, timed_validate,
+                                                   counted_denoise)):
+            setattr(cls, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for (cls, name), fn in zip(self.targets, self.saved):
+            setattr(cls, name, fn)
+
+
+def _step_losses(out_dir) -> dict[int, float]:
+    from pathlib import Path
+
+    recs = [json.loads(x) for x in (Path(out_dir) / "train_log.jsonl")
+            .read_text().splitlines()]
+    return {r["step"]: r["loss"] for r in recs if "loss" in r}
+
+
+def _run_main(argv: list[str]) -> tuple:
+    """dove_tpu_torch.train's main(argv) with the datasets' read_clip on
+    seeded clips; -> (the trainer's numbers, the probe)."""
+    from dove_tpu_torch.data import datasets as ds_mod
+    from dove_tpu_torch.train.__main__ import main as train_main
+
+    saved = ds_mod.RealSRDataset, ds_mod.RealSRImageVideoDataset
+    ds_mod.RealSRDataset, ds_mod.RealSRImageVideoDataset = SmoothClips, SmoothClipsWithImages
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with _TrainProbe() as probe:
+            t0 = time.perf_counter()
+            tr = train_main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        ds_mod.RealSRDataset, ds_mod.RealSRImageVideoDataset = saved
+    info = dict(wall_s=wall, data_wait_s=list(tr.data_wait_s),
+                layers=tr.config.dit.num_layers, peak_bytes=torch.cuda.max_memory_allocated())
+    del tr
+    torch.cuda.empty_cache()
+    return info, probe
+
+
+def _fit_kernel_vs_plain(argv: list[str], batches: list) -> dict:
+    """The same 2 steps on phase 22's first two batches at 2 layers, through
+    the kernels and through the plain attention."""
+    import dataclasses
+
+    from dove_tpu_torch import cogvideox1_5_5b
+    from dove_tpu_torch.train.args import Args
+    from dove_tpu_torch.train.trainer import DOVES1Trainer
+
+    base = cogvideox1_5_5b()
+    cfg = dataclasses.replace(base, dit=dataclasses.replace(base.dit, num_layers=2))
+    parser = Args.parser()
+    parser.add_argument("--device")
+    args = Args.from_namespace(parser.parse_args(argv))
+    runs = {}
+    for backend in ("flash", "plain"):
+        tr = DOVES1Trainer(args, pipeline_config=cfg, device="cuda")
+        tr.load_components()
+        tr.prepare_optimizer(2)
+        tr.attention_backend = backend
+        counters = _k3_counters()
+        before = {n: c.count for n, c in counters.items()}
+        losses = []
+        for batch in batches:
+            loss, _, _ = tr.train_step(tr.device_batch(batch))
+            tr.global_step += 1
+            losses.append(float(loss))
+        runs[backend] = (losses, {n: c.count - before[n] for n, c in counters.items()})
+        del tr
+    torch.cuda.empty_cache()
+    (k_loss, k_counts), (p_loss, p_counts) = runs["flash"], runs["plain"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(k_loss, p_loss)]
+    want = {"k1": 0, "k1_lse": 8, "k2": 0, "k3a": 4, "k3b": 4}
+    if k_counts != want or any(p_counts.values()) or not max(rel) <= TRAIN_LOSS_REL_TOL:
+        raise AssertionError(f"phase 23 2-layer fit: losses {k_loss} vs {p_loss}, "
+                             f"launches {k_counts} / {p_counts}")
+    return dict(kernel=k_loss, plain=p_loss, rel=rel, launches=k_counts)
+
+
+def phase_train_entry_point(data: dict) -> dict:
+    """Phase 23: python -m dove_tpu_torch.train's main at 42 layers with
+    scripts/train_s1.sh's flags (4 steps, checkpoints every 2, validation
+    every 2), a resume from checkpoint-2, the is_latent route, and
+    scripts/train_s2.sh's flags for 2 steps; then the same 2 steps at 2
+    layers through the kernels and through the plain attention."""
+    import shutil
+    from pathlib import Path
+
+    from dove_tpu_torch.train import trainer as tr_mod
+
+    root = Path(DATA_DIR)
+    out = Path("build/chip_smoke_fit")
+    shutil.rmtree(out, ignore_errors=True)
+    env = {"MODEL_PATH": "build/no-checkpoint", "DATA_ROOT": str(root),
+           "IMAGE_ROOT": str(root / "DIV2K"), "OUTPUT_DIR": str(out / "s1")}
+    cfgs = {n: str(p) for n, p in data["configs"].items()}
+    # items made in this process: one worker process takes ~40 s for a
+    # stage-1 item (phase 22), far longer than these short runs' steps
+    common = ["--num_workers", "0", "--device", "cuda"]
+    s1 = script_argv("train_s1.sh", env) + common + [
+        "--degradation_config", cfgs["degradation.yaml"], "--train_steps", "4",
+        "--checkpointing_steps", "2", "--do_validation", "true",
+        "--validation_steps", "2", "--eval_metric_list", "psnr,ssim"]
+    info, probe = _run_main(s1)
+    layers = info["layers"]
+    losses = _step_losses(out / "s1")
+    want = {"k1": 0, "k1_lse": 2 * layers, "k2": 0, "k3a": layers, "k3b": layers}
+    if [s["launches"] for s in probe.steps] != [want] * 4 or sorted(losses) != [1, 2, 3, 4]:
+        raise AssertionError(f"phase 23 stage 1: steps {probe.steps}, losses {losses}")
+    if not all(math.isfinite(x) for x in losses.values()):
+        raise AssertionError(f"phase 23 stage 1 losses {losses}")
+    vals = probe.validations
+    if len(vals) != 2 or any(v["k1"] != layers * v["passes"] or v["passes"] < VAL_CLIPS
+                             or set(v["summary"]) != {"psnr", "ssim"} for v in vals):
+        raise AssertionError(f"phase 23 validations {vals}")
+    # the SR clips: mp4s where OpenCV imports, else PNG folders
+    kind = "mp4" if data["mpeg4"] else "png"
+    recs = [json.loads(x) for x in (out / "s1" / "train_log.jsonl").read_text().splitlines()]
+    artifact = "clip{}.mp4" if kind == "mp4" else "clip{}/000.png"
+    if [r.get("artifact") for r in recs if "validation" in r] != [kind, kind] or not all(
+            (out / "s1" / "validation_res" / f"Step-{s}" / artifact.format(k)).exists()
+            for s in (2, 4) for k in range(VAL_CLIPS)):
+        raise AssertionError(f"phase 23: the validation records or {kind} artifacts")
+    if sorted(p.name for p in (out / "s1").glob("checkpoint-*")) != ["checkpoint-2",
+                                                                    "checkpoint-4"]:
+        raise AssertionError("phase 23: checkpoints")
+
+    # resume from checkpoint-2: steps 3 and 4 again
+    resumed = s1 + ["--output_dir", str(out / "resumed"), "--do_validation", "false",
+                    "--resume_from_checkpoint", str(out / "s1" / "checkpoint-2")]
+    info_r, probe_r = _run_main(resumed)
+    again = _step_losses(out / "resumed")
+    resume_rel = {s: abs(again[s] - losses[s]) / abs(losses[s]) for s in (3, 4)}
+    if sorted(again) != [3, 4] or not max(resume_rel.values()) <= RESUME_LOSS_REL_TOL:
+        raise AssertionError(f"phase 23 resume: {again} against {losses}")
+
+    # the is_latent route: the cache filled in this process, then read by workers
+    latent = s1 + ["--output_dir", str(out / "latent"), "--is_latent", "true",
+                   "--train_steps", "2", "--do_validation", "false"]
+    info_l, probe_l = _run_main(latent)
+    cache = root / "cache" / "video_latent"
+    files = sorted(str(p.relative_to(cache)) for p in cache.rglob("*.safetensors"))
+    want_files = sorted(f"{kind}/dove-s1/{TRAIN_FRAMES}x{TRAIN_H}x{TRAIN_W}/clip_{i}"
+                        ".safetensors" for kind in ("hq", "lq") for i in range(RECIPE_CLIPS))
+    if files != want_files or len(_step_losses(out / "latent")) != 2 or any(
+            st["launches"] != want for st in probe_l.steps):
+        raise AssertionError(f"phase 23 is_latent: cache {files}")
+    lat_steps = [s["wall_s"] for s in probe_l.steps]
+    lat_losses = _step_losses(out / "latent")
+
+    # stage 2: scripts/train_s2.sh's flags; its end-of-run checkpoint (the
+    # whole DiT and its AdamW moments, ~60 GB) is not written
+    env2 = {**env, "OUTPUT_DIR": str(out / "s2")}
+    s2 = script_argv("train_s2.sh", env2) + common + [
+        "--degradation_config", cfgs["degradation_image_video.yaml"],
+        "--train_steps", "2", "--allow_random_perceptual", "true"]
+    saves = []
+    save = tr_mod.Trainer.save
+    tr_mod.Trainer.save = lambda tr, step: saves.append(step)
+    try:
+        info_2, probe_2 = _run_main(s2)
+    finally:
+        tr_mod.Trainer.save = save
+    s2_losses = _step_losses(out / "s2")
+    image_steps = [bool(np.random.default_rng((42, s)).uniform() < 0.8) for s in range(2)]
+    if sorted(s2_losses) != [1, 2] or saves != [2] or any(
+            st["launches"] != want for st in probe_2.steps):
+        raise AssertionError(f"phase 23 stage 2: {s2_losses}, saves {saves}")
+
+    two = _fit_kernel_vs_plain(s1 + ["--output_dir", str(out / "two")], data["batches"])
+    shutil.rmtree(out, ignore_errors=True)
+
+    steps = [s["wall_s"] for s in probe.steps]
+    waits = info["data_wait_s"]
+    idle = sum(waits) / (sum(waits) + sum(steps))
+    log(f"phase 23 training entry point (python -m dove_tpu_torch.train's main with "
+        f"scripts/train_s1.sh's flags, {layers} layers, items made in this process "
+        f"(--num_workers 0), {RECIPE_CLIPS} seeded clips, validation on {VAL_CLIPS} PNG clips "
+        f"{VAL_FRAMES}x{VAL_H}x{VAL_W} -> x4 against GT): run {info['wall_s']:.1f}s; "
+        f"step walls {[round(x, 3) for x in steps]} s, losses "
+        f"{ {k: round(v, 6) for k, v in losses.items()} }; loader wait per step "
+        f"{[round(x, 3) for x in waits]} s (the device idles at least "
+        f"{100 * idle:.1f}% of the steps' time waiting for data); launches per step "
+        f"{want}; validations {[dict(step=v['step'], wall_s=round(v['wall_s'], 2), peak_gib=round(v['peak_bytes'] / 2**30, 2), k1=v['k1'], passes=v['passes'], **{k: round(x, 4) for k, x in v['summary'].items()}) for v in vals]} "
+        f"(artifact: {kind}). Resumed "
+        f"from checkpoint-2: steps 3, 4 losses {again} (relative {resume_rel}, bar "
+        f"{RESUME_LOSS_REL_TOL}) in {info_r['wall_s']:.1f}s. is_latent: "
+        f"{len(files)} cache files in the reference layout, run {info_l['wall_s']:.1f}s "
+        f"(the encode pre-pass included), steps {[round(x, 3) for x in lat_steps]} s, "
+        f"losses {lat_losses}. Stage 2 "
+        f"(train_s2.sh: SFT, image_ratio 0.8, DISTS on random VGG16): steps "
+        f"{[round(s['wall_s'], 3) for s in probe_2.steps]} s (image step: "
+        f"{image_steps}), losses {s2_losses}, launches "
+        f"{[s['launches'] for s in probe_2.steps]}, run {info_2['wall_s']:.1f}s, peak "
+        f"{info_2['peak_bytes'] / 2**30:.2f} GiB. 2 layers, kernels vs plain on "
+        f"phase 22's first two batches: losses {two['kernel']} vs {two['plain']} "
+        f"(relative {[f'{x:.1e}' for x in two['rel']]}, bar {TRAIN_LOSS_REL_TOL}), "
+        f"launches {two['launches']}")
+    return dict(layers=layers, steps=probe.steps, validations=vals,
+                s2_steps=probe_2.steps, latent_steps=probe_l.steps,
+                resume_rel=resume_rel, data_wait_s=waits, idle_share=idle, two=two)
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -3418,7 +3982,8 @@ def main(argv: list[str] | None = None) -> int:
                 ({16}, phase_s2_kernel_vs_plain),
                 ({17}, lambda: phase_s2_recipe(args.profile)),
                 ({18}, phase_fused_kernel_vs_plain),
-                ({19, 20, 21}, phases_fused_and_scoring)):
+                ({19, 20, 21}, phases_fused_and_scoring),
+                ({22, 23}, lambda: phase_train_entry_point(phase_data_pipeline()))):
             if numbers & chosen:
                 t0 = time.perf_counter()
                 run()
@@ -3442,6 +4007,7 @@ def main(argv: list[str] | None = None) -> int:
     s2 = phase_s2_recipe(args.profile)
     fused_2l = phase_fused_kernel_vs_plain()
     fused, _ = phases_fused_and_scoring()
+    fit = phase_train_entry_point(phase_data_pipeline())
     log(f"all phases took {time.perf_counter() - t_start:.1f}s")
 
     kernels = [{
@@ -3494,6 +4060,13 @@ def main(argv: list[str] | None = None) -> int:
         "s2_lse_bound_ms": k3["stage2"]["k1_lse_bound_ms"],
         "s2_lse_bound_by": k3["stage2"]["k1_lse_bound_by"],
         "s2_lse_library_ms": k3["stage2"]["sdpa_fwd_ms"],
+        # phase 23: python -m dove_tpu_torch.train at 42 layers; K1 bounded
+        # per validation (layers x DiT passes), K1-lse per fit step
+        "validate_launches": [v["k1"] for v in fit["validations"]],
+        "validate_passes": [v["passes"] for v in fit["validations"]],
+        "fit_lse_launches_per_step": [s["launches"]["k1_lse"] for s in fit["steps"]],
+        "fit_s2_lse_launches_per_step": [s["launches"]["k1_lse"]
+                                         for s in fit["s2_steps"]],
     }, {
         "name": "flash_fwd_qk8",
         "route": "cuda",
@@ -3549,6 +4122,7 @@ def main(argv: list[str] | None = None) -> int:
             "s2_bound_ms": k3["stage2"][f"{key}_bound_ms"],
             "s2_bound_by": k3["stage2"][f"{key}_bound_by"],
             "s2_library_ms": k3["stage2"]["sdpa_bwd_ms"],
+            "fit_launches_per_step": [s["launches"][key] for s in fit["steps"]],
         })
     conv_source = "dove_tpu_torch/csrc/conv3d_taps_sm90.cu"
     kernels.append({

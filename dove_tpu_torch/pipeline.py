@@ -298,6 +298,11 @@ class DovePipeline:
     stream_max_frames: int = 320
     # optional (h, w) cap on the decode window, in latents
     dec_window_cap: tuple[int, int] | None = None
+    # a LoRA tree (train/lora.py) merged into each layer's attention
+    # projections inside the DiT's forward: a trainer's validation serves
+    # its live DiT and adapters without a merged copy of the weights
+    lora: Any = None
+    lora_scale: float = 1.0
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -467,6 +472,7 @@ class DovePipeline:
             cfg, self.schedule, self.dit, latent, text, noise,
             attention_backend=attention_backend or self.attention_backend,
             bounded_logits=True,  # frozen qk-layernorm gains at inference
+            lora=self.lora, lora_scale=self.lora_scale,
         )
         return x0 / torch.tensor(cfg.vae.scaling_factor, dtype=x0.dtype)
 

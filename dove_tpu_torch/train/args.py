@@ -7,11 +7,10 @@ of 16, the (F - 1) % 4 frame rule of stage 1's clip-level encode, the
 timestep range, the validation requirements. ``parse_args`` is the argparse
 bridge and ``dump_yaml`` writes ``args.yaml`` without PyYAML.
 
-Options that belong to later slices of the port raise NotImplementedError
-once the JAX validators have passed: sharding over a mesh (``fsdp``,
-``tensor_parallel`` > 1, ``multihost``), ``use_optical_flow``, trackers other
-than ``jsonl``, ``do_validation``, and ``is_latent`` (its latent cache is
-filled by the dataset, which is not ported).
+Options that belong to later slices of the port raise NotImplementedError,
+naming their ROADMAP item, once the JAX validators have passed: sharding over
+a mesh (``fsdp``, ``tensor_parallel`` > 1, ``multihost``: A.12),
+``use_optical_flow`` (A.13) and trackers other than ``jsonl`` (A.8).
 """
 
 from __future__ import annotations
@@ -185,22 +184,32 @@ class Args:
 
     def _check_ported(self) -> None:
         later = {
-            "fsdp > 1": self.fsdp > 1,
-            "tensor_parallel > 1": self.tensor_parallel > 1,
-            "multihost": self.multihost,
-            "use_optical_flow": self.use_optical_flow,
-            f"report_to={self.report_to!r}": self.report_to not in ("jsonl", None),
-            "do_validation": self.do_validation,
-            "is_latent (the dataset fills the latent cache)": self.is_latent,
+            "fsdp > 1 (A.12)": self.fsdp > 1,
+            "tensor_parallel > 1 (A.12)": self.tensor_parallel > 1,
+            "multihost (A.12)": self.multihost,
+            "use_optical_flow (A.13)": self.use_optical_flow,
+            f"report_to={self.report_to!r} (A.8)": self.report_to not in ("jsonl", None),
         }
         on = [name for name, flag in later.items() if flag]
         if on:
             raise NotImplementedError(
-                f"not ported yet: {', '.join(on)} (ROADMAP queue A: parallel/, "
-                "the data pipeline, validation and trackers)")
+                f"not ported yet: {', '.join(on)} (ROADMAP queue A: parallel/ is "
+                "A.12, flow fusion A.13, the trackers A.8)")
 
     @classmethod
     def parse_args(cls, argv: list[str] | None = None) -> "Args":
+        return cls.from_namespace(cls.parser().parse_args(argv))
+
+    @classmethod
+    def from_namespace(cls, ns: argparse.Namespace) -> "Args":
+        """The Args of a namespace from ``parser()`` (keys that are not
+        fields, which a caller's own flags add, are ignored)."""
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in vars(ns).items() if k in names and v is not None})
+
+    @classmethod
+    def parser(cls) -> argparse.ArgumentParser:
+        """One ``--<field>`` flag per field, as the JAX package's CLI has."""
         parser = argparse.ArgumentParser(description="DOVE training (PyTorch port)")
         hints = typing.get_type_hints(cls)
         for f in dataclasses.fields(cls):
@@ -213,8 +222,7 @@ class Args:
                 parser.add_argument(arg, nargs="*", default=None)
             else:
                 parser.add_argument(arg, type=str, default=None)
-        ns = parser.parse_args(argv)
-        return cls(**{k: v for k, v in vars(ns).items() if v is not None})
+        return parser
 
     def model_dump(self) -> dict[str, Any]:
         return dataclasses.asdict(self)

@@ -27,9 +27,18 @@ into its key). The base DiT and the VAE stay frozen; only the LoRA tree
 trains, or the whole DiT under ``sft``. ``train`` loops over ``self.loader``
 with JSONL logging, checkpoints every ``checkpointing_steps`` and on SIGTERM.
 
-Not ported yet (they raise, naming their slice): the dataset
-(``prepare_dataset``; a caller may set ``trainer.loader``), validation,
-gradient accumulation and the optimizers other than AdamW and Adam.
+``fit`` is the whole run: the components, the dataset and loader
+(``prepare_dataset``: ``data/``, the JAX package's datasets and
+degradations, in DataLoader worker processes), the optimizer, a resume
+from the newest checkpoint, and ``train``, which validates every
+``validation_steps`` when ``do_validation`` is on. ``validate`` serves the
+live DiT, its LoRA merged inside the forward, through the port's
+``DovePipeline`` on the held-out clips and scores them with
+``eval.metrics``. ``python -m dove_tpu_torch.train`` is the entry point.
+
+Not ported yet (they raise, naming their ROADMAP item): gradient
+accumulation and the optimizers other than AdamW and Adam (A.8), the
+trackers other than ``jsonl`` (A.8).
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ from torch.profiler import record_function
 
 from dove_tpu_torch import config as cfg_mod
 from dove_tpu_torch import weights
+from dove_tpu_torch.data.datasets import EMPTY_PROMPT_SHA
 from dove_tpu_torch.models.dit import init_dit_params
 from dove_tpu_torch.models.vae import encode_moments, init_vae_params, sample_latent
 from dove_tpu_torch.ops.scheduler import Schedule
@@ -61,9 +71,6 @@ from dove_tpu_torch.train.lora import TARGETS, init_lora_params
 from dove_tpu_torch.train.optim import make_lr_schedule, make_optimizer
 
 logger = logging.getLogger(__name__)
-
-# sha256 of the empty prompt: the file name of its cached T5 embedding
-EMPTY_PROMPT_SHA = "e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855"
 
 DTYPES = {"no": torch.float32, "bf16": torch.bfloat16, "fp16": torch.float16}
 PRESETS = {
@@ -129,6 +136,8 @@ class Trainer:
         # and faster than the naive path at 1026 (PERF.md, phase 9).
         self.attention_backend: str | None = "flash" if self.device.type == "cuda" else None
         self.loader = None
+        # seconds train() waited for each batch of the loader
+        self.data_wait_s: list[float] = []
         self.step_times: dict[str, float] = {}
         self._lap_t = 0.0
         self._log_file = None
@@ -202,10 +211,52 @@ class Trainer:
         return self.dit.state_dict()
 
     def prepare_dataset(self) -> None:
-        raise NotImplementedError(
-            "the training data pipeline (dove_tpu/data: datasets, degradation, "
-            "loader) is not ported yet (ROADMAP queue A, the data slice); set "
-            "trainer.loader to an iterable of batches instead")
+        """The dataset of ``model_type`` and its loader, as the JAX trainer
+        builds them. With ``is_latent`` the missing latents are encoded and
+        cached here, in this process, before any worker starts."""
+        from dove_tpu_torch.data.datasets import RealSRDataset, RealSRImageVideoDataset
+        from dove_tpu_torch.data.loader import Loader
+
+        args = self.args
+        F, H, W = args.train_resolution
+        common = dict(
+            data_root=args.data_root,
+            video_manifest=args.video_column,
+            max_num_frames=F,
+            height=H,
+            width=W,
+            degradation_config=args.degradation_config,
+            caption_manifest=args.caption_column,
+            empty_ratio=args.empty_ratio,
+            # is_prompt_latent (reference trainer.py:279) forces the prompt
+            # cache even when is_cache is off
+            cache_prompts=args.is_cache or args.is_prompt_latent,
+            prompt_cache=args.prompt_cache,
+            seed=args.seed or 0,
+        )
+        if args.is_latent:
+            common.update(is_latent=True, encode_video=self._encode_np,
+                          model_name=args.model_name)
+        if args.model_type == "real-sr":
+            self.dataset = RealSRDataset(**common)
+        else:
+            self.dataset = RealSRImageVideoDataset(
+                image_data_root=args.image_data_root,
+                image_manifest=args.image_column, **common)
+        if args.is_latent:
+            n = self.dataset.fill_latent_cache()
+            logger.info("latent cache: encoded %d of %d items", n, len(self.dataset))
+            self.dataset.encode_video = None  # workers read the cache only
+        self.loader = Loader(self.dataset, batch_size=args.batch_size,
+                             num_workers=args.num_workers, drop_last=True,
+                             seed=args.seed or 0)
+
+    def _encode_np(self, frames: np.ndarray) -> np.ndarray:
+        """The latent cache's encode: [F, H, W, 3] in [-1, 1] -> the scaled
+        posterior mean [F', h, w, C], fp32 on the host."""
+        video = torch.from_numpy(np.ascontiguousarray(frames))[None]
+        lat = self._encode(video.to(self.device, torch.float32), None)
+        return lat[0].float().cpu().numpy()
 
     # ------------------------------------------------------------------
     # Optimizer and the train step
@@ -215,7 +266,7 @@ class Trainer:
         args = self.args
         if args.gradient_accumulation_steps > 1:
             raise NotImplementedError(
-                "gradient_accumulation_steps > 1 is not ported yet (ROADMAP queue A)")
+                "gradient_accumulation_steps > 1 is not ported yet (ROADMAP A.8)")
         lr = make_lr_schedule(
             args.learning_rate, warmup_steps=args.lr_warmup_steps,
             total_steps=total_steps, kind=args.lr_scheduler,
@@ -339,6 +390,14 @@ class Trainer:
         args.output_dir.mkdir(parents=True, exist_ok=True)
         args.dump_yaml(args.output_dir / "args.yaml")
         self._log_file = open(args.output_dir / "train_log.jsonl", "a")
+        # which video-compression backend synthesizes the MPEG artifacts
+        # (the reference's PyAV, or a fallback), as the JAX trainer records
+        from dove_tpu_torch.data.degradation import compression_backend
+
+        backend_rec = {"video_compression_backend": compression_backend()}
+        logger.info("%s", backend_rec)
+        self._log_file.write(json.dumps(backend_rec) + "\n")
+        self._log_file.flush()
         self.load_components()
         self.prepare_dataset()
         steps_per_epoch = max(len(self.loader), 1)
@@ -393,9 +452,13 @@ class Trainer:
         while self.global_step < total_steps and not stop_requested["flag"]:
             if hasattr(self.loader, "set_epoch"):
                 self.loader.set_epoch(epoch)
-            for batch in self.loader:
-                if self.global_step >= total_steps or stop_requested["flag"]:
+            batches = iter(self.loader)
+            while self.global_step < total_steps and not stop_requested["flag"]:
+                t0 = time.perf_counter()
+                batch = next(batches, None)
+                if batch is None:
                     break
+                self.data_wait_s.append(time.perf_counter() - t0)
                 loss, aux, gnorm = self.train_step(self.device_batch(batch))
                 self.global_step += 1
                 self.log_step(loss, aux, gnorm, t_start)
@@ -404,6 +467,10 @@ class Trainer:
                     self.log_memory()
                 if self.global_step % args.checkpointing_steps == 0:
                     self.save(self.global_step)
+                if (args.do_validation and args.validation_steps
+                        and self.global_step % args.validation_steps == 0):
+                    self.validate(self.global_step)
+            del batches  # ends this epoch's loader workers
             epoch += 1
 
         for sig, handler in old_handlers.items():
@@ -462,9 +529,100 @@ class Trainer:
                 base_config=base if base.exists() else None)
 
     def validate(self, step: int) -> dict[str, float]:
-        raise NotImplementedError(
-            "validation (one-step SR on held-out clips and the eval metrics) is "
-            "not ported yet (ROADMAP queue A, the eval slice)")
+        """One-step SR on the held-out clips of ``validation_dir`` (video
+        files or frame folders) and the metrics of ``eval_metric_list``
+        (reference trainer.py:642-871; the JAX trainer's ``validate``).
+
+        The live DiT serves, its LoRA merged inside each layer's forward, so
+        no second copy of the weights is made; the staged path with
+        ``enable_tiling``, the fused one otherwise. A metric whose weights
+        are missing warns and is skipped; an unknown name raises.
+        Full-reference metrics take the clip of the same name under
+        ``validation_ref_videos``, cropped to the common shape. Each clip's
+        SR is written as ``<stem>.mp4`` where OpenCV imports, else as the
+        PNG frame folder ``<stem>/`` (the card, ROADMAP C.2); the record in
+        train_log.jsonl says which. Grad mode, the modules' train/eval
+        modes, the global generators and the hand-conv switch are restored
+        afterwards."""
+        args = self.args
+        if not args.validation_dir:
+            return {}
+        from dove_tpu_torch.eval.metrics import FULL_REFERENCE, get_metric
+        from dove_tpu_torch.io import video as video_io
+        from dove_tpu_torch.models import vae as vae_mod
+        from dove_tpu_torch.pipeline import DovePipeline
+
+        metric_names = [m.strip() for m in (args.eval_metric_list or "psnr,ssim").split(",")
+                        if m.strip()]
+        metric_fns = {}
+        for name in metric_names:
+            try:
+                metric_fns[name] = get_metric(name, self.device)
+            except NotImplementedError as e:  # weights-gated: keep training
+                logger.warning("validation metric %s unavailable: %s", name, e)
+        try:
+            import cv2  # noqa: F401
+
+            artifact_kind = "mp4"
+        except ImportError:
+            artifact_kind = "png"
+        out_dir = Path(args.output_dir) / "validation_res" / f"Step-{step}"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        ref_dir = Path(args.validation_ref_videos) if args.validation_ref_videos else None
+        clips = sorted(p for p in Path(args.validation_dir).iterdir()
+                       if p.suffix.lower() in video_io.VIDEO_EXTS or p.is_dir())
+        results: dict[str, list[float]] = {k: [] for k in metric_fns}
+
+        modes = [(m, m.training) for m in (self.dit, self.vae)]
+        prior_conv = vae_mod._HAND_BF16_CONV
+        cpu_rng = torch.get_rng_state()
+        cuda_rng = (torch.cuda.get_rng_state(self.device)
+                    if self.device.type == "cuda" else None)
+        lora = self.lora_params if self.args.training_type == "lora" else None
+        try:
+            with torch.no_grad():
+                pipe = DovePipeline(
+                    config=self.config, dit=self.dit, vae=self.vae,
+                    prompt_embedding=self.empty_prompt, dtype=self.dtype,
+                    device=self.device, vae_tiling=args.enable_tiling,
+                    lora=lora, lora_scale=getattr(self, "lora_scale", 1.0))
+                for clip in clips:
+                    frames = video_io.load_sequence(clip)
+                    sr = pipe.process_frames(frames)
+                    if artifact_kind == "mp4":
+                        video_io.save_video(sr, out_dir / f"{clip.stem}.mp4",
+                                            fps=args.gen_fps)
+                    else:
+                        video_io.save_frames_as_png(sr, out_dir / clip.stem)
+                    ref = None
+                    if ref_dir is not None and (ref_dir / clip.name).exists():
+                        ref = video_io.load_sequence(ref_dir / clip.name)
+                    for name, fn in metric_fns.items():
+                        if name in FULL_REFERENCE:
+                            if ref is None:
+                                continue
+                            n = min(len(ref), len(sr))
+                            h = min(ref.shape[1], sr.shape[1])
+                            w = min(ref.shape[2], sr.shape[2])
+                            val = fn(sr[:n, :h, :w], ref[:n, :h, :w])
+                        else:  # no-reference metrics score the SR clip alone
+                            val = fn(sr)
+                        results[name].append(float(val))
+        finally:
+            for m, training in modes:
+                m.train(training)
+            vae_mod.set_pallas_conv(prior_conv)
+            torch.set_rng_state(cpu_rng)
+            if cuda_rng is not None:
+                torch.cuda.set_rng_state(cuda_rng, self.device)
+        summary = {n: float(np.sum(results[n]) / len(results[n]))
+                   for n in sorted(results) if results[n]}
+        rec = {"step": step, "validation": summary, "artifact": artifact_kind}
+        logger.info("%s", rec)
+        if self._log_file:
+            self._log_file.write(json.dumps(rec) + "\n")
+            self._log_file.flush()
+        return summary
 
 
 # ---------------------------------------------------------------------------

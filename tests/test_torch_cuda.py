@@ -9,6 +9,8 @@ JAX-loading conftest:
 
 from __future__ import annotations
 
+import math
+
 import pytest
 import torch
 
@@ -819,3 +821,60 @@ def test_fused_pass_at_a_short_tile_launches_k1():
     a, b = (np.round(outs[k] * 255.0) for k in (None, "plain"))
     mse = float(np.mean((a - b) ** 2))
     assert mse == 0 or 10 * np.log10(255.0**2 / mse) >= 40.0
+
+
+@pytest.mark.cuda
+def test_fit_one_step_on_card(tmp_path, monkeypatch):
+    """Trainer.fit for one stage-1 step at full width and 2 DiT layers on
+    the card: a dataset whose clips are made in memory (a subclass's
+    read_clip: the card decodes no video file), configs/degradation.yaml
+    with mpeg4's codec share on libx264 and h264 (mpeg4 needs OpenCV),
+    loaded in this process. The step's loss is finite and logged, and it
+    ran through K1-lse (twice a layer under checkpointing), K3a and K3b."""
+    import dataclasses
+    import json
+    from pathlib import Path
+
+    import torch.nn.functional as F
+
+    from dove_tpu_torch import cogvideox1_5_5b
+    from dove_tpu_torch.data import datasets
+    from dove_tpu_torch.train.args import Args
+    from dove_tpu_torch.train.trainer import DOVES1Trainer
+
+    dev = _card()
+
+    class MemoryClips(datasets.RealSRDataset):
+        def read_clip(self, path, max_frames):
+            gen = torch.Generator().manual_seed(int(Path(path).stem[-1]))
+            coarse = torch.rand((1, 3, 4, 6, 10), generator=gen)
+            clip = F.interpolate(coarse, size=(max_frames, 96, 192), mode="trilinear")
+            return clip[0].permute(1, 2, 3, 0).contiguous()
+
+    monkeypatch.setattr(datasets, "RealSRDataset", MemoryClips)
+    for i in range(2):
+        (tmp_path / f"clip{i}.mp4").touch()
+    (tmp_path / "videos.txt").write_text("clip0.mp4\nclip1.mp4\n")
+    repo = Path(__file__).resolve().parents[1]
+    text = (repo / "configs" / "degradation.yaml").read_text()
+    (tmp_path / "deg.yaml").write_text(text.replace(
+        "codec_prob: [0.3333, 0.3333, 0.3334]", "codec_prob: [0.5, 0.5, 0.0]"))
+    base = cogvideox1_5_5b()
+    cfg = dataclasses.replace(base, dit=dataclasses.replace(base.dit, num_layers=2))
+    args = Args(model_path=tmp_path / "none", output_dir=tmp_path / "out",
+                data_root=tmp_path, video_column=tmp_path / "videos.txt",
+                degradation_config=str(tmp_path / "deg.yaml"),
+                train_resolution=(5, 64, 128), batch_size=2, train_steps=1,
+                mixed_precision="bf16", gradient_checkpointing=True, num_workers=0,
+                rank=16, lora_alpha=8)
+    counters = (fa.launches_lse, fa.launches_bwd_dq, fa.launches_bwd_dkv)
+    before = [c.count for c in counters]
+    tr = DOVES1Trainer(args, pipeline_config=cfg, device=dev)
+    tr.fit()
+    assert [c.count - b for c, b in zip(counters, before)] == [4, 2, 2]
+    log = [json.loads(x) for x in (tmp_path / "out" / "train_log.jsonl")
+           .read_text().splitlines()]
+    assert "video_compression_backend" in log[0]
+    step = [r for r in log if "loss" in r]
+    assert [r["step"] for r in step] == [1] and math.isfinite(step[0]["loss"])
+    assert (tmp_path / "out" / "checkpoint-1").is_dir()

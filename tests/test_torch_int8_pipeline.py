@@ -1,4 +1,6 @@
-"""Parity of the port's int8 serving modes and streamed path with dove_tpu.
+"""Parity of the port's int8 serving modes and streamed path with dove_tpu
+(the streamed clips are in tests/test_torch_int8_streamed.py, which takes its
+fixtures from here).
 
 fp32 on the CPU, tiny_test() weights, the posterior mean on both sides (the
 two frameworks' RNGs cannot match). Each side quantizes the same fp32 DiT
@@ -196,33 +198,6 @@ def test_flash_qk8_process_frames_matches_jax(models):
     assert fa.launches_qk8.count == 0  # the CPU runs the plain version
 
 
-@pytest.mark.parametrize("mode,overlap_t,windows", [
-    ("int8-dit", None, None), ("int8w", 12, (5, 5)),
-])
-def test_streamed_clip_matches_jax(models, mode, overlap_t, windows):
-    """41 frames (11 latents) on an odd-sized frame, streamed on both sides:
-    a 33-frame and an 8-frame segment with the causal caches carried across,
-    and two overlapping 10-latent DiT windows (overlap 2, or 3 from
-    overlap_t=12 pixel frames). With 5x5-latent windows on both sides the
-    7x9-latent frame takes 2x3 encode and decode windows, so the
-    window-major groups (4 + 2 encode, 2 + 2 + 2 decode) and the feathered
-    assembly of each segment run too."""
-    jp, tp = _pipes(models, quantize=mode, streaming="on")
-    if windows is not None:
-        for pipe in (jp, tp):
-            pipe._window_budget = lambda: (2, windows, windows)
-    streamed = []
-    run = tp._sr_clip_streamed
-    tp._sr_clip_streamed = lambda *a, **kw: streamed.append(kw) or run(*a, **kw)
-    frames = _clip(41, 14, 18, 4)
-    ref = jp.process_frames(frames, seed=0, overlap_t=overlap_t)
-    ours = tp.process_frames(frames, seed=0, overlap_t=overlap_t)
-    assert streamed == [{"overlap_lat": None if overlap_t is None else 3}]
-    assert ours.shape == (41, 56, 72, 3)
-    _within_one_lsb(ours, ref)
-    assert set(tp.stage_times) == {"enc", "dit", "dec"}
-
-
 @pytest.mark.parametrize("mode", ["int8", "int8-vae", "int8-dit-dec"])
 def test_int8_vae_modes_match_jax(wide_models, mode):
     """5 frames of 8x12, one pass, one window: the VAE's 64-channel convs
@@ -300,23 +275,6 @@ def test_int8_dit_dec_lowres_calibrated_matches_jax():
     own = _lsb_diff(jp.process_frames(moved, seed=0), ref)
     assert own.max() >= 1  # JAX against itself already moves
     assert _lsb_diff(ours, ref).mean() <= 2.0 * own.mean()
-
-
-def test_int8_streamed_clip_matches_jax(wide_models):
-    """quantize="int8" streams by default: 37 frames pad to 41, a 33-frame and
-    an 8-frame segment with the int8 convs' causal caches carried across (a
-    4x4 frame: XLA:CPU's int8 convolution is slow)."""
-    jp, tp = _wide_pipes(wide_models, quantize="int8")
-    jf, tf = _wide_pipes(wide_models, streaming="on")
-    streamed = []
-    run = tp._sr_clip_streamed
-    tp._sr_clip_streamed = lambda *a, **kw: streamed.append(kw) or run(*a, **kw)
-    frames = _clip(37, 4, 4, 10)
-    ours = tp.process_frames(frames, seed=0)
-    assert streamed == [{"overlap_lat": None}] and ours.shape == (37, 16, 16, 3)
-    _assert_int8_vae_parity(ours, jp.process_frames(frames, seed=0),
-                            tf.process_frames(frames, seed=0),
-                            jf.process_frames(frames, seed=0), float_encoder=False)
 
 
 @pytest.mark.parametrize("flags,budget", [

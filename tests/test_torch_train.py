@@ -13,6 +13,8 @@ the port's own and are checked against an uninterrupted run.
 from __future__ import annotations
 
 import dataclasses
+import json
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -432,8 +434,18 @@ def test_args_parse_and_dump(tmp_path):
     dict(do_validation=True, validation_dir="v"), dict(is_latent=True),
 ])
 def test_args_of_later_slices_raise(later):
-    jargs.Args(model_path="x", **later)  # valid in the JAX package
-    with pytest.raises(NotImplementedError, match="not ported"):
+    """The options of later slices raise, naming their ROADMAP item; those
+    ported since (do_validation, is_latent) give the JAX package's Args."""
+    ref = jargs.Args(model_path="x", **later)  # valid in the JAX package
+    if set(later) & {"do_validation", "is_latent"}:
+        ours = targs.Args(model_path="x", **later).model_dump()
+        for name, want in ref.model_dump().items():
+            if name != "output_dir":  # the time of import, in both packages
+                got = ours[name]
+                assert (str(got) if isinstance(got, Path) else got) == (
+                    str(want) if isinstance(want, Path) else want), name
+        return
+    with pytest.raises(NotImplementedError, match=r"not ported.*\(A\.(8|12|13)\)"):
         targs.Args(model_path="x", **later)
 
 
@@ -456,17 +468,48 @@ def test_registry_views_and_unported_parts(tmp_path):
     assert st.num_trainable_parameters == tlora.lora_param_count(tr.lora_params)
     assert st.transformer_config == dataclasses.asdict(tr.config.dit)
     assert not any(p.requires_grad for p in tr.dit.parameters())
-    with pytest.raises(NotImplementedError, match="data"):
-        tr.prepare_dataset()
-    with pytest.raises(NotImplementedError, match="eval"):
-        tr.validate(1)
-    with pytest.raises(NotImplementedError, match="data"):
-        tr.fit()  # stops where the dataset would be built
+    # the parts a later slice ported run: the dataset and its loader, fit
+    # through its two steps, and validate (nothing to validate without a
+    # validation_dir, as in the JAX package)
+    data = _one_image_dataset(tmp_path)
+    tr = ttrainer.DOVES1Trainer(_args(targs, tmp_path, **data), device="cpu")
+    tr.load_components()
+    tr.prepare_dataset()
+    assert len(tr.loader) == 1
+    batch = next(iter(tr.loader))
+    assert batch["hq_video"].shape == (2, 1, 32, 32, 3) and batch["prompt"] == ["", ""]
+    assert tr.validate(1) == {}
+    tr.fit()
+    assert tr.global_step == 2 and len(tr.data_wait_s) == 2
     assert (tmp_path / "out" / "args.yaml").exists()
+    log = [json.loads(x) for x in (tmp_path / "out" / "train_log.jsonl").read_text().splitlines()]
+    assert "video_compression_backend" in log[0] and [r["step"] for r in log[1:]] == [1, 2]
+    with pytest.raises(NotImplementedError, match="A.8"):
+        targs.Args(model_path="x", report_to="tensorboard")
     accum = ttrainer.DOVES1Trainer(
         _args(targs, tmp_path, gradient_accumulation_steps=2), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         accum.prepare_optimizer(2)
+
+
+def _one_image_dataset(tmp_path) -> dict:
+    """A manifest of two PNG images (one-frame clips) and a degradation config
+    of a blur and a 4x downscale: what prepare_dataset needs."""
+    from PIL import Image
+
+    root = tmp_path / "data"
+    root.mkdir()
+    for i in range(2):
+        Image.fromarray(np.random.default_rng(i).integers(0, 255, (48, 48, 3), np.uint8)
+                        ).save(root / f"img{i}.png")
+    (root / "list.txt").write_text("img0.png\nimg1.png\n")
+    (root / "deg.yaml").write_text(
+        "degradation_1:\n  random_blur:\n    params:\n      kernel_size: [7]\n"
+        "      kernel_list: ['iso']\n      kernel_prob: [1]\n"
+        "degradation_2:\n  random_resize:\n    params:\n      target_size: [12, 12]\n"
+        "      resize_opt: ['area']\n      resize_prob: [1]\n")
+    return dict(data_root=root, video_column=root / "list.txt",
+                degradation_config=str(root / "deg.yaml"))
 
 
 def test_sft_trains_the_whole_dit_and_exports(tmp_path):
