@@ -139,6 +139,32 @@ Phases, one result line each; any failure exits non-zero:
    is_latent route (the cache filled in this process); 2 steps of
    scripts/train_s2.sh's flags; and phase 22's first two batches through 2
    layers with the kernels and with the plain attention.
+24. video files (ROADMAP C.2): two seeded LQ clips written as mp4 through
+   io/video.save_video (33x180x320 and 9x96x160), ``python -m
+   dove_tpu_torch.inference``'s main over them with --is_vae_st at 2 layers,
+   once to mp4 and once with --png_save; each output decoded by
+   read_video_frames to 4x the size and the same frame count, held to
+   load_pipeline + process_frames on the decoded input (mp4: Y-subsampled
+   I420 and mp4v's loss, >= 30 dB; PNG: lossless, the 40 dB bar), K1's
+   launches = layers x clips; then a RealSRDataset over mp4 clips with
+   configs/degradation.yaml, two items, the sampled mpeg4 round-tripping
+   through OpenCV (fails loudly without cv2);
+25. the int8 drift report (ROADMAP A.4): dove_tpu_torch.int8_drift_report's
+   runs at 42 layers on its 33x180x320 fixture for both synthetic weight
+   families: bf16 with its calibration, the decoder's weight floor
+   (int8_weight_floor) and the per-conv attribution, then int8w, int8-dit, int8-dit with bf16 attention,
+   int8-dit-dec --exclude lowres and int8 with that calibration; per run
+   the per-stage rel_err, the Y-PSNR against bf16 beside the JAX frontier's
+   number (int8w and int8-dit must reach its 45 dB bar), seconds, peak
+   memory and K1 / K2 / K4 / quantizer launches against the window plan;
+26. the optimizers (ROADMAP A.8): one scripts/train_s2.sh SFT step at 42
+   layers with each of adamw, adamw-8bit, adamw-4bit, came and prodigy
+   (step seconds, the optimizer split, peak memory, state bytes, a finite
+   loss and weights, K1-lse / K3a / K3b per step); then ``python -m
+   dove_tpu_torch.train``'s main at 2 layers with
+   --gradient_accumulation_steps 2 --report_to all for 4 micro-steps and a
+   resume from checkpoint-3 that repeats step 4 and the final state bit for
+   bit, with the offline wandb run's files and the tfevents.
 
 Then one JSON line with the kernels' numbers, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}.
@@ -251,6 +277,35 @@ VAL_CLIPS, VAL_FRAMES, VAL_H, VAL_W = 2, 9, 180, 320
 LOADER_WORKERS = 8
 STEP_S1_S = 2.100
 RESUME_LOSS_REL_TOL = 2.0 ** -8
+# Video files (phase 24, ROADMAP C.2): two LQ clips written as mp4v, the
+# CLI's mp4 output held to the in-process frames within the codec's loss
+# (Y, U, V subsampled on the device, then MPEG-4 Part 2 at OpenCV's default
+# quality), and a dataset of mp4 clips cut to a short item.
+VIDEO_DIR = "build/chip_smoke_video"
+VIDEO_CLIPS = ((33, 180, 320), (9, 96, 160))
+VIDEO_CODEC_PSNR_DB = 30.0
+DATASET_CLIPS, DATASET_SOURCE, DATASET_RES = 2, (20, 144, 256), (5, 64, 128)
+# The drift report (phase 25): dove_tpu_torch.int8_drift_report's fixture,
+# the modes of docs/reports/QUANT_FRONTIER.md's rows (label, mode, attention,
+# calibrated, exclusions), the frontier's Y-PSNR against bf16 (gaussian /
+# outlier, its "HEAD" rows), and its 45 dB quality bar for the DiT modes.
+DRIFT_FIXTURE = (33, 180, 320)
+DRIFT_MODES = (
+    ("int8w", "int8w", None, False, ()),
+    ("int8-dit", "int8-dit", None, False, ()),
+    ("int8-dit@flash", "int8-dit", "flash", False, ()),
+    ("int8-dit-dec lowres", "int8-dit-dec", None, True, ("lowres",)),
+    ("int8", "int8", None, True, ()),
+)
+FRONTIER_DB = {"int8w": {"gaussian": 49.2, "outlier": 49.7},
+               "int8-dit": {"gaussian": 49.1, "outlier": 48.9},
+               "int8-dit-dec lowres": {"gaussian": 46.3, "outlier": 38.8},
+               "int8": {"gaussian": 36.0, "outlier": 31.1}}
+DRIFT_BAR_MODES, DRIFT_BAR_DB = ("int8w", "int8-dit"), 45.0
+# The optimizers (phase 26) and the accumulation run's item size (phase 22's
+# clips, cut from train_s1.sh's 25 frames to keep its 4 micro-steps short).
+OPT_NAMES = ("adamw", "adamw-8bit", "adamw-4bit", "came", "prodigy")
+OPT_ACCUM_RES = (5, 320, 640)
 # The streamed clip: 100 frames pad to 105, 27 latents, 4 DiT windows.
 STREAM_FRAMES = 100
 # K5 against its plain version: fp32 products summed in another order, the
@@ -3931,6 +3986,450 @@ def phase_train_entry_point(data: dict) -> dict:
                 resume_rel=resume_rel, data_wait_s=waits, idle_share=idle, two=two)
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: the CLI and a dataset on video files (ROADMAP C.2)
+# ---------------------------------------------------------------------------
+
+def _two_layer_presets():
+    """For the length of a ``with``: the 5B preset as the CLI's loader and the
+    trainer read it, cut to 2 DiT layers (the depth of phase 18)."""
+    import contextlib
+    import dataclasses
+
+    from dove_tpu_torch import config as cfg_mod
+    from dove_tpu_torch.train import trainer as tr_mod
+
+    full = cfg_mod.cogvideox1_5_5b
+
+    def two():
+        base = full()
+        return dataclasses.replace(base, dit=dataclasses.replace(base.dit, num_layers=2))
+
+    @contextlib.contextmanager
+    def patched():
+        saved = tr_mod.PRESETS["cogvideox1.5-5b"]
+        cfg_mod.cogvideox1_5_5b = two
+        tr_mod.PRESETS["cogvideox1.5-5b"] = two
+        try:
+            yield
+        finally:
+            cfg_mod.cogvideox1_5_5b = full
+            tr_mod.PRESETS["cogvideox1.5-5b"] = saved
+
+    return patched()
+
+
+def phase_video_files() -> dict:
+    """Phase 24 (ROADMAP C.2): video files in and out on the card. Two seeded
+    LQ clips written as mp4 (mp4v) through io/video.save_video, 33x180x320
+    and 9x96x160; ``python -m dove_tpu_torch.inference``'s main over them with
+    --is_vae_st at 2 layers (mp4 out, and once more with --png_save, the
+    lossless dump), each output decoded by read_video_frames; the same clips
+    through load_pipeline + process_frames in this process; then a
+    RealSRDataset over mp4 clips with configs/degradation.yaml, whose mpeg4
+    branch round-trips through OpenCV."""
+    import shutil
+    from pathlib import Path
+
+    from dove_tpu_torch.data import degradation as deg_mod
+    from dove_tpu_torch.inference import build_parser, load_pipeline, main as cli_main
+    from dove_tpu_torch.inference import process_kwargs
+    from dove_tpu_torch.io import video as video_io
+    from dove_tpu_torch.ops import flash_attention as fa
+
+    try:
+        import cv2
+    except ImportError as e:
+        raise AssertionError(f"phase 24: OpenCV does not import ({e}): the card "
+                             "cannot read or write video files (ROADMAP C.2)") from e
+    root = Path(VIDEO_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "in").mkdir(parents=True)
+    written = {}
+    for i, (f, h, w) in enumerate(VIDEO_CLIPS):
+        clip = smooth_clip(300 + i, f, h, w).numpy()
+        path = video_io.save_video(clip, root / "in" / f"clip{i}.mp4", fps=16,
+                                   pixel_format="rgb")
+        written[path.name] = (f, h, w)
+    decoded_in = {name: video_io.read_video_frames(root / "in" / name) for name in written}
+    for name, (f, h, w) in written.items():
+        if decoded_in[name].shape != (f, h, w, 3):
+            raise AssertionError(f"phase 24: {name} reads back as {decoded_in[name].shape}")
+    runs = {}
+    with _two_layer_presets():
+        for kind, extra in (("mp4", []), ("png", ["--png_save"])):
+            argv = ["--input_dir", str(root / "in"), "--output_path", str(root / kind),
+                    "--is_vae_st", "--seed", "0"] + extra
+            fa.launches.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cli_main(argv)
+            torch.cuda.synchronize()
+            runs[kind] = dict(wall_s=time.perf_counter() - t0, k1=fa.launches.count,
+                              argv=argv)
+        args = build_parser().parse_args(runs["mp4"]["argv"])
+        pipe = load_pipeline(args)
+        layers = pipe.config.dit.num_layers
+        checks = {}
+        for name, (f, h, w) in written.items():
+            out_i420 = pipe.process_frames(decoded_in[name], **process_kwargs(args))
+            pipe.output_i420 = False
+            out_rgb = pipe.process_frames(decoded_in[name], **process_kwargs(args))
+            pipe.output_i420 = True
+            want = (f, 4 * h, 4 * w, 3)
+            mp4 = video_io.read_video_frames(root / "mp4" / name)
+            png = video_io.read_image_folder(root / "png" / Path(name).stem)
+            if mp4.shape != want or png.shape != want:
+                raise AssertionError(f"phase 24 {name}: mp4 {mp4.shape}, png {png.shape}, "
+                                     f"want {want}")
+            ref = video_io.i420_to_rgb(out_i420)
+            codec_db = psnr_u8(np.round(mp4 * 255).astype(np.uint8), ref)
+            png_u8 = np.round(png * 255).astype(np.uint8)
+            png_db = psnr_u8(png_u8, out_rgb)
+            checks[name] = dict(mp4_vs_in_process_db=codec_db, png_vs_in_process_db=png_db,
+                                png_identical=bool(np.array_equal(png_u8, out_rgb)),
+                                shape=list(want))
+            if not codec_db >= VIDEO_CODEC_PSNR_DB or not png_db >= PSNR_BAR_DB:
+                raise AssertionError(f"phase 24 {name}: {checks[name]}")
+        del pipe
+    torch.cuda.empty_cache()
+    outputs = {kind: sorted(p.name for p in (root / kind).iterdir()) for kind in runs}
+    if outputs["mp4"] != sorted(written) or outputs["png"] != sorted(
+            Path(n).stem for n in written):
+        raise AssertionError(f"phase 24 outputs {outputs}")
+    for kind, run in runs.items():
+        if run["k1"] != layers * len(written):
+            raise AssertionError(f"phase 24 {kind} run: K1 {run['k1']}, want "
+                                 f"{layers} x {len(written)}")
+
+    # a dataset over mp4 clips: read through OpenCV, mpeg4 through its writer
+    data = root / "data"
+    (data / "clips").mkdir(parents=True)
+    for i in range(DATASET_CLIPS):
+        video_io.save_video(smooth_clip(400 + i, *DATASET_SOURCE).numpy(),
+                            data / "clips" / f"clip_{i}.mp4", fps=25, pixel_format="rgb")
+    (data / "list.txt").write_text("".join(f"clips/clip_{i}.mp4\n"
+                                           for i in range(DATASET_CLIPS)))
+    calls = {"mpeg4": 0}
+    saved = deg_mod.RandomVideoCompression._cv2_roundtrip
+
+    def counted(op, frames, bitrate):
+        calls["mpeg4"] += 1
+        return saved(op, frames, bitrate)
+
+    deg_mod.RandomVideoCompression._cv2_roundtrip = counted
+    items, t0 = [], time.perf_counter()
+    try:
+        for seed in range(8):  # the first seed whose two items draw mpeg4
+            calls["mpeg4"] = 0
+            ds = RealSRDataset(data_root=data, video_manifest=data / "list.txt",
+                               max_num_frames=DATASET_RES[0], height=DATASET_RES[1],
+                               width=DATASET_RES[2],
+                               degradation_config="configs/degradation.yaml", seed=seed)
+            items = [ds[0], ds[1]]
+            if calls["mpeg4"]:
+                break
+    finally:
+        deg_mod.RandomVideoCompression._cv2_roundtrip = saved
+    item_s = (time.perf_counter() - t0) / max(2 * (seed + 1), 1)
+    f, h, w = DATASET_RES
+    for it in items:
+        for key, shape in (("hq_video", (f, h, w, 3)), ("lq_video", (f, h, w, 3))):
+            arr = np.asarray(it[key])
+            if arr.shape != shape or not np.isfinite(arr).all() or not arr.std() > 0:
+                raise AssertionError(f"phase 24 dataset item {key}: {arr.shape}")
+    if not calls["mpeg4"]:
+        raise AssertionError("phase 24: no item drew the mpeg4 codec in 8 seeds")
+    backend = deg_mod.compression_backend()
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"phase 24 video files (ROADMAP C.2; OpenCV {cv2.__version__}): "
+        f"{len(written)} mp4 clips {list(written.values())} -> python -m "
+        f"dove_tpu_torch.inference --is_vae_st ({layers} layers): outputs "
+        f"{outputs['mp4']} in {runs['mp4']['wall_s']:.1f}s, K1 {runs['mp4']['k1']} "
+        f"(= {layers} x {len(written)}); --png_save {runs['png']['wall_s']:.1f}s; "
+        f"against process_frames on the decoded input: "
+        f"{json.dumps({n: {k: (round(v, 2) if isinstance(v, float) else v) for k, v in c.items()} for n, c in checks.items()})} "
+        f"(bars: mp4 {VIDEO_CODEC_PSNR_DB} dB, png {PSNR_BAR_DB} dB); RealSRDataset "
+        f"over {DATASET_CLIPS} mp4 clips of {DATASET_SOURCE} with "
+        f"configs/degradation.yaml at {DATASET_RES} (seed {seed}): 2 items, "
+        f"{calls['mpeg4']} mpeg4 round trips through OpenCV, ~{item_s:.2f}s an "
+        f"item; video_compression_backend {backend!r}")
+    return dict(runs={k: dict(wall_s=v["wall_s"], k1=v["k1"]) for k, v in runs.items()},
+                checks=checks, mpeg4_calls=calls["mpeg4"], backend=backend, layers=layers)
+
+
+# ---------------------------------------------------------------------------
+# Phase 25: the int8 drift report and weight floor at 42 layers (ROADMAP A.4)
+# ---------------------------------------------------------------------------
+
+def _stage_conv_launches(pipe, frames: int, h: int, w: int) -> dict:
+    """K4 and quantizer launches of run_stages' enc_all and dec_all on an
+    unpadded LQ clip under the pipeline's window plan."""
+    from dove_tpu_torch.models.vae import _frame_chunks
+    from dove_tpu_torch.pipeline import plan_axis
+
+    cfg = pipe.config
+    lat_h = h * cfg.upscale // cfg.vae.spatial_scale
+    lat_w = w * cfg.upscale // cfg.vae.spatial_scale
+    blend, enc_max, dec_max = pipe._window_budget()
+
+    def windows(budget):
+        return plan_axis(lat_h, blend, budget[0])[2] * plan_axis(lat_w, blend, budget[1])[2]
+
+    enc = windows(enc_max) * len(_frame_chunks(frames, cfg.vae.sample_frames_batch_size))
+    dec = windows(dec_max) * len(_frame_chunks(cfg.vae.latent_frames(frames),
+                                               cfg.vae.latent_frames_batch_size))
+    return _conv_launches(pipe, enc, dec)
+
+
+def _drift_run(family: str, mode: str | None, attention=None, calib=None,
+               exclude=()) -> tuple:
+    """One run of the drift report at 42 layers: build (weights from their
+    seeds), run_stages on the fixture, launches counted where they happen."""
+    import gc
+
+    from dove_tpu_torch import int8_drift_report as drift
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pipe = drift.build_pipe("cogvideox1.5-5b", mode, weights=family, attention=attention,
+                            vae_calib=calib, vae_exclude=exclude, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    counters = _conv_counters()
+    for c in counters.values():
+        c.reset()
+    torch.cuda.reset_peak_memory_stats()
+    stages = drift.run_stages(pipe, *DRIFT_FIXTURE)
+    peak = torch.cuda.max_memory_allocated()
+    counts = {n: c.count for n, c in counters.items()}
+    layers = pipe.config.dit.num_layers
+    want = dict(k1=0, k2=0, k4=0, k4_kt1=0, k5=0, quantize=0)
+    want["k2" if pipe.attention_backend == "flash-qk8" else "k1"] = layers
+    if mode in ("int8", "int8-dit-dec"):
+        want.update(_stage_conv_launches(pipe, *DRIFT_FIXTURE))
+    if counts != want or (mode in ("int8", "int8-dit-dec") and not counts["k4"] > 0):
+        raise AssertionError(f"phase 25 {family} {mode} {attention}: launches {counts}, "
+                             f"want {want}")
+    info = dict(seconds=float(stages["seconds"]), peak_gib=peak / 2**30, build_s=build_s,
+                launches=counts, attention=pipe.attention_backend)
+    return pipe, stages, info
+
+
+def phase_int8_drift(card: str) -> dict:
+    """Phase 25 (ROADMAP A.4): dove_tpu_torch.int8_drift_report at 42 layers
+    (CogVideoX1.5-5B widths, bf16) on its 33x180x320 fixture, for both weight
+    families: bf16 with its calibration; int8w; int8-dit; int8-dit with bf16
+    attention (K1); int8-dit-dec --exclude lowres and int8 with that
+    calibration; each against bf16 (per-stage rel_err, Y-PSNR of the I420
+    output) beside the JAX frontier's number; and the weight floor of the
+    decoder under the serving quantizer."""
+    import gc
+
+    from dove_tpu_torch import int8_drift_report as drift
+    from dove_tpu_torch.int8_weight_floor import weight_floor
+
+    fixture = list(DRIFT_FIXTURE)
+    result = {}
+    for family in ("gaussian", "outlier"):
+        pipe, ref, info = _drift_run(family, None)
+        t0 = time.perf_counter()
+        calib = drift.calibrate_pipe(pipe, ref["x0"], *DRIFT_FIXTURE)
+        floor = weight_floor(pipe.vae, calib, family)
+        # every quantizable conv by its local int8 error under the
+        # equalized quantizer (the script's --calib_out --attribution)
+        ranking = drift.attribution_ranking(pipe, ref["x0"], *DRIFT_FIXTURE, calib)
+        top10 = [[name, round(err, 6)] for name, err in ranking[:10]]
+        calib_s = time.perf_counter() - t0
+        floor_summary = {k: floor[k] for k in ("mean_weight_rel_err", "median_weight_rel_err",
+                                               "mean_output_rel_err", "median_output_rel_err")}
+        log(f"phase 25 drift {family} bf16 (42 layers, fixture {fixture}): "
+            f"{info['seconds']:.2f}s, peak {info['peak_gib']:.2f} GiB, build "
+            f"{info['build_s']:.1f}s, launches {info['launches']}; calib "
+            f"{len(calib)} entries, the weight floor of {len(floor['per_conv'])} "
+            f"decoder convs and the attribution of {len(ranking)} convs in "
+            f"{calib_s:.1f}s: floor {json.dumps(floor_summary)}, attribution top 10 "
+            f"{json.dumps(top10)} on {card}")
+        del pipe
+        rows = {"bf16": dict(info, floor=floor_summary, attribution_top10=top10)}
+        calib_t = {k: torch.from_numpy(v) for k, v in calib.items()}
+        for label, mode, attention, use_calib, exclude in DRIFT_MODES:
+            pipe, stages, info = _drift_run(family, mode, attention,
+                                            calib_t if use_calib else None, exclude)
+            report = drift.drift_report(
+                stages, ref, preset="cogvideox1.5-5b", mode=mode, weights=family,
+                attention_backend=pipe.attention_backend, fixture=fixture,
+                equalized=use_calib, exclude=exclude)
+            del pipe, stages
+            frontier = FRONTIER_DB.get(label, {}).get(family)
+            psnr = report["end_to_end"]["psnr_y_vs_bf16_db"]
+            rows[label] = dict(info, rel_err=report["rel_err"], psnr_y_db=psnr,
+                               psnr_i420_db=report["end_to_end"]["psnr_i420_packed_db"],
+                               max_abs_u8=report["end_to_end"]["max_abs_u8"],
+                               frontier_db=frontier)
+            log(f"phase 25 drift {family} {label}: rel_err "
+                f"{json.dumps({k: float(f'{v:.4e}') for k, v in report['rel_err'].items()})}, "
+                f"Y-PSNR vs bf16 {psnr:.2f} dB (JAX frontier "
+                f"{'-' if frontier is None else frontier} dB), I420 "
+                f"{report['end_to_end']['psnr_i420_packed_db']:.2f} dB, max |du8| "
+                f"{report['end_to_end']['max_abs_u8']}; {info['seconds']:.2f}s, peak "
+                f"{info['peak_gib']:.2f} GiB, build {info['build_s']:.1f}s, launches "
+                f"{info['launches']} on {card}")
+            if label in DRIFT_BAR_MODES and not psnr >= DRIFT_BAR_DB:
+                raise AssertionError(f"phase 25 {family} {label}: {psnr:.2f} dB below "
+                                     f"the frontier's {DRIFT_BAR_DB} dB bar")
+        result[family] = rows
+        del calib, calib_t
+        gc.collect()
+        torch.cuda.empty_cache()
+    return result
+
+
+# ---------------------------------------------------------------------------
+# Phase 26: the optimizers, gradient accumulation and trackers (ROADMAP A.8)
+# ---------------------------------------------------------------------------
+
+def phase_optimizers(data: dict) -> dict:
+    """Phase 26 (ROADMAP A.8): one scripts/train_s2.sh SFT step at 42 layers
+    (phase 17's trainer) with each of adamw, adamw-8bit, adamw-4bit, came and
+    prodigy, after one unmeasured step each; the learning rate without the
+    script's warmup, whose first rate of 0 would leave the weights where they
+    are (and Prodigy's estimate 0 / 0, as in optax). Then python -m
+    dove_tpu_torch.train's main at 2 layers (stage 1, phase 22's clips at
+    OPT_ACCUM_RES) with --gradient_accumulation_steps 2 --report_to all
+    --checkpointing_steps 3 for 4 micro-steps, and a resume from checkpoint-3
+    that must repeat step 4 exactly."""
+    import gc
+    import shutil
+    from pathlib import Path
+
+    from dove_tpu_torch import cogvideox1_5_5b
+
+    tr = _s2_trainer(cogvideox1_5_5b(), seed=0)
+    tr.args.lr_warmup_steps = 0
+    layers = tr.config.dit.num_layers
+    clip, image = s2_pairs(seed=26)
+    batch = tr.device_batch({**clip, "hq_image": image["hq_video"],
+                             "lq_image": image["lq_video"]})
+    counters = _k3_counters()
+    want = {"k1": 0, "k1_lse": 2 * layers, "k2": 0, "k3a": layers, "k3b": layers}
+    rows = {}
+    for name in OPT_NAMES:
+        tr.optimizer = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        tr.args.optimizer = name
+        tr.prepare_optimizer(2)
+        tr.global_step = 0
+        torch.cuda.reset_peak_memory_stats()
+        tr.train_step(batch)  # unmeasured: the state's first touch
+        tr.global_step += 1
+        before = {n: c.count for n, c in counters.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, aux, gnorm = tr.train_step(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tr.global_step += 1
+        launches = {n: c.count - before[n] for n, c in counters.items()}
+        finite = all(bool(torch.isfinite(p).all()) for p in tr.trainable_tensors())
+        rows[name] = dict(step_s=wall, split_s=dict(tr.step_times),
+                          peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                          state_gib=tr.optimizer.state_bytes() / 2**30,
+                          loss=float(loss), grad_norm=float(gnorm), launches=launches,
+                          weights_finite=finite, kind="image" if tr.image_step(1) else "video")
+        log(f"  {name}: step {wall:.3f}s, split "
+            f"{json.dumps({k: round(v, 3) for k, v in tr.step_times.items()})}, peak "
+            f"{rows[name]['peak_gib']:.2f} GiB, state {rows[name]['state_gib']:.2f} GiB, "
+            f"loss {float(loss):.6f}, grad_norm {float(gnorm):.4e}, launches {launches}, "
+            f"weights finite {finite}")
+        if launches != want or not math.isfinite(float(loss)) or not finite:
+            raise AssertionError(f"phase 26 {name}: {rows[name]}")
+    n_params = sum(p.numel() for p in tr.trainable_tensors())
+    tr.optimizer = None
+    del tr, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # gradient accumulation and the trackers through the entry point: three
+    # clips at batch 1 make an epoch of 3 micro-steps, so checkpoint-3 ends
+    # an epoch and its resume sees step 4's batch (no run skips batches)
+    out = Path("build/chip_smoke_accum")
+    shutil.rmtree(out, ignore_errors=True)
+    manifest = Path(data["root"]) / "accum.txt"
+    manifest.write_text("".join(f"clips/clip_{i}.mp4\n" for i in range(3)))
+    env = {"MODEL_PATH": "build/no-checkpoint", "DATA_ROOT": str(data["root"]),
+           "IMAGE_ROOT": str(data["root"] / "DIV2K"), "OUTPUT_DIR": str(out / "straight")}
+    res = "x".join(str(x) for x in OPT_ACCUM_RES)
+    argv = script_argv("train_s1.sh", env) + [
+        "--num_workers", "0", "--device", "cuda",
+        "--degradation_config", str(data["configs"]["degradation.yaml"]),
+        "--video_column", str(manifest), "--batch_size", "1",
+        "--train_resolution", res, "--train_steps", "4", "--checkpointing_steps", "3",
+        "--gradient_accumulation_steps", "2", "--report_to", "all"]
+    with _two_layer_presets():
+        info, probe = _run_main(argv)
+        straight = _step_losses(out / "straight")
+        resumed = argv + ["--output_dir", str(out / "resumed"),
+                          "--resume_from_checkpoint", str(out / "straight" / "checkpoint-3")]
+        info_r, probe_r = _run_main(resumed)
+    again = _step_losses(out / "resumed")
+    state = {k: torch.load(out / k / "checkpoint-4" / "state.pt", map_location="cpu",
+                           weights_only=True) for k in ("straight", "resumed")}
+    ckpt3 = torch.load(out / "straight" / "checkpoint-3" / "state.pt", map_location="cpu",
+                       weights_only=True)
+
+    def same(a, b) -> bool:
+        if isinstance(a, dict):
+            return set(a) == set(b) and all(same(a[k], b[k]) for k in a)
+        if isinstance(a, (list, tuple)):
+            return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+        if isinstance(a, torch.Tensor):
+            return torch.equal(a, b)
+        return a == b
+
+    exact = same(state["straight"], state["resumed"])
+    runs = list((out / "straight" / "wandb").glob("offline-run-*"))
+    files = sorted(str(p.relative_to(runs[0] / "files")) for p in
+                   (runs[0] / "files").rglob("*") if p.is_file()) if runs else []
+    tfevents = [f for f in files if f.startswith("events.out.tfevents")]
+    tb = sorted(p.name for p in (out / "straight" / "tb").rglob("events.out.tfevents.*")) \
+        if (out / "straight" / "tb").exists() else []
+    two_layers = info["layers"]
+    step_want = {"k1": 0, "k1_lse": 2 * two_layers, "k2": 0, "k3a": two_layers,
+                 "k3b": two_layers}
+    accum = dict(losses=straight, resumed_losses=again, exact=exact,
+                 mini_step_at_3=ckpt3["opt_state"]["mini_step"],
+                 inner_count_at_4=state["straight"]["opt_state"]["inner"]["count"],
+                 wandb_files=files, tfevents=bool(tfevents), tb_files=tb,
+                 steps_s=[round(s["wall_s"], 3) for s in probe.steps])
+    log(f"phase 26 optimizers (train_s2.sh SFT at {layers} layers, "
+        f"{n_params / 1e9:.3f}B parameters, no warmup): "
+        f"{json.dumps({n: dict(step_s=round(r['step_s'], 3), optimizer_s=round(r['split_s'].get('optimizer', 0.0), 3), peak_gib=round(r['peak_gib'], 2), state_gib=round(r['state_gib'], 2), loss=round(r['loss'], 6)) for n, r in rows.items()})}; "
+        f"accumulation ({two_layers} layers, k 2, --report_to all, {res}): losses "
+        f"{straight}, resumed from checkpoint-3 (mini_step {accum['mini_step_at_3']}) "
+        f"step 4 {again}, final state equal {exact}, inner count "
+        f"{accum['inner_count_at_4']}, launches per micro-step "
+        f"{[s['launches'] for s in probe.steps]}; wandb run files {files}; tfevents "
+        f"in the wandb run {bool(tfevents)}, under tb/ {tb}")
+    if (sorted(straight) != [1, 2, 3, 4] or sorted(again) != [4]
+            or again[4] != straight[4] or not exact or accum["mini_step_at_3"] != 1
+            or accum["inner_count_at_4"] != 2 or not runs
+            or "wandb-history.jsonl" not in files
+            or any(s["launches"] != step_want for s in probe.steps + probe_r.steps)):
+        raise AssertionError(f"phase 26 accumulation: {accum}")
+    shutil.rmtree(out, ignore_errors=True)
+    return dict(optimizers=rows, accumulation=accum, n_params=n_params)
+
+
+def drift_launches(drift: dict, kernel: str) -> dict:
+    """Phase 25's launches of one kernel, by family and mode, where nonzero."""
+    return {family: {label: row["launches"][kernel] for label, row in rows.items()
+                     if row["launches"][kernel]}
+            for family, rows in drift.items()}
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -3983,7 +4482,10 @@ def main(argv: list[str] | None = None) -> int:
                 ({17}, lambda: phase_s2_recipe(args.profile)),
                 ({18}, phase_fused_kernel_vs_plain),
                 ({19, 20, 21}, phases_fused_and_scoring),
-                ({22, 23}, lambda: phase_train_entry_point(phase_data_pipeline()))):
+                ({22, 23}, lambda: phase_train_entry_point(phase_data_pipeline())),
+                ({24}, phase_video_files),
+                ({25}, lambda: phase_int8_drift(card)),
+                ({26}, lambda: phase_optimizers(prepare_data_dir()))):
             if numbers & chosen:
                 t0 = time.perf_counter()
                 run()
@@ -4007,7 +4509,13 @@ def main(argv: list[str] | None = None) -> int:
     s2 = phase_s2_recipe(args.profile)
     fused_2l = phase_fused_kernel_vs_plain()
     fused, _ = phases_fused_and_scoring()
-    fit = phase_train_entry_point(phase_data_pipeline())
+    data = phase_data_pipeline()
+    fit = phase_train_entry_point(data)
+    t_new = time.perf_counter()
+    video = phase_video_files()
+    drift = phase_int8_drift(card)
+    opt = phase_optimizers(data)
+    log(f"phases 24-26 took {time.perf_counter() - t_new:.1f}s")
     log(f"all phases took {time.perf_counter() - t_start:.1f}s")
 
     kernels = [{
@@ -4067,6 +4575,12 @@ def main(argv: list[str] | None = None) -> int:
         "fit_lse_launches_per_step": [s["launches"]["k1_lse"] for s in fit["steps"]],
         "fit_s2_lse_launches_per_step": [s["launches"]["k1_lse"]
                                          for s in fit["s2_steps"]],
+        # phases 24-26: the CLI on mp4 files (2 layers, 2 clips), the drift
+        # report's runs at 42 layers, one SFT step per optimizer (K1-lse)
+        "video_cli_launches": video["runs"]["mp4"]["k1"],
+        "drift_launches": drift_launches(drift, "k1"),
+        "opt_lse_launches_per_step": {n: r["launches"]["k1_lse"]
+                                      for n, r in opt["optimizers"].items()},
     }, {
         "name": "flash_fwd_qk8",
         "route": "cuda",
@@ -4095,6 +4609,7 @@ def main(argv: list[str] | None = None) -> int:
         "exp_floor_ms": k2["exp_floor_ms"],
         "sm_clock_mhz": k2["sm_clock_mhz"],
         "shape": k2["shape"],
+        "drift_launches": drift_launches(drift, "k2"),
     }]
     sdpa_bwd = ("scaled_dot_product_attention forward plus backward minus its "
                 "forward: dq, dk and dv in one call")
@@ -4123,6 +4638,8 @@ def main(argv: list[str] | None = None) -> int:
             "s2_bound_by": k3["stage2"][f"{key}_bound_by"],
             "s2_library_ms": k3["stage2"]["sdpa_bwd_ms"],
             "fit_launches_per_step": [s["launches"][key] for s in fit["steps"]],
+            "opt_launches_per_step": {n: r["launches"][key]
+                                      for n, r in opt["optimizers"].items()},
         })
     conv_source = "dove_tpu_torch/csrc/conv3d_taps_sm90.cu"
     kernels.append({
@@ -4144,6 +4661,8 @@ def main(argv: list[str] | None = None) -> int:
                         "of a different function (no int8 convolution is bound)",
         "shape": k4["shape"],
         "by_shape": k4["by_shape"],
+        "drift_launches": drift_launches(drift, "k4"),
+        "drift_launches_kt1": drift_launches(drift, "k4_kt1"),
     })
     kernels.append({
         "name": "conv3d_bf16",
@@ -4177,6 +4696,7 @@ def main(argv: list[str] | None = None) -> int:
         "bound_by": quantizer["bound_by"],
         "library_ms": None,
         "shape": quantizer["shape"],
+        "drift_launches": drift_launches(drift, "quantize"),
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

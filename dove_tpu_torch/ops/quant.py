@@ -430,7 +430,11 @@ def gptq_tap_rounding(
     i0, i1, i2 = (torch.tensor(v, device=w.device) for v in zip(*idx))
     H0 = c[i0, i1, i2].reshape(T, T)
     H = H0 + damp * torch.eye(T, dtype=torch.float32, device=w.device)
-    U = torch.linalg.cholesky(torch.linalg.inv(H)).T
+    # an estimate of H from a small window can be indefinite: then, as
+    # jnp.linalg.cholesky does, the factor is NaN, every column's GPTQ error
+    # is NaN and round-to-nearest is kept
+    L, info = torch.linalg.cholesky_ex(torch.linalg.inv(H))
+    U = torch.where(info == 0, L, torch.full_like(L, float("nan"))).T
 
     W0 = w.float().reshape((T,) + tuple(w.shape[-2:]))
     W2 = W0.clone()

@@ -9,8 +9,8 @@ bridge and ``dump_yaml`` writes ``args.yaml`` without PyYAML.
 
 Options that belong to later slices of the port raise NotImplementedError,
 naming their ROADMAP item, once the JAX validators have passed: sharding over
-a mesh (``fsdp``, ``tensor_parallel`` > 1, ``multihost``: A.12),
-``use_optical_flow`` (A.13) and trackers other than ``jsonl`` (A.8).
+a mesh (``fsdp``, ``tensor_parallel`` > 1, ``multihost``: A.12) and
+``use_optical_flow`` (A.13).
 """
 
 from __future__ import annotations
@@ -188,13 +188,12 @@ class Args:
             "tensor_parallel > 1 (A.12)": self.tensor_parallel > 1,
             "multihost (A.12)": self.multihost,
             "use_optical_flow (A.13)": self.use_optical_flow,
-            f"report_to={self.report_to!r} (A.8)": self.report_to not in ("jsonl", None),
         }
         on = [name for name, flag in later.items() if flag]
         if on:
             raise NotImplementedError(
                 f"not ported yet: {', '.join(on)} (ROADMAP queue A: parallel/ is "
-                "A.12, flow fusion A.13, the trackers A.8)")
+                "A.12, flow fusion A.13)")
 
     @classmethod
     def parse_args(cls, argv: list[str] | None = None) -> "Args":

@@ -36,9 +36,14 @@ live DiT, its LoRA merged inside the forward, through the port's
 ``DovePipeline`` on the held-out clips and scores them with
 ``eval.metrics``. ``python -m dove_tpu_torch.train`` is the entry point.
 
-Not ported yet (they raise, naming their ROADMAP item): gradient
-accumulation and the optimizers other than AdamW and Adam (A.8), the
-trackers other than ``jsonl`` (A.8).
+Every optimizer of the JAX package runs (``train/optim.py``), and with
+``gradient_accumulation_steps`` k > 1 the optimizer is ``optim.MultiSteps``,
+optax's ``MultiSteps``: ``global_step`` counts micro-steps, the clip and the
+update take the mean of k micro-gradients, and a checkpoint carries the
+accumulator. Beside ``train_log.jsonl``, ``report_to`` ``tensorboard``
+writes tfevents under ``tb/<tracker_name>`` (where
+``torch.utils.tensorboard`` imports; else it warns and keeps the JSONL) and
+``wandb`` an offline wandb run (``train/tracking.py``); ``all`` both.
 """
 
 from __future__ import annotations
@@ -68,7 +73,7 @@ from dove_tpu_torch.train import components as components_mod
 from dove_tpu_torch.train import losses
 from dove_tpu_torch.train.args import Args
 from dove_tpu_torch.train.lora import TARGETS, init_lora_params
-from dove_tpu_torch.train.optim import make_lr_schedule, make_optimizer
+from dove_tpu_torch.train.optim import MultiSteps, make_lr_schedule, make_optimizer
 
 logger = logging.getLogger(__name__)
 
@@ -141,6 +146,8 @@ class Trainer:
         self.step_times: dict[str, float] = {}
         self._lap_t = 0.0
         self._log_file = None
+        self._tb = None  # a tensorboard SummaryWriter when report_to asks for it
+        self._wandb = None  # a WandbOfflineRun when report_to is wandb or all
 
     # ------------------------------------------------------------------
     # Components
@@ -264,9 +271,6 @@ class Trainer:
 
     def prepare_optimizer(self, total_steps: int) -> None:
         args = self.args
-        if args.gradient_accumulation_steps > 1:
-            raise NotImplementedError(
-                "gradient_accumulation_steps > 1 is not ported yet (ROADMAP A.8)")
         lr = make_lr_schedule(
             args.learning_rate, warmup_steps=args.lr_warmup_steps,
             total_steps=total_steps, kind=args.lr_scheduler,
@@ -277,6 +281,8 @@ class Trainer:
             eps=args.epsilon, weight_decay=args.weight_decay,
             max_grad_norm=args.max_grad_norm,
         )
+        if args.gradient_accumulation_steps > 1:
+            self.optimizer = MultiSteps(self.optimizer, args.gradient_accumulation_steps)
         self.optimizer.init(self.trainable_tensors())
 
     def dit_kwargs(self) -> dict[str, Any]:
@@ -398,6 +404,7 @@ class Trainer:
         logger.info("%s", backend_rec)
         self._log_file.write(json.dumps(backend_rec) + "\n")
         self._log_file.flush()
+        self._open_trackers()
         self.load_components()
         self.prepare_dataset()
         steps_per_epoch = max(len(self.loader), 1)
@@ -405,6 +412,33 @@ class Trainer:
         self.prepare_optimizer(total_steps)
         self.maybe_resume()
         self.train(total_steps, steps_per_epoch)
+
+    def _open_trackers(self) -> None:
+        """The trackers ``report_to`` asks for, as the JAX trainer opens them."""
+        args = self.args
+        if args.report_to in ("tensorboard", "all"):
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+
+                self._tb = SummaryWriter(log_dir=str(args.output_dir / "tb" / args.tracker_name))
+            except Exception as e:  # no tensorboard backend: an optional tracker
+                logger.warning("tensorboard writer unavailable (%s); "
+                               "falling back to jsonl only", e)
+        if args.report_to in ("wandb", "all"):
+            from dove_tpu_torch.train.tracking import WandbOfflineRun
+
+            self._wandb = WandbOfflineRun(
+                args.output_dir, project=args.tracker_name,
+                config={k: (str(v) if isinstance(v, Path) else v)
+                        for k, v in args.model_dump().items()})
+
+    def _close_trackers(self) -> None:
+        if self._tb is not None:
+            self._tb.close()
+            self._tb = None
+        if self._wandb is not None:
+            self._wandb.finish()
+            self._wandb = None
 
     def maybe_resume(self) -> None:
         args = self.args
@@ -478,6 +512,7 @@ class Trainer:
         self.save(self.global_step)
         if self._log_file:
             self._log_file.close()
+        self._close_trackers()
 
     # ------------------------------------------------------------------
     # Logging / checkpoint / export
@@ -495,6 +530,14 @@ class Trainer:
         if self._log_file:
             self._log_file.write(json.dumps(rec) + "\n")
             self._log_file.flush()
+        scalars = {k: v for k, v in rec.items()
+                   if isinstance(v, (int, float)) and k != "step"}
+        if self._tb is not None:
+            for k, v in scalars.items():
+                self._tb.add_scalar(f"train/{k}", v, self.global_step)
+        if self._wandb is not None:
+            self._wandb.log({f"train/{k}": v for k, v in scalars.items()},
+                            self.global_step)
 
     def log_memory(self) -> None:
         if self.device.type != "cuda":
@@ -592,6 +635,9 @@ class Trainer:
                     if artifact_kind == "mp4":
                         video_io.save_video(sr, out_dir / f"{clip.stem}.mp4",
                                             fps=args.gen_fps)
+                        if self._wandb is not None:  # wandb.Video's record
+                            self._wandb.log_video(f"validation/{clip.stem}",
+                                                  out_dir / f"{clip.stem}.mp4", step)
                     else:
                         video_io.save_frames_as_png(sr, out_dir / clip.stem)
                     ref = None
@@ -622,6 +668,11 @@ class Trainer:
         if self._log_file:
             self._log_file.write(json.dumps(rec) + "\n")
             self._log_file.flush()
+        if self._tb is not None:
+            for k, v in summary.items():
+                self._tb.add_scalar(f"validation/{k}", v, step)
+        if self._wandb is not None:
+            self._wandb.log({f"validation/{k}": v for k, v in summary.items()}, step)
         return summary
 
 

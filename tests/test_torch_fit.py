@@ -335,5 +335,11 @@ def test_train_cli_help_and_refusals():
         assert flag in res.stdout
     with pytest.raises(NotImplementedError, match="A.12"):
         train_main(["--model_path", "m", "--multihost", "true", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A.8"):
-        train_main(["--model_path", "m", "--report_to", "wandb", "--device", "cpu"])
+    # the options A.8 ported parse as the JAX package's CLI parses them (runs:
+    # tests/test_torch_accumulation.py)
+    argv = ["--model_path", "m", "--report_to", "wandb", "--optimizer", "came",
+            "--gradient_accumulation_steps", "2"]
+    ours = targs.Args.parse_args(argv).model_dump()
+    ref = jargs.Args.parse_args(argv).model_dump()
+    for name in ("report_to", "optimizer", "gradient_accumulation_steps"):
+        assert ours[name] == ref[name]

@@ -309,7 +309,8 @@ def test_port_imports_no_jax():
             "dove_tpu_torch.eval.clip", "dove_tpu_torch.eval.clip_tokenizer",
             "dove_tpu_torch.eval.niqe", "dove_tpu_torch.eval.musiq",
             "dove_tpu_torch.eval.maniqa", "dove_tpu_torch.eval.ewarp",
-            "dove_tpu_torch.models.raft"} <= set(mods)
+            "dove_tpu_torch.models.raft", "dove_tpu_torch.int8_drift_report",
+            "dove_tpu_torch.int8_weight_floor", "dove_tpu_torch.train.tracking"} <= set(mods)
     # nor cv2 or transformers (the card has neither): io/video.py imports
     # cv2 inside its video-file functions only
     code = (
