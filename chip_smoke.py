@@ -12,9 +12,9 @@ Phases, one result line each; any failure exits non-zero:
    with ptxas's registers, shared memory and spills for each kernel form,
    and each form's count of HGMMA / IGMMA (wgmma on bf16 / int8), UTMALDG
    (TMA load), UBLKCP (bulk copy) and HMMA / IMMA (mma.sync) in its SASS
-   where the toolkit has cuobjdump: every K1, K2, K3a, K3b, K4 and K5 form
-   must issue wgmma and TMA loads and no mma.sync, and spill nothing (K2
-   both int8 and bf16 wgmma); which media packages (PIL, cv2,
+   where the toolkit has cuobjdump: every K1, K2, K3a, K3b, K4 and K5 form,
+   bf16 and fp16, must issue wgmma and TMA loads and no mma.sync, and
+   spill nothing (K2 both int8 and bf16 or fp16 wgmma); which media packages (PIL, cv2,
    torchvision.io, av, imageio) and tool packages (transformers, regex, ftfy, scipy.io) the
    card's Python imports, whether an ffmpeg binary is on the PATH, and
    whether the port's io/video.py writes an mp4 and reads it back;
@@ -164,7 +164,28 @@ Phases, one result line each; any failure exits non-zero:
    dove_tpu_torch.train``'s main at 2 layers with
    --gradient_accumulation_steps 2 --report_to all for 4 micro-steps and a
    resume from checkpoint-3 that repeats step 4 and the final state bit for
-   bit, with the offline wandb run's files and the tfevents.
+   bit, with the offline wandb run's files and the tfevents;
+27. the fp16 kernel forms (ROADMAP A.14) against their plain versions: K1's
+   four forms and K2 with fp16 V and O at the 2B's [1, 30, 34786, 64] and
+   the 5B's [1, 48, 19426, 64], K1-lse, K3a and K3b at both stage-1 shapes
+   ([2, 30, 5826, 64], [2, 48, 3426, 64]), each timed beside SDPA in fp16
+   with its bound, the ragged Sq, Skv sweep and NaN heads of phases 2, 5
+   and 9 in fp16, K4's fp16 epilogue equal and K5's fp16 out within its bar
+   at phase 12's main shape, the quantizer's pass on fp16 equal; and K1 in
+   bf16 at the 2B's serving shape;
+28. the CogVideoX-2B family (ROADMAP A.10) at 30 layers on the main path's
+   clip in bf16, fp16 and fp16 int8-dit, with each layer's largest logit;
+   2-layer 2B pipelines through the kernels and the plain attention in
+   bf16 and fp16, and in fp16 int8-dit-dec with hand_conv (K4, K5 and the
+   quantizer in fp16); the 5B at 42 layers in fp16 against phase 4's clip;
+   ``python -m dove_tpu_torch.inference --preset cogvideox-2b --dtype
+   float16`` on mp4 clips at 2 layers;
+29. fp16 training: a 2-layer stage-1 step through the kernels and through
+   the plain attention for the 5B and the 2B (on a scaled loss: the JAX
+   package trains fp16 without loss scaling, and at full width the q, k, v
+   LoRA gradients underflow to 0, which the phase records), then three
+   stage-1 steps with --base_preset cogvideox-2b at 30 layers in bf16 and
+   in fp16.
 
 Then one JSON line with the kernels' numbers, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}.
@@ -177,6 +198,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -398,59 +420,78 @@ def within_grad_bars(err: dict) -> bool:
 def main_path_seq_len(cfg) -> int:
     """Joint text+video tokens of the main path's DiT pass. pad_video pads
     the LQ frame to multiples of 16 (180 rows to 192), so the 32-frame
-    180x320 clip's DiT sees 48x80 patches of 5 latent pairs."""
+    180x320 clip's DiT sees 48x80 patches of 5 latent pairs (the 5B), or of
+    9 latents (the 2B, no temporal patching)."""
     from dove_tpu_torch import tiling
+    from dove_tpu_torch.models.dit import temporal_pad
 
     pad_f, pad_h, pad_w = tiling.compute_padding(CLIP_FRAMES, CLIP_H, CLIP_W)
     lat = cfg.vae.latent_frames(tiling.next_valid_frames(CLIP_FRAMES + pad_f))
-    pt = cfg.dit.patch_size_t
-    lat += (pt - lat % pt) % pt
+    lat += temporal_pad(cfg.dit, lat)
     patch = cfg.vae.spatial_scale * cfg.dit.patch_size
     h = (CLIP_H + pad_h) * cfg.upscale // patch
     w = (CLIP_W + pad_w) * cfg.upscale // patch
-    return cfg.dit.max_text_seq_length + lat // pt * h * w
+    return cfg.dit.max_text_seq_length + lat // (cfg.dit.patch_size_t or 1) * h * w
 
 
 def stage2_seq_len(cfg) -> int:
     """Joint text+video tokens of a stage-2 DiT pass: the clip's frames are
     one latent each, padded to patch_size_t (an image's one latent by a copy
-    of itself), so both kinds of step see one latent pair of 40x80 latents
-    in 20x40 patches."""
-    pt = cfg.dit.patch_size_t
-    lat = S2_FRAMES + (pt - S2_FRAMES % pt) % pt
+    of itself; the 2B pads nothing), so both kinds of step see one latent
+    pair of 40x80 latents in 20x40 patches (the 2B: two latents)."""
+    from dove_tpu_torch.models.dit import temporal_pad
+
+    lat = S2_FRAMES + temporal_pad(cfg.dit, S2_FRAMES)
     patch = cfg.vae.spatial_scale * cfg.dit.patch_size
-    return cfg.dit.max_text_seq_length + lat // pt * (S2_H // patch) * (S2_W // patch)
+    return (cfg.dit.max_text_seq_length
+            + lat // (cfg.dit.patch_size_t or 1) * (S2_H // patch) * (S2_W // patch))
+
+
+def train_seq_len(cfg) -> int:
+    """Joint text+video tokens of a stage-1 DiT pass: TRAIN_FRAMES pixel
+    frames are 7 latents of 40x80, in 20x40 patches of 4 latent pairs (the
+    5B, one copy prepended) or of 7 latents (the 2B)."""
+    from dove_tpu_torch.models.dit import temporal_pad
+
+    lat = cfg.vae.latent_frames(TRAIN_FRAMES)
+    lat += temporal_pad(cfg.dit, lat)
+    patch = cfg.vae.spatial_scale * cfg.dit.patch_size
+    return (cfg.dit.max_text_seq_length
+            + lat // (cfg.dit.patch_size_t or 1) * (TRAIN_H // patch) * (TRAIN_W // patch))
 
 
 # ---------------------------------------------------------------------------
 # Phase 1: device and build
 # ---------------------------------------------------------------------------
 
-# kernel forms by their mangled names:
-# flash_fwd_sm90_kernel<QK, kBounded, kLse>
+# kernel forms by their mangled names. flash_fwd_sm90_kernel<T, QK, kBounded,
+# kLse>: T bf16 (13__nv_bfloat16) or fp16 (6__half), QK = T (a substitution,
+# S<n>_) for K1 or int8_t (a) for K2; the other templates by their arguments
+_FLASH_FWD = re.compile(
+    r"flash_fwd_sm90_kernelI(13__nv_bfloat16|6__half)(S\d*_|a)Lb([01])ELb([01])E")
 KERNEL_FORMS = {
-    "flash_fwd_sm90_kernelI13__nv_bfloat16Lb1ELb0E": "K1 bounded",
-    "flash_fwd_sm90_kernelI13__nv_bfloat16Lb0ELb0E": "K1 online",
-    "flash_fwd_sm90_kernelI13__nv_bfloat16Lb1ELb1E": "K1 bounded lse",
-    "flash_fwd_sm90_kernelI13__nv_bfloat16Lb0ELb1E": "K1 online lse",
-    "flash_fwd_sm90_kernelIaLb1ELb0E": "K2",
-    "flash_bwd_dq_sm90_kernel": "K3a",
-    "flash_bwd_dkv_sm90_kernel": "K3b",
+    "flash_bwd_dq_sm90_kernelI13__nv_bfloat16E": "K3a",
+    "flash_bwd_dq_sm90_kernelI6__halfE": "K3a fp16",
+    "flash_bwd_dkv_sm90_kernelI13__nv_bfloat16E": "K3b",
+    "flash_bwd_dkv_sm90_kernelI6__halfE": "K3b fp16",
     "conv3d_taps_sm90_kernelIaiLi3E": "K4 k_t=3",
     "conv3d_taps_sm90_kernelIaiLi1E": "K4 k_t=1",
     "conv3d_taps_sm90_kernelI13__nv_bfloat16fLi3E": "K5 k_t=3",
     "conv3d_taps_sm90_kernelI13__nv_bfloat16fLi1E": "K5 k_t=1",
     "quant_pack_kernelI13__nv_bfloat16E": "quantizer bf16",
+    "quant_pack_kernelI6__halfE": "quantizer fp16",
     "quant_pack_kernelIfE": "quantizer fp32",
 }
 SOURCES = ("flash_fwd_sm90", "flash_bwd_sm90", "conv3d_taps_sm90", "conv3d_taps")
 # the kernels that must issue wgmma and TMA loads, no mma.sync, and spill
-# nothing
-HOPPER_FORMS = ("K1 bounded", "K1 online", "K1 bounded lse", "K1 online lse",
-                "K2", "K3a", "K3b", "K4 k_t=3", "K4 k_t=1", "K5 k_t=3",
-                "K5 k_t=1")
-# the forms whose wgmma must be both int8 (Q K^T) and bf16 (P V)
-MIXED_FORMS = ("K2",)
+# nothing (K4 and K5 take the output type at run time: one form serves bf16,
+# fp16 and fp32 out)
+_K1_FORMS = ("bounded", "online", "bounded lse", "online lse")
+HOPPER_FORMS = (tuple(f"K1 {f}" for f in _K1_FORMS) + tuple(f"K1 fp16 {f}" for f in _K1_FORMS)
+                + ("K2", "K2 fp16", "K3a", "K3b", "K3a fp16", "K3b fp16", "K4 k_t=3",
+                   "K4 k_t=1", "K5 k_t=3", "K5 k_t=1"))
+# the forms whose wgmma must be both int8 (Q K^T) and bf16 or fp16 (P V)
+MIXED_FORMS = ("K2", "K2 fp16")
 # the packages a media route for the CLI could use on the card
 MEDIA_PACKAGES = ("PIL", "cv2", "torchvision.io", "av", "imageio")
 # what a tokenizer (CLIP-IQA, T5) or NIQE's .mat params could lean on there
@@ -462,6 +503,13 @@ SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "UBLKCP", "HMMA", "IMMA")
 
 
 def _form(line: str) -> str | None:
+    m = _FLASH_FWD.search(line)
+    if m:
+        fp16 = " fp16" if m.group(1) == "6__half" else ""
+        if m.group(2) == "a":
+            return "K2" + fp16
+        return (f"K1{fp16} {'bounded' if m.group(3) == '1' else 'online'}"
+                + (" lse" if m.group(4) == "1" else ""))
     return next((f for key, f in KERNEL_FORMS.items() if key in line), None)
 
 
@@ -637,11 +685,11 @@ def sm_clock_mhz() -> float:
     return float(out.stdout.strip().splitlines()[0])
 
 
-def k1_edge_cases(with_lse: bool) -> dict:
-    """K1's bounded and online forms (with_lse: their training forms) against
-    their plain versions at every (Sq, Skv) of RAGGED, and with the
-    neighbouring heads' q, k and v NaN: a tile read across a head's end
-    would poison head 1, a store across it would overwrite head 2's NaN."""
+def k1_edge_cases(with_lse: bool, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """K1's bounded and online forms (with_lse: their training forms) in
+    ``dtype`` against their plain versions at every (Sq, Skv) of RAGGED, and
+    with the neighbouring heads' q, k and v NaN: a tile read across a head's
+    end would poison head 1, a store across it would overwrite head 2's NaN."""
     from dove_tpu_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda")
@@ -661,7 +709,7 @@ def k1_edge_cases(with_lse: bool) -> dict:
         worst["lse"] = max(worst["lse"], lse_err)
 
     def rand(s):
-        return torch.randn((1, 3, s, 64), generator=gen, device=dev, dtype=torch.bfloat16)
+        return torch.randn((1, 3, s, 64), generator=gen, device=dev, dtype=dtype)
 
     for sq in RAGGED:
         for skv in RAGGED:
@@ -688,7 +736,8 @@ def k1_edge_cases(with_lse: bool) -> dict:
                                                   with_lse=with_lse),
                   f"NaN neighbours sq={sq} skv={skv} bounded={bounded}")
     cases = len(RAGGED) ** 2 * 2 + 4
-    log(f"  K1 {'training' if with_lse else 'inference'} forms at every Sq, Skv in "
+    log(f"  K1 {'training' if with_lse else 'inference'} forms ({dtype}) at every "
+        "Sq, Skv in "
         f"{RAGGED} (B*H = 3) and beside NaN heads: {cases} launches within the bars; "
         "worst " + json.dumps({k: float(f"{x:.3e}") for k, x in worst.items()}))
     return worst
@@ -884,11 +933,12 @@ def phase_main_path(profile_dir: str | None = None) -> dict:
         f"peak {peak / 2**30:.2f} GiB, weights init {init_s:.1f}s")
     if profile_dir is not None:
         profile_main_path(pipe, clip, profile_dir)
-    return dict(launches=launches, stage_s=times, wall_s=wall, peak_bytes=peak)
+    return dict(launches=launches, stage_s=times, wall_s=wall, peak_bytes=peak, out=out)
 
 
 KERNEL_KINDS = (  # (kind, substrings of CUDA kernel names), first match wins
-    ("k2_flash_fwd_qk8", ("flash_fwd_sm90_kernel<signed char",)),
+    ("k2_flash_fwd_qk8", ("flash_fwd_sm90_kernel<__nv_bfloat16, signed char",
+                          "flash_fwd_sm90_kernel<__half, signed char")),
     ("k1_flash_fwd", ("flash_fwd_sm90_kernel",)),
     ("k3a_flash_bwd_dq", ("flash_bwd_dq_sm90_kernel",)),
     ("k3b_flash_bwd_dkv", ("flash_bwd_dkv_sm90_kernel",)),
@@ -990,7 +1040,7 @@ def profile_run(run, out_dir: str, name: str, phase: str) -> None:
 # Phase 5: K2 against its plain version
 # ---------------------------------------------------------------------------
 
-def k2_edge_cases() -> dict:
+def k2_edge_cases(dtype: torch.dtype = torch.bfloat16) -> dict:
     """K2 against its plain version at every (Sq, Skv) of RAGGED (B*H = 3), and beside a poisoned head: int8 codes carry no
     NaN, so head 1's K codes are all 127 (logits far past any other) and its
     V is NaN. A K or V tile read across a head's end would carry them into
@@ -1002,8 +1052,8 @@ def k2_edge_cases() -> dict:
     scale = 64 ** -0.5
     worst = dict(max_abs=0.0, rel_max=0.0, rel_rms=0.0)
 
-    def rand(s):
-        return torch.randn((1, 3, s, 64), generator=gen, device=dev, dtype=torch.bfloat16)
+    def rand(s):  # q, k and V in the model type; q and k go in as codes
+        return torch.randn((1, 3, s, 64), generator=gen, device=dev, dtype=dtype)
 
     def run(q8, k8, v, factor, ref, what, heads=slice(None)):
         out = fa.flash_qk8_launch(q8, k8, v, factor)
@@ -1033,7 +1083,8 @@ def k2_edge_cases() -> dict:
         if not bool(torch.isnan(out[:, 1].float()).all()):
             raise AssertionError(f"K2 wrote into the poisoned head's output at sq={sq}")
     cases = len(RAGGED) ** 2 + 3
-    log(f"  K2 at every Sq, Skv in {RAGGED} (B*H = 3) and beside a poisoned head "
+    log(f"  K2 ({dtype} V and O) at every Sq, Skv in {RAGGED} (B*H = 3) and beside "
+        "a poisoned head "
         f"(K codes 127, V NaN): {cases} launches within the bars, "
         "the poisoned head's output NaN; worst "
         + json.dumps({k: float(f"{x:.3e}") for k, x in worst.items()}))
@@ -1283,7 +1334,7 @@ def _bound(flops: float, nbytes: float) -> tuple[float, str]:
     return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
 
 
-def k3_edge_cases() -> dict:
+def k3_edge_cases(dtype: torch.dtype = torch.bfloat16) -> dict:
     """K3a and K3b against their plain versions at every (Sq, Skv) of RAGGED
     with B*H = 3, on the output and logsumexp of both K1 training forms; and
     with the neighbouring heads' q, k, v, dO, lse and delta NaN: a tile read
@@ -1298,7 +1349,7 @@ def k3_edge_cases() -> dict:
     worst = {"k3a": 0.0, "k3b": 0.0}
 
     def rand(s):
-        return torch.randn((1, 3, s, 64), generator=gen, device=dev, dtype=torch.bfloat16)
+        return torch.randn((1, 3, s, 64), generator=gen, device=dev, dtype=dtype)
 
     def inputs(sq, skv, bounded):
         q, k, v, do = rand(sq), rand(skv), rand(skv), rand(sq)
@@ -1342,7 +1393,8 @@ def k3_edge_cases() -> dict:
             if not bool(torch.isnan(g[:, 0::2].float()).all()):
                 raise AssertionError(f"K3 wrote into a NaN head's gradient at sq={sq} "
                                      f"skv={skv}")
-    log(f"  K3a, K3b at every Sq, Skv in {RAGGED} (B*H = 3, both K1 training forms) "
+    log(f"  K3a, K3b ({dtype}) at every Sq, Skv in {RAGGED} (B*H = 3, both K1 "
+        "training forms) "
         f"and beside NaN heads: {2 * len(RAGGED) ** 2 + len(nan_pairs)} launches each "
         "within the bars; worst max_abs " + json.dumps(
             {k: float(f"{x:.3e}") for k, x in worst.items()}))
@@ -3990,16 +4042,18 @@ def phase_train_entry_point(data: dict) -> dict:
 # Phase 24: the CLI and a dataset on video files (ROADMAP C.2)
 # ---------------------------------------------------------------------------
 
-def _two_layer_presets():
-    """For the length of a ``with``: the 5B preset as the CLI's loader and the
-    trainer read it, cut to 2 DiT layers (the depth of phase 18)."""
+def _two_layer_presets(preset: str = "cogvideox1.5-5b"):
+    """For the length of a ``with``: a preset (the 5B, or "cogvideox-2b") as
+    the CLI's loader and the trainer read it, cut to 2 DiT layers (the depth
+    of phase 18)."""
     import contextlib
     import dataclasses
 
     from dove_tpu_torch import config as cfg_mod
     from dove_tpu_torch.train import trainer as tr_mod
 
-    full = cfg_mod.cogvideox1_5_5b
+    attr = {"cogvideox1.5-5b": "cogvideox1_5_5b", "cogvideox-2b": "cogvideox_2b"}[preset]
+    full = getattr(cfg_mod, attr)
 
     def two():
         base = full()
@@ -4007,14 +4061,14 @@ def _two_layer_presets():
 
     @contextlib.contextmanager
     def patched():
-        saved = tr_mod.PRESETS["cogvideox1.5-5b"]
-        cfg_mod.cogvideox1_5_5b = two
-        tr_mod.PRESETS["cogvideox1.5-5b"] = two
+        saved = tr_mod.PRESETS[preset]
+        setattr(cfg_mod, attr, two)
+        tr_mod.PRESETS[preset] = two
         try:
             yield
         finally:
-            cfg_mod.cogvideox1_5_5b = full
-            tr_mod.PRESETS["cogvideox1.5-5b"] = saved
+            setattr(cfg_mod, attr, full)
+            tr_mod.PRESETS[preset] = saved
 
     return patched()
 
@@ -4430,6 +4484,770 @@ def drift_launches(drift: dict, kernel: str) -> dict:
             for family, rows in drift.items()}
 
 
+# ---------------------------------------------------------------------------
+# Phase 27: the fp16 kernel forms alone (ROADMAP A.14)
+# ---------------------------------------------------------------------------
+
+FP16 = torch.float16
+
+
+def _randn(gen, shape, dtype) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+
+
+def _k1_checked(q, k, v, what: str) -> float:
+    """K1's bounded and online forms against their plain versions at one
+    shape -> the worst max_abs error."""
+    from dove_tpu_torch.ops import flash_attention as fa
+
+    worst = 0.0
+    for bounded in (True, False):
+        out = fa.flash_attention(q, k, v, bounded_logits=bounded)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_plain(q, k, v, bounded_logits=bounded)
+        err = attn_errors(out, ref)
+        log(f"  K1 {what} bounded={bounded}: " + json.dumps(rounded(err, 6)))
+        if not bool(torch.isfinite(out).all()) or not within_bars(err):
+            raise AssertionError(f"K1 {what} bounded={bounded} disagrees with its "
+                                 f"plain version: {err}")
+        worst = max(worst, err["max_abs"])
+        del out, ref
+    return worst
+
+
+def _k1_timed(q, k, v) -> dict:
+    """Each K1 form of q's type timed beside SDPA on the same tensors (phase
+    2's time_k1_forms), the bounded form's plain version, and the bound."""
+    from dove_tpu_torch.ops import flash_attention as fa
+
+    B, heads, S, _ = q.shape
+    forms = time_k1_forms(q, k, v)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, bounded_logits=True),
+                       1, warmup=0)
+    bound_ms, bound_by = _bound(4.0 * S * S * 64 * heads * B, 4 * B * heads * S * 64 * 2)
+    return dict(ms=forms["forms_ms"]["bounded"], plain_ms=plain_ms,
+                library_ms=forms["sdpa_ms"], bound_ms=bound_ms, bound_by=bound_by,
+                shape=[B, heads, S, 64], **forms)
+
+
+def _fp16_training_attention(gen, B: int, heads: int, S: int) -> dict:
+    """K1-lse (the trainer's online form), K3a and K3b in fp16 against their
+    plain versions at [B, heads, S, 64], then timed beside SDPA fp16's
+    forward and backward (phase 9's _time_training_attention)."""
+    from dove_tpu_torch.ops import flash_attention as fa
+
+    scale = 64 ** -0.5
+    q, k, v, do = (_randn(gen, (B, heads, S, 64), FP16) for _ in range(4))
+    out, lse = fa.flash_attention(q, k, v, with_lse=True)
+    torch.cuda.synchronize()
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, with_lse=True)
+    delta = (do.float() * out.float()).sum(-1)
+    dq = fa.flash_bwd_dq_launch(q, k, v, do, lse, delta, scale)
+    dk, dv = fa.flash_bwd_dkv_launch(q, k, v, do, lse, delta, scale)
+    torch.cuda.synchronize()
+    refs = (fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, scale),
+            *fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, scale))
+    worst = {"k1_lse": 0.0, "k3a": 0.0, "k3b": 0.0}
+    lse_err = float((lse - ref_lse).abs().max())
+    for key, got, want in (("k1_lse", out, ref), ("k3a", dq, refs[0]),
+                           ("k3b", dk, refs[1]), ("k3b", dv, refs[2])):
+        err = attn_errors(got, want)
+        if not bool(torch.isfinite(got).all()) or not within_grad_bars(err):
+            raise AssertionError(f"fp16 {key} disagrees with its plain version at "
+                                 f"[{B}, {heads}, {S}, 64]: {err}")
+        worst[key] = max(worst[key], err["max_abs"])
+    if not lse_err <= K1_LSE_ABS_TOL:
+        raise AssertionError(f"fp16 K1's logsumexp is off by {lse_err}")
+    del out, ref, ref_lse, dq, dk, dv, refs
+    timing = _time_training_attention(q, k, v, do, lse, delta, forms=False)
+    timing.update(worst=worst, lse_max_abs_err=lse_err)
+    del q, k, v, do, lse, delta
+    torch.cuda.empty_cache()
+    return timing
+
+
+def _fp16_conv_kernels(gen) -> dict:
+    """K4 with the fp16 epilogue (the VAE's form: offset term and bias, NCDHW)
+    equal to its plain version, K5 with bf16 operands and fp16 out within
+    its bar plus one fp16 ulp, and the quantizer's pass on fp16 input equal,
+    at phase 12's main shape; each timed beside its plain version."""
+    import torch.nn.functional as F
+
+    from dove_tpu_torch.ops import conv3d_int8 as conv
+    from dove_tpu_torch.ops import quant
+
+    shape = CONV_SHAPES[0]
+    B, Fo, Ho, Wo, cin, cout, kt = shape
+    x, w, scale = _conv_inputs(shape, gen, int8=True)
+    addend = torch.randn((cout, min(Ho, 3), min(Wo, 3)), generator=gen, device="cuda")
+    bias = torch.randn(cout, generator=gen, device="cuda")
+    scale = scale * 1e3
+    out = conv.conv_taps(x, w, scale, kt, FP16, True, addend=addend, bias=bias)
+    torch.cuda.synchronize()
+    ref = conv.conv_taps_plain(x, w, scale, kt, FP16, True, addend=addend, bias=bias)
+    if out.dtype != FP16 or not torch.equal(out, ref):
+        raise AssertionError(f"K4's fp16 epilogue differs from its plain version: max "
+                             f"|diff| {float((out.float() - ref.float()).abs().max())}")
+    k4 = dict(shape=list(shape), max_abs_err=0.0,
+              ms=cuda_ms(lambda: conv.conv_taps_launch(x, w, scale, kt, FP16, True,
+                                                       addend, bias), 10),
+              plain_ms=cuda_ms(lambda: conv.conv_taps_plain(
+                  x, w, scale, kt, FP16, True, addend=addend, bias=bias), 1, warmup=0))
+    k4["bound_ms"], k4["bound_by"], _ = _conv_bound(shape, 1, 2, PEAK_INT8_OPS)
+    del x, w, out, ref
+    torch.cuda.empty_cache()
+
+    x, w, _ = _conv_inputs(shape, gen, int8=False)
+    out = conv.conv_taps(x, w, None, kt, FP16, True)
+    torch.cuda.synchronize()
+    ref = conv.conv_taps_plain(x, w, None, kt, torch.float32, True)
+    slack = _k5_bar(ref, kt, cin)
+    _, exponent = torch.frexp(ref.abs())
+    ulp = torch.ldexp(torch.ones_like(ref), exponent - 11)
+    over = float(((out.float() - ref).abs() - ulp - slack).max())
+    err = float((out.float() - ref).abs().max())
+    if out.dtype != FP16 or not over <= 0 or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"K5's fp16 out differs from its plain version by {err} "
+                             f"(bar {slack} and one fp16 ulp)")
+    w5 = w.view(kt, 3, 3, cout, cin).permute(3, 4, 0, 1, 2)
+    x_cl = x.permute(0, 4, 1, 2, 3)
+    w_cl = w5.contiguous(memory_format=torch.channels_last_3d)
+    k5 = dict(shape=list(shape), max_abs_err=err, bar=slack,
+              ms=cuda_ms(lambda: conv.conv_taps_launch(x, w, None, kt, FP16, True), 10),
+              plain_ms=cuda_ms(lambda: conv.conv_taps_plain(x, w, None, kt, FP16, True),
+                               1, warmup=0),
+              library_ms=cuda_ms(lambda: F.conv3d(x_cl, w_cl), 10),
+              library_call="F.conv3d of the same bf16 operands, channels_last_3d, "
+                           "bf16 out (cuDNN has no bf16-in, fp16-out conv)")
+    k5["bound_ms"], k5["bound_by"], _ = _conv_bound(shape, 2, 2, PEAK_BF16_FLOPS)
+    del x, w, out, ref, ulp, x_cl, w_cl, w5
+    torch.cuda.empty_cache()
+
+    qshape = (B, cin, Fo + kt - 1, Ho, Wo)
+    x = torch.nn.functional.silu(torch.randn(qshape, generator=gen, device="cuda") * 2
+                                 ).to(FP16)
+    eq = torch.rand(cin, generator=gen, device="cuda") + 0.5
+    s, m = quant.asym_grid(x, eq_inv=eq, channel_dim=1)
+    codes = conv.quantize_pack(x, s, m, eq, 1)
+    torch.cuda.synchronize()
+    wrong = int((codes != conv.quantize_pack_plain(x, s, m, eq, 1)).sum())
+    if wrong:
+        raise AssertionError(f"the quantizer's pass on fp16 differs in {wrong} codes")
+    quantizer = dict(shape=list(qshape), max_abs_err=0.0,
+                     ms=cuda_ms(lambda: conv.quantize_pack_launch(x, s, m, eq, 1), 10),
+                     plain_ms=cuda_ms(lambda: conv.quantize_pack_plain(x, s, m, eq, 1), 3),
+                     bound_ms=(x.numel() * 2 + codes.numel() + 4 * cin) / PEAK_BYTES * 1e3,
+                     bound_by="bytes")
+    del x, codes
+    for c in (conv.launches_w8a8, conv.launches_w8a8_kt1, conv.launches_bf16,
+              conv.launches_quantize):
+        c.reset()
+    torch.cuda.empty_cache()
+    return dict(k4=k4, k5=k5, quantizer=quantizer)
+
+
+def phase_fp16_kernels(seq_5b: int, heads_5b: int, seq_2b: int, heads_2b: int,
+                       train_2b: int) -> dict:
+    """Phase 27: every fp16 form against its plain version, and K1 in bf16 at
+    the 2B's serving shape. K1's four forms and K2 (fp16 V and O) at the 2B's
+    [1, 30, 34786, 64] and the 5B's [1, 48, 19426, 64], K1-lse, K3a and K3b at
+    the stage-1 shapes of both ([2, 30, 5826, 64], [2, 48, 3426, 64]), each
+    timed beside SDPA in fp16 with its bound; the ragged Sq, Skv sweep and the
+    NaN-neighbour heads of phases 2, 5 and 9 in fp16; K4, K5 and the
+    quantizer with fp16 outputs and input at phase 12's main shape."""
+    from dove_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    scale = 64 ** -0.5
+    res: dict = {"k1": {}, "k2": {}, "train": {}}
+    worst = {"k1": 0.0, "k2": 0.0}
+    for name, heads, S in (("2b", heads_2b, seq_2b), ("5b", heads_5b, seq_5b)):
+        q, k, v = (_randn(gen, (1, heads, S, 64), FP16) for _ in range(3))
+        worst["k1"] = max(worst["k1"], _k1_checked(q, k, v, f"fp16 {name} S={S}"))
+        res["k1"][name] = _k1_timed(q, k, v)
+        q8, k8, factor = fa.quantize_qk_pair(q, k, scale)
+        out = fa.flash_qk8_launch(q8, k8, v, factor)
+        torch.cuda.synchronize()
+        err = attn_errors(out, fa.flash_attention_qk8_plain(q8, k8, v, factor))
+        if out.dtype != FP16 or not bool(torch.isfinite(out).all()) or not within_bars(err):
+            raise AssertionError(f"K2 with fp16 V disagrees with its plain version at "
+                                 f"{name} S={S}: {err}")
+        worst["k2"] = max(worst["k2"], err["max_abs"])
+        macs = float(S) * S * 64 * heads
+        ops_s = 2 * macs / PEAK_INT8_OPS + 2 * macs / PEAK_BF16_FLOPS
+        nbytes = heads * S * 64 * (1 + 1 + 2 + 2)
+        res["k2"][name] = dict(
+            ms=cuda_ms(lambda: fa.flash_qk8_launch(q8, k8, v, factor), 10),
+            k1_same_call_ms=cuda_ms(lambda: fa.flash_attention(q, k, v, bounded_logits=True),
+                                    10),
+            plain_ms=cuda_ms(lambda: fa.flash_attention_qk8_plain(q8, k8, v, factor), 1, 0),
+            library_ms=res["k1"][name]["library_ms"],
+            bound_ms=max(ops_s, nbytes / PEAK_BYTES) * 1e3,
+            bound_by="operations" if ops_s >= nbytes / PEAK_BYTES else "bytes",
+            shape=[1, heads, S, 64], max_abs_err=err["max_abs"])
+        del q, k, v, q8, k8, out
+        torch.cuda.empty_cache()
+    # K1 in bf16 at the 2B's serving shape
+    q, k, v = (_randn(gen, (1, heads_2b, seq_2b, 64), torch.bfloat16) for _ in range(3))
+    k1_bf16_err = _k1_checked(q, k, v, f"bf16 2b S={seq_2b}")
+    res["k1_bf16_2b"] = dict(_k1_timed(q, k, v), max_abs_err=k1_bf16_err)
+    del q, k, v
+    torch.cuda.empty_cache()
+    for name, heads, S in (("2b", heads_2b, train_2b), ("5b", heads_5b, TRAIN_SEQ)):
+        res["train"][name] = _fp16_training_attention(gen, TRAIN_BATCH, heads, S)
+    edges = dict(k1=k1_edge_cases(False, FP16), k1_lse=k1_edge_cases(True, FP16),
+                 k2=k2_edge_cases(FP16), k3=k3_edge_cases(FP16))
+    worst["k1"] = max(worst["k1"], edges["k1"]["max_abs"])
+    worst["k2"] = max(worst["k2"], edges["k2"]["max_abs"])
+    worst["k1_lse"] = max([edges["k1_lse"]["max_abs"]]
+                          + [t["worst"]["k1_lse"] for t in res["train"].values()])
+    worst["lse"] = max([edges["k1_lse"]["lse"]]
+                       + [t["lse_max_abs_err"] for t in res["train"].values()])
+    for key in ("k3a", "k3b"):
+        worst[key] = max([edges["k3"][key]] + [t["worst"][key]
+                                               for t in res["train"].values()])
+    res["conv"] = _fp16_conv_kernels(gen)
+    res["worst"] = worst
+    for c in _k3_counters().values():
+        c.reset()
+    torch.cuda.empty_cache()
+    log("phase 27 fp16 kernels: worst max_abs_err " + json.dumps(rounded(worst, 6))
+        + "; K1 fp16 " + json.dumps(rounded({n: {k: r[k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "exp_floor_ms", "forms_ms",
+            "sdpa_ratio", "shape")} for n, r in res["k1"].items()}))
+        + "; K2 fp16 V " + json.dumps(rounded(res["k2"]))
+        + "; K1 bf16 at the 2B's shape " + json.dumps(rounded({k: res["k1_bf16_2b"][k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "exp_floor_ms", "forms_ms",
+            "sm_clock_mhz", "shape")}))
+        + "; training fp16 " + json.dumps(rounded({n: {k: t[k] for k in (
+            "k1_lse_ms", "k3a_ms", "k3b_ms", "k1_lse_plain_ms", "k3a_plain_ms",
+            "k3b_plain_ms", "sdpa_fwd_ms", "sdpa_bwd_ms", "k1_lse_bound_ms",
+            "k3a_bound_ms", "k3b_bound_ms", "shape")} for n, t in res["train"].items()}))
+        + "; conv " + json.dumps(rounded(res["conv"])))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 28: the 2B serving path at 30 layers, and fp16 serving
+# ---------------------------------------------------------------------------
+
+def _logit_probe(record: list):
+    """For the length of a ``with``: every DiT attention also records the
+    largest scaled logit over its heads (Q K^T in the model type, fp32 sums,
+    one head at a time), in ``record``, one float a layer."""
+    import contextlib
+
+    from dove_tpu_torch.models import dit as dit_mod
+
+    inner = dit_mod.full_attention
+
+    def probe(q, k, v, **kw):
+        tops = [(q[b, h] @ k[b, h].T).amax() for b in range(q.shape[0])
+                for h in range(q.shape[1])]
+        record.append(float(torch.stack(tops).float().max()) * q.shape[-1] ** -0.5)
+        return inner(q, k, v, **kw)
+
+    @contextlib.contextmanager
+    def patched():
+        dit_mod.full_attention = probe
+        try:
+            yield
+        finally:
+            dit_mod.full_attention = inner
+
+    return patched()
+
+
+def _serve(cfg, dit, vae, dtype, clip, quantize=None, backend=None,
+           sample_posterior=False, window_plan=None, logits: list | None = None,
+           **flags) -> dict:
+    """One staged clip through DovePipeline.process_frames: the uint8 output,
+    wall, split, peak, the launches of every kernel (and what the window
+    plan predicts for the conv kernels), and whether every DiT output
+    (x-hat_0) was finite. ``window_plan`` replaces the pipeline's VAE window
+    plan; with ``logits``, the first DiT pass runs once more after the timed
+    clip, under _logit_probe, and its largest logit per layer lands there."""
+    from dove_tpu_torch.models import vae as vae_mod
+    from dove_tpu_torch.pipeline import DovePipeline
+
+    pipe = DovePipeline(
+        config=cfg, dit=dit, vae=vae,
+        prompt_embedding=torch.zeros((cfg.dit.max_text_seq_length,
+                                      cfg.dit.text_embed_dim), dtype=dtype),
+        dtype=dtype, device="cuda", attention_backend=backend,
+        sample_posterior=sample_posterior, vae_tiling=True, output_uint8=True,
+        quantize=quantize, **flags)
+    if window_plan is not None:
+        pipe._window_budget = lambda: window_plan
+    finite, first = [], []
+    inner = pipe._denoise
+
+    def checked(*a, **kw):
+        if not first and logits is not None:
+            first.append((a, kw))
+        x0 = inner(*a, **kw)
+        finite.append(bool(torch.isfinite(x0).all()))
+        return x0
+
+    pipe._denoise = checked
+    counters = _conv_counters()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    try:
+        out = pipe.process_frames(clip, seed=0)
+    finally:
+        vae_mod.set_pallas_conv(False)
+    wall = time.perf_counter() - t0
+    counts = {n: c.count for n, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    if logits is not None:
+        with _logit_probe(logits), torch.no_grad():
+            inner(*first[0][0], **first[0][1])
+    return dict(out=out, wall_s=wall, stage_s=dict(pipe.stage_times),
+                peak_bytes=peak, **counts,
+                predicted=predicted_conv_launches(pipe, *clip.shape[:3]),
+                dit_finite=all(finite) and bool(finite), passes=len(finite))
+
+
+def _fp16_cli() -> dict:
+    """``python -m dove_tpu_torch.inference --preset cogvideox-2b --dtype
+    float16 --is_vae_st --png_save`` at 2 layers on phase 24's two mp4 clips,
+    held to load_pipeline + process_frames on the decoded input."""
+    import shutil
+    from pathlib import Path
+
+    from dove_tpu_torch.inference import build_parser, load_pipeline, main as cli_main
+    from dove_tpu_torch.inference import process_kwargs
+    from dove_tpu_torch.io import video as video_io
+    from dove_tpu_torch.ops import flash_attention as fa
+
+    root = Path(VIDEO_DIR + "_2b")
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "in").mkdir(parents=True)
+    clips = {}
+    for i, (f, h, w) in enumerate(VIDEO_CLIPS):
+        path = video_io.save_video(smooth_clip(300 + i, f, h, w).numpy(),
+                                   root / "in" / f"clip{i}.mp4", fps=16,
+                                   pixel_format="rgb")
+        clips[path.name] = video_io.read_video_frames(path)
+    argv = ["--input_dir", str(root / "in"), "--output_path", str(root / "png"),
+            "--preset", "cogvideox-2b", "--dtype", "float16", "--is_vae_st",
+            "--png_save", "--seed", "0"]
+    with _two_layer_presets("cogvideox-2b"):
+        fa.launches.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli_main(argv)
+        torch.cuda.synchronize()
+        wall, k1 = time.perf_counter() - t0, fa.launches.count
+        args = build_parser().parse_args(argv)
+        pipe = load_pipeline(args)
+    layers = pipe.config.dit.num_layers
+    checks = {}
+    for name, frames in clips.items():
+        want = pipe.process_frames(frames, **process_kwargs(args))
+        got = np.round(video_io.read_image_folder(root / "png" / Path(name).stem)
+                       * 255).astype(np.uint8)
+        db = psnr_u8(got, want)
+        checks[name] = dict(png_vs_in_process_db=db, identical=bool(np.array_equal(got, want)),
+                            shape=list(got.shape))
+        if got.shape != want.shape or not db >= PSNR_BAR_DB:
+            raise AssertionError(f"phase 28 CLI {name}: {checks[name]}")
+    if pipe.dtype != FP16 or pipe.config.dit.patch_size_t is not None:
+        raise AssertionError(f"phase 28 CLI: {pipe.dtype}, pt {pipe.config.dit.patch_size_t}")
+    if k1 != layers * len(clips):
+        raise AssertionError(f"phase 28 CLI: K1 {k1}, want {layers} x {len(clips)}")
+    del pipe
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return dict(wall_s=wall, k1=k1, layers=layers, checks=checks)
+
+
+def phase_2b_serving(main_out: np.ndarray) -> dict:
+    """Phase 28: CogVideoX-2B at full width and depth (30 layers; weights from
+    int8_drift_report.realistic_params, the gaussian family, in bf16) on the
+    main path's 32-frame 180x320 clip, staged, in bf16, in fp16 (the same
+    weights cast) and in fp16 int8-dit (on the bf16 run's window plan): K1
+    (K2) launches = 30 a DiT pass, the split and peak, each against bf16 in
+    PSNR, the largest scaled logit of every layer of the fp16 DiT pass (run
+    again after the timed clip; fp16's P overflows past ln 65504 ~ 11.09);
+    the 2B at 2 layers through K1 and through the plain attention in bf16
+    and fp16 (>= 40 dB), and in fp16 int8-dit-dec with hand_conv (K4, K5 and
+    the quantizer in fp16, launches as the window plan predicts); the 5B at
+    42 layers in fp16 against phase 4's bf16 clip (the same seeds and
+    posterior draws); and the CLI with --preset cogvideox-2b --dtype float16
+    at 2 layers on mp4 clips, held to the in-process frames."""
+    import copy
+    import dataclasses
+
+    from dove_tpu_torch import cogvideox1_5_5b, cogvideox_2b, init_dit_params
+    from dove_tpu_torch import init_vae_params
+    from dove_tpu_torch import int8_drift_report as drift_mod
+
+    cfg = cogvideox_2b()
+    layers = cfg.dit.num_layers
+    clip = np.random.default_rng(4).uniform(
+        0, 1, (CLIP_FRAMES, CLIP_H, CLIP_W, 3)).astype(np.float32)
+    t0 = time.perf_counter()
+    dit, vae = drift_mod.empty_models(cfg, torch.bfloat16, torch.device("cuda"))
+    drift_mod.realistic_params(dit, seed=1)
+    drift_mod.realistic_params(vae, seed=2)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in dit.parameters())
+    runs = {}
+    runs["bf16"] = _serve(cfg, dit, vae, torch.bfloat16, clip)
+    logits: list = []
+    dit16, vae16 = copy.deepcopy(dit).to(FP16), copy.deepcopy(vae).to(FP16)
+    runs["fp16"] = _serve(cfg, dit16, vae16, FP16, clip, logits=logits)
+    del dit16, vae16
+    torch.cuda.empty_cache()
+    # int8-dit in fp16, the 2B's published precision: K2 with fp16 V and O; on
+    # the bf16 run's VAE window plan (the int8 modes plan larger windows, and
+    # with random weights the plan alone moves the output: the drift
+    # report's rule), so that the PSNR against bf16 is the DiT's
+    dit16, vae16 = copy.deepcopy(dit).to(FP16), copy.deepcopy(vae).to(FP16)
+    runs["int8-dit fp16"] = _serve(cfg, dit16, vae16, FP16, clip, quantize="int8-dit",
+                                   window_plan=drift_mod.BF16_WINDOW_PLAN)
+    del dit16, vae16
+    torch.cuda.empty_cache()
+    want_shape = (CLIP_FRAMES, CLIP_H * cfg.upscale, CLIP_W * cfg.upscale, 3)
+    for name, r in runs.items():
+        kernel = "k2" if name.startswith("int8-dit") else "k1"
+        other = "k1" if kernel == "k2" else "k2"
+        if (r["out"].shape != want_shape or not r["dit_finite"] or r["passes"] != 1
+                or not float(r["out"].std()) > 0):
+            raise AssertionError(f"phase 28 {name}: output {r['out'].shape}, DiT finite "
+                                 f"{r['dit_finite']} over {r['passes']} passes")
+        if r[kernel] != layers * r["passes"] or r[other]:
+            raise AssertionError(f"phase 28 {name}: K1 {r['k1']}, K2 {r['k2']}, want "
+                                 f"{layers} {kernel} a pass")
+    if len(logits) != layers or not all(math.isfinite(x) for x in logits):
+        raise AssertionError(f"phase 28 fp16 logits per layer: {logits}")
+    psnr_vs_bf16 = {n: psnr_u8(runs[n]["out"], runs["bf16"]["out"])
+                    for n in ("fp16", "int8-dit fp16")}
+
+    # 2 layers: through the kernels and through the plain attention
+    two = dataclasses.replace(cfg, dit=dataclasses.replace(cfg.dit, num_layers=2))
+    del dit
+    torch.cuda.empty_cache()
+    small = np.random.default_rng(3).uniform(0, 1, (9, 96, 160, 3)).astype(np.float32)
+    dit_2l, _ = drift_mod.empty_models(two, torch.bfloat16, torch.device("meta"))
+    dit_2l = drift_mod.realistic_params(dit_2l.to_empty(device="cuda"), seed=1)
+    two_layer = {}
+    for dtype in (torch.bfloat16, FP16):
+        d, v = (dit_2l, vae) if dtype == torch.bfloat16 else (
+            copy.deepcopy(dit_2l).to(FP16), copy.deepcopy(vae).to(FP16))
+        k = _serve(two, d, v, dtype, small)
+        p = _serve(two, d, v, dtype, small, backend="plain")
+        db = psnr_u8(k["out"], p["out"])
+        two_layer[str(dtype).split(".")[1]] = dict(psnr_db=db, k1=k["k1"], plain_k1=p["k1"])
+        if not db >= PSNR_BAR_DB or k["k1"] != 2 or p["k1"]:
+            raise AssertionError(f"phase 28 2B 2 layers {dtype}: {two_layer}")
+    # the fp16 int8 VAE route at 2 layers: int8-dit-dec (K2 with fp16 V, K4
+    # with the fp16 epilogue, the quantizer on fp16 activations) with
+    # hand_conv (K5 with fp16 out on the float convs), launches as planned
+    from dove_tpu_torch.ops import quant
+
+    d16, v16 = copy.deepcopy(dit_2l).to(FP16), copy.deepcopy(vae).to(FP16)
+    vae_route = _serve(two, d16, v16, FP16, small, quantize="int8-dit-dec",
+                       vae_exclude=("lowres",), vae_calib=quant.synthetic_vae_calib(v16),
+                       hand_conv=True)
+    want = dict(vae_route["predicted"], k1=0, k2=2)
+    got = {n: vae_route[n] for n in want}
+    if (got != want or not all(got[n] for n in ("k4", "k5", "quantize"))
+            or not vae_route["dit_finite"]):
+        raise AssertionError(f"phase 28 fp16 int8 VAE route: launches {got}, want {want}")
+    del dit_2l, vae, d16, v16
+    torch.cuda.empty_cache()
+
+    # the 5B at 42 layers in fp16, against phase 4's bf16 clip
+    cfg5 = cogvideox1_5_5b()
+    dit5 = init_dit_params(cfg5.dit, seed=0, device="cuda", dtype=torch.bfloat16).to(FP16)
+    vae5 = init_vae_params(cfg5.vae, seed=1, device="cuda", dtype=torch.bfloat16).to(FP16)
+    run5 = _serve(cfg5, dit5, vae5, FP16, clip, sample_posterior=True)
+    del dit5, vae5
+    torch.cuda.empty_cache()
+    db5 = psnr_u8(run5["out"], main_out)
+    if (run5["out"].shape != main_out.shape or not run5["dit_finite"]
+            or run5["k1"] != cfg5.dit.num_layers):
+        raise AssertionError(f"phase 28 5B fp16: {run5['out'].shape}, finite "
+                             f"{run5['dit_finite']}, K1 {run5['k1']}")
+    cli = _fp16_cli()
+
+    def summary(r):
+        return dict(wall_s=r["wall_s"], stage_s=r["stage_s"],
+                    peak_gib=r["peak_bytes"] / 2**30, k1=r["k1"], k2=r["k2"])
+
+    vae_launches = {n: vae_route[n] for n in ("k2", "k4", "k4_kt1", "k5", "quantize")}
+
+    log(f"phase 28 2B serving ({layers} layers, {n_params / 1e9:.3f}B DiT params, "
+        f"realistic_params gaussian; attention [1, {cfg.dit.num_attention_heads}, "
+        f"{main_path_seq_len(cfg)}, 64]; weights {init_s:.1f}s): "
+        + json.dumps(rounded({n: summary(r) for n, r in runs.items()}))
+        + f"; PSNR against bf16 {json.dumps(rounded(psnr_vs_bf16, 2))}; largest scaled "
+        f"logit per layer (fp16) {json.dumps([round(x, 3) for x in logits])} (max "
+        f"{max(logits):.3f}, fp16 P overflows past {math.log(65504):.3f}); 2 layers "
+        f"kernel vs plain {json.dumps(rounded(two_layer, 2))}; fp16 int8-dit-dec + "
+        f"hand_conv (2 layers) launches {json.dumps(vae_launches)} as planned; 5B "
+        f"fp16 (42 layers) "
+        f"{json.dumps(rounded(summary(run5)))}, {db5:.2f} dB against phase 4's bf16 "
+        f"clip; CLI --preset cogvideox-2b --dtype float16 ({cli['layers']} layers) "
+        f"{cli['wall_s']:.1f}s, K1 {cli['k1']}, "
+        + json.dumps(rounded(cli["checks"], 2)))
+    return dict(runs={n: summary(r) for n, r in runs.items()}, psnr_vs_bf16=psnr_vs_bf16,
+                logits=logits, two_layer=two_layer, vae_route=vae_launches,
+                five_b_fp16=summary(run5),
+                five_b_fp16_db=db5, cli=dict(wall_s=cli["wall_s"], k1=cli["k1"]))
+
+
+# ---------------------------------------------------------------------------
+# Phase 29: training in fp16 and the 2B's stage 1
+# ---------------------------------------------------------------------------
+
+# fp16 training as the JAX package runs it has no loss scaling: at full
+# width the LoRA gradients of q, k and v underflow to 0 (the loss's mean over
+# ~7e5 latent values puts ~1e-6 on each output gradient). Phase 29 records
+# that, and compares the kernels with the plain attention on the loss scaled
+# by this factor (and the gradients unscaled), where fp16 holds them.
+FP16_CHECK_LOSS_SCALE = 2.0 ** 16
+
+
+def _scaled_grads(tr, batch, scale: float) -> tuple[float, list]:
+    """The trainer's loss and the gradients of its trainable tensors, the
+    backward taken on loss * scale and the gradients divided by it."""
+    params = tr.trainable_tensors()
+    for p in params:
+        p.grad = None
+    loss, _ = tr.compute_loss(batch, tr.global_step)
+    (loss * scale).backward()
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad / scale for p in params]
+    for p in params:
+        p.grad = None
+    return float(loss), grads
+
+
+def _train_kernel_vs_plain(cfg, precision: str, label: str) -> dict:
+    """One stage-1 step (loss and LoRA gradients) of ``cfg`` in ``precision``
+    through the kernels and through the plain attention, from one LoRA (B
+    nonzero) and batch (phase 10's check); the trainer's own gradients'
+    share of zeros per leaf, then the comparison on the scaled loss."""
+    import dataclasses
+
+    from dove_tpu_torch.train.trainer import DOVES1Trainer
+
+    args = dataclasses.replace(_train_args("build/chip_smoke_train"),
+                               mixed_precision=precision)
+    tr = DOVES1Trainer(args, pipeline_config=cfg, device="cuda")
+    tr.load_components()
+    with torch.no_grad():
+        gen = torch.Generator(device="cuda").manual_seed(10)
+        for ab in tr.lora_params.values():
+            ab["B"].copy_(torch.randn(ab["B"].shape, generator=gen, device="cuda") * 1e-2)
+    batch = tr.device_batch(train_batch(seed=10))
+    names = [f"{t}.{ab}" for t in tr.lora_params for ab in ("A", "B")]
+    _, _, unscaled = tr.loss_and_grads(batch)
+    zeros = {n: float((g == 0).float().mean()) for n, g in zip(names, unscaled)}
+    del unscaled
+    scale = FP16_CHECK_LOSS_SCALE if precision == "fp16" else 1.0
+    runs = {}
+    for backend in (None, "plain"):
+        tr.attention_backend = backend
+        for c in _k3_counters().values():
+            c.reset()
+        loss, grads = _scaled_grads(tr, batch, scale)
+        runs[backend] = (loss, grads, {n: c.count for n, c in _k3_counters().items()})
+    (k_loss, k_grads, k_counts), (p_loss, p_grads, p_counts) = runs[None], runs["plain"]
+    layers = cfg.dit.num_layers
+    want = {"k1": 0, "k1_lse": 2 * layers, "k2": 0, "k3a": layers, "k3b": layers}
+
+    def stats(g):
+        return dict(finite=bool(torch.isfinite(g).all()), max=float(g.abs().max()),
+                    zero=float((g == 0).float().mean()))
+
+    leaves = {n: dict(kernel=stats(g), plain=stats(h), rel_rms=_rel_rms(g, h))
+              for n, g, h in zip(names, k_grads, p_grads)}
+    rel = [x["rel_rms"] for x in leaves.values()]
+    loss_rel = abs(k_loss - p_loss) / abs(p_loss)
+    out = dict(loss=k_loss, plain_loss=p_loss, loss_rel=loss_rel, worst_grad_rel_rms=max(rel),
+               launches=k_counts, loss_scale=scale, unscaled_zero_share=zeros)
+    if (k_counts != want or any(p_counts.values()) or not math.isfinite(k_loss)
+            or not loss_rel <= TRAIN_LOSS_REL_TOL
+            or not max(rel) <= TRAIN_GRAD_REL_RMS_TOL
+            or not all(float(g.abs().max()) > 0 for g in k_grads)):
+        raise AssertionError(f"phase 29 {label} {precision}: {out}, plain launches "
+                             f"{p_counts}, leaves {json.dumps(rounded(leaves, 6))}")
+    del tr, batch, runs, k_grads, p_grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def _recipe_steps(precision: str) -> dict:
+    """Three steps of the stage-1 recipe with --base_preset cogvideox-2b at 30
+    layers in ``precision``: launches per step, finite losses, split, peak."""
+    import dataclasses
+
+    from dove_tpu_torch.train.trainer import DOVES1Trainer
+
+    args = dataclasses.replace(_train_args("build/chip_smoke_train"),
+                               base_preset="cogvideox-2b", mixed_precision=precision)
+    t0 = time.perf_counter()
+    tr = DOVES1Trainer(args, device="cuda")
+    tr.load_components()
+    tr.prepare_optimizer(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    layers = tr.config.dit.num_layers
+    if tr.config.dit.patch_size_t is not None or tr.dtype != {"bf16": torch.bfloat16,
+                                                              "fp16": FP16}[precision]:
+        raise AssertionError(f"phase 29: base_preset gave {tr.config.dit}, {tr.dtype}")
+    batch = tr.device_batch(train_batch(seed=11))
+    counters = _k3_counters()
+    want = {"k1": 0, "k1_lse": 2 * layers, "k2": 0, "k3a": layers, "k3b": layers}
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for _ in range(TRAIN_STEPS):
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        loss, _, gnorm = tr.train_step(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tr.global_step += 1
+        per_step = {n: c.count for n, c in counters.items()}
+        steps.append(dict(wall_s=wall, loss=float(loss), grad_norm=float(gnorm),
+                          split_s=dict(tr.step_times), launches=per_step))
+        if per_step != want or not math.isfinite(float(loss)) or not float(gnorm) > 0:
+            raise AssertionError(f"phase 29 2B {precision} step {tr.global_step}: "
+                                 f"{steps[-1]}, want launches {want}")
+    peak = torch.cuda.max_memory_allocated()
+    # LoRA B starts at 0: which targets the steps moved (fp16's unscaled
+    # gradients of q, k and v underflow, see FP16_CHECK_LOSS_SCALE)
+    moved = {t: float(ab["B"].detach().abs().max()) for t, ab in tr.lora_params.items()}
+    if not moved["to_out"] > 0:
+        raise AssertionError(f"phase 29 2B {precision}: no LoRA B moved: {moved}")
+    del tr, batch
+    torch.cuda.empty_cache()
+    return dict(steps=steps, peak_bytes=peak, init_s=init_s, layers=layers,
+                lora_b_max=moved,
+                step_median_s=statistics.median(s["wall_s"] for s in steps[1:]))
+
+
+def phase_fp16_training() -> dict:
+    """Phase 29: a 2-layer stage-1 step in fp16 through the kernels and the
+    plain attention for the 5B and the 2B (the bars of phase 10, on the loss
+    scaled by FP16_CHECK_LOSS_SCALE; the unscaled gradients' share of zeros
+    recorded), then three steps of the stage-1 recipe with --base_preset
+    cogvideox-2b at 30 layers in bf16 and in fp16 (K1-lse twice a layer a
+    step with checkpointing, K3a and K3b once; finite losses; which LoRA
+    targets moved)."""
+    import dataclasses
+
+    from dove_tpu_torch import cogvideox1_5_5b, cogvideox_2b
+
+    checks = {}
+    for name, base in (("5b", cogvideox1_5_5b()), ("2b", cogvideox_2b())):
+        cfg = dataclasses.replace(base, dit=dataclasses.replace(base.dit, num_layers=2))
+        checks[name] = _train_kernel_vs_plain(cfg, "fp16", name)
+    recipe = {p: _recipe_steps(p) for p in ("bf16", "fp16")}
+    log("phase 29 training: 2 layers, fp16, kernels vs plain "
+        + json.dumps(rounded(checks, 6)) + f"; stage-1 recipe, base_preset "
+        f"cogvideox-2b ({recipe['bf16']['layers']} layers, attention [{TRAIN_BATCH}, 30, "
+        f"{train_seq_len(cogvideox_2b())}, 64]): " + json.dumps(rounded({
+            p: dict(step_median_s=r["step_median_s"], init_s=r["init_s"],
+                    peak_gib=r["peak_bytes"] / 2**30,
+                    losses=[s["loss"] for s in r["steps"]],
+                    split_s=r["steps"][-1]["split_s"],
+                    launches_per_step=r["steps"][-1]["launches"])
+            for p, r in recipe.items()}))
+        + "; max |LoRA B| after the steps (0 at init) " + json.dumps({
+            p: {t: float(f"{x:.3e}") for t, x in r["lora_b_max"].items()}
+            for p, r in recipe.items()}))
+    return dict(checks=checks, recipe=recipe)
+
+
+def fp16_kernel_rows(fp16: dict, serving: dict, training: dict) -> list[dict]:
+    """The kernels line's rows of the fp16 forms (phases 27-29): times from
+    phase 27 at the 2B's shapes (the 5B's beside them), launches from phase
+    28's fp16 runs at 30 layers (K4, K5 and the quantizer: its 2-layer fp16
+    int8-dit-dec + hand_conv clip) and phase 29's fp16 recipe steps."""
+    fwd = "dove_tpu_torch/csrc/flash_fwd_sm90.cu"
+    bwd = "dove_tpu_torch/csrc/flash_bwd_sm90.cu"
+    conv_src = "dove_tpu_torch/csrc/conv3d_taps_sm90.cu"
+    steps = training["recipe"]["fp16"]["steps"]
+
+    def recipe(key):
+        return sum(s["launches"][key] for s in steps)
+
+    def row(name, source, replaces, launches, max_err, t, **extra):
+        return dict(name=name, route="cuda", source=source, replaces=replaces,
+                    launches=launches, max_abs_err=max_err, ms=t["ms"],
+                    plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                    bound_by=t["bound_by"], library_ms=t.get("library_ms"),
+                    shape=t.get("shape"), **extra)
+
+    k1, k2, tr = fp16["k1"], fp16["k2"], fp16["train"]
+    sdpa = "scaled_dot_product_attention on the same fp16 q, k, v"
+    rows = [
+        row("flash_fwd_f16", fwd, "dove_tpu/ops/pallas/flash_attention.py:75",
+            serving["runs"]["fp16"]["k1"], fp16["worst"]["k1"], k1["2b"],
+            library_call=sdpa, forms_ms=k1["2b"]["forms_ms"],
+            exp_floor_ms=k1["2b"]["exp_floor_ms"],
+            five_b={k: k1["5b"][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                              "forms_ms", "shape")},
+            five_b_launches=serving["five_b_fp16"]["k1"],
+            bf16_at_2b_shape={k: fp16["k1_bf16_2b"][k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "forms_ms", "exp_floor_ms",
+                "max_abs_err", "shape")},
+            bf16_2b_launches=serving["runs"]["bf16"]["k1"],
+            largest_logit_by_layer=serving["logits"]),
+        row("flash_fwd_qk8_f16", fwd, "dove_tpu/ops/pallas/flash_attention.py:107",
+            serving["runs"]["int8-dit fp16"]["k2"], fp16["worst"]["k2"], k2["2b"],
+            library_call="scaled_dot_product_attention on the fp16 q, k, v: a "
+                         "yardstick of a different function (fp16 Q K^T)",
+            k1_same_call_ms=k2["2b"]["k1_same_call_ms"],
+            five_b={k: k2["5b"][k] for k in ("ms", "plain_ms", "bound_ms", "shape")},
+            vae_route_launches=serving["vae_route"]["k2"]),
+        row("flash_fwd_lse_f16", fwd, "dove_tpu/ops/pallas/flash_attention.py:154",
+            recipe("k1_lse"), fp16["worst"]["k1_lse"],
+            dict(ms=tr["2b"]["k1_lse_ms"], plain_ms=tr["2b"]["k1_lse_plain_ms"],
+                 bound_ms=tr["2b"]["k1_lse_bound_ms"], bound_by=tr["2b"]["k1_lse_bound_by"],
+                 library_ms=tr["2b"]["sdpa_fwd_ms"], shape=tr["2b"]["shape"]),
+            library_call=sdpa, lse_max_abs_err=fp16["worst"]["lse"],
+            launches_per_step=steps[-1]["launches"]["k1_lse"],
+            five_b={k: tr["5b"][k] for k in ("k1_lse_ms", "k1_lse_plain_ms",
+                                             "k1_lse_bound_ms", "sdpa_fwd_ms", "shape")})]
+    for name, key, line in (("flash_bwd_dq_f16", "k3a", 253),
+                            ("flash_bwd_dkv_f16", "k3b", 290)):
+        rows.append(row(
+            name, bwd, f"dove_tpu/ops/pallas/flash_attention.py:{line}", recipe(key),
+            fp16["worst"][key],
+            dict(ms=tr["2b"][f"{key}_ms"], plain_ms=tr["2b"][f"{key}_plain_ms"],
+                 bound_ms=tr["2b"][f"{key}_bound_ms"], bound_by=tr["2b"][f"{key}_bound_by"],
+                 library_ms=tr["2b"]["sdpa_bwd_ms"], shape=tr["2b"]["shape"]),
+            library_call="scaled_dot_product_attention forward plus backward minus its "
+                         "forward, fp16: dq, dk and dv in one call",
+            launches_per_step=steps[-1]["launches"][key],
+            five_b={k: tr["5b"][k] for k in (f"{key}_ms", f"{key}_plain_ms",
+                                             f"{key}_bound_ms", "sdpa_bwd_ms", "shape")}))
+    conv = fp16["conv"]
+    rows.append(row("conv3d_w8a8_f16_out", conv_src,
+                    "dove_tpu/ops/pallas/conv3d_int8.py:244",
+                    serving["vae_route"]["k4"] + serving["vae_route"]["k4_kt1"],
+                    conv["k4"]["max_abs_err"], conv["k4"]))
+    rows.append(row("conv3d_bf16_f16_out", conv_src,
+                    "dove_tpu/ops/pallas/conv3d_int8.py:337", serving["vae_route"]["k5"],
+                    conv["k5"]["max_abs_err"], conv["k5"],
+                    library_call=conv["k5"]["library_call"]))
+    rows.append(row("quant_pack_f16_in", "dove_tpu_torch/csrc/conv3d_taps.cu",
+                    "dove_tpu/ops/quant.py:240 (the quantizer's fused elementwise "
+                    "chain; not a Pallas kernel)", serving["vae_route"]["quantize"],
+                    conv["quantizer"]["max_abs_err"], conv["quantizer"]))
+    return rows
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -4444,13 +5262,13 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument(
         "--phases", metavar="N,N", default=None,
         help="development: run only these phases (after the build) and print "
-             "no result line")
+             "no result line; 28 runs 4 first, for its bf16 clip")
     args = parser.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
         return 1
-    from dove_tpu_torch import cogvideox1_5_5b
+    from dove_tpu_torch import cogvideox1_5_5b, cogvideox_2b
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4461,6 +5279,9 @@ def main(argv: list[str] | None = None) -> int:
     cfg = cogvideox1_5_5b()
     seq, heads = main_path_seq_len(cfg), cfg.dit.num_attention_heads
     seq_s2 = stage2_seq_len(cfg)
+    cfg_2b = cogvideox_2b()
+    shapes_2b = (main_path_seq_len(cfg_2b), cfg_2b.dit.num_attention_heads,
+                 train_seq_len(cfg_2b))
     if args.phases is not None:
         # a development run of some phases: no kernels line, no ok line
         chosen = {int(p) for p in args.phases.split(",")}
@@ -4485,7 +5306,10 @@ def main(argv: list[str] | None = None) -> int:
                 ({22, 23}, lambda: phase_train_entry_point(phase_data_pipeline())),
                 ({24}, phase_video_files),
                 ({25}, lambda: phase_int8_drift(card)),
-                ({26}, lambda: phase_optimizers(prepare_data_dir()))):
+                ({26}, lambda: phase_optimizers(prepare_data_dir())),
+                ({27}, lambda: phase_fp16_kernels(seq, heads, *shapes_2b)),
+                ({28}, lambda: phase_2b_serving(phase_main_path()["out"])),
+                ({29}, phase_fp16_training)):
             if numbers & chosen:
                 t0 = time.perf_counter()
                 run()
@@ -4516,6 +5340,11 @@ def main(argv: list[str] | None = None) -> int:
     drift = phase_int8_drift(card)
     opt = phase_optimizers(data)
     log(f"phases 24-26 took {time.perf_counter() - t_new:.1f}s")
+    t_new = time.perf_counter()
+    fp16 = phase_fp16_kernels(seq, heads, *shapes_2b)
+    serving_2b = phase_2b_serving(main_path.pop("out"))
+    training_2b = phase_fp16_training()
+    log(f"phases 27-29 took {time.perf_counter() - t_new:.1f}s")
     log(f"all phases took {time.perf_counter() - t_start:.1f}s")
 
     kernels = [{
@@ -4698,6 +5527,7 @@ def main(argv: list[str] | None = None) -> int:
         "shape": quantizer["shape"],
         "drift_launches": drift_launches(drift, "quantize"),
     })
+    kernels += fp16_kernel_rows(fp16, serving_2b, training_2b)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,7 @@
 // writes along C.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -25,6 +26,7 @@ __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
 
 // x: [B, C, F, H, W] contiguous; out: int8 [B, F, H + 2 pad, W + 2 pad, C]
 // contiguous, border included (written as the code 0). mult: fp32 [C] with
@@ -77,15 +79,15 @@ __global__ void __launch_bounds__(256)
 
 }  // namespace
 
-// The activation quantizer's last step. x: bf16 (x_bf16) or fp32 [B, C, F, H,
-// W]; with mult (fp32 [C]) the code is round(fma(x, mult[c], off[0])), else
+// The activation quantizer's last step. x: fp32, bf16 or fp16 (x_type 0, 1
+// or 2) [B, C, F, H, W]; with mult (fp32 [C]) the code is round(fma(x, mult[c], off[0])), else
 // round((x - m[0]) / s[0]); out: int8 [B, F, H + 2 pad, W + 2 pad, C], its
 // border zero. C must be a multiple of 4. Returns the launch's cudaError_t.
 extern "C" int dove_quant_pack(const void* x, const void* mult, const void* off,
                                const void* s, const void* m, void* out, int B,
-                               int C, int F, int H, int W, int pad, int x_bf16,
+                               int C, int F, int H, int W, int pad, int x_type,
                                void* stream) {
-  if (B <= 0 || C <= 0 || F <= 0 || H <= 0 || W <= 0 || pad < 0 || C % 4 != 0 ||
+  if (x_type < 0 || x_type > 2 || B <= 0 || C <= 0 || F <= 0 || H <= 0 || W <= 0 || pad < 0 || C % 4 != 0 ||
       H + 2 * pad > 65535 || static_cast<long long>(B) * F > 65535 ||
       (mult != nullptr ? off == nullptr : (s == nullptr || m == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -97,10 +99,14 @@ extern "C" int dove_quant_pack(const void* x, const void* mult, const void* off,
   const auto* of = static_cast<const float*>(off);
   const auto* sp = static_cast<const float*>(s);
   const auto* mp = static_cast<const float*>(m);
-  if (x_bf16) {
+  if (x_type == 1) {
     quant_pack_kernel<__nv_bfloat16><<<grid, 256, 0, st>>>(
         static_cast<const __nv_bfloat16*>(x), mu, of, sp, mp,
         static_cast<int8_t*>(out), C, F, H, W, pad);
+  } else if (x_type == 2) {
+    quant_pack_kernel<__half><<<grid, 256, 0, st>>>(
+        static_cast<const __half*>(x), mu, of, sp, mp, static_cast<int8_t*>(out), C,
+        F, H, W, pad);
   } else {
     quant_pack_kernel<float><<<grid, 256, 0, st>>>(
         static_cast<const float*>(x), mu, of, sp, mp, static_cast<int8_t*>(out),

@@ -5,7 +5,7 @@
 // pre-padded channels-last input x [B, Fo + 2, Ho + 2, Wo + 2, Cin] of int8
 // codes against int8 weights, int32 accumulation over all 27 taps (exact),
 // then out = float(acc) * scale[cout] in fp32 and one rounding to the output
-// type. K5 replaces the same body as conv3d_bf16 calls it (pallas_call at
+// type: bf16, fp16 (a VAE in fp16, as the TPU kernel's out_dtype) or fp32. K5 replaces the same body as conv3d_bf16 calls it (pallas_call at
 // :337): bf16 operands, fp32 accumulation, no scale. Both are instantiations
 // of one template; KT = 1 is the same schedule over the nine spatial taps of
 // one frame, for the VAE's per-frame 3x3 convs (the upsamplers).
@@ -73,6 +73,7 @@
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes through the runtime
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -85,6 +86,10 @@ constexpr int kThreads = 128 * (1 + kConsumers);
 constexpr int kBlocks = 3;               // 64-row blocks per consumer
 constexpr int kM = 64 * kBlocks * kConsumers;  // output positions per CTA
 constexpr int kBN = 128;                 // output channels per CTA
+// out_type: the output's element type (the model type, or fp32)
+constexpr int kOutBF16 = 0;
+constexpr int kOutF32 = 1;
+constexpr int kOutF16 = 2;
 constexpr int kSlab = 32;                // bytes of input channels per stage
 constexpr int kBoxRows = kM / 2 + 8;     // rows per halo TMA box
 constexpr int kPieceRows = 2 * kBoxRows;  // rows per dh piece: >= kM + 2
@@ -290,7 +295,7 @@ __device__ __forceinline__ void wgmma(float (&d)[64], uint64_t a, uint64_t b) {
 // or null; addend: fp32 [Cout, add_h, add_w] or null, indexed by the pixel's
 // border class (class of row h: add_h - 1 for the last row, else min(h, 1);
 // columns alike); bias: fp32 [Cout] or null; out: element (b, f, h, w, c) at
-// b*osb + f*osf + h*osh + w*osw + c*osc, fp32 when out_f32, else bf16.
+// b*osb + f*osf + h*osh + w*osw + c*osc, in the type out_type names.
 // grid = (tiles of kM positions, Cout / 128, B).
 template <typename In, typename Acc, int KT>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -299,7 +304,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                             const float* __restrict__ scale,
                             const float* __restrict__ addend,
                             const float* __restrict__ bias, void* __restrict__ out,
-                            int Fo, int Ho, int Wo, int slabs, int out_f32,
+                            int Fo, int Ho, int Wo, int slabs, int out_type,
                             int add_h, int add_w, long long osb, long long osf,
                             long long osh, long long osw, long long osc) {
   static_assert(std::is_same<In, int8_t>::value
@@ -451,8 +456,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       return v;
     };
     auto store = [&](long long at, float v) {
-      if (out_f32) {
+      if (out_type == kOutF32) {
         static_cast<float*>(out)[at] = v;
+      } else if (out_type == kOutF16) {
+        static_cast<__half*>(out)[at] = __float2half_rn(v);
       } else {
         static_cast<__nv_bfloat16*>(out)[at] = __float2bfloat16_rn(v);
       }
@@ -576,7 +583,7 @@ long long flat_positions(int Fo, int Ho, int Wo) {
 template <typename In, typename Acc, int KT>
 int launch(const void* x, const void* w, const void* scale, const void* addend,
            const void* bias, void* out, int B, int Fo, int Ho, int Wo, int Cin,
-           int Cout, int out_f32, int add_h, int add_w, long long osb,
+           int Cout, int out_type, int add_h, int add_w, long long osb,
            long long osf, long long osh, long long osw, long long osc,
            void* stream) {
   const long long row_bytes = static_cast<long long>(Cin) * sizeof(In);
@@ -598,7 +605,7 @@ int launch(const void* x, const void* w, const void* scale, const void* addend,
   kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       map_x, static_cast<const uint8_t*>(w), static_cast<const float*>(scale),
       static_cast<const float*>(addend), static_cast<const float*>(bias), out, Fo,
-      Ho, Wo, static_cast<int>(row_bytes / kSlab), out_f32, add_h, add_w, osb, osf,
+      Ho, Wo, static_cast<int>(row_bytes / kSlab), out_type, add_h, add_w, osb, osf,
       osh, osw, osc);
   return static_cast<int>(cudaGetLastError());
 }
@@ -636,45 +643,48 @@ extern "C" int dove_conv3d_sm90_smem_bytes() { return kSmemBytes; }
 // shared-memory image of the int8 weights [kt * 9, Cout, Cin] (ops/
 // conv3d_int8.py weight_image); both 16-byte aligned; scale: fp32 [Cout] on the
 // device; addend: fp32 [Cout, add_h, add_w] or null; bias: fp32 [Cout] or
-// null; out: fp32 (out_f32) or bf16, written through the element strides os*.
+// null; out: bf16, fp32 or fp16 (out_type 0, 1 or 2), written through the
+// element strides os*.
 // kt is 3 or 1. Launches on `stream` and returns the cudaError_t of the
 // launch (0 on success); no synchronisation.
 extern "C" int dove_conv3d_w8a8(const void* x, const void* w,
                                 const void* scale, const void* addend,
                                 const void* bias, void* out, int B, int Fo,
                                 int Ho, int Wo, int Cin, int Cout, int kt,
-                                int out_f32, int add_h, int add_w,
+                                int out_type, int add_h, int add_w,
                                 long long osb, long long osf, long long osh,
                                 long long osw, long long osc, void* stream) {
   if (bad_shape(x, w, B, Fo, Ho, Wo, Cin, Cout, kt) || scale == nullptr ||
+      out_type < kOutBF16 || out_type > kOutF16 ||
       (addend != nullptr && (add_h < 1 || add_h > 3 || add_w < 1 || add_w > 3))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (kt == 3) {
     return launch<int8_t, int32_t, 3>(x, w, scale, addend, bias, out, B, Fo, Ho,
-                                      Wo, Cin, Cout, out_f32, add_h, add_w, osb,
+                                      Wo, Cin, Cout, out_type, add_h, add_w, osb,
                                       osf, osh, osw, osc, stream);
   }
   return launch<int8_t, int32_t, 1>(x, w, scale, addend, bias, out, B, Fo, Ho,
-                                    Wo, Cin, Cout, out_f32, add_h, add_w, osb,
+                                    Wo, Cin, Cout, out_type, add_h, add_w, osb,
                                     osf, osh, osw, osc, stream);
 }
 
 // K5. As K4 with bf16 x and w, fp32 accumulation, no scale, addend or bias.
 extern "C" int dove_conv3d_bf16(const void* x, const void* w, void* out, int B,
                                 int Fo, int Ho, int Wo, int Cin, int Cout,
-                                int kt, int out_f32, long long osb,
+                                int kt, int out_type, long long osb,
                                 long long osf, long long osh, long long osw,
                                 long long osc, void* stream) {
-  if (bad_shape(x, w, B, Fo, Ho, Wo, Cin, Cout, kt)) {
+  if (bad_shape(x, w, B, Fo, Ho, Wo, Cin, Cout, kt) || out_type < kOutBF16 ||
+      out_type > kOutF16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (kt == 3) {
     return launch<__nv_bfloat16, float, 3>(x, w, nullptr, nullptr, nullptr, out,
-                                           B, Fo, Ho, Wo, Cin, Cout, out_f32, 1,
+                                           B, Fo, Ho, Wo, Cin, Cout, out_type, 1,
                                            1, osb, osf, osh, osw, osc, stream);
   }
   return launch<__nv_bfloat16, float, 1>(x, w, nullptr, nullptr, nullptr, out, B,
-                                         Fo, Ho, Wo, Cin, Cout, out_f32, 1, 1,
+                                         Fo, Ho, Wo, Cin, Cout, out_type, 1, 1,
                                          osb, osf, osh, osw, osc, stream);
 }

@@ -1,5 +1,5 @@
-// K3a and K3b: the bf16 flash-attention backward for Hopper (sm_90a), head
-// dim 64.
+// K3a and K3b: the flash-attention backward for Hopper (sm_90a), head dim 64,
+// in bf16 or fp16.
 //
 // K3a replaces the TPU kernel dove_tpu/ops/pallas/flash_attention.py:
 // _bwd_dq_kernel and K3b its _bwd_dkv_kernel (the two pallas_calls in
@@ -12,7 +12,11 @@
 //   K3b: dV  = sum over queries of  p dO,      dK = sum over queries of  ds q
 //
 // as the TPU kernels compute them: fp32 logits and accumulators, p and ds
-// rounded to bf16 before the products that take them, bf16 outputs.
+// rounded to the model type T (bf16 or fp16) before the products that take
+// them, outputs in T. The TPU kernels are generic in the type (they cast dS
+// to k's dtype, p^T and dS^T to dO's and q's); here each type is one
+// instantiation of the two templates, fp16 differing in the wgmma's type
+// suffix, the pair packing, the TMA data type and the stores.
 //
 // What bounds them on the H100. At the training shape (CogVideoX1.5-5B
 // stage 1, batch 2 of 25x320x640: B*H = 96, S = 3426, D = 64) K3a does three
@@ -79,10 +83,16 @@
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes through the runtime
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
+
+template <typename T>
+constexpr bool kHalf = std::is_same<T, __half>::value;
 
 constexpr int kD = 64;  // head dim: one 128-byte row
 constexpr int kRowBytes = kD * 2;
@@ -220,59 +230,62 @@ __device__ __forceinline__ uint64_t desc_mnmajor(uint32_t addr) {
   return make_desc(addr, 1024, 1024);
 }
 
-// d[64 x 64] (+)= A[64 x 16] B[16 x 64]; A and B from shared memory,
-// K-major.
+#define DOVE_ACC(C, n) C(d[n])
+#define DOVE_ACC8(C, n)                                                      \
+  DOVE_ACC(C, n), DOVE_ACC(C, n + 1), DOVE_ACC(C, n + 2), DOVE_ACC(C, n + 3), \
+      DOVE_ACC(C, n + 4), DOVE_ACC(C, n + 5), DOVE_ACC(C, n + 6),            \
+      DOVE_ACC(C, n + 7)
+#define DOVE_ACC32(C)                                                        \
+  DOVE_ACC8(C, 0), DOVE_ACC8(C, 8), DOVE_ACC8(C, 16), DOVE_ACC8(C, 24)
+#define DOVE_REGS32                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+#define DOVE_RW_F32(x) "+f"(x)
+#define DOVE_WGMMA_SS(TY)                                                    \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                  \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "    \
+               DOVE_REGS32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"                 \
+               : DOVE_ACC32(DOVE_RW_F32)                                    \
+               : "l"(desc_a), "l"(desc_b), "r"(scale_d))
+#define DOVE_WGMMA_RS(TY)                                                    \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                  \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "    \
+               DOVE_REGS32 ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"  \
+               : DOVE_ACC32(DOVE_RW_F32)                                    \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),    \
+                 "r"(scale_d), "n"(kTransB))
+
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64] in T (bf16 or fp16), fp32 sums; A
+// and B from shared memory, K-major.
+template <typename T>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
                                          uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  if constexpr (kHalf<T>) {
+    DOVE_WGMMA_SS("f16");
+  } else {
+    DOVE_WGMMA_SS("bf16");
+  }
 }
 
-// d[64 x 64] (+)= A[64 x 16] B[16 x 64]; A from registers (four bf16 pairs,
-// a[0..3]), B from shared memory, K-major (kTransB = 0) or MN-major (1).
-template <int kTransB>
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64] in T; A from registers (four pairs
+// of T, a[0..3]), B from shared memory, K-major (kTransB = 0) or MN-major
+// (1).
+template <typename T, int kTransB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
                                          uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d),
-        "n"(kTransB));
+  if constexpr (kHalf<T>) {
+    DOVE_WGMMA_RS("f16");
+  } else {
+    DOVE_WGMMA_RS("bf16");
+  }
 }
 
-// The A fragments over d (4 k16 steps) of rows r0 and r0 + 8 of a bf16
+// The A fragments over d (4 k16 steps) of rows r0 and r0 + 8 of a T
 // [n, 64] matrix, from global memory; rows past n are zero.
-__device__ __forceinline__ void load_a_frags(uint32_t (&f)[16],
-                                             const __nv_bfloat16* base, int r0,
-                                             int n, int tig) {
+template <typename T>
+__device__ __forceinline__ void load_a_frags(uint32_t (&f)[16], const T* base,
+                                             int r0, int n, int tig) {
 #pragma unroll
   for (int kk = 0; kk < kD / 16; ++kk) {
 #pragma unroll
@@ -303,29 +316,36 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// Two fp32 values rounded to a pair of T, as one register.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (kHalf<T>) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
 }
 
 // A [64 x 64] fp32 accumulator fragment to rows r0 and r1 = r0 + 8 of a
-// bf16 [n, 64] matrix, as bf16 pairs; rows at or past n are not stored.
+// T [n, 64] matrix, as pairs of T; rows at or past n are not stored.
 // Element i of the fragment is row r0 + 8 * ((i >> 1) & 1), column
 // 8 * (i >> 2) + 2 * tig + (i & 1).
-__device__ __forceinline__ void store_rows(__nv_bfloat16* base,
-                                           const float (&acc)[32], int r0,
-                                           int n, int tig) {
+template <typename T>
+__device__ __forceinline__ void store_rows(T* base, const float (&acc)[32],
+                                           int r0, int n, int tig) {
   const int r1 = r0 + 8;
 #pragma unroll
   for (int j = 0; j < kD / 8; ++j) {
     const int col = j * 8 + tig * 2;
     if (r0 < n) {
       *reinterpret_cast<uint32_t*>(base + static_cast<size_t>(r0) * kD + col) =
-          pack_bf16x2(acc[4 * j], acc[4 * j + 1]);
+          pack2<T>(acc[4 * j], acc[4 * j + 1]);
     }
     if (r1 < n) {
       *reinterpret_cast<uint32_t*>(base + static_cast<size_t>(r1) * kD + col) =
-          pack_bf16x2(acc[4 * j + 2], acc[4 * j + 3]);
+          pack2<T>(acc[4 * j + 2], acc[4 * j + 3]);
     }
   }
 }
@@ -352,6 +372,7 @@ struct PingPong {
 // K3a: dQ for one (b*h, 192-query tile)
 // ---------------------------------------------------------------------------
 
+template <typename T>
 __global__ void __launch_bounds__(kAThreads, 1)
     flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                              const __grid_constant__ CUtensorMap map_do,
@@ -359,7 +380,7 @@ __global__ void __launch_bounds__(kAThreads, 1)
                              const __grid_constant__ CUtensorMap map_v,
                              const float* __restrict__ lse,
                              const float* __restrict__ delta,
-                             __nv_bfloat16* __restrict__ dq, int sq, int skv,
+                             T* __restrict__ dq, int sq, int skv,
                              float scale) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ Ring ring;
@@ -432,7 +453,7 @@ __global__ void __launch_bounds__(kAThreads, 1)
     for (int i = 0; i < 32; ++i) acc[i] = 0.f;
     float s[32];
     float dp[32];
-    // dS as bf16 pairs in the A-register layout: pair k holds elements 2k
+    // dS as pairs of T in the A-register layout: pair k holds elements 2k
     // and 2k + 1, of row (k & 1)
     uint32_t ds[16];
 
@@ -442,12 +463,13 @@ __global__ void __launch_bounds__(kAThreads, 1)
       const uint32_t vt = v_tiles + st * kATileBytes;
 #pragma unroll
       for (int kk = 0; kk < kD / 16; ++kk) {
-        wgmma_ss(s, desc_kmajor(q_rows + kk * 32), desc_kmajor(kt + kk * 32), kk > 0);
+        wgmma_ss<T>(s, desc_kmajor(q_rows + kk * 32), desc_kmajor(kt + kk * 32),
+                    kk > 0);
       }
 #pragma unroll
       for (int kk = 0; kk < kD / 16; ++kk) {
-        wgmma_ss(dp, desc_kmajor(do_rows + kk * 32), desc_kmajor(vt + kk * 32),
-                 kk > 0);
+        wgmma_ss<T>(dp, desc_kmajor(do_rows + kk * 32), desc_kmajor(vt + kk * 32),
+                    kk > 0);
       }
     };
     // dQ += dS K_st (4 k16 steps over the tile's keys).
@@ -455,14 +477,14 @@ __global__ void __launch_bounds__(kAThreads, 1)
       const uint32_t kt = k_tiles + st * kATileBytes;
 #pragma unroll
       for (int kk = 0; kk < kABN / 16; ++kk) {
-        wgmma_rs<1>(acc, ds + 4 * kk, desc_mnmajor(kt + kk * 16 * kRowBytes), 1);
+        wgmma_rs<T, 1>(acc, ds + 4 * kk, desc_mnmajor(kt + kk * 16 * kRowBytes), 1);
       }
     };
     auto release = [&](int st) {
       if (lane == 0) mbar_arrive(&ring.empty[st]);
     };
     // p = exp2(s scale log2 e - lse log2 e), ds = p (dp - delta) scale, into
-    // bf16 pairs; `masked` on the ragged last tile, whose keys past the end
+    // pairs of T; `masked` on the ragged last tile, whose keys past the end
     // get ds = 0 (a separate inlined copy: the other tiles carry no test).
     auto grads = [&](int j, bool masked) {
 #pragma unroll
@@ -477,7 +499,7 @@ __global__ void __launch_bounds__(kAThreads, 1)
           if (kv >= skv) d0 = 0.f;
           if (kv + 1 >= skv) d1 = 0.f;
         }
-        ds[k] = pack_bf16x2(d0, d1);
+        ds[k] = pack2<T>(d0, d1);
       }
     };
     auto grads_tile = [&](int j) {
@@ -545,15 +567,14 @@ __global__ void __launch_bounds__(kAThreads, 1)
 // K3b: dK and dV for one (b*h, 128-key tile)
 // ---------------------------------------------------------------------------
 
+template <typename T>
 __global__ void __launch_bounds__(kBThreads, 1)
     flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                               const __grid_constant__ CUtensorMap map_do,
-                              const __nv_bfloat16* __restrict__ k,
-                              const __nv_bfloat16* __restrict__ v,
+                              const T* __restrict__ k, const T* __restrict__ v,
                               const float* __restrict__ lse,
                               const float* __restrict__ delta,
-                              __nv_bfloat16* __restrict__ dk,
-                              __nv_bfloat16* __restrict__ dv, int sq, int skv,
+                              T* __restrict__ dk, T* __restrict__ dv, int sq, int skv,
                               float scale) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ Ring ring;
@@ -632,7 +653,7 @@ __global__ void __launch_bounds__(kBThreads, 1)
     for (int i = 0; i < 32; ++i) acc_dk[i] = acc_dv[i] = 0.f;
     float s[32];
     float dp[32];
-    // p^T and ds^T as bf16 pairs in the A-register layout
+    // p^T and ds^T as pairs of T in the A-register layout
     uint32_t pt[16], dst[16];
 
     // s^T = K Q_st^T and dP^T = V dO_st^T (4 k16 steps over d each).
@@ -641,11 +662,11 @@ __global__ void __launch_bounds__(kBThreads, 1)
       const uint32_t dot = do_tiles + st * kBTileBytes;
 #pragma unroll
       for (int kk = 0; kk < kD / 16; ++kk) {
-        wgmma_rs<0>(s, kf + 4 * kk, desc_kmajor(qt + kk * 32), kk > 0);
+        wgmma_rs<T, 0>(s, kf + 4 * kk, desc_kmajor(qt + kk * 32), kk > 0);
       }
 #pragma unroll
       for (int kk = 0; kk < kD / 16; ++kk) {
-        wgmma_rs<0>(dp, vf + 4 * kk, desc_kmajor(dot + kk * 32), kk > 0);
+        wgmma_rs<T, 0>(dp, vf + 4 * kk, desc_kmajor(dot + kk * 32), kk > 0);
       }
     };
     // dV += p^T dO_st and dK += ds^T Q_st (4 k16 steps over the queries).
@@ -654,11 +675,11 @@ __global__ void __launch_bounds__(kBThreads, 1)
       const uint32_t dot = do_tiles + st * kBTileBytes;
 #pragma unroll
       for (int kk = 0; kk < kBBM / 16; ++kk) {
-        wgmma_rs<1>(acc_dv, pt + 4 * kk, desc_mnmajor(dot + kk * 16 * kRowBytes), 1);
+        wgmma_rs<T, 1>(acc_dv, pt + 4 * kk, desc_mnmajor(dot + kk * 16 * kRowBytes), 1);
       }
 #pragma unroll
       for (int kk = 0; kk < kBBM / 16; ++kk) {
-        wgmma_rs<1>(acc_dk, dst + 4 * kk, desc_mnmajor(qt + kk * 16 * kRowBytes), 1);
+        wgmma_rs<T, 1>(acc_dk, dst + 4 * kk, desc_mnmajor(qt + kk * 16 * kRowBytes), 1);
       }
     };
     auto release = [&](int st) {
@@ -666,7 +687,7 @@ __global__ void __launch_bounds__(kBThreads, 1)
     };
     // p^T = exp2(s^T scale log2 e - lse log2 e) and ds^T = p^T (dp^T -
     // delta) scale, lse and delta per column (query) from the staged
-    // values, into bf16 pairs; `masked` on the ragged last tile, whose
+    // values, into pairs of T; `masked` on the ragged last tile, whose
     // queries past the end get p = ds = 0.
     auto grads = [&](int j, int st, bool masked) {
       const float* ls = slices_p + st * kBBM;
@@ -689,8 +710,8 @@ __global__ void __launch_bounds__(kBThreads, 1)
             if (qi >= sq) p0 = d0 = 0.f;
             if (qi + 1 >= sq) p1 = d1 = 0.f;
           }
-          pt[2 * n + h] = pack_bf16x2(p0, p1);
-          dst[2 * n + h] = pack_bf16x2(d0, d1);
+          pt[2 * n + h] = pack2<T>(p0, p1);
+          dst[2 * n + h] = pack2<T>(d0, d1);
         }
       }
     };
@@ -780,8 +801,9 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// A 3-D map over a contiguous bf16 [bh, s, 64]: boxes of `rows` rows of one
-// head, 128B-swizzled; rows past s read as zeros.
+// A 3-D map over a contiguous T [bh, s, 64] (bf16 or fp16): boxes of `rows`
+// rows of one head, 128B-swizzled; rows past s read as zeros.
+template <typename T>
 bool make_map(CUtensorMap* map, const void* ptr, int bh, int s, int rows) {
   EncodeTiled encode = encoder();
   if (encode == nullptr) return false;
@@ -790,7 +812,9 @@ bool make_map(CUtensorMap* map, const void* ptr, int bh, int s, int rows) {
   const cuuint64_t strides[2] = {kRowBytes, static_cast<cuuint64_t>(s) * kRowBytes};
   const cuuint32_t box[3] = {kD, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+  return encode(map,
+                kHalf<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                3, const_cast<void*>(ptr),
                 dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -805,11 +829,65 @@ bool bad_shape(int bh, int sq, int skv, int head_dim) {
          static_cast<long long>(bh) * sq >= (1ll << 31);
 }
 
+// K3a in the model type T.
+template <typename T>
+int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+           const void* lse, const void* delta, void* dq, int bh, int sq, int skv,
+           int head_dim, float scale, void* stream) {
+  if (bad_shape(bh, sq, skv, head_dim) || misaligned(q, 16) || misaligned(k, 16) ||
+      misaligned(v, 16) || misaligned(dout, 16) || misaligned(dq, 4)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUtensorMap mq, mdo, mk, mv;
+  if (!make_map<T>(&mq, q, bh, sq, kABM) || !make_map<T>(&mdo, dout, bh, sq, kABM) ||
+      !make_map<T>(&mk, k, bh, skv, kABN) || !make_map<T>(&mv, v, bh, skv, kABN)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_sm90_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kASmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((sq + kABM - 1) / kABM, bh);
+  flash_bwd_dq_sm90_kernel<T><<<grid, kAThreads, kASmemBytes,
+                                static_cast<cudaStream_t>(stream)>>>(
+      mq, mdo, mk, mv, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<T*>(dq), sq, skv, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3b in the model type T.
+template <typename T>
+int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+            const void* lse, const void* delta, void* dk, void* dv, int bh, int sq,
+            int skv, int head_dim, float scale, void* stream) {
+  if (bad_shape(bh, sq, skv, head_dim) || misaligned(q, 16) || misaligned(k, 4) ||
+      misaligned(v, 4) || misaligned(dout, 16) || misaligned(dk, 4) ||
+      misaligned(dv, 4)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUtensorMap mq, mdo;
+  if (!make_map<T>(&mq, q, bh, sq, kBBM) || !make_map<T>(&mdo, dout, bh, sq, kBBM)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_sm90_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kBSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((skv + kBBN - 1) / kBBN, bh);
+  flash_bwd_dkv_sm90_kernel<T><<<grid, kBThreads, kBSmemBytes,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      mq, mdo, static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dk), static_cast<T*>(dv), sq, skv, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // The dynamic shared memory a launch asks for: K3a's (Q, dO, the K/V ring)
 // with dkv = 0, K3b's (the Q/dO ring with its lse and delta values) with
-// dkv = 1; each with slack to align the tiles to 1024 bytes.
+// dkv = 1; each with slack to align the tiles to 1024 bytes; the same in
+// bf16 and fp16.
 extern "C" int dove_flash_bwd_sm90_smem_bytes(int dkv) {
   return dkv ? kBSmemBytes : kASmemBytes;
 }
@@ -824,26 +902,18 @@ extern "C" int dove_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* delta, void* dq, int bh, int sq,
                                  int skv, int head_dim, float scale,
                                  void* stream) {
-  if (bad_shape(bh, sq, skv, head_dim) || misaligned(q, 16) || misaligned(k, 16) ||
-      misaligned(v, 16) || misaligned(dout, 16) || misaligned(dq, 4)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  CUtensorMap mq, mdo, mk, mv;
-  if (!make_map(&mq, q, bh, sq, kABM) || !make_map(&mdo, dout, bh, sq, kABM) ||
-      !make_map(&mk, k, bh, skv, kABN) || !make_map(&mv, v, bh, skv, kABN)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kASmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((sq + kABM - 1) / kABM, bh);
-  flash_bwd_dq_sm90_kernel<<<grid, kAThreads, kASmemBytes,
-                             static_cast<cudaStream_t>(stream)>>>(
-      mq, mdo, mk, mv, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq), sq, skv,
-      scale);
-  return static_cast<int>(cudaGetLastError());
+  return bwd_dq<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, bh, sq, skv, head_dim,
+                               scale, stream);
+}
+
+// K3a in fp16: dove_flash_bwd_dq's arguments with fp16 q, k, v, dout and dq.
+extern "C" int dove_flash_bwd_dq_f16(const void* q, const void* k, const void* v,
+                                     const void* dout, const void* lse,
+                                     const void* delta, void* dq, int bh, int sq,
+                                     int skv, int head_dim, float scale,
+                                     void* stream) {
+  return bwd_dq<__half>(q, k, v, dout, lse, delta, dq, bh, sq, skv, head_dim, scale,
+                        stream);
 }
 
 // K3b. The inputs of K3a; dk, dv: bf16 [bh, skv, 64]. All contiguous on the
@@ -854,25 +924,16 @@ extern "C" int dove_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   const void* delta, void* dk, void* dv,
                                   int bh, int sq, int skv, int head_dim,
                                   float scale, void* stream) {
-  if (bad_shape(bh, sq, skv, head_dim) || misaligned(q, 16) || misaligned(k, 4) ||
-      misaligned(v, 4) || misaligned(dout, 16) || misaligned(dk, 4) ||
-      misaligned(dv, 4)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  CUtensorMap mq, mdo;
-  if (!make_map(&mq, q, bh, sq, kBBM) || !make_map(&mdo, dout, bh, sq, kBBM)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kBSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((skv + kBBN - 1) / kBBN, bh);
-  flash_bwd_dkv_sm90_kernel<<<grid, kBThreads, kBSmemBytes,
-                              static_cast<cudaStream_t>(stream)>>>(
-      mq, mdo, static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), sq, skv, scale);
-  return static_cast<int>(cudaGetLastError());
+  return bwd_dkv<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, bh, sq, skv,
+                                head_dim, scale, stream);
+}
+
+// K3b in fp16: dove_flash_bwd_dkv's arguments with fp16 tensors.
+extern "C" int dove_flash_bwd_dkv_f16(const void* q, const void* k, const void* v,
+                                      const void* dout, const void* lse,
+                                      const void* delta, void* dk, void* dv,
+                                      int bh, int sq, int skv, int head_dim,
+                                      float scale, void* stream) {
+  return bwd_dkv<__half>(q, k, v, dout, lse, delta, dk, dv, bh, sq, skv, head_dim,
+                         scale, stream);
 }

@@ -1,13 +1,23 @@
 // K1 and K2: the flash-attention forward for Hopper (sm_90a), head dim 64.
 //
 // K1 replaces the TPU kernel dove_tpu/ops/pallas/flash_attention.py:_fwd_kernel
-// (pallas_call in _flash_fwd) in its four bf16 forms: the bounded-logits form
+// (pallas_call in _flash_fwd) in its four forms: the bounded-logits form
 // (no running max, p = exp2(s * scale * log2 e)) that every inference call
 // takes, the online-softmax form (a running max in log2 units), and each of
 // them with or without the per-row logsumexp that the backward (K3a, K3b)
 // reads, in natural-log units: ln 2 * (m + log2 l) online, ln l bounded.
 // Non-causal softmax(scale Q K^T) V with fp32 logits, fp32 row sums, P
-// rounded to bf16 before P V, an fp32 accumulator and a bf16 output.
+// rounded to the model type before P V, an fp32 accumulator and an output in
+// the model type. The model type T is bf16 or fp16 (the TPU kernel is
+// generic in it: it casts P to v.dtype and writes v.dtype); every form of
+// both types is one instantiation of the template. fp16 changes the wgmma
+// (.f16.f16 in place of .bf16.bf16, the same dense rate on the H100), the
+// pair packing, the TMA data type and the stores, nothing else. Like the TPU
+// kernel, the bounded form rounds p to T with no max: an fp16 P is inf for a
+// scaled logit above ln 65504 (about 11.09) where a bf16 P is not, and the
+// output is then not finite, as JAX's is. The online form's test on the
+// packed P (no p above 2^8) sees such an inf and takes the exact row maxima,
+// as it does for a bf16 P.
 //
 // K2 is the same kernel with int8 Q and K: the qk8 branch of _fwd_kernel
 // (flash_attention.py:107-114), the int8-dit serving mode's attention.
@@ -16,7 +26,8 @@
 // int32, and the logits are float(q8 . k8) * factor, factor = (s_q s_k) *
 // fp32(scale log2 e) one fp32 value the kernel reads from device memory (the
 // TPU kernel reads it from SMEM), so the host never waits for it. Bounded
-// form only, V bf16, as on the TPU. Where it differs from K1:
+// form only, V and O in the model type (bf16 or fp16), as on the TPU.
+// Where it differs from K1:
 // - Q and K come through 3-D TMA maps of int8 (64-byte rows, 64B swizzle):
 //   Q is 12 KB, a K tile 8 KB, V stays K1's 16 KB bf16 tile.
 // - S = Q K^T is wgmma m64n128k32 .s32.s8.s8, two k32 steps of 32 bytes into
@@ -31,9 +42,11 @@
 //   most 2^-22), which makes -12582912 * factor exact, so the FFMA yields
 //   x * factor rounded once. With the factor as it is, the rounding of
 //   -12582912 * factor would shift every logit alike; that does not cancel
-//   in p / l, because P is rounded to bf16 before P V and l sums the
-//   unrounded p, and at one key (out = bf16(p) / p * v) it showed as one-ulp
-//   flips of the bf16 output. Subtracting 12582912 first and multiplying
+//   in p / l, because P is rounded to T before P V and l sums the
+//   unrounded p, and at one key (out = T(p) / p * v) it showed as one-ulp
+//   flips of the bf16 output. The argument does not depend on T: with an
+//   fp16 P the logit is the same x * factor rounded once, so T(p) / p is
+//   the plain version's at every key. Subtracting 12582912 first and multiplying
 //   (JAX's float(x) * factor bit for bit) costs one more FADD an element
 //   and measured slower in this three-stage ring; so did cvt.rn.f32.s32
 //   with no preset (it lowers to I2FP.F32.S32 here, an ALU op, not the
@@ -94,6 +107,7 @@
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes through the runtime
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -108,7 +122,7 @@ constexpr int kBN = 128;                 // keys per tile
 constexpr int kStages = 3;               // K/V ring depth
 constexpr int kConsumers = kBM / 64;     // consumer warpgroups, 64 rows each
 constexpr int kThreads = 128 * (1 + kConsumers);
-constexpr int kVTileBytes = kBN * kD * 2;  // 16 KB, a bf16 V tile
+constexpr int kVTileBytes = kBN * kD * 2;  // 16 KB, a bf16 or fp16 V tile
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 160;
 // The online form lets p reach 2^kLazyLog2 before a row moves its running
@@ -125,8 +139,9 @@ constexpr uint32_t kMagicBits = 0x4B400000u;
 constexpr float kMagic = 12582912.f;  // 1.5 * 2^23
 static_assert(127 * 127 * kD < (1 << 22), "int8 logits leave the exact range");
 
-// Shared-memory geometry by the element type of Q and K: bf16 (K1) or int8
-// codes (K2). A row of 64 values is 128 or 64 bytes, TMA's swizzle as wide.
+// Shared-memory geometry by the element type of Q and K: bf16 or fp16 (K1)
+// or int8 codes (K2). A row of 64 values is 128 or 64 bytes, TMA's swizzle as
+// wide.
 template <typename QK>
 struct Geometry {
   static constexpr bool kInt8 = std::is_same<QK, int8_t>::value;
@@ -139,6 +154,27 @@ struct Geometry {
   // the S accumulator: fp32, or s32 read back as fp32 bits
   using Acc = typename std::conditional<kInt8, uint32_t, float>::type;
 };
+
+// The model type's pair of values in one register, and its rounding.
+template <typename T>
+struct Pair;
+template <>
+struct Pair<__nv_bfloat16> {
+  using type = __nv_bfloat162;
+  static __device__ __forceinline__ type round(float lo, float hi) {
+    return __floats2bfloat162_rn(lo, hi);
+  }
+};
+template <>
+struct Pair<__half> {
+  using type = __half2;
+  static __device__ __forceinline__ type round(float lo, float hi) {
+    return __floats2half2_rn(lo, hi);
+  }
+};
+
+template <typename T>
+constexpr bool kHalf = std::is_same<T, __half>::value;
 
 struct Barriers {
   uint64_t full_q;
@@ -260,38 +296,46 @@ __device__ __forceinline__ uint64_t desc_mnmajor(uint32_t addr) {
   return make_desc(addr, 1024, 1024);
 }
 
+#define DOVE_ACC(C, n) C(d[n])
+#define DOVE_ACC8(C, n)                                                      \
+  DOVE_ACC(C, n), DOVE_ACC(C, n + 1), DOVE_ACC(C, n + 2), DOVE_ACC(C, n + 3), \
+      DOVE_ACC(C, n + 4), DOVE_ACC(C, n + 5), DOVE_ACC(C, n + 6),            \
+      DOVE_ACC(C, n + 7)
+#define DOVE_ACC32(C)                                                        \
+  DOVE_ACC8(C, 0), DOVE_ACC8(C, 8), DOVE_ACC8(C, 16), DOVE_ACC8(C, 24)
+#define DOVE_ACC64(C)                                                        \
+  DOVE_ACC32(C), DOVE_ACC8(C, 32), DOVE_ACC8(C, 40), DOVE_ACC8(C, 48),       \
+      DOVE_ACC8(C, 56)
+#define DOVE_REGS32                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+#define DOVE_REGS64                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63}"
+#define DOVE_RW_F32(x) "+f"(x)
+#define DOVE_RW_S32(x) "+r"(x)
+// d[64 x 128] (+)= A[64 x 16] B[16 x 128] in T (bf16 or fp16), fp32 sums;
+// the instruction differs only in its type suffix
+#define DOVE_WGMMA_QK(TY)                                                    \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                  \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "   \
+               DOVE_REGS64 ", %64, %65, p, 1, 1, 0, 0;\n}\n"                 \
+               : DOVE_ACC64(DOVE_RW_F32)                                    \
+               : "l"(desc_a), "l"(desc_b), "r"(scale_d))
+
 // d[64 x 128] (+)= A[64 x 16] B[16 x 128]; A, B from shared memory, K-major.
+template <typename T>
 __device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t desc_a,
                                          uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  if constexpr (kHalf<T>) {
+    DOVE_WGMMA_QK("f16");
+  } else {
+    DOVE_WGMMA_QK("bf16");
+  }
 }
 
 // d[64 x 128] += A[64 x 32] B[32 x 128], int8 codes, int32 sums (exact); A,
@@ -300,57 +344,30 @@ __device__ __forceinline__ void wgmma_qk(uint32_t (&d)[64], uint64_t desc_a,
                                          uint64_t desc_b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
-        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
-        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
-        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
-        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
-        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
-        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
-        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
-        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " DOVE_REGS64
+      ", %64, %65, p;\n}\n"
+      : DOVE_ACC64(DOVE_RW_S32)
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
-// d[64 x 64] += A[64 x 16] B[16 x 64]; A from registers (bf16 pairs), B from
-// shared memory MN-major (transpose bit set).
+#define DOVE_WGMMA_PV(TY)                                                    \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                  \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "    \
+               DOVE_REGS32 ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"    \
+               : DOVE_ACC32(DOVE_RW_F32)                                    \
+               : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1))
+
+// d[64 x 64] += A[64 x 16] B[16 x 64] in T; A from registers (pairs of T),
+// B from shared memory MN-major (transpose bit set).
+template <typename T>
 __device__ __forceinline__ void wgmma_pv(float (&d)[32], uint32_t a0,
                                          uint32_t a1, uint32_t a2, uint32_t a3,
                                          uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
+  if constexpr (kHalf<T>) {
+    DOVE_WGMMA_PV("f16");
+  } else {
+    DOVE_WGMMA_PV("bf16");
+  }
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -359,22 +376,26 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+// Two fp32 values rounded to a pair of T, as one register.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  typename Pair<T>::type v = Pair<T>::round(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// QK = __nv_bfloat16: K1, scale_log2 = scale * log2 e, factor unused.
-// QK = int8_t: K2 (kBounded, no lse), the logits scaled by *factor with one
-// FFMA (the header).
-template <typename QK, bool kBounded, bool kLse>
+// T: the model type (bf16 or fp16) of V, P and O. QK = T: K1, scale_log2 =
+// scale * log2 e, factor unused. QK = int8_t: K2 (kBounded, no lse), the
+// logits scaled by *factor with one FFMA (the header).
+template <typename T, typename QK, bool kBounded, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                           const __grid_constant__ CUtensorMap map_k,
                           const __grid_constant__ CUtensorMap map_v,
-                          __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                          T* __restrict__ o, float* __restrict__ lse,
                           int sq, int skv, float scale_log2,
                           const float* __restrict__ factor_ptr) {
+  static_assert(std::is_same<QK, T>::value || std::is_same<QK, int8_t>::value,
+                "Q and K are the model type (K1) or int8 codes (K2)");
   using G = Geometry<QK>;
   static_assert(!G::kInt8 || (kBounded && !kLse), "K2 is the bounded form only");
   extern __shared__ uint8_t smem_raw[];
@@ -446,7 +467,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[i] = 0.f;
     typename G::Acc s[64];
-    // P as bf16 pairs in the A-register layout: pair k holds s[2k], s[2k + 1],
+    // P as pairs of T in the A-register layout: pair k holds s[2k], s[2k + 1],
     // of row (k & 1).
     uint32_t p[32];
     float lsum[2] = {0.f, 0.f};              // this thread's partial row sums
@@ -464,7 +485,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         if constexpr (G::kInt8) {
           wgmma_qk(s, da, db);
         } else {
-          wgmma_qk(s, da, db, kk > 0);
+          wgmma_qk<T>(s, da, db, kk > 0);
         }
       }
     };
@@ -480,7 +501,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const uint32_t vt = v_tiles + st * kVTileBytes;
 #pragma unroll
       for (int kk = 0; kk < kBN / 16; ++kk) {
-        wgmma_pv(acc, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+        wgmma_pv<T>(acc, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
                  desc_mnmajor(vt + kk * 16 * kD * 2));
       }
     };
@@ -534,12 +555,13 @@ __global__ void __launch_bounds__(kThreads, 1)
           const float e1 = ex2(logit2(2 * k + 1));
           lsum[k & 1] += e0;
           lsum[k & 1] += e1;
-          p[k] = pack_bf16x2(e0, e1);
+          p[k] = pack2<T>(e0, e1);
         }
         return false;
       } else {
         float sum[2] = {0.f, 0.f};
-        __nv_bfloat162 pmax = __floats2bfloat162_rn(0.f, 0.f);
+        using P2 = typename Pair<T>::type;
+        P2 pmax = Pair<T>::round(0.f, 0.f);
 #pragma unroll
         for (int k = 0; k < 32; ++k) {
           const int r = k & 1;
@@ -547,7 +569,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           const float e1 = ex2(fmaf(s[2 * k + 1], scale_log2, -mrow[r]));
           sum[r] += e0;
           sum[r] += e1;
-          const __nv_bfloat162 pk = __floats2bfloat162_rn(e0, e1);
+          const P2 pk = Pair<T>::round(e0, e1);
           pmax = __hmax2(pmax, pk);
           p[k] = *reinterpret_cast<const uint32_t*>(&pk);
         }
@@ -580,7 +602,7 @@ __global__ void __launch_bounds__(kThreads, 1)
               const float e1 = ex2(fmaf(s[2 * k + 1], scale_log2, -mrow[r]));
               sum[r] += e0;
               sum[r] += e1;
-              p[k] = pack_bf16x2(e0, e1);
+              p[k] = pack2<T>(e0, e1);
             }
           }
         }
@@ -648,7 +670,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_regs(p);
     release(lst);
 
-    // epilogue: row sums across the quad, O / l to bf16, the lse
+    // epilogue: row sums across the quad, O / l to T, the lse
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], 1);
@@ -658,7 +680,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const float inv1 = 1.f / lsum[1];
     const int r0 = q0 + c * 64 + warp * 16 + g;
     const int r1 = r0 + 8;
-    __nv_bfloat16* ob = o + static_cast<size_t>(bh) * sq * kD;
+    T* ob = o + static_cast<size_t>(bh) * sq * kD;
     if constexpr (kLse) {
       if (tig == 0) {
         constexpr float kLn2 = 0.6931471805599453f;
@@ -674,11 +696,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int col = n * 8 + tig * 2;
       if (r0 < sq) {
         *reinterpret_cast<uint32_t*>(ob + static_cast<size_t>(r0) * kD + col) =
-            pack_bf16x2(acc[4 * n] * inv0, acc[4 * n + 1] * inv0);
+            pack2<T>(acc[4 * n] * inv0, acc[4 * n + 1] * inv0);
       }
       if (r1 < sq) {
         *reinterpret_cast<uint32_t*>(ob + static_cast<size_t>(r1) * kD + col) =
-            pack_bf16x2(acc[4 * n + 2] * inv1, acc[4 * n + 3] * inv1);
+            pack2<T>(acc[4 * n + 2] * inv1, acc[4 * n + 3] * inv1);
       }
     }
   }
@@ -707,41 +729,43 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// A 3-D map over a contiguous [bh, s, 64] of bf16 (128-byte rows, 128B
-// swizzle) or int8 codes (64-byte rows, 64B swizzle): boxes of `rows` rows of
-// one head; rows past s read as zeros.
-bool make_map(CUtensorMap* map, const void* ptr, int bh, int s, int rows,
-              bool int8 = false) {
+// A 3-D map over a contiguous [bh, s, 64] of bf16 or fp16 (128-byte rows,
+// 128B swizzle) or int8 codes (64-byte rows, 64B swizzle): boxes of `rows`
+// rows of one head; rows past s read as zeros.
+template <typename E>
+bool make_map(CUtensorMap* map, const void* ptr, int bh, int s, int rows) {
   EncodeTiled encode = encoder();
   if (encode == nullptr) return false;
+  constexpr bool int8 = std::is_same<E, int8_t>::value;
+  constexpr CUtensorMapDataType type =
+      int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+           : (kHalf<E> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
   const cuuint64_t row_bytes = int8 ? kD : kD * 2;
   const cuuint64_t dims[3] = {kD, static_cast<cuuint64_t>(s),
                               static_cast<cuuint64_t>(bh)};
   const cuuint64_t strides[2] = {row_bytes, static_cast<cuuint64_t>(s) * row_bytes};
   const cuuint32_t box[3] = {kD, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
-  return encode(map,
-                int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                3, const_cast<void*>(ptr), dims, strides, box, elem_strides,
+  return encode(map, type, 3, const_cast<void*>(ptr), dims, strides, box, elem_strides,
                 CU_TENSOR_MAP_INTERLEAVE_NONE,
                 int8 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename QK, bool kBounded, bool kLse>
+template <typename T, typename QK, bool kBounded, bool kLse>
 cudaError_t launch(const CUtensorMap& mq, const CUtensorMap& mk,
                    const CUtensorMap& mv, void* o, void* lse, int bh, int sq,
                    int skv, float scale_log2, const void* factor,
                    cudaStream_t stream) {
-  auto kernel = flash_fwd_sm90_kernel<QK, kBounded, kLse>;
+  auto kernel = flash_fwd_sm90_kernel<T, QK, kBounded, kLse>;
   constexpr int kSmemBytes = Geometry<QK>::kSmemBytes;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((sq + kBM - 1) / kBM, bh);
   kernel<<<grid, kThreads, kSmemBytes, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), sq,
+      mq, mk, mv, static_cast<T*>(o), static_cast<float*>(lse), sq,
       skv, scale_log2, static_cast<const float*>(factor));
   return cudaGetLastError();
 }
@@ -753,10 +777,56 @@ bool bad_args(int head_dim, int bh, int sq, int skv,
   return bad;
 }
 
+// K1 in the model type T: the four forms by lse (null or not) and bounded.
+template <typename T>
+int fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
+        int sq, int skv, int head_dim, float scale, int bounded, void* stream) {
+  if (bad_args(head_dim, bh, sq, skv, {q, k, v, o})) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUtensorMap mq, mk, mv;
+  if (!make_map<T>(&mq, q, bh, sq, kBM) || !make_map<T>(&mk, k, bh, skv, kBN) ||
+      !make_map<T>(&mv, v, bh, skv, kBN)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const float scale_log2 = scale * 1.4426950408889634f;
+  auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (lse != nullptr && bounded) {
+    err = launch<T, T, true, true>(mq, mk, mv, o, lse, bh, sq, skv, scale_log2, nullptr, s);
+  } else if (lse != nullptr) {
+    err = launch<T, T, false, true>(mq, mk, mv, o, lse, bh, sq, skv, scale_log2, nullptr, s);
+  } else if (bounded) {
+    err = launch<T, T, true, false>(mq, mk, mv, o, lse, bh, sq, skv, scale_log2, nullptr, s);
+  } else {
+    err = launch<T, T, false, false>(mq, mk, mv, o, lse, bh, sq, skv, scale_log2, nullptr, s);
+  }
+  return static_cast<int>(err);
+}
+
+// K2 with V and O in the model type T.
+template <typename T>
+int fwd_qk8(const void* q8, const void* k8, const void* v, void* o, int bh, int sq,
+            int skv, int head_dim, const void* factor, void* stream) {
+  if (bad_args(head_dim, bh, sq, skv, {q8, k8, v, o}) || factor == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUtensorMap mq, mk, mv;
+  if (!make_map<int8_t>(&mq, q8, bh, sq, kBM) ||
+      !make_map<int8_t>(&mk, k8, bh, skv, kBN) || !make_map<T>(&mv, v, bh, skv, kBN)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      launch<T, int8_t, true, false>(mq, mk, mv, o, nullptr, bh, sq, skv, 0.f, factor, s);
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
 // The dynamic shared memory a K1 (qk8 = 0) or K2 (qk8 = 1) launch asks for
-// (Q, the K/V ring, and slack to align the tiles to 1024 bytes).
+// (Q, the K/V ring, and slack to align the tiles to 1024 bytes); the same in
+// bf16 and fp16.
 extern "C" int dove_flash_fwd_sm90_smem_bytes(int qk8) {
   return qk8 ? Geometry<int8_t>::kSmemBytes : Geometry<__nv_bfloat16>::kSmemBytes;
 }
@@ -769,28 +839,16 @@ extern "C" int dove_flash_fwd_bf16(const void* q, const void* k, const void* v,
                                    void* o, void* lse, int bh, int sq, int skv,
                                    int head_dim, float scale, int bounded,
                                    void* stream) {
-  if (bad_args(head_dim, bh, sq, skv, {q, k, v, o})) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  CUtensorMap mq, mk, mv;
-  if (!make_map(&mq, q, bh, sq, kBM) || !make_map(&mk, k, bh, skv, kBN) ||
-      !make_map(&mv, v, bh, skv, kBN)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  using BF = __nv_bfloat16;
-  const float scale_log2 = scale * 1.4426950408889634f;
-  auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (lse != nullptr && bounded) {
-    err = launch<BF, true, true>(mq, mk, mv, o, lse, bh, sq, skv, scale_log2, nullptr, s);
-  } else if (lse != nullptr) {
-    err = launch<BF, false, true>(mq, mk, mv, o, lse, bh, sq, skv, scale_log2, nullptr, s);
-  } else if (bounded) {
-    err = launch<BF, true, false>(mq, mk, mv, o, lse, bh, sq, skv, scale_log2, nullptr, s);
-  } else {
-    err = launch<BF, false, false>(mq, mk, mv, o, lse, bh, sq, skv, scale_log2, nullptr, s);
-  }
-  return static_cast<int>(err);
+  return fwd<__nv_bfloat16>(q, k, v, o, lse, bh, sq, skv, head_dim, scale, bounded,
+                            stream);
+}
+
+// K1 in fp16: dove_flash_fwd_bf16's arguments with fp16 q, k, v and o.
+extern "C" int dove_flash_fwd_f16(const void* q, const void* k, const void* v,
+                                  void* o, void* lse, int bh, int sq, int skv,
+                                  int head_dim, float scale, int bounded,
+                                  void* stream) {
+  return fwd<__half>(q, k, v, o, lse, bh, sq, skv, head_dim, scale, bounded, stream);
 }
 
 // K2. q8, k8: int8 codes [bh, sq|skv, 64]; v: bf16 [bh, skv, 64]; o: bf16
@@ -800,16 +858,12 @@ extern "C" int dove_flash_fwd_bf16(const void* q, const void* k, const void* v,
 extern "C" int dove_flash_fwd_qk8(const void* q8, const void* k8, const void* v,
                                   void* o, int bh, int sq, int skv, int head_dim,
                                   const void* factor, void* stream) {
-  if (bad_args(head_dim, bh, sq, skv, {q8, k8, v, o}) || factor == nullptr) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  CUtensorMap mq, mk, mv;
-  if (!make_map(&mq, q8, bh, sq, kBM, true) || !make_map(&mk, k8, bh, skv, kBN, true) ||
-      !make_map(&mv, v, bh, skv, kBN)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  auto s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      launch<int8_t, true, false>(mq, mk, mv, o, nullptr, bh, sq, skv, 0.f, factor, s);
-  return static_cast<int>(err);
+  return fwd_qk8<__nv_bfloat16>(q8, k8, v, o, bh, sq, skv, head_dim, factor, stream);
+}
+
+// K2 with fp16 v and o: dove_flash_fwd_qk8's arguments otherwise.
+extern "C" int dove_flash_fwd_qk8_f16(const void* q8, const void* k8, const void* v,
+                                      void* o, int bh, int sq, int skv, int head_dim,
+                                      const void* factor, void* stream) {
+  return fwd_qk8<__half>(q8, k8, v, o, bh, sq, skv, head_dim, factor, stream);
 }

@@ -8,7 +8,8 @@ asks for the CPU). Without ``--is_vae_st`` the fused outer-tile path runs
 (``--tile_size_hw``, ``--overlap_hw``, ``--chunk_len``, ``--overlap_t``,
 ``--tile_batch``, ``--upscale_mode``); with it, the staged path, with clips
 of more than 33 frames streamed or cut into overlapping chunks
-(``--streaming``). Both take bf16 or fp32, unquantized or in one of the five
+(``--streaming``). Both take bf16, fp16 or fp32, the CogVideoX1.5-5B or
+the CogVideoX-2B family (``--preset``), unquantized or in one of the five
 int8 serving modes (``--quantize``; the ones that quantize the VAE also take
 ``--vae_calib`` and ``--vae_exclude``), ``--lora_path`` (fused into the DiT),
 ``--noise_step`` / ``--sr_noise_step`` / ``--upscale``, and inline scoring
@@ -22,9 +23,8 @@ cached empty-prompt embedding is found under ``pretrained_models/``. Input
 clips are video files, read through OpenCV.
 
 Not ported yet, refused with the ROADMAP item: ``--data_parallel`` and
-``--tensor_parallel`` above 1 (A.12), ``--preset cogvideox-2b`` (A.10),
-``--dtype float16`` (K1 and K2 take bf16 only), and non-empty prompts
-through a T5 text encoder (A.13).
+``--tensor_parallel`` above 1 (A.12), and non-empty prompts through a T5
+text encoder (A.13).
 """
 
 from __future__ import annotations
@@ -44,7 +44,8 @@ EMPTY_PROMPT = Path(
     "pretrained_models/prompt_embeddings/"
     "e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855.safetensors"
 )
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+DTYPES = {"float16": torch.float16, "bfloat16": torch.bfloat16,
+          "float32": torch.float32}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -134,13 +135,6 @@ def check_ported(args) -> None:
     if args.data_parallel > 1 or args.tensor_parallel > 1:
         raise NotImplementedError(
             "--data_parallel / --tensor_parallel are not ported yet (ROADMAP A.12)")
-    if args.preset == "cogvideox-2b":
-        raise NotImplementedError(
-            "--preset cogvideox-2b is not ported yet (ROADMAP A.10)")
-    if args.dtype == "float16":
-        raise NotImplementedError(
-            "--dtype float16 is not ported yet: K1 and K2 take bf16 only "
-            "(ROADMAP A.14)")
 
 
 def load_pipeline(args):
@@ -157,6 +151,8 @@ def load_pipeline(args):
         cfg = cfg_mod.pipeline_config_from_pretrained(args.model_path)
     elif args.preset == "tiny":
         cfg = cfg_mod.tiny_test()
+    elif args.preset == "cogvideox-2b":
+        cfg = cfg_mod.cogvideox_2b()
     else:
         cfg = cfg_mod.cogvideox1_5_5b()
     cfg = dataclasses.replace(

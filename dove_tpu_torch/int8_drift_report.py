@@ -99,12 +99,14 @@ def jax_leaf(name: str, ndim: int) -> tuple[str, bool]:
     return path.lower(), stacked
 
 
-def jax_shape(shape: torch.Size, stacked: bool, n_layers: int) -> tuple[int, ...]:
+def jax_shape(shape: torch.Size, stacked: bool, n_layers: int,
+              name: str = "") -> tuple[int, ...]:
     """The JAX leaf's shape: the converter's layout map inverted (a linear
-    [out, in] is [in, out]; a conv [O, I, *k] is [*k, I, O]), with the layer
-    axis in front for a stacked leaf."""
+    [out, in] is [in, out]; a conv [O, I, *k] is [*k, I, O]; the 2B's
+    ``pos_embedding`` [1, L, dim] is not a kernel and keeps its own), with
+    the layer axis in front for a stacked leaf."""
     s = tuple(shape)
-    if len(s) >= 2:
+    if len(s) >= 2 and not name.endswith("pos_embedding"):
         s = s[2:] + (s[1], s[0])
     return ((n_layers,) + s) if stacked else s
 
@@ -135,7 +137,9 @@ def realistic_params(model: nn.Module, seed: int, family: str = "gaussian") -> n
     family="gaussian": N(0, fan_in^-0.5); "outlier": Student-t(4) entries
     scaled to variance 1 / fan_in, times per-output-channel log-normal gains
     normalized to unit mean square (shared by the layers of a stacked leaf).
-    JAX's 1-D leaves: ones for scales, zeros for biases."""
+    JAX's 1-D leaves: ones for scales, zeros for biases. The 2B's sincos
+    ``pos_embedding`` [1, L, dim] is a 3-D leaf of the JAX tree, so the JAX
+    script draws it like a kernel (fan-in L, gains on dim), as here."""
     if family not in ("gaussian", "outlier"):
         raise ValueError(f"unknown weights family: {family!r}")
     blocks = getattr(model, "transformer_blocks", None)
@@ -146,7 +150,7 @@ def realistic_params(model: nn.Module, seed: int, family: str = "gaussian") -> n
     for name, t in state.items():
         path, stacked = jax_leaf(name, t.ndim)
         leaves.setdefault(path, []).append(t)
-        meta[path] = jax_shape(t.shape, stacked, n_layers)
+        meta[path] = jax_shape(t.shape, stacked, n_layers, name)
     for index, (path, tensors) in enumerate(leaves.items()):
         shape = meta[path]
         first = tensors[0]
@@ -170,7 +174,10 @@ def realistic_params(model: nn.Module, seed: int, family: str = "gaussian") -> n
             else:
                 arr = (_t4(gen, t.shape, dtype, device)
                        * torch.tensor((fan_in * 2.0) ** -0.5, dtype=dtype))
-                arr = arr * gains.view((-1,) + (1,) * (t.ndim - 1))
+                # on the output axis: a torch kernel's first, the table's last
+                axis = -1 if path.endswith("['pos_embedding']") else 0
+                arr = arr * gains.view([-1 if d == axis % t.ndim else 1
+                                        for d in range(t.ndim)])
             t.copy_(arr)
     return model
 
@@ -209,8 +216,6 @@ def build_pipe(preset: str, quantize: str | None, weights: str = "gaussian",
     calibration and exclusions; a quantized run past ``tiny`` takes the bf16
     window plan. The weights are synthesized (DiT seed 1, VAE seed 2) unless
     ``dit`` / ``vae`` are given."""
-    if preset == "cogvideox-2b":
-        raise NotImplementedError("--preset cogvideox-2b is not ported yet (ROADMAP A.10)")
     cfg = PRESETS[preset]()
     dtype = torch.float32 if preset == "tiny" else torch.bfloat16
     device = resolve_device(device)

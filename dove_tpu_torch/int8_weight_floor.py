@@ -113,8 +113,6 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--out", default=None)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.preset == "cogvideox-2b":
-        raise NotImplementedError("--preset cogvideox-2b is not ported yet (ROADMAP A.10)")
     vae = synthetic_vae(args.preset, args.weights, resolve_device(args.device))
     calib = {}
     if args.calib:

@@ -1,15 +1,20 @@
-"""CogVideoX Transformer3D ("DiT"), 1.5-5B structure, as a PyTorch module.
+"""CogVideoX Transformer3D ("DiT"), 1.5-5B and 2B structures, as a PyTorch module.
 
 Counterpart of ``dove_tpu/models/dit.py`` (``dit_forward``). Module and
 parameter names follow the diffusers checkpoint (``transformer_blocks.{i}.
 attn1.to_q.weight``, ...), so a released state dict loads with
 ``load_state_dict`` and ``nn.Linear`` keeps torch's [out, in] layout.
 
-Architecture: 3D patchify (p=2, p_t=2) as one linear, T5 text projection,
-joint [text|video] token sequence, blocks of adaLN-zero -> qk-layernorm full
-attention with 3D RoPE on the video segment -> adaLN-zero -> GELU-tanh MLP,
-then the joint final norm, the (shift, scale) adaLN and the linear
-unpatchify. LayerNorms and adaLN math run in fp32, matmuls in the model
+Architecture (1.5-5B): 3D patchify (p=2, p_t=2) as one linear, T5 text
+projection, joint [text|video] token sequence, blocks of adaLN-zero ->
+qk-layernorm full attention with 3D RoPE on the video segment -> adaLN-zero
+-> GELU-tanh MLP, then the joint final norm, the (shift, scale) adaLN and
+the linear unpatchify. The 2B family (``patch_size_t=None``, no RoPE)
+patchifies each frame with a stride-p conv2d and adds fixed 3D sincos
+positions instead: the stored ``pos_embedding`` table (text part zeros) to
+the joint sequence at the config's sample grid, a table recomputed for the
+actual grid to the video tokens at any other; its final norm sees the video
+tokens alone. LayerNorms and adaLN math run in fp32, matmuls in the model
 dtype. Attention goes through ops/attention.py, which takes the K1 kernel on
 the card for long sequences (with gradients: K1 with the logsumexp, and K3a
 and K3b behind it).
@@ -20,15 +25,16 @@ block, so a checkpointed block recomputes the merge instead of holding 42
 merged copies; per-block ``torch.utils.checkpoint`` is the counterpart of the
 JAX package's ``jax.checkpoint(_block, policy=nothing_saveable)``.
 
-Not ported yet: the 2B variant (conv2d patchify + sincos positions), tensor
-and sequence parallelism. The int8 linears are ops/quant.py's.
+Not ported yet: tensor and sequence parallelism. The int8 linears are ops/quant.py's.
 """
 
 from __future__ import annotations
 
 import math
+from collections import OrderedDict
 from typing import Mapping
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -37,6 +43,7 @@ from torch.utils.checkpoint import checkpoint
 from dove_tpu_torch.config import DiTConfig
 from dove_tpu_torch.ops.attention import full_attention
 from dove_tpu_torch.ops.rope import apply_rotary, rope_3d
+from dove_tpu_torch.ops.sincos import get_3d_sincos_pos_embed
 from dove_tpu_torch.train.lora import LoraLayer, lora_layer, merged_weight
 
 
@@ -210,12 +217,63 @@ class _Block(nn.Module):
         return hidden, encoder
 
 
+def sample_grid(cfg: DiTConfig) -> tuple[int, int, int]:
+    """The (frames, height, width) token grid of the config's sample size:
+    the grid the stored sincos table is valid for."""
+    return ((cfg.sample_frames - 1) // cfg.temporal_compression_ratio + 1,
+            cfg.sample_height // cfg.patch_size, cfg.sample_width // cfg.patch_size)
+
+
+def sincos_table(cfg: DiTConfig, grid: tuple[int, int, int]) -> np.ndarray:
+    """The fixed 3D sincos positions of a (frames, height, width) token grid,
+    float64 [T * H * W, dim], token order as patchify's."""
+    t, h, w = grid
+    return get_3d_sincos_pos_embed(
+        cfg.hidden_dim, w, h, t, cfg.spatial_interpolation_scale,
+        cfg.temporal_interpolation_scale).reshape(-1, cfg.hidden_dim)
+
+
+def stored_pos_embedding(cfg: DiTConfig) -> torch.Tensor:
+    """The 2B's ``pos_embedding`` buffer as diffusers builds it: zeros for
+    the ``max_text_seq_length`` text slots, then the sample grid's sincos
+    table; fp32 [1, L_text + T * H * W, dim]."""
+    pos = sincos_table(cfg, sample_grid(cfg))
+    text = np.zeros((cfg.max_text_seq_length, cfg.hidden_dim))
+    return torch.from_numpy(np.concatenate([text, pos])[None]).float()
+
+
+def temporal_pad(cfg: DiTConfig, frames: int) -> int:
+    """Latent frames to prepend so that ``frames`` fills whole temporal
+    patches: (pt - F % pt) % pt, 0 without temporal patching (the 2B)."""
+    pt = cfg.patch_size_t
+    return 0 if pt is None else (pt - frames % pt) % pt
+
+
 class _PatchEmbed(nn.Module):
     def __init__(self, cfg: DiTConfig, **kw):
         super().__init__()
-        patch_dim = cfg.in_channels * cfg.patch_size_t * cfg.patch_size**2
-        self.proj = nn.Linear(patch_dim, cfg.hidden_dim, bias=cfg.patch_bias, **kw)
+        p = cfg.patch_size
+        if cfg.patch_size_t is None:
+            # CogVideoX-1.0: a stride-p conv2d over each frame
+            self.proj = nn.Conv2d(cfg.in_channels, cfg.hidden_dim, p, stride=p,
+                                  bias=True, **kw)
+        else:
+            patch_dim = cfg.in_channels * cfg.patch_size_t * p**2
+            self.proj = nn.Linear(patch_dim, cfg.hidden_dim, bias=cfg.patch_bias, **kw)
         self.text_proj = nn.Linear(cfg.text_embed_dim, cfg.hidden_dim, **kw)
+        if not cfg.use_rotary_positional_embeddings:
+            t, h, w = sample_grid(cfg)
+            self.register_buffer("pos_embedding", torch.empty(
+                (1, cfg.max_text_seq_length + t * h * w, cfg.hidden_dim), **kw))
+
+    def embed(self, cfg: DiTConfig, latent: torch.Tensor) -> torch.Tensor:
+        """latent [B, F, C, H, W] -> video tokens [B, S_vid, dim]."""
+        if cfg.patch_size_t is not None:
+            return self.proj(patchify(cfg, latent))
+        B, Fr, C, H, W = latent.shape
+        x = self.proj(latent.reshape(B * Fr, C, H, W).to(self.proj.weight.dtype))
+        return x.reshape(B, Fr, x.shape[1], -1).permute(0, 1, 3, 2).reshape(
+            B, -1, x.shape[1])
 
 
 class _TimeEmbedding(nn.Module):
@@ -248,7 +306,7 @@ def unpatchify(
     cfg: DiTConfig, tokens: torch.Tensor, frames: int, height: int, width: int
 ) -> torch.Tensor:
     """video tokens [B, S_vid, C*pt*p*p] -> latent [B, F, C_out, H, W]."""
-    p, pt = cfg.patch_size, cfg.patch_size_t
+    p, pt = cfg.patch_size, cfg.patch_size_t or 1
     B = tokens.shape[0]
     f, h, w = frames // pt, height // p, width // p
     x = tokens.reshape(B, f, h, w, -1, pt, p, p)
@@ -261,11 +319,6 @@ class CogVideoXTransformer3D(nn.Module):
 
     def __init__(self, cfg: DiTConfig, device=None, dtype=None):
         super().__init__()
-        if cfg.patch_size_t is None or not cfg.use_rotary_positional_embeddings:
-            raise NotImplementedError(
-                "the CogVideoX-2B structure (conv2d patchify, sincos "
-                "positions) is not ported yet"
-            )
         kw = {"device": device, "dtype": dtype}
         self.cfg = cfg
         self.patch_embed = _PatchEmbed(cfg, **kw)
@@ -275,8 +328,56 @@ class CogVideoXTransformer3D(nn.Module):
         )
         self.norm_final = LayerNorm(cfg.hidden_dim, cfg.norm_eps, **kw)
         self.norm_out = _NormOut(cfg, **kw)
-        out_dim = cfg.out_channels * cfg.patch_size_t * cfg.patch_size**2
+        out_dim = cfg.out_channels * (cfg.patch_size_t or 1) * cfg.patch_size**2
         self.proj_out = nn.Linear(cfg.hidden_dim, out_dim, **kw)
+        # the 2B's sincos tables of grids other than the sample grid, built
+        # once per (grid, dtype, device), most recent last
+        self._pos_cache: OrderedDict = OrderedDict()
+
+    def _positions(self, grid: tuple[int, int, int], dtype: torch.dtype,
+                   device: torch.device) -> torch.Tensor:
+        """The sincos table of ``grid`` [1, T * H * W, dim] in ``dtype`` on
+        ``device``: computed in float64 on the host and cast once, the JAX
+        package's trace-time constant; kept for the next call."""
+        key = (grid, dtype, device)
+        table = self._pos_cache.pop(key, None)
+        if table is None:
+            table = torch.from_numpy(sincos_table(self.cfg, grid)[None]).to(dtype)
+            table = table.to(device)
+            while len(self._pos_cache) >= 4:
+                self._pos_cache.popitem(last=False)
+        self._pos_cache[key] = table
+        return table
+
+    def embed(
+        self, latent: torch.Tensor, text_embeds: torch.Tensor, timestep: torch.Tensor,
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, tuple | None]:
+        """The tokens the blocks take -> (hidden, encoder, temb, rope): the
+        patch and text embeddings with the positions added (the 2B), the
+        timestep embedding, and the RoPE tables (None for the 2B)."""
+        cfg = self.cfg
+        B, Fr, _, Hh, Ww = latent.shape
+        dtype = latent.dtype
+        t_feat = _timestep_embedding(
+            timestep, cfg.hidden_dim, cfg.flip_sin_to_cos, cfg.freq_shift
+        ).to(dtype)
+        te = self.time_embedding
+        temb = te.linear_2(F.silu(te.linear_1(t_feat)))
+
+        hidden = self.patch_embed.embed(cfg, latent)
+        encoder = self.patch_embed.text_proj(text_embeds.to(dtype))
+        grid = (Fr // (cfg.patch_size_t or 1), Hh // cfg.patch_size, Ww // cfg.patch_size)
+        if cfg.use_rotary_positional_embeddings:
+            return hidden, encoder, temb, rope_3d(
+                cfg.attention_head_dim, *grid, cfg.rope_theta, device=latent.device)
+        if grid == sample_grid(cfg):
+            # the stored table, valid only at the sample grid, over [text | video]
+            joint = torch.cat([encoder, hidden], dim=1)
+            joint = joint + self.patch_embed.pos_embedding[:, :joint.shape[1]].to(dtype)
+            text_len = encoder.shape[1]
+            return joint[:, text_len:], joint[:, :text_len], temb, None
+        hidden = hidden + self._positions(grid, dtype, latent.device)
+        return hidden, encoder, temb, None
 
     def forward(
         self,
@@ -292,7 +393,8 @@ class CogVideoXTransformer3D(nn.Module):
     ) -> torch.Tensor:
         """One DiT pass.
 
-        latent: [B, F, C, H, W] noisy latent, F divisible by patch_size_t;
+        latent: [B, F, C, H, W] noisy latent, F divisible by patch_size_t
+        (any F for the 2B);
         text_embeds: [B, L_text, text_embed_dim] T5 features; timestep: [B]
         integer timesteps. bounded_logits is the inference-only flash path
         (safe only with frozen, near-unit qk-layernorm gains). lora: a LoRA
@@ -302,26 +404,8 @@ class CogVideoXTransformer3D(nn.Module):
         (when gradients are on). Returns the velocity prediction
         [B, F, C_out, H, W]."""
         cfg = self.cfg
-        B, Fr, _, Hh, Ww = latent.shape
-        dtype = latent.dtype
-
-        t_feat = _timestep_embedding(
-            timestep, cfg.hidden_dim, cfg.flip_sin_to_cos, cfg.freq_shift
-        ).to(dtype)
-        te = self.time_embedding
-        temb = te.linear_2(F.silu(te.linear_1(t_feat)))
-
-        hidden = self.patch_embed.proj(patchify(cfg, latent))
-        encoder = self.patch_embed.text_proj(text_embeds.to(dtype))
-
-        rope = rope_3d(
-            cfg.attention_head_dim,
-            Fr // cfg.patch_size_t,
-            Hh // cfg.patch_size,
-            Ww // cfg.patch_size,
-            cfg.rope_theta,
-            device=latent.device,
-        )
+        _, Fr, _, Hh, Ww = latent.shape
+        hidden, encoder, temb, rope = self.embed(latent, text_embeds, timestep)
         remat = gradient_checkpointing and torch.is_grad_enabled()
         for i, block in enumerate(self.transformer_blocks):
             args = (hidden, encoder, temb, rope, attention_backend, bounded_logits,
@@ -331,9 +415,13 @@ class CogVideoXTransformer3D(nn.Module):
             else:
                 hidden, encoder = block(*args)
 
-        # Final norm over the joint sequence, adaLN (shift, scale), projection
-        text_len = encoder.shape[1]
-        hidden = self.norm_final(torch.cat([encoder, hidden], dim=1))[:, text_len:]
+        # Final norm (over the joint sequence with RoPE, the video tokens
+        # without), adaLN (shift, scale), projection
+        if cfg.use_rotary_positional_embeddings:
+            text_len = encoder.shape[1]
+            hidden = self.norm_final(torch.cat([encoder, hidden], dim=1))[:, text_len:]
+        else:
+            hidden = self.norm_final(hidden)
         shift, scale = self.norm_out.linear(F.silu(temb)).chunk(2, dim=-1)
         hidden = self.norm_out.norm(hidden) * (1 + scale[:, None]) + shift[:, None]
         hidden = self.proj_out(hidden)
@@ -346,7 +434,9 @@ def init_dit_params(
 ) -> CogVideoXTransformer3D:
     """A DiT with seeded random weights, the distribution of the JAX
     package's ``init_dit_params``: linear weights uniform in +-1/sqrt(d_in),
-    biases 0, LayerNorm gains 1 and biases 0. Built on ``device`` directly."""
+    biases 0, LayerNorm gains 1 and biases 0; the 2B's patch conv N(0,
+    0.02^2) and its ``pos_embedding`` the sincos table. Built on ``device``
+    directly."""
     with torch.device("meta"):
         model = CogVideoXTransformer3D(cfg, dtype=dtype)
     model = model.to_empty(device=device)
@@ -360,4 +450,9 @@ def init_dit_params(
         elif isinstance(mod, LayerNorm):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
+        elif isinstance(mod, nn.Conv2d):
+            mod.weight.normal_(0.0, 0.02, generator=gen)
+            mod.bias.zero_()
+    if not cfg.use_rotary_positional_embeddings:
+        model.patch_embed.pos_embedding.copy_(stored_pos_embedding(cfg))
     return model.eval().requires_grad_(False)

@@ -7,7 +7,8 @@ Hp = Ho + 2, Wp = Wo + 2, Cin]`` (the caller prepends the two causal cache
 frames and the spatial border) against ``[3, 3, 3, Cin, Cout]`` weights ->
 ``[Fo, Ho, Wo, Cout]``. K4 multiplies int8 codes, sums all 27 taps in int32
 (exact), then takes ``float(acc) * (sx * sk[cout])`` in fp32 and rounds once
-to ``out_dtype``. K5 multiplies bf16 operands and sums in fp32. The JAX
+to ``out_dtype`` (bf16, fp16 or fp32). K5 multiplies bf16 operands (in an
+fp16 VAE too, as the JAX package's ``conv3d_bf16`` does) and sums in fp32. The JAX
 functions' ``row_block`` and ``dh_fold`` arguments pick among TPU schedules
 of the same function, not among results, so they have no counterpart here.
 
@@ -61,6 +62,10 @@ shape_log: list | None = None
 # what the kernel takes: whole 64-channel input slabs, 128-wide cout blocks
 CIN_MULTIPLE = 64
 COUT_MULTIPLE = 128
+# the output types of K4's and K5's epilogue (a bf16 or fp16 VAE, or fp32),
+# by their code in the C entries; the quantizer's pass reads the same codes
+OUT_TYPES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
+QUANT_INPUT_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 # The CUDA kernel's tiling. Output positions are numbered over the padded
@@ -301,8 +306,8 @@ def conv_taps_launch(
         raise ValueError(
             f"the CUDA kernel takes Cin % {CIN_MULTIPLE} == 0 and Cout % "
             f"{COUT_MULTIPLE} == 0, got Cin={cin}, Cout={cout}")
-    if out_dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
+    if out_dtype not in OUT_TYPES:
+        raise ValueError(f"out_dtype must be bfloat16, float32 or float16, got {out_dtype}")
     if quantized:
         if (scale is None or scale.dtype != torch.float32 or scale.shape != (cout,)
                 or scale.device != x.device or not scale.is_contiguous()):
@@ -326,7 +331,7 @@ def conv_taps_launch(
     image = weight_image(w_packed)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        dims = (B, Fo, Ho, Wo, cin, cout, kt, int(out_dtype == torch.float32))
+        dims = (B, Fo, Ho, Wo, cin, cout, kt, OUT_TYPES[out_dtype])
         strides = (osb, osf, osh, osw, osc, stream)
         if quantized:
             rc = lib.dove_conv3d_w8a8(
@@ -393,15 +398,16 @@ def quantize_pack_launch(
     x: torch.Tensor, s: torch.Tensor, m: torch.Tensor,
     eq_inv: torch.Tensor | None = None, padding: int = 1,
 ) -> torch.Tensor:
-    """Launch the quantizer's kernel on a bf16 or fp32 CUDA ``x``; s, m (0-d
-    fp32) and eq_inv stay on the device. A non-contiguous x is copied first."""
+    """Launch the quantizer's kernel on a bf16, fp16 or fp32 CUDA ``x``; s, m
+    (0-d fp32) and eq_inv stay on the device. A non-contiguous x is copied
+    first."""
     if x.device.type != "cuda":
         raise ValueError(f"the quantizer's kernel runs on cuda, not {x.device}")
     shape = _packed_shape(x, padding)
     B, C, Ft, H, W = x.shape
-    if x.dtype not in (torch.bfloat16, torch.float32) or C % 4:
-        raise ValueError(f"the quantizer's kernel takes bf16 or fp32 x with C % 4 == "
-                         f"0, got {x.dtype} with C={C}")
+    if x.dtype not in QUANT_INPUT_TYPES or C % 4:
+        raise ValueError(f"the quantizer's kernel takes bf16, fp16 or fp32 x with "
+                         f"C % 4 == 0, got {x.dtype} with C={C}")
     if shape[2] > 65535 or B * Ft > 65535:
         raise ValueError(f"x {tuple(x.shape)} exceeds the grid's 65535")
     s, m = (t.to(device=x.device, dtype=torch.float32).reshape(1) for t in (s, m))
@@ -418,7 +424,7 @@ def quantize_pack_launch(
         rc = lib.dove_quant_pack(
             x.data_ptr(), None if mult is None else mult.data_ptr(),
             None if off is None else off.data_ptr(), s.data_ptr(), m.data_ptr(),
-            out.data_ptr(), B, C, Ft, H, W, padding, int(x.dtype == torch.bfloat16),
+            out.data_ptr(), B, C, Ft, H, W, padding, QUANT_INPUT_TYPES[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"quant_pack kernel launch failed: cudaError_t {rc}")

@@ -1,7 +1,7 @@
 """K1, K2, K3a and K3b: non-causal flash attention, hand-written CUDA kernels.
 
 Counterpart of ``dove_tpu/ops/pallas/flash_attention.py`` (``flash_attention``
-with its custom VJP). K1 is the bf16 forward (kernel ``_fwd_kernel``), with
+with its custom VJP). K1 is the forward (kernel ``_fwd_kernel``), with
 the per-row logsumexp in its training form; K2 its ``qk8`` form (per-tensor
 int8 q and k, int32 Q K^T), the int8-dit serving mode's attention; K3a and
 K3b are the backward (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``). K1 and K2
@@ -9,7 +9,9 @@ live in ``csrc/flash_fwd_sm90.cu`` (one kernel template, K2 its int8
 instantiation with an s8 wgmma for Q K^T) and K3a and K3b in
 ``csrc/flash_bwd_sm90.cu`` (wgmma, TMA, warp-specialised); each note says
 what bounds the kernels on the H100 and how they differ from the TPU
-schedule.
+schedule. Every kernel takes the model type, bf16 or fp16 (the TPU kernels
+are generic in it), each as its own instantiation with its own C entry;
+any other dtype on the card raises.
 
 ``flash_attention`` keeps the JAX package's ``[B, H, S, D]`` layout. On a CUDA
 tensor it launches a kernel or raises; on a CPU tensor it runs the same
@@ -60,40 +62,53 @@ launches_bwd_dq = LaunchCounter()  # K3a
 launches_bwd_dkv = LaunchCounter()  # K3b
 
 
+# the model types the kernels take, and the suffix of their C entries
+KERNEL_DTYPES = {torch.bfloat16: "", torch.float16: "_f16"}
+
+
 def _library() -> ctypes.CDLL:
     """K1's library."""
-    lib = kernels.load("flash_fwd_sm90")
-    fn = lib.dove_flash_fwd_bf16
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-    return lib
+    return kernels.load("flash_fwd_sm90")
 
 
 def _qk8_library() -> ctypes.CDLL:
     """K2's library: K1's, whose kernel K2 is an instantiation of."""
-    lib = kernels.load("flash_fwd_sm90")
-    fn = lib.dove_flash_fwd_qk8
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-    return lib
+    return kernels.load("flash_fwd_sm90")
 
 
 def _bwd_library() -> ctypes.CDLL:
     """K3a's and K3b's library."""
-    lib = kernels.load("flash_bwd_sm90")
-    if lib.dove_flash_bwd_dq.argtypes is None:
-        tail = [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
-        lib.dove_flash_bwd_dq.argtypes = [ctypes.c_void_p] * 7 + tail
-        lib.dove_flash_bwd_dkv.argtypes = [ctypes.c_void_p] * 8 + tail
-        lib.dove_flash_bwd_dq.restype = ctypes.c_int
-        lib.dove_flash_bwd_dkv.restype = ctypes.c_int
-    return lib
+    return kernels.load("flash_bwd_sm90")
+
+
+def _entry(lib: ctypes.CDLL, name: str, argtypes: list):
+    """A library's C entry ``name``, bound on first use."""
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _fwd_entry(dtype: torch.dtype):
+    """K1's C entry in ``dtype``: ``dove_flash_fwd_bf16`` or ``_f16``."""
+    name = "dove_flash_fwd_f16" if dtype == torch.float16 else "dove_flash_fwd_bf16"
+    return _entry(_library(), name, [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
+def _qk8_entry(dtype: torch.dtype):
+    """K2's C entry with V and O in ``dtype``."""
+    return _entry(_qk8_library(), "dove_flash_fwd_qk8" + KERNEL_DTYPES[dtype],
+                  [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                  + [ctypes.c_void_p, ctypes.c_void_p])
+
+
+def _bwd_entry(name: str, dtype: torch.dtype):
+    """K3a's (``dq``) or K3b's (``dkv``) C entry in ``dtype``."""
+    tail = [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    return _entry(_bwd_library(), f"dove_flash_bwd_{name}" + KERNEL_DTYPES[dtype],
+                  [ctypes.c_void_p] * (7 if name == "dq" else 8) + tail)
 
 
 def quantize_qk(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -142,10 +157,13 @@ def flash_attention_qk8_plain(
     return out
 
 
-def _check_cuda_inputs(q, k, v, qk_dtype: torch.dtype) -> tuple[int, int, int, int, int]:
-    """Raise on what the kernels do not take -> (B, H, Sq, Skv, D)."""
-    for name, t, want in (("q", q, qk_dtype), ("k", k, qk_dtype),
-                          ("v", v, torch.bfloat16)):
+def _check_cuda_inputs(q, k, v, qk8: bool = False) -> tuple[int, int, int, int, int]:
+    """Raise on what the kernels do not take -> (B, H, Sq, Skv, D): v in a
+    model type (bf16 or fp16), q and k in v's type, or int8 codes (K2)."""
+    if v.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"the CUDA kernels take bf16 or fp16 v, got {v.dtype}")
+    qk_dtype = torch.int8 if qk8 else v.dtype
+    for name, t, want in (("q", q, qk_dtype), ("k", k, qk_dtype), ("v", v, v.dtype)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.dtype != want:
@@ -181,7 +199,7 @@ def flash_qk8_launch(
     gives x * factor within a relative 2^-22 of JAX's ``float(x) * factor``."""
     if q8.device.type != "cuda":
         raise ValueError(f"K2 runs on cuda, not {q8.device}")
-    B, H, Sq, Skv, D = _check_cuda_inputs(q8, k8, v, torch.int8)
+    B, H, Sq, Skv, D = _check_cuda_inputs(q8, k8, v, qk8=True)
     if (factor.device != q8.device or factor.dtype != torch.float32
             or factor.numel() != 1):
         raise ValueError("the logit factor must be one fp32 value on q's device")
@@ -189,10 +207,10 @@ def flash_qk8_launch(
         if t.data_ptr() % 16:
             raise ValueError(f"{name}'s data is not 16-byte aligned")
     out = torch.empty(q8.shape, dtype=v.dtype, device=v.device)
-    lib = _qk8_library()
+    fn = _qk8_entry(v.dtype)
     with torch.cuda.device(q8.device):
         stream = torch.cuda.current_stream(q8.device).cuda_stream
-        rc = lib.dove_flash_fwd_qk8(
+        rc = fn(
             q8.data_ptr(), k8.data_ptr(), v.data_ptr(), out.data_ptr(),
             B * H, Sq, Skv, D, factor.data_ptr(), stream,
         )
@@ -300,17 +318,17 @@ def flash_fwd_launch(
     16-byte aligned data."""
     if q.device.type != "cuda":
         raise ValueError(f"K1 runs on cuda, not {q.device}")
-    B, H, Sq, Skv, D = _check_cuda_inputs(q, k, v, torch.bfloat16)
+    B, H, Sq, Skv, D = _check_cuda_inputs(q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}'s data is not 16-byte aligned")
     out = torch.empty_like(q)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    lib = _library()
+    fn = _fwd_entry(q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.dove_flash_fwd_bf16(
+        rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if with_lse else None,
             B * H, Sq, Skv, D, float(scale), int(bool(bounded_logits)), stream,
@@ -324,9 +342,9 @@ def flash_fwd_launch(
 def _check_bwd_inputs(q, k, v, do, lse, delta) -> tuple[int, int, int, int, int]:
     if q.device.type != "cuda":
         raise ValueError(f"K3a and K3b run on cuda, not {q.device}")
-    B, H, Sq, Skv, D = _check_cuda_inputs(q, k, v, torch.bfloat16)
+    B, H, Sq, Skv, D = _check_cuda_inputs(q, k, v)
     if do.shape != q.shape or do.dtype != q.dtype or not do.is_contiguous():
-        raise ValueError("do must be a contiguous bf16 tensor of q's shape")
+        raise ValueError("do must be a contiguous tensor of q's shape and dtype")
     for name, t in (("lse", lse), ("delta", delta)):
         if (t.shape != (B, H, Sq) or t.dtype != torch.float32
                 or not t.is_contiguous() or t.device != q.device):
@@ -342,10 +360,10 @@ def flash_bwd_dq_launch(q, k, v, do, lse, delta, scale: float) -> torch.Tensor:
     """Launch K3a -> dq: the CUDA counterpart of :func:`flash_bwd_dq_plain`."""
     B, H, Sq, Skv, D = _check_bwd_inputs(q, k, v, do, lse, delta)
     dq = torch.empty_like(q)
-    lib = _bwd_library()
+    fn = _bwd_entry("dq", q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.dove_flash_bwd_dq(
+        rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             B * H, Sq, Skv, D, float(scale), stream,
@@ -364,10 +382,10 @@ def flash_bwd_dkv_launch(
     B, H, Sq, Skv, D = _check_bwd_inputs(q, k, v, do, lse, delta)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    lib = _bwd_library()
+    fn = _bwd_entry("dkv", q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.dove_flash_bwd_dkv(
+        rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             B * H, Sq, Skv, D, float(scale), stream,
@@ -449,7 +467,7 @@ def flash_attention(
         return (out, lse) if with_lse else out
     if qk_int8:
         if q.device.type == "cuda":  # the kernel's checks come before any work
-            _check_cuda_inputs(q, k, v, torch.bfloat16)
+            _check_cuda_inputs(q, k, v)
         q8, k8, factor = quantize_qk_pair(q, k, sc)
         if q.device.type == "cpu":
             return flash_attention_qk8_plain(q8, k8, v, factor)

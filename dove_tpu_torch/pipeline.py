@@ -34,9 +34,8 @@ tiles (``tiling.plan_tiles``), and each batch of same-shaped tiles runs
 tiles' trimmed interiors are stitched on the device, every pixel exactly
 once, and the clip crosses to the host once, as float in [0, 1].
 
-On the card the DiT's attention takes K1 (bf16) or, with a W8A8 DiT, K2;
-both take bf16 only, so an fp32 pipeline there needs
-``attention_backend="plain"``. The staged path keeps the JAX package's
+On the card the DiT's attention takes K1 or, with a W8A8 DiT, K2; both take
+bf16 or fp16, so an fp32 pipeline there needs ``attention_backend="plain"``. The staged path keeps the JAX package's
 automatic rule (the kernel from 2048 tokens); the fused path, whose tiles
 fall below that, takes the kernel at every length.
 
@@ -62,7 +61,7 @@ from dove_tpu_torch import tiling
 from dove_tpu_torch.config import PipelineConfig
 from dove_tpu_torch.io import video as video_io
 from dove_tpu_torch.models import vae as vae_mod
-from dove_tpu_torch.models.dit import CogVideoXTransformer3D
+from dove_tpu_torch.models.dit import CogVideoXTransformer3D, temporal_pad
 from dove_tpu_torch.models.vae import AutoencoderKLCogVideoX
 from dove_tpu_torch.ops import quant
 from dove_tpu_torch.ops.resize import resize
@@ -465,8 +464,7 @@ class DovePipeline:
         text = self.prompt_embedding[None].expand(B, -1, -1)
         noise = None
         if cfg.noise_step != 0 and generator is not None:
-            pt = cfg.dit.patch_size_t
-            noise = self._draw_noise((B, Fl + (pt - Fl % pt) % pt, C, h, w),
+            noise = self._draw_noise((B, Fl + temporal_pad(cfg.dit, Fl), C, h, w),
                                      generator)
         x0 = one_step_x0_latent(
             cfg, self.schedule, self.dit, latent, text, noise,

@@ -18,7 +18,7 @@ from torch.profiler import record_function
 
 from dove_tpu_torch.config import PipelineConfig
 from dove_tpu_torch.models import vae as vae_mod
-from dove_tpu_torch.models.dit import CogVideoXTransformer3D
+from dove_tpu_torch.models.dit import CogVideoXTransformer3D, temporal_pad
 from dove_tpu_torch.ops.scheduler import Schedule
 
 
@@ -44,9 +44,9 @@ def one_step_x0_latent(
     it, so that tests can hand both packages the same numbers. lora,
     lora_scale and gradient_checkpointing go to the DiT's forward."""
     B = lq_latent.shape[0]
-    pt = cfg.dit.patch_size_t
-    # (pt - F % pt) % pt: the reference's F % pt at pt=2, right for any pt
-    ncopy = (pt - lq_latent.shape[1] % pt) % pt
+    # (pt - F % pt) % pt: the reference's F % pt at pt=2, right for any pt;
+    # none without temporal patching (the 2B)
+    ncopy = temporal_pad(cfg.dit, lq_latent.shape[1])
     if ncopy:
         first = lq_latent[:, :1].expand(-1, ncopy, -1, -1, -1)
         lq_latent = torch.cat([first, lq_latent], dim=1)

@@ -64,7 +64,7 @@ from torch.profiler import record_function
 from dove_tpu_torch import config as cfg_mod
 from dove_tpu_torch import weights
 from dove_tpu_torch.data.datasets import EMPTY_PROMPT_SHA
-from dove_tpu_torch.models.dit import init_dit_params
+from dove_tpu_torch.models.dit import init_dit_params, temporal_pad
 from dove_tpu_torch.models.vae import encode_moments, init_vae_params, sample_latent
 from dove_tpu_torch.ops.scheduler import Schedule
 from dove_tpu_torch.pipeline import resolve_device
@@ -325,8 +325,7 @@ class Trainer:
         if self.config.noise_step == 0:
             return None
         B, F, h, w, C = lq_lat.shape
-        pt = self.config.dit.patch_size_t
-        return torch.randn((B, F + (pt - F % pt) % pt, C, h, w),
+        return torch.randn((B, F + temporal_pad(self.config.dit, F), C, h, w),
                            generator=self.generator(step, 2), device=self.device)
 
     def _barrier(self) -> None:

@@ -7,7 +7,9 @@ Conv [O, I, k...] layouts are the checkpoint's own. ``from_jax_params`` takes
 the JAX package's parameter trees (as NumPy arrays) through the same path by
 first undoing the three things that tree does differently: DiT blocks stacked
 on a leading axis for ``lax.scan``, linear kernels stored [d_in, d_out], and
-conv kernels stored [kt, kh, kw, Cin, Cout] (2D: [kh, kw, Cin, Cout]). It
+conv kernels stored [kt, kh, kw, Cin, Cout] (2D, the 2B's patch conv among
+them: [kh, kw, Cin, Cout]); the 2B's ``pos_embedding`` table goes across as
+it is. It
 also takes a DiT tree that the JAX package's ``quantize_dit`` made (int8
 ``kernel_q`` or ``kernel_w8`` beside fp32 ``kernel_scale`` of [L, 1, out]):
 the port's DiT then carries the same codes and scales in ``QLinear`` or
@@ -37,7 +39,7 @@ from torch import nn
 from dove_tpu_torch import safetensors_io
 from dove_tpu_torch.config import DiTConfig, PipelineConfig, VAEConfig
 from dove_tpu_torch.eval.vgg import VGG16, vgg_from_kernels
-from dove_tpu_torch.models.dit import CogVideoXTransformer3D
+from dove_tpu_torch.models.dit import CogVideoXTransformer3D, stored_pos_embedding
 from dove_tpu_torch.models.vae import AutoencoderKLCogVideoX
 from dove_tpu_torch.ops import quant
 
@@ -97,8 +99,14 @@ def convert_dit(
 ) -> CogVideoXTransformer3D:
     """diffusers CogVideoXTransformer3DModel state dict -> the port's DiT.
 
+    The 2B's ``patch_embed.pos_embedding`` is taken from the state dict when
+    it is there and built from the config when not (diffusers registers it
+    as a non-persistent buffer, so a saved checkpoint may lack it).
     quantized ("w8a8" or "w8a16"): the state dict holds int8 ``weight_q``
     and fp32 ``scale`` for the linears ``quantize_dit`` quantizes."""
+    if (not cfg.use_rotary_positional_embeddings
+            and "patch_embed.pos_embedding" not in tensors):
+        tensors = {**tensors, "patch_embed.pos_embedding": stored_pos_embedding(cfg)}
     with torch.device("meta"):
         model = CogVideoXTransformer3D(cfg, dtype=dtype)
         if quantized is not None:
@@ -220,6 +228,9 @@ def _flatten(tree: Any, prefix: str, out: dict[str, np.ndarray],
                 else:  # int8 [in, out] -> [out, in]
                     leaf = leaf.T
                 out[f"{prefix}{_QUANT_LEAVES[key]}"] = np.array(leaf, order="C")
+                continue
+            if key == "pos_embedding":  # the 2B's positions, [1, L, dim] as stored
+                out[f"{prefix}{key}"] = np.array(sub, np.float32, order="C")
                 continue
             if key in ("kernel", "scale", "bias"):
                 name = "weight" if key != "bias" else "bias"

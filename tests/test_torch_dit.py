@@ -1,8 +1,9 @@
 """Parity of the PyTorch port's DiT (dove_tpu_torch.models.dit) with dove_tpu.
 
 fp32 on the CPU. The JAX package's tiny_test() parameters go through
-``from_jax_params``; the 1.5 golden fixture goes through ``convert_dit``, the
-path a released checkpoint takes.
+``from_jax_params``; the golden fixtures (1.5, and the 2B at its sample grid
+and at a second geometry) go through ``convert_dit``, the path a released
+checkpoint takes.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from dove_tpu_torch import weights as tweights
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-GOLDEN = Path(__file__).resolve().parent / "fixtures" / "golden" / "15"
+GOLDEN_ROOT = Path(__file__).resolve().parent / "fixtures" / "golden"
 ATOL = 1e-4  # fp32, different summation orders through 2 blocks
 PSNR_BAR_DB = 50.0  # the bar of tests/test_parity_golden.py
 
@@ -95,14 +96,49 @@ def test_dit_flash_backend_matches_jax(tiny_models):
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
 
 
-def test_dit_golden_15():
-    """The committed CogVideoX1.5-structure golden through convert_dit."""
+def golden_config(variant: str) -> tcfg.PipelineConfig:
+    """The port's config of a golden fixture: tests/test_parity_golden.py's
+    ``_config`` (the 2B's latent-unit sample grid is the first geometry's)."""
+    base = tcfg.tiny_test()
+    if variant == "15":
+        return base
+    return tcfg.PipelineConfig(
+        dit=tcfg.DiTConfig(
+            num_layers=2, num_attention_heads=4, attention_head_dim=16,
+            in_channels=8, out_channels=8, text_embed_dim=32,
+            max_text_seq_length=7, time_embed_dim=16,
+            patch_size_t=None, patch_bias=True,
+            use_rotary_positional_embeddings=False,
+            sample_height=8, sample_width=8, sample_frames=9,
+        ),
+        vae=base.vae,
+        scheduler=tcfg.SchedulerConfig(snr_shift_scale=3.0),
+    )
+
+
+def golden_fixture(case: str) -> tuple[str, dict, Path]:
+    """``"2b:g2"`` -> ("2b", the second geometry's arrays, the variant's
+    directory); ``"15"``, ``"2b"`` -> the first geometry's."""
+    variant, _, geom = case.partition(":")
+    d = GOLDEN_ROOT / variant
+    fx = np.load(d / ("golden_g2.npz" if geom else "golden.npz"), allow_pickle=False)
+    return variant, dict(fx), d
+
+
+@pytest.mark.parametrize("case", ["15", "2b", "2b:g2"])
+def test_dit_golden_15(case):
+    """The committed golden DiTs through convert_dit: CogVideoX1.5, and the
+    2B at its sample grid (the stored sincos table over [text | video]) and
+    at a second geometry (the table recomputed for its grid). The 2B's
+    state dict has no ``pos_embedding`` (diffusers does not save it), so
+    convert_dit builds it."""
     from safetensors import safe_open
 
-    fx = np.load(GOLDEN / "golden.npz", allow_pickle=False)
-    with safe_open(str(GOLDEN / "transformer.safetensors"), framework="pt") as f:
+    variant, fx, d = golden_fixture(case)
+    with safe_open(str(d / "transformer.safetensors"), framework="pt") as f:
         tensors = {k: f.get_tensor(k) for k in f.keys()}
-    cfg = tcfg.tiny_test()
+    cfg = golden_config(variant)
+    assert "patch_embed.pos_embedding" not in tensors
     dit = tweights.convert_dit(tensors, cfg.dit, torch.float32)
     with torch.no_grad():
         out = dit(

@@ -8,7 +8,8 @@ weight synthesis and the weight floor are in tests/test_torch_weight_floor.py.
   0.5 dB, the same keys. ``--calib_out``'s npz against JAX's calibration
   on the same weights and x0: the same keys, amax within 1e-5 relative,
   tapcorr within 1e-5 of JAX's statistic taken in float64. ``int8-dit-dec --exclude lowres`` and ``int8`` run through the
-  port's entry point alone on a VAE widened to 64 channels (XLA's int8
+  port's entry point alone on a VAE widened to 64 channels, and so do the
+  2B family's ``bf16`` and ``int8-dit`` runs at tiny widths (XLA's int8
   convolution on the CPU is too slow for a JAX side; tests/
   test_torch_int8_pipeline.py holds those modes at parity).
 """
@@ -34,6 +35,7 @@ from dove_tpu.models.vae import init_vae_params
 from dove_tpu_torch import config as tcfg
 from dove_tpu_torch import int8_drift_report as tdrift
 from dove_tpu_torch import weights as tweights
+from test_torch_dit import golden_config
 
 REPO = Path(__file__).resolve().parents[1]
 # one frame chunk in the encoder and the decoder: XLA's compile of the JAX
@@ -269,5 +271,13 @@ def test_int8_vae_modes_through_the_entry_point(tmp_path, monkeypatch):
     for rep in (dec, full):
         assert 0 < rep["rel_err"]["dit_x0"] < 0.5
         assert 10 < rep["end_to_end"]["psnr_rgb_vs_bf16_db"] < 100
-    with pytest.raises(NotImplementedError, match="A.10"):
-        tdrift.main(["--device", "cpu", "--preset", "cogvideox-2b", "--mode", "bf16"])
+    # the 2B family, refused until ROADMAP A.10 was ported: its report at
+    # tiny widths (the JAX script runs the 2B in bf16, and so does the port)
+    monkeypatch.setitem(tdrift.PRESETS, "cogvideox-2b", lambda: golden_config("2b"))
+    base_2b = ["--device", "cpu", "--preset", "cogvideox-2b"] + FIXTURE
+    ref_2b = tmp_path / "bf16_2b.npz"
+    assert tdrift.main(base_2b + ["--mode", "bf16", "--out", str(ref_2b)]) is None
+    rep = tdrift.main(base_2b + ["--mode", "int8-dit", "--compare", str(ref_2b)])
+    assert rep["preset"] == "cogvideox-2b" and rep["rel_err"]["enc_moments"] == 0.0
+    assert 0 < rep["rel_err"]["dit_x0"] < 0.5
+    assert 10 < rep["end_to_end"]["psnr_y_vs_bf16_db"] < 100  # I420 past tiny

@@ -11,7 +11,9 @@ port's exporter wrote: the ``--png_save`` frames agree within one LSB. With
 ``--gt_dir --eval_metrics psnr,ssim`` the port's JSON has the JAX CLI's
 schema, holds what ``dove_tpu.eval.metrics`` computes on the port's own
 frames within 1e-6, and the JAX CLI's values within what one-LSB frame
-differences allow. The refusals name their ROADMAP items.
+differences allow. ``--preset cogvideox-2b`` (at tiny widths) and ``--dtype
+float16`` run through the CLI and write the frames the in-process pipeline
+gives on the same flags (1e-6). The refusals name their ROADMAP items.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from dove_tpu_torch import weights as tweights
 from dove_tpu_torch.eval import metrics as tmetrics
 from dove_tpu_torch.io import video as tvideo
 from dove_tpu_torch.train import checkpointing as tckpt
+from test_torch_dit import golden_config
 
 REPO = Path(__file__).resolve().parents[1]
 METRIC_REL_TOL = 1e-6
@@ -227,12 +230,39 @@ def test_every_flag_of_the_jax_cli_is_accepted():
 @pytest.mark.parametrize("flags,match", [
     (["--data_parallel", "2"], r"ROADMAP A\.12"),
     (["--tensor_parallel", "2"], r"ROADMAP A\.12"),
-    (["--preset", "cogvideox-2b"], r"ROADMAP A\.10"),
-    (["--dtype", "float16"], r"ROADMAP A\.14"),
 ])
 def test_unported_flags_are_refused(tmp_path, flags, match):
     with pytest.raises(NotImplementedError, match=match):
         inference.main(["--input_dir", str(tmp_path), "--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("case", ["preset_cogvideox_2b", "dtype_float16"])
+def test_2b_and_fp16_run_through_the_cli(tmp_path, checkpoint, monkeypatch, case):
+    """What ROADMAP A.10 and A.14 refused until they were ported: the 2B
+    preset (seeded weights, monkeypatched to tiny widths) and an fp16
+    pipeline on the tiny checkpoint, staged, through ``main``; its PNG frames
+    are the frames ``load_pipeline`` + ``process_video_file`` give in-process
+    on the same flags (within 1e-6, i.e. the same uint8 values)."""
+    from dove_tpu_torch import config as tcfg
+    from dove_tpu_torch.io import video as video_io
+
+    monkeypatch.setattr(tcfg, "cogvideox_2b", lambda: golden_config("2b"))
+    _write_clip(tmp_path / "in" / "clip.mp4", 9, 16, 16, seed=4)
+    flags = ["--input_dir", str(tmp_path / "in"), "--device", "cpu", "--seed", "0",
+             "--is_vae_st", "--png_save"]
+    flags += (["--preset", "cogvideox-2b", "--dtype", "float32"]
+              if case.startswith("preset") else
+              ["--model_path", str(checkpoint), "--dtype", "float16"])
+    inference.main(flags + ["--output_path", str(tmp_path / "out")])
+    args = inference.build_parser().parse_args(flags + ["--output_path", "."])
+    pipe = inference.load_pipeline(args)
+    assert pipe.dtype == (torch.float16 if case.startswith("dtype") else torch.float32)
+    assert (pipe.config.dit.patch_size_t is None) == case.startswith("preset")
+    want = pipe.process_video_file(tmp_path / "in" / "clip.mp4",
+                                   **inference.process_kwargs(args))
+    got = video_io.read_image_folder(tmp_path / "out" / "clip")
+    assert want.dtype == np.uint8 and got.shape == want.shape == (9, 64, 64, 3)
+    np.testing.assert_allclose(got, want.astype(np.float32) / 255.0, atol=1e-6, rtol=0)
 
 
 def test_a_prompt_beside_a_t5_checkpoint_is_refused(tmp_path, checkpoint):
