@@ -185,7 +185,20 @@ Phases, one result line each; any failure exits non-zero:
    package trains fp16 without loss scaling, and at full width the q, k, v
    LoRA gradients underflow to 0, which the phase records), then three
    stage-1 steps with --base_preset cogvideox-2b at 30 layers in bf16 and
-   in fp16.
+   in fp16;
+30. parallel/ on torch.distributed (ROADMAP A.12) with one card: (a) two
+   ranks over gloo and one over NCCL, each a subprocess of this script on
+   the card, probe which collectives take CUDA tensors in bf16 and fp32;
+   (b) under an NCCL group of one rank, phase 4's clip through
+   process_frames(mesh=make_mesh(1, 1)) and phase 11's first stage-1 step
+   at 42 layers, each equal to its run without a group, with K1 and K1-lse /
+   K3a / K3b launches; (c) where gloo all-reduces CUDA tensors, two ranks
+   sharing the card: the 5B DiT at full width and 4 layers split two ways
+   (24 heads a rank, K1 and K2 launched once a layer) and token-sharded
+   two ways (sequence parallelism) against the whole DiT in bf16 and
+   int8-dit, and a tensor-parallel stage-1 step at 2 layers against one
+   process. A correctness run: two ranks on one card measure no
+   speed-up.
 
 Then one JSON line with the kernels' numbers, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}.
@@ -5248,6 +5261,361 @@ def fp16_kernel_rows(fp16: dict, serving: dict, training: dict) -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 30: parallel/ on torch.distributed
+# ---------------------------------------------------------------------------
+
+PARALLEL_DIR = "build/chip_smoke_parallel"
+PROBE_OPS = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor", "broadcast")
+TP_LAYERS, TP_STEP_LAYERS = 4, 2  # phase 30(c): the TP forward, the TP step
+# the main path's DiT input: the 32-frame 180x320 clip padded to 33x192x320,
+# 9 latents + 1 temporal pad, 96x160 latents: 19200 + 226 text tokens
+TP_LATENT = (1, 10, 16, 96, 160)
+
+
+def _spawn_ranks(kind: str, backend: str, world: int, timeout: float) -> list[dict]:
+    """``world`` subprocesses of this script as the ranks of ``kind`` over
+    ``backend``, every one on cuda:0, joined through a file rendezvous; each
+    writes a JSON result. Raises if a rank fails or outlasts ``timeout``."""
+    import os
+
+    os.makedirs(PARALLEL_DIR, exist_ok=True)
+    init = os.path.abspath(f"{PARALLEL_DIR}/rdv_{kind}_{backend}_{time.time_ns()}")
+    outs = [f"{PARALLEL_DIR}/{kind}_{backend}_{r}.json" for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank-body", kind, backend,
+         str(r), str(world), init, outs[r]],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    logs = []
+    try:
+        deadline = time.perf_counter() + timeout
+        for p in procs:
+            logs.append(p.communicate(timeout=max(deadline - time.perf_counter(), 1))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode:
+            raise AssertionError(f"phase 30 {kind} over {backend}: rank {r} exited "
+                                 f"{p.returncode}:\n{text[-3000:]}")
+    return [json.loads(open(o).read()) for o in outs]
+
+
+def _probe_body(rank: int, world: int) -> dict:
+    """Which collectives the backend takes on CUDA tensors, bf16 and fp32:
+    "ok", "wrong" (ran, wrong values) or the error."""
+    import torch.distributed as dist
+
+    res = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for op in PROBE_OPS:
+            x = torch.full((world * 4,), float(rank + 1), device="cuda", dtype=dtype)
+            total = world * (world + 1) / 2
+            try:
+                if op == "all_reduce":
+                    dist.all_reduce(x)
+                    ok = bool((x == total).all())
+                elif op == "all_gather_into_tensor":
+                    out = torch.empty(world * x.numel(), device="cuda", dtype=dtype)
+                    dist.all_gather_into_tensor(out, x)
+                    want = torch.arange(1, world + 1, device="cuda", dtype=dtype)
+                    ok = bool((out.view(world, -1) == want[:, None]).all())
+                elif op == "reduce_scatter_tensor":
+                    out = torch.empty(4, device="cuda", dtype=dtype)
+                    dist.reduce_scatter_tensor(out, x)
+                    ok = bool((out == total).all())
+                else:
+                    dist.broadcast(x, src=0)
+                    ok = bool((x == 1).all())
+                torch.cuda.synchronize()
+                res[f"{op} {str(dtype)[6:]}"] = "ok" if ok else "wrong"
+            except Exception as e:  # the backend refuses: recorded, not raised
+                res[f"{op} {str(dtype)[6:]}"] = f"{type(e).__name__}: {str(e)[:100]}"
+    return res
+
+
+def _tp_body(rank: int, world: int) -> dict:
+    """Phase 30(c) on one rank: the DiT at TP_LAYERS layers, full width,
+    split over the ranks against its whole self (bf16 through K1, int8-dit
+    through K2), then a TP stage-1 step at TP_STEP_LAYERS layers; rank 0
+    holds the step to the one-process reference the parent wrote."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from dove_tpu_torch import cogvideox1_5_5b, init_dit_params
+    from dove_tpu_torch.ops import flash_attention as fa
+    from dove_tpu_torch.ops.quant import quantize_dit
+    from dove_tpu_torch.parallel.tp import Group, shard_dit_tp
+    from dove_tpu_torch.train.trainer import DOVES1Trainer
+
+    base = cogvideox1_5_5b()
+    cfg = dataclasses.replace(base.dit, num_layers=TP_LAYERS)
+    g = Group(dist.group.WORLD, world, rank)
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    z = torch.randn(TP_LATENT, generator=gen, device="cuda").to(torch.bfloat16)
+    text = (torch.randn((1, cfg.max_text_seq_length, cfg.text_embed_dim), generator=gen,
+                        device="cuda") * 0.1).to(torch.bfloat16)
+    t = torch.full((1,), 399, device="cuda")
+    res = {}
+    for mode, backend, counter in (("bf16", "flash", fa.launches),
+                                   ("int8-dit", "flash-qk8", fa.launches_qk8),
+                                   ("sp", "flash", fa.launches)):
+        dit = init_dit_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+        if mode == "int8-dit":
+            quantize_dit(dit)
+        with torch.no_grad():
+            ref = dit(z, text, t, attention_backend=backend, bounded_logits=True).float()
+            # "sp": the ranks as "data" rows of a batch of 1, each taking a
+            # slice of the tokens (sequence parallelism) with all 48 heads
+            sp = g if mode == "sp" else None
+            if sp is None:
+                shard_dit_tp(dit, g)
+            counter.reset()
+            counter.shapes = []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = dit(z, text, t, attention_backend=backend, bounded_logits=True,
+                      sp=sp).float()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        mse = float((out - ref).square().mean())
+        peak_sq = float(ref.abs().max()) ** 2
+        res[mode] = dict(
+            rel_err=float((out - ref).abs().max()) / float(ref.abs().max()),
+            psnr_db=float("inf") if mse == 0 else 10 * math.log10(peak_sq / mse),
+            launches=counter.count, shape=list(counter.shapes[0]), wall_s=wall,
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        counter.shapes = None
+        del dit, ref, out
+        torch.cuda.empty_cache()
+
+    # the TP stage-1 step: LoRA B off zero, one batch clip, as phase 10
+    step_cfg = dataclasses.replace(base, dit=dataclasses.replace(base.dit,
+                                                                 num_layers=TP_STEP_LAYERS))
+    args = dataclasses.replace(_train_args(f"{PARALLEL_DIR}/tp_step"), tensor_parallel=world,
+                               batch_size=1)
+    tr = DOVES1Trainer(args, pipeline_config=step_cfg,
+                       device=f"cuda:{torch.cuda.current_device()}")
+    tr.load_components()
+    _lora_b_off_zero(tr)
+    batch = tr.device_batch(train_batch(seed=30, batch=1))
+    counters = _k3_counters()
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    loss, _, grads = tr.loss_and_grads(batch)
+    torch.cuda.synchronize()
+    res["step"] = dict(loss=float(loss), wall_s=time.perf_counter() - t0,
+                       launches={n: c.count for n, c in counters.items()},
+                       peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    if rank == 0:
+        ref = torch.load(f"{PARALLEL_DIR}/tp_step_ref.pt", weights_only=True)
+        res["step"]["ref_loss"] = ref["loss"]
+        res["step"]["grad_rel_rms"] = {
+            name: _rel_rms(gr, ref["grads"][i].to(gr.device))
+            for i, (name, gr) in enumerate(zip(ref["names"], grads))}
+    return res
+
+
+def _lora_b_off_zero(tr) -> None:
+    with torch.no_grad():  # so that the A gradients are not 0
+        gen = torch.Generator(device="cuda").manual_seed(10)
+        for ab in tr.lora_params.values():
+            ab["B"].copy_(torch.randn(ab["B"].shape, generator=gen, device="cuda") * 1e-2)
+
+
+def _tp_step_reference(world: int) -> dict:
+    """The one-process counterpart of _tp_body's step, written for rank 0."""
+    import dataclasses
+
+    from dove_tpu_torch import cogvideox1_5_5b
+    from dove_tpu_torch.train.trainer import DOVES1Trainer
+
+    base = cogvideox1_5_5b()
+    step_cfg = dataclasses.replace(base, dit=dataclasses.replace(base.dit,
+                                                                 num_layers=TP_STEP_LAYERS))
+    args = dataclasses.replace(_train_args(f"{PARALLEL_DIR}/tp_step"), batch_size=1)
+    tr = DOVES1Trainer(args, pipeline_config=step_cfg, device="cuda")
+    tr.load_components()
+    _lora_b_off_zero(tr)
+    loss, _, grads = tr.loss_and_grads(tr.device_batch(train_batch(seed=30, batch=1)))
+    names = [f"{t}.{ab}" for t in tr.lora_params for ab in ("A", "B")]
+    torch.save({"loss": float(loss), "grads": [x.cpu() for x in grads], "names": names},
+               f"{PARALLEL_DIR}/tp_step_ref.pt")
+    del tr, grads
+    torch.cuda.empty_cache()
+    return dict(loss=float(loss))
+
+
+def _tp_rows(parallel: dict, mode: str, key: str) -> list | None:
+    """Phase 30(c)'s ``key`` of the TP DiT in ``mode``, one entry a rank."""
+    return None if parallel["tp"] is None else [r[mode][key] for r in parallel["tp"]]
+
+
+def _tp_step(parallel: dict, kernel: str) -> list | None:
+    """Phase 30(c)'s launches of ``kernel`` in the TP step, one entry a rank."""
+    return (None if parallel["tp"] is None
+            else [r["step"]["launches"][kernel] for r in parallel["tp"]])
+
+
+def rank_body(kind: str, backend: str, rank: int, world: int, init: str, out: str) -> int:
+    """One rank of phase 30, started by _spawn_ranks."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(rank % torch.cuda.device_count())  # phase 30: all on one
+    dist.init_process_group(backend, init_method=f"file://{init}", rank=rank,
+                            world_size=world)
+    try:
+        res = {"probe": _probe_body, "tp": _tp_body}[kind](rank, world)
+    finally:
+        dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def phase_parallel(main_out: np.ndarray, train_step1: dict) -> dict:
+    """Phase 30: parallel/ on torch.distributed with one card.
+
+    (a) the probe: two ranks over gloo and one over NCCL, all on the card:
+        which collectives each backend takes on CUDA tensors;
+    (b) world size 1 over NCCL, in this process: phase 4's staged clip
+        through ``process_frames(mesh=make_mesh(1, 1))`` and phase 11's
+        first stage-1 step at 42 layers under the initialised group, each
+        equal to its run without a group, with their launches;
+    (c) where gloo all-reduces CUDA tensors: two ranks sharing the card,
+        the DiT at full width and TP_LAYERS layers split two ways (24 heads
+        a rank) against the whole DiT in bf16 (K1) and int8-dit (K2), and
+        token-sharded two ways (sequence parallelism, K1 on half the
+        queries), at the kernel phases' bar (PSNR >= 40 dB or rel err <=
+        2e-2), and a
+        TP stage-1 step at TP_STEP_LAYERS layers against one process (loss
+        1e-2, LoRA gradients 5e-2 RMS). One card shared by two ranks: a
+        correctness run, not a speed-up."""
+    import dataclasses
+    import os
+
+    import torch.distributed as dist
+
+    from dove_tpu_torch import cogvideox1_5_5b, init_dit_params, init_vae_params
+    from dove_tpu_torch.ops import flash_attention as fa
+    from dove_tpu_torch.parallel.mesh import make_mesh
+    from dove_tpu_torch.train.trainer import DOVES1Trainer
+
+    t_phase = time.perf_counter()
+    os.makedirs(PARALLEL_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(2) as pool:  # the two groups' ranks start together
+        runs = {b: pool.submit(_spawn_ranks, "probe", b, n, 240)
+                for b, n in (("gloo", 2), ("nccl", 1))}
+        probe = {b: r.result()[0] for b, r in runs.items()}
+    probe_s = time.perf_counter() - t0
+    log(f"phase 30(a) collectives on CUDA tensors ({probe_s:.1f}s): {json.dumps(probe)}")
+
+    # (b) world size 1 over NCCL
+    init = os.path.abspath(f"{PARALLEL_DIR}/rdv_ws1_{time.time_ns()}")
+    dist.init_process_group("nccl", init_method=f"file://{init}", rank=0, world_size=1)
+    try:
+        cfg = cogvideox1_5_5b()
+        dit = init_dit_params(cfg.dit, seed=0, device="cuda", dtype=torch.bfloat16)
+        vae = init_vae_params(cfg.vae, seed=1, device="cuda", dtype=torch.bfloat16)
+        pipe = _pipeline(cfg, dit, vae, None, sample_posterior=True)
+        clip = np.random.default_rng(4).uniform(
+            0, 1, (CLIP_FRAMES, CLIP_H, CLIP_W, 3)).astype(np.float32)
+        fa.launches.reset()
+        t0 = time.perf_counter()
+        out = pipe.process_frames(clip, seed=0, mesh=make_mesh(1, 1))
+        clip_s = time.perf_counter() - t0
+        clip_launches = fa.launches.count
+        del pipe, dit, vae
+        torch.cuda.empty_cache()
+        if not np.array_equal(out, main_out) or clip_launches != cfg.dit.num_layers:
+            raise AssertionError(
+                f"phase 30(b): the meshed clip differs from phase 4's (max |diff| "
+                f"{int(np.abs(out.astype(int) - main_out.astype(int)).max())}) or K1 "
+                f"launched {clip_launches} times, want {cfg.dit.num_layers}")
+        tr = DOVES1Trainer(_train_args(f"{PARALLEL_DIR}/ws1_train"), device="cuda")
+        tr.load_components()
+        tr.prepare_optimizer(TRAIN_STEPS)
+        batch = tr.device_batch(train_batch(seed=11))
+        counters = _k3_counters()
+        for c in counters.values():
+            c.reset()
+        loss, _, gnorm = tr.train_step(batch)
+        torch.cuda.synchronize()
+        step_launches = {n: c.count for n, c in counters.items()}
+        layers = tr.config.dit.num_layers
+        want = {"k1": 0, "k1_lse": 2 * layers, "k2": 0, "k3a": layers, "k3b": layers}
+        step = dict(loss=float(loss), grad_norm=float(gnorm), launches=step_launches,
+                    mesh=dict(tr.mesh.shape))
+        del tr, batch
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    if (step["loss"], step["grad_norm"]) != (train_step1["loss"], train_step1["grad_norm"]) \
+            or step_launches != want:
+        raise AssertionError(f"phase 30(b): the step under the group {step} differs from "
+                             f"phase 11's first {train_step1}, or launches != {want}")
+    log(f"phase 30(b) world size 1 over NCCL: the 42-layer staged clip through "
+        f"make_mesh(1, 1) equal to phase 4's ({clip_s:.2f}s, K1 {clip_launches}); the "
+        f"stage-1 step loss {step['loss']:.6f}, grad_norm {step['grad_norm']:.6e} equal "
+        f"to phase 11's first, launches {step_launches}")
+
+    # (c) two ranks sharing the card over gloo
+    takes = all(probe["gloo"][f"all_reduce {d}"] == "ok" for d in ("bfloat16", "float32"))
+    tp = None
+    if takes:
+        t0 = time.perf_counter()
+        ref = _tp_step_reference(2)
+        tp = _spawn_ranks("tp", "gloo", 2, 600)
+        tp_s = time.perf_counter() - t0
+        r0 = tp[0]
+        worst = max(r0["step"]["grad_rel_rms"].values())
+        loss_rel = abs(r0["step"]["loss"] - ref["loss"]) / abs(ref["loss"])
+        want_step = {"k1": 0, "k1_lse": 2 * TP_STEP_LAYERS, "k2": 0,
+                     "k3a": TP_STEP_LAYERS, "k3b": TP_STEP_LAYERS}
+        heads = cfg.dit.num_attention_heads
+        # TP: half the heads a rank, all the queries; SP: all the heads, half
+        # the queries (19426 tokens, padded to 19426 + 0 over 2)
+        want_q = {"bf16": [1, heads // 2, 19426], "int8-dit": [1, heads // 2, 19426],
+                  "sp": [1, heads, 19426 // 2]}
+        log(f"phase 30(c) two ranks on one card over gloo ({tp_s:.1f}s with the "
+            f"one-process step): TP=2 and SP=2 DiT ({TP_LAYERS} layers, full width) vs "
+            "whole " + json.dumps(rounded({m: r0[m] for m in ("bf16", "int8-dit", "sp")}, 6))
+            + f"; TP step ({TP_STEP_LAYERS} layers, batch 1): loss {r0['step']['loss']:.6f} "
+            f"vs {ref['loss']:.6f} (rel {loss_rel:.2e}), LoRA grad rms err "
+            + json.dumps({k: float(f"{x:.2e}") for k, x in r0["step"]["grad_rel_rms"].items()})
+            + f", launches {r0['step']['launches']}, wall {r0['step']['wall_s']:.2f}s, "
+            f"peak {r0['step']['peak_gib']:.2f} GiB a rank")
+        for r, res in enumerate(tp):
+            for mode, q in want_q.items():
+                m = res[mode]
+                if not (m["psnr_db"] >= PSNR_BAR_DB or m["rel_err"] <= 2e-2) \
+                        or m["launches"] != TP_LAYERS or m["shape"][:3] != q:
+                    raise AssertionError(f"phase 30(c) rank {r} {mode}: {m}, want q {q}")
+            if res["step"]["launches"] != want_step:
+                raise AssertionError(f"phase 30(c) rank {r} step launches "
+                                     f"{res['step']['launches']}, want {want_step}")
+        if not loss_rel <= TRAIN_LOSS_REL_TOL or not worst <= TRAIN_GRAD_REL_RMS_TOL:
+            raise AssertionError(f"phase 30(c) TP step: loss rel {loss_rel}, LoRA grads "
+                                 f"{r0['step']['grad_rel_rms']}")
+    else:
+        log("phase 30(c) left out: gloo does not all-reduce CUDA tensors here "
+            f"({probe['gloo']})")
+    phase_s = time.perf_counter() - t_phase
+    log(f"phase 30 took {phase_s:.1f}s")
+    return dict(probe=probe, clip_launches=clip_launches, step=step, tp=tp,
+                phase_s=phase_s)
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -5259,6 +5627,7 @@ def main(argv: list[str] | None = None) -> int:
              "DIR/int8_main_path_profile.txt, DIR/train_step_profile.txt, "
              "DIR/int8_dit_dec_main_path_profile.txt and "
              "DIR/s2_train_step_profile.txt")
+    parser.add_argument("--rank-body", nargs=6, default=None, help=argparse.SUPPRESS)
     parser.add_argument(
         "--phases", metavar="N,N", default=None,
         help="development: run only these phases (after the build) and print "
@@ -5268,6 +5637,9 @@ def main(argv: list[str] | None = None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
         return 1
+    if args.rank_body is not None:  # one rank of phase 30
+        kind, backend, rank, world, init, out = args.rank_body
+        return rank_body(kind, backend, int(rank), int(world), init, out)
     from dove_tpu_torch import cogvideox1_5_5b, cogvideox_2b
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5309,12 +5681,15 @@ def main(argv: list[str] | None = None) -> int:
                 ({26}, lambda: phase_optimizers(prepare_data_dir())),
                 ({27}, lambda: phase_fp16_kernels(seq, heads, *shapes_2b)),
                 ({28}, lambda: phase_2b_serving(phase_main_path()["out"])),
-                ({29}, phase_fp16_training)):
+                ({29}, phase_fp16_training),
+                ({30}, lambda: phase_parallel(phase_main_path()["out"],
+                                              phase_train_recipe()["steps"][0]))):
             if numbers & chosen:
                 t0 = time.perf_counter()
                 run()
                 log(f"  (phase {min(numbers)} took {time.perf_counter() - t0:.1f}s)")
         log(f"partial run of phases {sorted(chosen)} on {card}: no result line")
+        log(f"all chosen phases took {time.perf_counter() - t_start:.1f}s")
         return 0
     k1 = phase_k1(seq, heads)
     phase_kernel_vs_plain_pipeline()
@@ -5342,9 +5717,12 @@ def main(argv: list[str] | None = None) -> int:
     log(f"phases 24-26 took {time.perf_counter() - t_new:.1f}s")
     t_new = time.perf_counter()
     fp16 = phase_fp16_kernels(seq, heads, *shapes_2b)
-    serving_2b = phase_2b_serving(main_path.pop("out"))
+    main_out = main_path.pop("out")
+    serving_2b = phase_2b_serving(main_out)
     training_2b = phase_fp16_training()
     log(f"phases 27-29 took {time.perf_counter() - t_new:.1f}s")
+    parallel = phase_parallel(main_out, train["steps"][0])
+    del main_out
     log(f"all phases took {time.perf_counter() - t_start:.1f}s")
 
     kernels = [{
@@ -5410,6 +5788,12 @@ def main(argv: list[str] | None = None) -> int:
         "drift_launches": drift_launches(drift, "k1"),
         "opt_lse_launches_per_step": {n: r["launches"]["k1_lse"]
                                       for n, r in opt["optimizers"].items()},
+        # phase 30: world size 1 over NCCL (the clip through make_mesh(1, 1)),
+        # and per rank of the TP=2 DiT (None where gloo took no CUDA tensors)
+        "mesh_ws1_launches": parallel["clip_launches"],
+        "tp2_launches_per_rank": _tp_rows(parallel, "bf16", "launches"),
+        "tp2_shape": _tp_rows(parallel, "bf16", "shape"),
+        "tp2_lse_launches_per_rank": _tp_step(parallel, "k1_lse"),
     }, {
         "name": "flash_fwd_qk8",
         "route": "cuda",
@@ -5439,6 +5823,8 @@ def main(argv: list[str] | None = None) -> int:
         "sm_clock_mhz": k2["sm_clock_mhz"],
         "shape": k2["shape"],
         "drift_launches": drift_launches(drift, "k2"),
+        "tp2_launches_per_rank": _tp_rows(parallel, "int8-dit", "launches"),
+        "tp2_shape": _tp_rows(parallel, "int8-dit", "shape"),
     }]
     sdpa_bwd = ("scaled_dot_product_attention forward plus backward minus its "
                 "forward: dq, dk and dv in one call")
@@ -5469,6 +5855,8 @@ def main(argv: list[str] | None = None) -> int:
             "fit_launches_per_step": [s["launches"][key] for s in fit["steps"]],
             "opt_launches_per_step": {n: r["launches"][key]
                                       for n, r in opt["optimizers"].items()},
+            "mesh_ws1_launches": parallel["step"]["launches"][key],
+            "tp2_launches_per_rank": _tp_step(parallel, key),
         })
     conv_source = "dove_tpu_torch/csrc/conv3d_taps_sm90.cu"
     kernels.append({

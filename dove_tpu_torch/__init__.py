@@ -19,6 +19,10 @@ backward (K3a, K3b; like K1 on wgmma and TMA) in ``csrc/flash_bwd_sm90.cu``
 (bound in ``ops/flash_attention.py``), and the 3x3x3 tap convolution in int8
 (K4) and bf16 (K5) in ``csrc/conv3d_taps_sm90.cu`` (bound in
 ``ops/conv3d_int8.py``).
+Several devices run one process each on ``torch.distributed``
+(``parallel/``: NCCL on the card, gloo on the CPU): the tensor- and
+sequence-parallel DiT, data-parallel serving, DDP, FSDP and tensor-parallel
+training, launched by ``torchrun``.
 Entry points run on the card unless the caller passes ``device="cpu"``.
 Checkpoints are read and written by the port's own ``safetensors_io``.
 """

@@ -22,9 +22,17 @@ embedding is zeros of shape (max_text_seq_length, text_embed_dim) unless the
 cached empty-prompt embedding is found under ``pretrained_models/``. Input
 clips are video files, read through OpenCV.
 
-Not ported yet, refused with the ROADMAP item: ``--data_parallel`` and
-``--tensor_parallel`` above 1 (A.12), and non-empty prompts through a T5
-text encoder (A.13).
+Several devices: one process per device, every one with the same flags
+(``parallel/``)::
+
+    torchrun --nproc-per-node 4 -m dove_tpu_torch.inference --is_vae_st \
+        --data_parallel 2 --tensor_parallel 2 --input_dir clips/ ...
+
+``--data_parallel`` spreads chunks, spatial windows or tile batches over the
+"data" ranks; ``--tensor_parallel`` splits the DiT over "model" and serves
+the staged path only (``--is_vae_st``), as in the JAX package; rank 0 writes
+the outputs and the metrics. Not ported yet, refused with the ROADMAP item:
+non-empty prompts through a T5 text encoder (A.13).
 """
 
 from __future__ import annotations
@@ -46,6 +54,13 @@ EMPTY_PROMPT = Path(
 )
 DTYPES = {"float16": torch.float16, "bfloat16": torch.bfloat16,
           "float32": torch.float32}
+
+
+def _preset(name: str):
+    from dove_tpu_torch import config as cfg_mod
+
+    return {"tiny": cfg_mod.tiny_test, "cogvideox-2b": cfg_mod.cogvideox_2b,
+            "cogvideox1.5-5b": cfg_mod.cogvideox1_5_5b}[name]
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -110,9 +125,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "a quantized VAE, or the literal 'lowres' for every "
                         "decoder conv below the two full-resolution levels")
     p.add_argument("--data_parallel", type=int, default=0,
-                   help="not ported yet: values above 1 are refused")
+                   help="ranks on the mesh's 'data' axis: they share tile "
+                        "batches (fused path) or temporal chunks and spatial "
+                        "windows (staged path); 0: the ranks --tensor_parallel "
+                        "leaves")
     p.add_argument("--tensor_parallel", type=int, default=0,
-                   help="not ported yet: values above 1 are refused")
+                   help="Megatron-style tensor parallelism for the DiT over "
+                        "the mesh's 'model' axis (staged --is_vae_st path "
+                        "only); must divide the DiT's heads and widths")
     p.add_argument("--streaming", type=str, default="auto",
                    choices=["auto", "on", "off"],
                    help="clips over 33 frames on the staged path: stream "
@@ -130,11 +150,28 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def check_ported(args) -> None:
-    """Refuse what the port does not have yet, naming its ROADMAP item."""
-    if args.data_parallel > 1 or args.tensor_parallel > 1:
-        raise NotImplementedError(
-            "--data_parallel / --tensor_parallel are not ported yet (ROADMAP A.12)")
+def serving_mesh(args):
+    """The ("data", "model") mesh of ``--data_parallel`` /
+    ``--tensor_parallel`` over the process group (joined here from
+    torchrun's or the DOVE_* variables), or None for one process. TP needs
+    the staged path and a degree that divides the DiT (the JAX CLI's
+    checks)."""
+    from dove_tpu_torch.parallel.distributed import init_distributed
+    from dove_tpu_torch.parallel.mesh import make_mesh
+    from dove_tpu_torch.parallel.tp import validate_tp
+
+    from dove_tpu_torch import config as cfg_mod
+
+    tp = max(args.tensor_parallel, 1)
+    if tp > 1:
+        if not args.is_vae_st:
+            raise SystemExit("--tensor_parallel serves the staged path; add --is_vae_st")
+        validate_tp((cfg_mod.pipeline_config_from_pretrained(args.model_path)
+                     if args.model_path else _preset(args.preset)()).dit, tp)
+    _, world = init_distributed(device=args.device)
+    if world == 1 and tp == 1 and args.data_parallel <= 1:
+        return None
+    return make_mesh(data=args.data_parallel or None, model=tp, device=args.device)
 
 
 def load_pipeline(args):
@@ -144,17 +181,14 @@ def load_pipeline(args):
     from dove_tpu_torch.models.vae import init_vae_params
     from dove_tpu_torch.pipeline import DovePipeline, resolve_device
 
-    check_ported(args)
-    device = resolve_device(args.device)
+    from dove_tpu_torch.parallel.distributed import local_device, world
+
+    device = local_device(args.device) if world()[1] > 1 else resolve_device(args.device)
     dtype = DTYPES[args.dtype]
     if args.model_path:
         cfg = cfg_mod.pipeline_config_from_pretrained(args.model_path)
-    elif args.preset == "tiny":
-        cfg = cfg_mod.tiny_test()
-    elif args.preset == "cogvideox-2b":
-        cfg = cfg_mod.cogvideox_2b()
     else:
-        cfg = cfg_mod.cogvideox1_5_5b()
+        cfg = _preset(args.preset)()
     cfg = dataclasses.replace(
         cfg, sr_noise_step=args.sr_noise_step, noise_step=args.noise_step,
         upscale=args.upscale,
@@ -221,7 +255,8 @@ def process_kwargs(args) -> dict:
 def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO)
     args = build_parser().parse_args(argv)
-    check_ported(args)
+    mesh = serving_mesh(args)
+    lead = mesh is None or mesh.rank == 0
 
     from dove_tpu_torch.eval.metrics import MetricAccumulator
     from dove_tpu_torch.io import video as video_io
@@ -242,6 +277,10 @@ def main(argv=None) -> None:
                 "ported yet (ROADMAP A.13)")
 
     pipe = load_pipeline(args)
+    if mesh is not None and mesh.shape["model"] > 1:
+        from dove_tpu_torch.parallel.tp import shard_dit_tp
+
+        shard_dit_tp(pipe.dit, mesh.axis_group("model"))  # heads / tp a rank
     if args.gt_dir and not args.png_save and args.save_format != "lossless":
         logging.warning(
             "--gt_dir with --save_format %s: the written mp4 is lossy, so "
@@ -259,7 +298,9 @@ def main(argv=None) -> None:
             logging.warning("prompt for %s ignored (no text_encoder in "
                             "--model_path)", vpath.name)
         t0 = time.perf_counter()
-        out = pipe.process_video_file(vpath, **process_kwargs(args))
+        out = pipe.process_video_file(vpath, mesh=mesh, **process_kwargs(args))
+        if not lead:  # rank 0 has the clip; it writes and scores
+            continue
         dt = time.perf_counter() - t0
         logging.info("%s: %s in %.2fs (%.2f frames/s) stages %s", vpath.name,
                      out.shape, dt, out.shape[0] / dt, pipe.stage_times)
@@ -284,7 +325,7 @@ def main(argv=None) -> None:
                 # explicit: the pipeline falls back to RGB on odd dims
                 "i420" if (pipe.output_i420 and out.ndim == 3) else "rgb"))
 
-    if accumulator is not None:
+    if accumulator is not None and lead:
         summary = accumulator.summary()
         print("\n=== Overall Average Metrics ===")
         for name, val in summary["average"].items():

@@ -25,7 +25,12 @@ block, so a checkpointed block recomputes the merge instead of holding 42
 merged copies; per-block ``torch.utils.checkpoint`` is the counterpart of the
 JAX package's ``jax.checkpoint(_block, policy=nothing_saveable)``.
 
-Not ported yet: tensor and sequence parallelism. The int8 linears are ops/quant.py's.
+Tensor and sequence parallelism (``parallel/tp.py``): a DiT split by
+``shard_dit_tp`` holds its ranks' heads and MLP channels (``self.tp``); the
+row-parallel linears sum over the "model" group and add their bias once, the
+head count follows the local q width, and LoRA factors act on the slice of
+the weight the rank holds. ``forward(sp=...)`` token-shards the attention
+core and the MLP over a further group. The int8 linears are ops/quant.py's.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from dove_tpu_torch.config import DiTConfig
 from dove_tpu_torch.ops.attention import full_attention
 from dove_tpu_torch.ops.rope import apply_rotary, rope_3d
 from dove_tpu_torch.ops.sincos import get_3d_sincos_pos_embed
+from dove_tpu_torch.parallel.tp import Group, copy_to, reduce_from, token_shard
 from dove_tpu_torch.train.lora import LoraLayer, lora_layer, merged_weight
 
 
@@ -67,8 +73,30 @@ class LayerNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(dim, device=device, dtype=dtype))
         self.bias = nn.Parameter(torch.zeros(dim, device=device, dtype=dtype))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _layer_norm(x, self.eps, self.weight, self.bias)
+    def forward(self, x: torch.Tensor, tp: Group | None = None) -> torch.Tensor:
+        """``tp``: the gains act on this rank's heads only (the per-head
+        qk-norms under TP), so their gradients sum over the group."""
+        return _layer_norm(x, self.eps, copy_to(self.weight, tp), copy_to(self.bias, tp))
+
+
+def _apply_linear(lin: nn.Module, x: torch.Tensor, weight: torch.Tensor | None = None,
+                  row_tp: Group | None = None, sp: Group | None = None) -> torch.Tensor:
+    """``lin`` on ``x``, ``weight`` in place of its float weight (a LoRA
+    merge). ``row_tp``: a row-parallel layer, whose partial products sum
+    over the group before the bias is added once. ``sp``: inside a
+    token-sharded function, where each rank sees its tokens only, so the
+    weights' gradients sum over the sequence group."""
+    if not isinstance(lin, nn.Linear):  # int8 (ops/quant.py): inference only
+        if row_tp is None:
+            return lin(x)
+        y = reduce_from(lin.matmul(x), row_tp)
+        return y if lin.bias is None else y + lin.bias.to(y.dtype)
+    w = copy_to(lin.weight if weight is None else weight, sp)
+    b = copy_to(lin.bias, sp)
+    if row_tp is None:
+        return F.linear(x, w, b)
+    y = reduce_from(F.linear(x, w), row_tp)
+    return y if b is None else y + b
 
 
 def _timestep_embedding(
@@ -114,16 +142,32 @@ class _Attention(nn.Module):
         self.norm_q = LayerNorm(self.head_dim, cfg.qk_norm_eps, **kw)
         self.norm_k = LayerNorm(self.head_dim, cfg.qk_norm_eps, **kw)
 
-    def _project(self, target: str, x: torch.Tensor, lora: LoraLayer | None):
+    def _project(self, target: str, x: torch.Tensor, lora: LoraLayer | None,
+                 tp: Group | None = None, sp: Group | None = None):
         """One of the LoRA targets ("to_q", "to_k", "to_v", "to_out"), with
-        the adapter merged into its weight when the layer has one."""
-        lin = self.to_out[0] if target == "to_out" else getattr(self, target)
+        the adapter merged into its weight when the layer has one. Under TP
+        the weight is this rank's slice (rows of the column-parallel q, k,
+        v; columns of ``to_out``, which then sums over the group) and so is
+        the adapter's product; the factors stay whole on every rank, each
+        rank's gradient of them is its slice's part, summed over the group."""
+        row = target == "to_out"
+        lin = self.to_out[0] if row else getattr(self, target)
+        row_tp = tp if row else None
         if lora is None or target not in lora.ab:
-            return lin(x)
+            return _apply_linear(lin, x, row_tp=row_tp, sp=sp)
         if not isinstance(lin, nn.Linear):
             raise NotImplementedError("LoRA on a quantized DiT is not ported")
         a, b = lora.ab[target]
-        return F.linear(x, merged_weight(lin.weight, a, b, lora.scale), lin.bias)
+        if tp is not None:
+            a, b = copy_to(a, tp), copy_to(b, tp)
+            if row:
+                n = lin.weight.shape[1]
+                a = a.narrow(0, tp.rank * n, n)
+            else:
+                n = lin.weight.shape[0]
+                b = b.narrow(1, tp.rank * n, n)
+        w = merged_weight(lin.weight, a, b, lora.scale)
+        return _apply_linear(lin, x, w, row_tp=row_tp, sp=sp)
 
     def forward(
         self,
@@ -133,19 +177,23 @@ class _Attention(nn.Module):
         backend: str | None,
         bounded_logits: bool,
         lora: LoraLayer | None = None,
+        tp: Group | None = None,
+        sp: Group | None = None,
     ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Joint attention over [text | video]; returns (video_out, text_out)."""
+        """Joint attention over [text | video]; returns (video_out, text_out).
+        Under TP the q, k, v projections hold this rank's heads: the head
+        count follows their width."""
         text_len = encoder.shape[1]
-        x = torch.cat([encoder, hidden], dim=1)
+        x = copy_to(torch.cat([encoder, hidden], dim=1), tp)
         B, S, _ = x.shape
-        H, D = self.heads, self.head_dim
+        D = self.head_dim
 
         def heads(t: torch.Tensor) -> torch.Tensor:
-            return t.view(B, S, H, D).transpose(1, 2)  # [B, H, S, D]
+            return t.view(B, S, -1, D).transpose(1, 2)  # [B, H, S, D]
 
-        q = self.norm_q(heads(self._project("to_q", x, lora)))
-        k = self.norm_k(heads(self._project("to_k", x, lora)))
-        v = heads(self._project("to_v", x, lora)).contiguous()
+        q = self.norm_q(heads(self._project("to_q", x, lora, tp)), tp)
+        k = self.norm_k(heads(self._project("to_k", x, lora, tp)), tp)
+        v = heads(self._project("to_v", x, lora, tp)).contiguous()
         if rope is not None:
             cos, sin = rope
             q = torch.cat(
@@ -154,12 +202,20 @@ class _Attention(nn.Module):
             k = torch.cat(
                 [k[:, :, :text_len], apply_rotary(k[:, :, text_len:], cos, sin)], dim=2
             )
+        if sp is not None:
+            q, k, v = copy_to(q, sp), copy_to(k, sp), copy_to(v, sp)
+
         # qk-layernorm bounds the per-head logits only while the gains stay
         # near their pretrained magnitude: inference takes the bounded form,
         # training the online form with the logsumexp that K3 reads.
-        o = full_attention(q, k, v, backend=backend, bounded_logits=bounded_logits)
-        o = o.transpose(1, 2).reshape(B, S, H * D)
-        out = self._project("to_out", o, lora)
+        def core(qc: torch.Tensor) -> torch.Tensor:
+            # attention + out-projection for a [B, H, Sq, D] query slice
+            # (K and V stay whole: the kernels take Sq != Skv)
+            o = full_attention(qc, k, v, backend=backend, bounded_logits=bounded_logits)
+            o = o.transpose(1, 2).reshape(B, qc.shape[2], -1)
+            return self._project("to_out", o, lora, tp, sp)
+
+        out = core(q) if sp is None else token_shard(core, q, sp, 2, 1)
         return out[:, text_len:], out[:, :text_len]
 
 
@@ -182,8 +238,14 @@ class _FeedForward(nn.Module):
             nn.Linear(cfg.ff_dim, cfg.hidden_dim, **kw),
         ])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.net[2](self.net[0](x))
+    def forward(self, x: torch.Tensor, tp: Group | None = None,
+                sp: Group | None = None) -> torch.Tensor:
+        def core(xc: torch.Tensor) -> torch.Tensor:
+            h = F.gelu(_apply_linear(self.net[0].proj, xc, sp=sp), approximate="tanh")
+            return _apply_linear(self.net[2], h, row_tp=tp, sp=sp)
+
+        x = copy_to(x, tp)
+        return core(x) if sp is None else token_shard(core, copy_to(x, sp), sp, 1, 1)
 
 
 class _Block(nn.Module):
@@ -195,13 +257,14 @@ class _Block(nn.Module):
         self.ff = _FeedForward(cfg, **kw)
 
     def forward(self, hidden, encoder, temb, rope, backend, bounded_logits,
-                lora: LoraLayer | None = None):
+                lora: LoraLayer | None = None, tp: Group | None = None,
+                sp: Group | None = None):
         # adaLN-zero #1 -> attention
         shift, scale, gate, e_shift, e_scale, e_gate = self.norm1.modulation(temb)
         n_hidden = self.norm1.norm(hidden) * (1 + scale) + shift
         n_encoder = self.norm1.norm(encoder) * (1 + e_scale) + e_shift
         attn_h, attn_e = self.attn1(
-            n_hidden, n_encoder, rope, backend, bounded_logits, lora
+            n_hidden, n_encoder, rope, backend, bounded_logits, lora, tp, sp
         )
         hidden = hidden + gate * attn_h
         encoder = encoder + e_gate * attn_e
@@ -210,7 +273,7 @@ class _Block(nn.Module):
         shift, scale, gate, e_shift, e_scale, e_gate = self.norm2.modulation(temb)
         n_hidden = self.norm2.norm(hidden) * (1 + scale) + shift
         n_encoder = self.norm2.norm(encoder) * (1 + e_scale) + e_shift
-        ff = self.ff(torch.cat([n_encoder, n_hidden], dim=1))
+        ff = self.ff(torch.cat([n_encoder, n_hidden], dim=1), tp, sp)
         text_len = encoder.shape[1]
         hidden = hidden + gate * ff[:, text_len:]
         encoder = encoder + e_gate * ff[:, :text_len]
@@ -333,6 +396,8 @@ class CogVideoXTransformer3D(nn.Module):
         # the 2B's sincos tables of grids other than the sample grid, built
         # once per (grid, dtype, device), most recent last
         self._pos_cache: OrderedDict = OrderedDict()
+        # the "model" group this DiT is split over (parallel/tp.py), or None
+        self.tp: Group | None = None
 
     def _positions(self, grid: tuple[int, int, int], dtype: torch.dtype,
                    device: torch.device) -> torch.Tensor:
@@ -390,6 +455,7 @@ class CogVideoXTransformer3D(nn.Module):
         lora: Mapping[str, Mapping[str, torch.Tensor]] | None = None,
         lora_scale: float = 1.0,
         gradient_checkpointing: bool = False,
+        sp: Group | None = None,
     ) -> torch.Tensor:
         """One DiT pass.
 
@@ -401,15 +467,16 @@ class CogVideoXTransformer3D(nn.Module):
         tree {target: {"A": [L, in, r], "B": [L, r, out]}} merged at
         ``lora_scale`` into each layer's attention projections.
         gradient_checkpointing recomputes each block in the backward pass
-        (when gradients are on). Returns the velocity prediction
-        [B, F, C_out, H, W]."""
+        (when gradients are on). sp: sequence parallelism over a group whose
+        ranks all hold this whole batch (parallel/tp.py ``token_shard``).
+        Returns the velocity prediction [B, F, C_out, H, W]."""
         cfg = self.cfg
         _, Fr, _, Hh, Ww = latent.shape
         hidden, encoder, temb, rope = self.embed(latent, text_embeds, timestep)
         remat = gradient_checkpointing and torch.is_grad_enabled()
         for i, block in enumerate(self.transformer_blocks):
             args = (hidden, encoder, temb, rope, attention_backend, bounded_logits,
-                    None if lora is None else lora_layer(lora, i, lora_scale))
+                    None if lora is None else lora_layer(lora, i, lora_scale), self.tp, sp)
             if remat:
                 hidden, encoder = checkpoint(block, *args, use_reentrant=False)
             else:

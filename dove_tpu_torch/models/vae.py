@@ -626,16 +626,31 @@ def encode_moments(
 
 
 def sample_latent(
-    moments: torch.Tensor, generator: torch.Generator | None, scaling_factor: float
+    moments: torch.Tensor, generator: torch.Generator | None, scaling_factor: float,
+    part: tuple[int, int] | None = None,
 ) -> torch.Tensor:
-    """Diagonal-Gaussian sample (or the mean when generator is None), scaled."""
+    """Diagonal-Gaussian sample (or the mean when generator is None), scaled.
+    ``part`` (i, n): ``moments`` is part i of a batch cut into n equal parts
+    (a data-parallel rank's share); the generator draws the whole batch's
+    noise, as one process would, and this part takes its slice."""
     mean, logvar = moments.chunk(2, dim=-1)
     if generator is not None:
         std = torch.exp(0.5 * logvar.float().clamp(-30.0, 20.0))
-        eps = torch.randn(std.shape, generator=generator, device=std.device,
-                          dtype=torch.float32)
+        eps = draw_part(std.shape, generator, std.device, part)
         mean = mean + (std * eps).to(mean.dtype)
     return mean * torch.tensor(scaling_factor, dtype=mean.dtype)
+
+
+def draw_part(shape: tuple, generator: torch.Generator, device,
+              part: tuple[int, int] | None = None) -> torch.Tensor:
+    """fp32 normals of ``shape``; with ``part`` (i, n), the i-th batch slice
+    of the normals of the whole batch (n times ``shape[0]`` rows)."""
+    if part is None:
+        return torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+    i, n = part
+    eps = torch.randn((shape[0] * n,) + tuple(shape[1:]), generator=generator,
+                      device=device, dtype=torch.float32)
+    return eps.narrow(0, i * shape[0], shape[0])
 
 
 def decode_cached(

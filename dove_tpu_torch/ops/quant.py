@@ -215,6 +215,11 @@ class QLinear(_Int8Weight):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return qlinear(x, self.weight_q, self.scale, self.bias)
 
+    def matmul(self, x: torch.Tensor) -> torch.Tensor:
+        """The product without the bias (a row-parallel shard's partial sum:
+        its per-row activation scale covers this rank's input slice only)."""
+        return qlinear(x, self.weight_q, self.scale, None)
+
 
 class W8Linear(_Int8Weight):
     """W8A16: the int8 weight dequantizes into the activation dtype (the
@@ -222,11 +227,15 @@ class W8Linear(_Int8Weight):
     activations carry no quantization error."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.weight_q.to(x.dtype) * self.scale.to(x.dtype)[:, None]
-        y = x @ w.t()
+        y = self.matmul(x)
         if self.bias is not None:
             y = y + self.bias.to(x.dtype)
         return y
+
+    def matmul(self, x: torch.Tensor) -> torch.Tensor:
+        """The product without the bias."""
+        w = self.weight_q.to(x.dtype) * self.scale.to(x.dtype)[:, None]
+        return x @ w.t()
 
 
 # The six quantized linears of a block: (parent path inside the block, name)

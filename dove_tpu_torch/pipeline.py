@@ -39,12 +39,22 @@ bf16 or fp16, so an fp32 pipeline there needs ``attention_backend="plain"``. The
 automatic rule (the kernel from 2048 tokens); the fused path, whose tiles
 fall below that, takes the kernel at every length.
 
-Not ported yet: mesh serving (raises).
+Mesh serving (``process_frames(mesh=...)``, ``parallel/``): one process per
+device, every rank calling with the same clip. On the staged path the
+spatial windows of the encode and decode spread over the ranks and
+all-gather (bit for bit the single-device windows), the DiT runs
+tensor-parallel over "model" (and sequence-parallel over "data" for a single
+clip), and with more than one chunk the "data" rows take a chunk each; on
+the fused path the tile batches split over "data". Each rank draws the noise
+one process would draw and takes its share, so data-parallel output equals
+world size 1. Rank 0 returns the clip, the other ranks None. Streaming is a
+one-device path and stays off on a mesh.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import math
 import time
@@ -54,6 +64,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.profiler import record_function
 
@@ -66,6 +77,8 @@ from dove_tpu_torch.models.vae import AutoencoderKLCogVideoX
 from dove_tpu_torch.ops import quant
 from dove_tpu_torch.ops.resize import resize
 from dove_tpu_torch.ops.scheduler import Schedule
+from dove_tpu_torch.parallel import distributed as dist_mod
+from dove_tpu_torch.parallel.tp import Group, validate_tp
 from dove_tpu_torch.train.losses import one_step_x0_latent
 
 logger = logging.getLogger(__name__)
@@ -118,6 +131,17 @@ def plan_dit_windows(
         (s, s + window, bounds[i] - s, bounds[i + 1] - s)
         for i, s in enumerate(starts)
     ]
+
+
+def _grad_off(method):
+    """``method`` under inference_mode, or under no_grad where the caller
+    turned ``inference_mode`` off."""
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        with torch.inference_mode() if self.inference_mode else torch.no_grad():
+            return method(self, *args, **kwargs)
+
+    return run
 
 
 def _groups(items: list, size: int) -> Iterator[list]:
@@ -302,6 +326,10 @@ class DovePipeline:
     # its live DiT and adapters without a merged copy of the weights
     lora: Any = None
     lora_scale: float = 1.0
+    # serve under torch.inference_mode; a trainer validating its live DiT
+    # turns it off (no_grad instead: FSDP2's gathers bump version counters,
+    # which inference tensors lack)
+    inference_mode: bool = True
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -353,6 +381,10 @@ class DovePipeline:
         self.prompt_embedding = self.prompt_embedding.to(self.device, self.dtype)
         # per-clip stage wall times (seconds), reset by process_frames
         self.stage_times: dict[str, float] = {}
+        # mesh serving: the ranks that share the spatial windows and the
+        # DiT's sequence-parallel group, set per call by process_frames
+        self._win: Group | None = None
+        self._dit_sp: Group | None = None
 
     @property
     def _dit_quantized(self) -> bool:
@@ -391,7 +423,9 @@ class DovePipeline:
                        min(dec_max[1], self.dec_window_cap[1]))
         return blend, enc_max, dec_max
 
-    def _stream_enabled(self) -> bool:
+    def _stream_enabled(self, mesh=None) -> bool:
+        if mesh is not None and mesh.size > 1:
+            return False  # a one-device path: meshes spread chunks instead
         mode = self.streaming
         if isinstance(mode, str):
             if mode == "auto":
@@ -406,6 +440,24 @@ class DovePipeline:
     # ------------------------------------------------------------------
     # The three stages
     # ------------------------------------------------------------------
+
+    def _window_map(self, fn, coords: list) -> list[torch.Tensor]:
+        """``[fn(c) for c in coords]``, spread over the window ranks: the
+        work-list pads to a multiple of their count with repeats of its last
+        entry, each rank runs its contiguous block (the JAX package's
+        ``shard_map`` of ``lax.map``) and the outputs all-gather. Each window
+        is the same computation either way, so the result is bit for bit the
+        single-device one."""
+        g = self._win
+        if g is None or len(coords) == 1:
+            return [fn(c) for c in coords]
+        n = len(coords)
+        per = -(-n // g.size)
+        padded = list(coords) + [coords[-1]] * (per * g.size - n)
+        mine = torch.stack([fn(c) for c in padded[g.rank * per:(g.rank + 1) * per]])
+        parts = [torch.empty_like(mine) for _ in range(g.size)]
+        dist.all_gather(parts, mine.contiguous(), group=g.group)
+        return list(torch.cat(parts)[:n].unbind(0))
 
     def enc_all(self, lq: torch.Tensor) -> torch.Tensor:
         """lq: [1, F, H, W, 3] in [-1, 1] at LQ resolution -> assembled
@@ -424,14 +476,12 @@ class DovePipeline:
         th, tw = tile_h * s, tile_w * s
         up = _edge_pad_hw(up, ((n_rows - 1) * stride_h + tile_h) * s,
                           ((n_cols - 1) * stride_w + tile_w) * s)
-        tiles = [
-            vae_mod.encode_moments(
+        tiles = self._window_map(
+            lambda rc: vae_mod.encode_moments(
                 cfg.vae, self.vae,
-                up[:, :, r * stride_h * s:r * stride_h * s + th,
-                   c * stride_w * s:c * stride_w * s + tw],
-            )
-            for r in range(n_rows) for c in range(n_cols)
-        ]
+                up[:, :, rc[0] * stride_h * s:rc[0] * stride_h * s + th,
+                   rc[1] * stride_w * s:rc[1] * stride_w * s + tw]),
+            [(r, c) for r in range(n_rows) for c in range(n_cols)])
         return feather_assemble(
             tiles, n_rows, n_cols,
             blend if n_rows > 1 else 0, blend if n_cols > 1 else 0,
@@ -448,33 +498,49 @@ class DovePipeline:
         )
         return self._denoise(latent, generator)
 
-    def _draw_noise(self, shape: tuple, generator: torch.Generator) -> torch.Tensor:
-        """The noise added at ``noise_step``: fp32 normals in the DiT layout."""
-        return torch.randn(shape, generator=generator, device=self.device,
-                           dtype=torch.float32)
+    def _draw_noise(self, shape: tuple, generator: torch.Generator,
+                    part: tuple[int, int] | None = None) -> torch.Tensor:
+        """The noise added at ``noise_step``: fp32 normals in the DiT layout
+        (``part``: this share of the whole batch's draw)."""
+        return vae_mod.draw_part(shape, generator, self.device, part)
+
+    def _skip_draws(self, lat_shape: tuple, generator: torch.Generator) -> None:
+        """Advance ``generator`` past the draws of one DiT step over a
+        latent of ``lat_shape`` [B, F', h, w, C], as ``dit_step`` makes
+        them: a data-parallel rank passes over the chunks of the others."""
+        B, Fl, h, w, C = lat_shape
+        if self.sample_posterior:
+            vae_mod.draw_part(lat_shape, generator, self.device)
+        if self.config.noise_step != 0:
+            self._draw_noise((B, Fl + temporal_pad(self.config.dit, Fl), C, h, w),
+                             generator)
 
     def _denoise(
         self, latent: torch.Tensor, generator: torch.Generator | None,
-        attention_backend: str | None = None,
+        attention_backend: str | None = None, part: tuple[int, int] | None = None,
     ) -> torch.Tensor:
         """Scaled latent [B, F', h, w, C] -> unscaled x-hat_0, one DiT pass
-        (``attention_backend`` None: the pipeline's)."""
+        (``attention_backend`` None: the pipeline's; ``part``: a share of a
+        data-parallel batch)."""
         cfg = self.config
         B, Fl, h, w, C = latent.shape
         text = self.prompt_embedding[None].expand(B, -1, -1)
         noise = None
         if cfg.noise_step != 0 and generator is not None:
-            noise = self._draw_noise((B, Fl + temporal_pad(cfg.dit, Fl), C, h, w),
-                                     generator)
+            shape = (B, Fl + temporal_pad(cfg.dit, Fl), C, h, w)
+            # the two-argument call is the hook tests override
+            noise = (self._draw_noise(shape, generator) if part is None
+                     else self._draw_noise(shape, generator, part))
         x0 = one_step_x0_latent(
             cfg, self.schedule, self.dit, latent, text, noise,
             attention_backend=attention_backend or self.attention_backend,
             bounded_logits=True,  # frozen qk-layernorm gains at inference
-            lora=self.lora, lora_scale=self.lora_scale,
+            lora=self.lora, lora_scale=self.lora_scale, sp=self._dit_sp,
         )
         return x0 / torch.tensor(cfg.vae.scaling_factor, dtype=x0.dtype)
 
-    def sr_tile(self, tile: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    def sr_tile(self, tile: torch.Tensor, generator: torch.Generator,
+                part: tuple[int, int] | None = None) -> torch.Tensor:
         """The fused path's one device call: tile [B, F, H, W, 3] in [-1, 1]
         (model dtype, F a causal-VAE length) -> [B, F, H, W, 3] fp32 in
         [0, 1]. Encode (frame-chunked, causal cache), sample, one DiT pass
@@ -484,16 +550,17 @@ class DovePipeline:
         On the card the attention is the kernel at every length, as in the
         trainer: the automatic rule's 2048-token threshold would send the
         tiles' shorter passes to the naive path. An explicit
-        ``attention_backend`` wins."""
+        ``attention_backend`` wins. ``part`` (i, n): ``tile`` is share i of a
+        batch cut n ways over the data ranks, whose noise is drawn whole."""
         cfg = self.config
         moments = vae_mod.encode_moments(cfg.vae, self.vae, tile)
         latent = vae_mod.sample_latent(
             moments, generator if self.sample_posterior else None,
-            cfg.vae.scaling_factor)
+            cfg.vae.scaling_factor, part)
         backend = self.attention_backend
         if backend is None and self.device.type == "cuda":
             backend = "flash"
-        x0 = self._denoise(latent, generator, backend)
+        x0 = self._denoise(latent, generator, backend, part)
         pixels = vae_mod.decode(cfg.vae, self.vae, x0)
         return (pixels.float() * 0.5 + 0.5).clamp(0.0, 1.0)
 
@@ -511,14 +578,12 @@ class DovePipeline:
         else:
             zp = _edge_pad_hw(z, (n_rows - 1) * stride_h + tile_h,
                               (n_cols - 1) * stride_w + tile_w)
-            tiles = [
-                vae_mod.decode(
+            tiles = self._window_map(
+                lambda rc: vae_mod.decode(
                     cfg.vae, self.vae,
-                    zp[:, :, r * stride_h:r * stride_h + tile_h,
-                       c * stride_w:c * stride_w + tile_w],
-                )
-                for r in range(n_rows) for c in range(n_cols)
-            ]
+                    zp[:, :, rc[0] * stride_h:rc[0] * stride_h + tile_h,
+                       rc[1] * stride_w:rc[1] * stride_w + tile_w]),
+                [(r, c) for r in range(n_rows) for c in range(n_cols)])
             pixels = feather_assemble(
                 tiles, n_rows, n_cols,
                 (blend if n_rows > 1 else 0) * s,
@@ -566,7 +631,7 @@ class DovePipeline:
     def _add_time(self, stage: str, seconds: float) -> None:
         self.stage_times[stage] = self.stage_times.get(stage, 0.0) + seconds
 
-    @torch.inference_mode()
+    @_grad_off
     def _sr_clip_staged(self, clip: np.ndarray, generator: torch.Generator) -> np.ndarray:
         """One pass: clip [F, H, W, 3] float in [-1, 1] at LQ resolution ->
         uint8 [F, H*u, W*u, 3] (or I420). The stage barriers keep one
@@ -589,7 +654,7 @@ class DovePipeline:
         self._add_time("dec", time.perf_counter() - t2)
         return out
 
-    @torch.inference_mode()
+    @_grad_off
     def _sr_clip_streamed(
         self, clip: np.ndarray, generator: torch.Generator,
         overlap_lat: int | None = None,
@@ -724,18 +789,23 @@ class DovePipeline:
                        video_io.UPSCALE_MODES[upscale_mode])
         return x * 2.0 - 1.0
 
-    @torch.inference_mode()
+    @_grad_off
     def _sr_fused(
         self, padded: np.ndarray, upscale: int, chunk_len: int,
         tile_size_hw: tuple[int, int], overlap_t: int,
         overlap_hw: tuple[int, int], seed: int, tile_batch: int,
-        upscale_mode: str,
-    ) -> torch.Tensor:
+        upscale_mode: str, dp: Group | None = None,
+    ) -> torch.Tensor | None:
         """The fused outer-tile path over a padded clip -> stitched [3, F,
         H*u, W*u] fp32 on the device. Same-shaped tiles run in batches of
         ``tile_batch`` (the last one padded with repeats of its last tile,
         their outputs dropped); each batch takes the generator's next draws.
-        Nothing is pulled to the host: the stitch runs on the device."""
+        Nothing is pulled to the host: the stitch runs on the device. ``dp``:
+        the "data" ranks split each batch (``tile_batch`` rounded up to a
+        multiple of their count) and all-gather it; rank 0 of the group
+        stitches and the others return None."""
+        if dp is not None:
+            tile_batch = -(-max(tile_batch, dp.size) // dp.size) * dp.size
         up = self._upscale_input(padded, upscale, upscale_mode)
         F_, H, W, _ = up.shape
         tiles = tiling.plan_tiles(F_, H, W, chunk_len, tile_size_hw, overlap_t,
@@ -769,11 +839,49 @@ class DovePipeline:
                 n_real = len(datas)
                 if n_real < tile_batch:
                     datas = datas + (datas[-1],) * (tile_batch - n_real)
-                out = self.sr_tile(torch.stack(datas).to(self.dtype), generator)
+                batch = torch.stack(datas).to(self.dtype)
+                if dp is None:
+                    out = self.sr_tile(batch, generator)
+                else:
+                    k = tile_batch // dp.size
+                    mine = self.sr_tile(batch[dp.rank * k:(dp.rank + 1) * k], generator,
+                                        (dp.rank, dp.size))
+                    parts = [torch.empty_like(mine) for _ in range(dp.size)]
+                    dist.all_gather(parts, mine.contiguous(), group=dp.group)
+                    if dp.rank:
+                        continue
+                    out = torch.cat(parts)
                 for t, nf, o in zip(batch_tiles, nfs, out[:n_real]):
                     stitcher.add(t, o[:nf].permute(3, 0, 1, 2))
                 del out
-        return stitcher.finalize()
+        return None if dp is not None and dp.rank else stitcher.finalize()
+
+    def _mesh_route(self, mesh, staged: bool) -> None:
+        """Set the mesh state of one clip: the window ranks, and sequence
+        parallelism over "data" (a single clip: B = 1 cannot split over the
+        data ranks). A "model" axis needs the staged path and a DiT that the
+        caller split over it (``parallel.tp.shard_dit_tp``)."""
+        self._win = self._dit_sp = None
+        tp = 1 if mesh is None else mesh.shape["model"]
+        if tp > 1:
+            if not staged:
+                # the fused path shards tile batches over "data" only: a
+                # silent idle model axis would misreport scaling
+                raise ValueError("a mesh 'model' axis (tensor parallelism) requires "
+                                 "the staged path: vae_tiling=True without outer tiles")
+            validate_tp(self.config.dit, tp)
+        split = getattr(self.dit, "tp", None)
+        if (1 if split is None else split.size) != tp:
+            raise ValueError(
+                f"the DiT is split {1 if split is None else split.size} ways and the "
+                f"mesh's 'model' axis has {tp} ranks: split it once with "
+                "parallel.tp.shard_dit_tp(dit, mesh.axis_group('model')) and pass "
+                "that mesh on every call")
+        if mesh is None or mesh.size == 1:
+            return
+        if staged:
+            self._win = mesh.axis_group(None)
+            self._dit_sp = mesh.axis_group("data")
 
     def process_frames(
         self,
@@ -791,27 +899,34 @@ class DovePipeline:
         tile_batch: int = 1,
         mesh=None,
         upscale_mode: str = "bilinear",
-    ) -> np.ndarray:
+    ) -> np.ndarray | None:
         """Full one-step SR of a clip -> [F, H*u, W*u, 3] float32 in [0, 1];
         on the staged path uint8 (RGB, or I420 [F, H*u*3//2, W*u]) with
         output_uint8. The staged path runs when ``vae_tiling`` is set and
         ``tile_size_hw`` is (0, 0), the fused outer-tile path otherwise
-        (``overlap_hw``, ``tile_batch`` and ``upscale_mode`` apply to it)."""
-        if mesh is not None:
-            raise NotImplementedError("mesh serving is not ported yet (ROADMAP A.12)")
+        (``overlap_hw``, ``tile_batch`` and ``upscale_mode`` apply to it).
+        ``mesh`` (``parallel.mesh.make_mesh``): every rank calls with the
+        same clip, rank 0 gets it back and the others None; with a "model"
+        axis the DiT must be split over it first (``_mesh_route``)."""
         upscale = self.config.upscale if upscale is None else upscale
-        if not (self.vae_tiling and tuple(tile_size_hw) == (0, 0)):
+        staged = self.vae_tiling and tuple(tile_size_hw) == (0, 0)
+        self._mesh_route(mesh, staged)
+        lead = mesh is None or mesh.rank == 0
+        if not staged:
             t0 = time.perf_counter()
             padded, (pad_f, pad_h, pad_w) = tiling.pad_video(frames)
+            dp = None if mesh is None else mesh.axis_group("data")
             out = self._sr_fused(
                 padded, upscale, chunk_len, tuple(tile_size_hw),
                 8 if overlap_t is None else overlap_t, tuple(overlap_hw), seed,
-                max(1, tile_batch), upscale_mode)
+                max(1, tile_batch), upscale_mode, dp)
+            if out is None:
+                return None
             out = tiling.unpad_video(out, pad_f, pad_h * upscale, pad_w * upscale)
             # [3, F, H, W] -> [F, H, W, 3], then one pull to the host
             result = out.permute(1, 2, 3, 0).contiguous().cpu().numpy()
             self.stage_times = {"fused": time.perf_counter() - t0}
-            return result
+            return result if lead else None
         if upscale != self.config.upscale:
             raise ValueError(
                 "the staged path upscales on the device using config.upscale; "
@@ -824,7 +939,7 @@ class DovePipeline:
         generator = torch.Generator(device=self.device).manual_seed(seed)
 
         if (chunk_len == 0 and MAX_FRAMES_PER_PASS < F_ <= self.stream_max_frames
-                and self._stream_enabled()):
+                and self._stream_enabled(mesh)):
             # an explicit overlap_t (pixel frames) becomes latent frames
             out = self._sr_clip_streamed(
                 lq, generator,
@@ -855,20 +970,52 @@ class DovePipeline:
             F_ = f_ext
         chunks = tiling.temporal_chunks(F_, chunk_len, effective_ot)
 
-        def chunk_out(ts: int, te: int) -> np.ndarray:
+        def chunk_data(ts: int, te: int) -> tuple[np.ndarray, int]:
             data = lq[ts:te]
             nf = data.shape[0]
             valid_nf = tiling.next_valid_frames(nf)
             if valid_nf != nf:
                 data = np.concatenate(
                     [data, np.repeat(data[-1:], valid_nf - nf, axis=0)])
-            return self._sr_clip_staged(data, generator)[:nf]
+            return data, nf
+
+        if mesh is not None and mesh.shape["data"] > 1 and len(chunks) > 1:
+            # chunk-parallel: each "data" row takes one chunk of every group
+            # of n_par (its windows and TP over its "model" ranks) and passes
+            # over the others' draws, so each chunk sees the noise it gets at
+            # world size 1; rank 0 collects the pieces
+            n_par, d = mesh.shape["data"], mesh.coord("data")
+            self._dit_sp = None
+            self._win = mesh.axis_group("model")
+            s, u = self.config.vae.spatial_scale, self.config.upscale
+            mine = []
+            for g0 in range(0, len(chunks), n_par):
+                for j, (ts, te) in enumerate(chunks[g0:g0 + n_par]):
+                    data, nf = chunk_data(ts, te)
+                    if j == d:
+                        mine.append(((ts, te), self._sr_clip_staged(data, generator)[:nf]))
+                    else:
+                        self._skip_draws(
+                            (1, self.config.vae.latent_frames(data.shape[0]),
+                             data.shape[1] * u // s, data.shape[2] * u // s,
+                             self.config.vae.latent_channels), generator)
+            pieces = dist_mod.gather_objects(mine if mesh.coord("model") == 0 else [])
+            if pieces is None:
+                return None
+            produced = dict(p for rank_pieces in pieces for p in rank_pieces)
+        else:
+            produced = {}
+            for ts, te in chunks:
+                data, nf = chunk_data(ts, te)
+                produced[(ts, te)] = self._sr_clip_staged(data, generator)[:nf]
+            if not lead:
+                return None
 
         # trim-based temporal stitching: every frame is written once (a
         # single chunk keeps all of its frames)
         out = None
         for ts, te in chunks:
-            piece = chunk_out(ts, te)
+            piece = produced[(ts, te)]
             if out is None:
                 out = np.empty((F_,) + piece.shape[1:], np.uint8)
             vr = tiling.valid_region(
@@ -882,7 +1029,7 @@ class DovePipeline:
             return out
         return out.astype(np.float32) / 255.0
 
-    def process_video_file(self, path: str | Path, **kwargs) -> np.ndarray:
+    def process_video_file(self, path: str | Path, **kwargs) -> np.ndarray | None:
         frames = video_io.read_video_frames(path)
         t0 = time.perf_counter()
         out = self.process_frames(frames, **kwargs)

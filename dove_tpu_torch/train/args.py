@@ -7,10 +7,12 @@ of 16, the (F - 1) % 4 frame rule of stage 1's clip-level encode, the
 timestep range, the validation requirements. ``parse_args`` is the argparse
 bridge and ``dump_yaml`` writes ``args.yaml`` without PyYAML.
 
-Options that belong to later slices of the port raise NotImplementedError,
-naming their ROADMAP item, once the JAX validators have passed: sharding over
-a mesh (``fsdp``, ``tensor_parallel`` > 1, ``multihost``: A.12) and
-``use_optical_flow`` (A.13).
+The mesh options (``data_parallel``, ``fsdp``, ``tensor_parallel``,
+``multihost``) are the trainer's (``parallel/``). Once the JAX validators
+have passed, NotImplementedError names the ROADMAP item of what the port
+lacks: ``use_optical_flow`` (A.13), and the optimizers whose statistics span
+a whole tensor (CAME, Prodigy, the 8- and 4-bit AdamW) on a DiT that fsdp or
+tensor_parallel shards, which the port would take per shard (C.7).
 """
 
 from __future__ import annotations
@@ -27,6 +29,10 @@ MODEL_TYPES = ("real-sr", "real-sr-image-video")
 TRAINING_TYPES = ("lora", "sft")
 REPORT_TO = ("tensorboard", "jsonl", "wandb", "all")
 MIXED_PRECISION = ("no", "fp16", "bf16")
+# optimizers whose state holds statistics over a whole tensor (factored
+# means, weighted sums, blocks of codes), as the JAX package spells them
+SHARD_STATISTICS_OPTIMIZERS = ("came", "prodigy", "adamw-8bit", "adam-8bit",
+                               "adamw-4bit", "adam-4bit")
 
 _DEFAULT_OUTPUT_DIR = Path(
     "train_results/{:%Y-%m-%d-%H-%M-%S}".format(datetime.datetime.now())
@@ -90,11 +96,13 @@ class Args:
     enable_tiling: bool = False
     stastic_frequency: int = 100  # (sic) reference spelling, kept for parity
 
-    ########## Parallelism ##########
-    data_parallel: int = 0
-    fsdp: int = 1
+    ########## Parallelism (parallel/: one process per device) ##########
+    data_parallel: int = 0  # 0 = the ranks left over by the "model" axis
+    fsdp: int = 1  # the "model" axis as FSDP (parameter sharding)
+    # Megatron-style tensor parallelism for the DiT over the "model" axis;
+    # exclusive with fsdp > 1 (both own the "model" axis)
     tensor_parallel: int = 1
-    multihost: bool = False
+    multihost: bool = False  # join the process group (torchrun / DOVE_*)
 
     ########## LoRA ##########
     rank: int = 128
@@ -183,17 +191,17 @@ class Args:
                 "tensor_parallel and fsdp both shard over the 'model' mesh axis")
 
     def _check_ported(self) -> None:
-        later = {
-            "fsdp > 1 (A.12)": self.fsdp > 1,
-            "tensor_parallel > 1 (A.12)": self.tensor_parallel > 1,
-            "multihost (A.12)": self.multihost,
-            "use_optical_flow (A.13)": self.use_optical_flow,
-        }
-        on = [name for name, flag in later.items() if flag]
-        if on:
+        if self.use_optical_flow:
             raise NotImplementedError(
-                f"not ported yet: {', '.join(on)} (ROADMAP queue A: parallel/ is "
-                "A.12, flow fusion A.13)")
+                "not ported yet: use_optical_flow (A.13) (ROADMAP queue A: flow "
+                "fusion is A.13)")
+        opt = self.optimizer.lower().replace("_", "-")
+        if (opt in SHARD_STATISTICS_OPTIMIZERS and self.training_type != "lora"
+                and max(self.fsdp, self.tensor_parallel) > 1):
+            raise NotImplementedError(
+                f"optimizer {self.optimizer} with training_type {self.training_type} "
+                "under fsdp or tensor_parallel: the port would take its statistics "
+                "over each rank's shard, not the whole tensor (ROADMAP C.7)")
 
     @classmethod
     def parse_args(cls, argv: list[str] | None = None) -> "Args":

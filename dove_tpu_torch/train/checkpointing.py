@@ -43,12 +43,21 @@ def save_checkpoint(
     return path
 
 
-def restore_checkpoint(path: str | Path, template: Any) -> Any:
-    """Load a checkpoint into the structure of ``template`` (the live state):
-    every tensor is checked against the template's shape and moved to its
-    device and dtype."""
-    state = torch.load(Path(path) / STATE_FILE, map_location="cpu", weights_only=True)
+def load_state(path: str | Path) -> Any:
+    """A checkpoint's payload as saved, on the CPU."""
+    return torch.load(Path(path) / STATE_FILE, map_location="cpu", weights_only=True)
+
+
+def restore_state(state: Any, template: Any) -> Any:
+    """A checkpoint's payload in the structure of ``template`` (the live
+    state): every tensor is checked against the template's shape and moved
+    to its device and dtype."""
     return _like(state, template, "state")
+
+
+def restore_checkpoint(path: str | Path, template: Any) -> Any:
+    """``restore_state`` of the checkpoint at ``path``."""
+    return restore_state(load_state(path), template)
 
 
 def _like(value: Any, template: Any, where: str) -> Any:
@@ -118,19 +127,22 @@ def export_lora_safetensors(lora: Mapping[str, Mapping[str, Any]],
     safetensors_io.save_file(lora_state_dict(lora), out_path)
 
 
-def export_dit_safetensors(dit: torch.nn.Module, out_dir: str | Path, *,
+def export_dit_safetensors(dit: torch.nn.Module | Mapping[str, torch.Tensor],
+                           out_dir: str | Path, *,
                            base_config: str | Path | None = None,
                            max_shard_bytes: int = 5 * 1024**3) -> None:
-    """Write the DiT as diffusers-layout ``diffusion_pytorch_model*.safetensors``
-    (sharded, with an index, past ``max_shard_bytes``): the port's module
-    names are the checkpoint's, so its state dict is the payload."""
+    """Write the DiT (a module, or its whole state dict) as diffusers-layout
+    ``diffusion_pytorch_model*.safetensors`` (sharded, with an index, past
+    ``max_shard_bytes``): the port's module names are the checkpoint's, so
+    its state dict is the payload."""
     import json
 
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     shards: list[dict[str, torch.Tensor]] = [{}]
     size = 0
-    for k, v in dit.state_dict().items():
+    state = dit.state_dict() if isinstance(dit, torch.nn.Module) else dit
+    for k, v in state.items():
         nbytes = v.numel() * v.element_size()
         if size + nbytes > max_shard_bytes and shards[-1]:
             shards.append({})

@@ -34,6 +34,7 @@ def one_step_x0_latent(
     lora: Any = None,
     lora_scale: float = 1.0,
     gradient_checkpointing: bool = False,
+    sp: Any = None,
 ) -> torch.Tensor:
     """x-hat_0 in [B, F', h, w, C] from one DiT pass at ``cfg.sr_noise_step``.
 
@@ -42,7 +43,8 @@ def one_step_x0_latent(
     ``cfg.noise_step != 0`` and ``noise`` ([B, F'+pad, C, h, w], the DiT
     layout) is given, it is added at that timestep first; the caller draws
     it, so that tests can hand both packages the same numbers. lora,
-    lora_scale and gradient_checkpointing go to the DiT's forward."""
+    lora_scale, gradient_checkpointing and sp (sequence parallelism) go to
+    the DiT's forward."""
     B = lq_latent.shape[0]
     # (pt - F % pt) % pt: the reference's F % pt at pt=2, right for any pt;
     # none without temporal patching (the 2B)
@@ -61,7 +63,7 @@ def one_step_x0_latent(
         z, text_embeds, t_sr,
         attention_backend=attention_backend, bounded_logits=bounded_logits,
         lora=lora, lora_scale=lora_scale,
-        gradient_checkpointing=gradient_checkpointing,
+        gradient_checkpointing=gradient_checkpointing, sp=sp,
     )
     x0 = schedule.velocity_to_x0(v_pred, z, t_sr)
     if ncopy:

@@ -168,6 +168,9 @@ class _Chain:
         self.lr_schedule = lr_schedule
         self.max_grad_norm = max_grad_norm
         self.count = 0
+        # the global norm of a gradient list; a trainer whose tensors are
+        # shards of the whole sets one that sums over its ranks
+        self.norm_fn = global_norm
 
     def init(self, params: list[torch.Tensor]) -> None:
         self.count = 0
@@ -181,7 +184,7 @@ class _Chain:
 
     @torch.no_grad()
     def step(self, params: list[torch.Tensor], grads: list[torch.Tensor]) -> torch.Tensor:
-        norm = global_norm(grads)
+        norm = self.norm_fn(grads)
         if self.max_grad_norm is not None and self.max_grad_norm > 0:
             # a device-side select: nothing here waits for the norm
             clip = norm >= self.max_grad_norm
@@ -584,7 +587,7 @@ class MultiSteps:
             self.gradient_step += 1
             for acc in self.acc:
                 acc.zero_()
-        return global_norm(grads)
+        return self.inner.norm_fn(grads)
 
     def state_dict(self) -> dict:
         return {"mini_step": self.mini_step, "gradient_step": self.gradient_step,

@@ -27,6 +27,17 @@ into its key). The base DiT and the VAE stay frozen; only the LoRA tree
 trains, or the whole DiT under ``sft``. ``train`` loops over ``self.loader``
 with JSONL logging, checkpoints every ``checkpointing_steps`` and on SIGTERM.
 
+Under a mesh (``data_parallel``, ``fsdp``, ``tensor_parallel``; one process
+per device, ``parallel/``), each "data" row loads its slice of every batch
+and the gradients are averaged over "data" (DDP); the logged loss is the
+global mean, the same on every rank. "model" carries FSDP (FSDP2's
+``fully_shard`` on the DiT) or tensor parallelism (``shard_dit_tp``), and the
+optimizer steps on each rank's shards, its moments mirroring them (AdamW and
+Adam; ``Args`` refuses the optimizers whose statistics span a whole tensor
+there, ROADMAP C.7). A checkpoint holds the whole state, gathered and
+written by rank 0, so it restores under any layout; rank 0 writes the logs
+and the exports.
+
 ``fit`` is the whole run: the components, the dataset and loader
 (``prepare_dataset``: ``data/``, the JAX package's datasets and
 degradations, in DataLoader worker processes), the optimizer, a resume
@@ -65,8 +76,11 @@ from dove_tpu_torch import config as cfg_mod
 from dove_tpu_torch import weights
 from dove_tpu_torch.data.datasets import EMPTY_PROMPT_SHA
 from dove_tpu_torch.models.dit import init_dit_params, temporal_pad
-from dove_tpu_torch.models.vae import encode_moments, init_vae_params, sample_latent
+from dove_tpu_torch.models.vae import draw_part, encode_moments, init_vae_params, sample_latent
 from dove_tpu_torch.ops.scheduler import Schedule
+from dove_tpu_torch.parallel import distributed as dist_mod
+from dove_tpu_torch.parallel.mesh import make_mesh, shard_params
+from dove_tpu_torch.parallel.tp import Group, Split, opt_state_tp_specs, shard_dit_tp, tp_dim, validate_tp
 from dove_tpu_torch.pipeline import resolve_device
 from dove_tpu_torch.train import checkpointing as ckpt_mod
 from dove_tpu_torch.train import components as components_mod
@@ -111,6 +125,12 @@ def _seed(*words: int) -> int:
     return int(np.random.SeedSequence(list(words)).generate_state(1)[0])
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """This rank's part of an FSDP2 DTensor (a view of its storage), or
+    ``t`` itself."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
 # ---------------------------------------------------------------------------
 # Trainer
 # ---------------------------------------------------------------------------
@@ -122,7 +142,8 @@ class Trainer:
 
     def __init__(self, args: Args, pipeline_config=None, device=None):
         self.args = args
-        self.device = resolve_device(device)
+        rank, world = dist_mod.world()
+        self.device = dist_mod.local_device(device) if world > 1 else resolve_device(device)
         self.dtype = DTYPES[args.mixed_precision]
         if pipeline_config is not None:
             self.config = pipeline_config
@@ -133,6 +154,19 @@ class Trainer:
         self.config = dataclasses.replace(
             self.config, sr_noise_step=args.sr_noise_step, noise_step=args.noise_step)
         self.schedule = Schedule.create(self.config.scheduler)
+        # the ("data", "model") mesh: "model" is fsdp or tensor_parallel
+        # (exclusive, Args), "data" the rest of the ranks unless given
+        model = args.fsdp
+        if args.tensor_parallel > 1:
+            validate_tp(self.config.dit, args.tensor_parallel)
+            model = args.tensor_parallel
+        data = args.data_parallel or max(world // model, 1)
+        if args.batch_size % data:
+            raise ValueError(
+                f"batch_size {args.batch_size} not divisible by the data axis "
+                f"({data}): each data rank loads an equal slice of the batch")
+        self.mesh = make_mesh(data, model, device=self.device)
+        self.is_main = rank == 0
         self.global_step = 0
         # ops/attention.py's automatic rule takes the kernels from 2048 tokens,
         # the JAX package's TPU threshold, and the naive path below it; a
@@ -179,6 +213,35 @@ class Trainer:
             self.lora_scale = args.lora_alpha / args.rank
         else:
             self.dit.requires_grad_(True)
+        g = self._model_group()
+        if args.tensor_parallel > 1:
+            shard_dit_tp(self.dit, g)
+        elif g is not None:
+            shard_params(self.dit, self.mesh)
+
+    def _model_group(self) -> Group | None:
+        return self.mesh.axis_group("model")
+
+    def _split(self, name: str, t: torch.Tensor) -> Split | None:
+        """How the DiT tensor ``name`` is cut over "model" (FSDP's DTensor
+        placement, or its TP split), None where every rank holds it whole."""
+        g = self._model_group()
+        if g is None:
+            return None
+        if hasattr(t, "placements"):
+            return Split(t.placements[0].dim, tuple(t.shape), g)
+        dim = tp_dim(name) if self.dit.tp is not None else None
+        if dim is None:
+            return None
+        shape = list(t.shape)
+        shape[dim] *= g.size
+        return Split(dim, tuple(shape), g)
+
+    def trainable_splits(self) -> list[Split | None]:
+        """``_split`` of each trainable tensor (LoRA's stay whole)."""
+        if self.args.training_type == "lora":
+            return [None] * len(self.trainable_tensors())
+        return [self._split(n, p) for n, p in self.dit.named_parameters()]
 
     @property
     def components(self) -> components_mod.Components:
@@ -212,10 +275,21 @@ class Trainer:
         return list(self.dit.parameters())
 
     def _trainable_state(self) -> dict[str, Any]:
+        """The LoRA tree, or the DiT's whole state dict (gathered from the
+        ranks' shards: a collective under FSDP or TP)."""
         if self.args.training_type == "lora":
             return {t: {ab: x.detach() for ab, x in d.items()}
                     for t, d in self.lora_params.items()}
-        return self.dit.state_dict()
+        out = {}
+        for k, v in self.dit.state_dict().items():
+            sp = self._split(k, v)
+            if sp is None:
+                out[k] = v
+            elif hasattr(v, "full_tensor"):
+                out[k] = v.full_tensor()
+            else:
+                out[k] = sp.gather(v)
+        return out
 
     def prepare_dataset(self) -> None:
         """The dataset of ``model_type`` and its loader, as the JAX trainer
@@ -251,12 +325,20 @@ class Trainer:
                 image_data_root=args.image_data_root,
                 image_manifest=args.image_column, **common)
         if args.is_latent:
+            # rank 0 encodes and writes the cache; the others then find it
+            if not self.is_main:
+                dist_mod.barrier()
             n = self.dataset.fill_latent_cache()
+            if self.is_main:
+                dist_mod.barrier()
             logger.info("latent cache: encoded %d of %d items", n, len(self.dataset))
             self.dataset.encode_video = None  # workers read the cache only
+        # every rank builds the same batch order and keeps its data row's
+        # slice (the JAX package's process_shard)
         self.loader = Loader(self.dataset, batch_size=args.batch_size,
                              num_workers=args.num_workers, drop_last=True,
-                             seed=args.seed or 0)
+                             seed=args.seed or 0,
+                             process_shard=(self.mesh.coord("data"), self.mesh.shape["data"]))
 
     def _encode_np(self, frames: np.ndarray) -> np.ndarray:
         """The latent cache's encode: [F, H, W, 3] in [-1, 1] -> the scaled
@@ -281,9 +363,24 @@ class Trainer:
             eps=args.epsilon, weight_decay=args.weight_decay,
             max_grad_norm=args.max_grad_norm,
         )
+        splits = self.trainable_splits()
+        if any(splits):
+            # the global norm sums the shards' squares over "model"
+            g = self._model_group()
+
+            def norm_fn(grads):
+                whole = sum((x.float().square().sum() for x, sp in zip(grads, splits)
+                             if sp is None), torch.zeros((), device=self.device))
+                part = sum((x.float().square().sum() for x, sp in zip(grads, splits)
+                            if sp is not None), torch.zeros((), device=self.device))
+                torch.distributed.all_reduce(part, group=g.group)
+                return torch.sqrt(whole + part)
+
+            self.optimizer.norm_fn = norm_fn
         if args.gradient_accumulation_steps > 1:
             self.optimizer = MultiSteps(self.optimizer, args.gradient_accumulation_steps)
-        self.optimizer.init(self.trainable_tensors())
+        with torch.no_grad():
+            self.optimizer.init([_local(p) for p in self.trainable_tensors()])
 
     def dit_kwargs(self) -> dict[str, Any]:
         """The DiT's training forward: LoRA merged in, checkpointed blocks."""
@@ -304,10 +401,16 @@ class Trainer:
         return torch.Generator(device=self.device).manual_seed(
             _seed(self.args.seed or 0, step, stream))
 
+    def _part(self) -> tuple[int, int] | None:
+        """This rank's share of the batch's noise draws (its data row)."""
+        d = self.mesh.shape["data"]
+        return (self.mesh.coord("data"), d) if d > 1 else None
+
     def _encode(self, video: torch.Tensor, generator: torch.Generator | None,
                 per_frame: bool = False) -> torch.Tensor:
         """Pixels [B, F, H, W, 3] in [-1, 1] -> scaled latent [B, F', h, w, C],
-        sampled from the posterior (its mean when generator is None).
+        sampled from the posterior (its mean when generator is None); a data
+        rank takes its slice of the whole batch's noise.
 
         per_frame encodes each frame as a 1-frame clip of its own (stage 2:
         reference lora_one_s2_trainer.py:141-145), so F' == F."""
@@ -316,7 +419,10 @@ class Trainer:
             video = video.reshape((B * F, 1) + video.shape[2:])
         with torch.no_grad():
             moments = encode_moments(self.config.vae, self.vae, video.to(self.dtype))
-            lat = sample_latent(moments, generator, self.config.vae.scaling_factor)
+            part = self._part()
+            sf = self.config.vae.scaling_factor
+            lat = (sample_latent(moments, generator, sf) if part is None
+                   else sample_latent(moments, generator, sf, part))
         return lat.reshape((B, F) + lat.shape[2:]) if per_frame else lat
 
     def _noise(self, lq_lat: torch.Tensor, step: int) -> torch.Tensor | None:
@@ -325,8 +431,8 @@ class Trainer:
         if self.config.noise_step == 0:
             return None
         B, F, h, w, C = lq_lat.shape
-        return torch.randn((B, F + temporal_pad(self.config.dit, F), C, h, w),
-                           generator=self.generator(step, 2), device=self.device)
+        return draw_part((B, F + temporal_pad(self.config.dit, F), C, h, w),
+                         self.generator(step, 2), self.device, self._part())
 
     def _barrier(self) -> None:
         if self.device.type == "cuda":
@@ -348,11 +454,19 @@ class Trainer:
             p.grad = None
         loss, aux = self.compute_loss(batch, self.global_step)
         loss.backward()
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+        grads = [_local(torch.zeros_like(p) if p.grad is None else p.grad) for p in params]
         for p in params:
             p.grad = None
+        # clones: an aux term may be the loss itself, reduced once each
+        loss, aux = loss.detach().clone(), {k: v.detach().clone() for k, v in aux.items()}
+        d = self.mesh.shape["data"]
+        if d > 1:  # DDP: the mean over the data rows' equal slices
+            group = self.mesh.group("data")
+            for t in grads + [loss] + list(aux.values()):
+                torch.distributed.all_reduce(t, group=group)
+                t.div_(d)
         self._lap("dit_fwd_bwd")
-        return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
+        return loss, aux, grads
 
     def train_step(self, batch: dict[str, torch.Tensor]):
         """One update -> (loss, aux, grad_norm), all device scalars. Times
@@ -365,8 +479,8 @@ class Trainer:
         self._barrier()
         self._lap_t = time.perf_counter()
         loss, aux, grads = self.loss_and_grads(batch)
-        with record_function("dove.train.optimizer"):
-            gnorm = self.optimizer.step(self.trainable_tensors(), grads)
+        with record_function("dove.train.optimizer"), torch.no_grad():
+            gnorm = self.optimizer.step([_local(p) for p in self.trainable_tensors()], grads)
         self._lap("optimizer")
         return loss, aux, gnorm
 
@@ -393,17 +507,18 @@ class Trainer:
     def fit(self) -> None:
         args = self.args
         args.output_dir.mkdir(parents=True, exist_ok=True)
-        args.dump_yaml(args.output_dir / "args.yaml")
-        self._log_file = open(args.output_dir / "train_log.jsonl", "a")
-        # which video-compression backend synthesizes the MPEG artifacts
-        # (the reference's PyAV, or a fallback), as the JAX trainer records
-        from dove_tpu_torch.data.degradation import compression_backend
+        if self.is_main:  # rank 0 writes the logs
+            args.dump_yaml(args.output_dir / "args.yaml")
+            self._log_file = open(args.output_dir / "train_log.jsonl", "a")
+            # which video-compression backend synthesizes the MPEG artifacts
+            # (the reference's PyAV, or a fallback), as the JAX trainer records
+            from dove_tpu_torch.data.degradation import compression_backend
 
-        backend_rec = {"video_compression_backend": compression_backend()}
-        logger.info("%s", backend_rec)
-        self._log_file.write(json.dumps(backend_rec) + "\n")
-        self._log_file.flush()
-        self._open_trackers()
+            backend_rec = {"video_compression_backend": compression_backend()}
+            logger.info("%s", backend_rec)
+            self._log_file.write(json.dumps(backend_rec) + "\n")
+            self._log_file.flush()
+            self._open_trackers()
         self.load_components()
         self.prepare_dataset()
         steps_per_epoch = max(len(self.loader), 1)
@@ -449,16 +564,32 @@ class Trainer:
         if resume is None:
             return
         step, path = resume
-        template = {"trainable": self._trainable_state(),
-                    "opt_state": self.optimizer.state_dict()}
-        restored = ckpt_mod.restore_checkpoint(path, template)
+        # the checkpoint holds the whole state: every rank reads it and cuts
+        # its shards where "model" splits a tensor (Split.take), then each
+        # tensor is held to the live one's shape and copied into it
+        raw = ckpt_mod.load_state(path)
+        splits = self.trainable_splits()
+        if args.training_type == "lora":
+            live = {t: {ab: x.detach() for ab, x in d.items()}
+                    for t, d in self.lora_params.items()}
+        else:
+            state = self.dit.state_dict()
+            live = {k: _local(v) for k, v in state.items()}
+            cut = {k: self._split(k, v) for k, v in state.items()}
+            raw["trainable"] = {k: x if cut.get(k) is None else cut[k].take(x)
+                                for k, x in raw["trainable"].items()}
+        raw["opt_state"] = opt_state_tp_specs(
+            raw["opt_state"], splits, [sp and sp.shape for sp in splits],
+            lambda sp, t: sp.take(t))
+        restored = ckpt_mod.restore_state(
+            raw, {"trainable": live, "opt_state": self.optimizer.state_dict()})
         with torch.no_grad():
-            if args.training_type == "lora":
-                for t, d in self.lora_params.items():
-                    for ab, x in d.items():
-                        x.copy_(restored["trainable"][t][ab])
-            else:
-                self.dit.load_state_dict(restored["trainable"])
+            for t, x in live.items():
+                if isinstance(x, dict):  # a LoRA target's A and B
+                    for ab, y in x.items():
+                        y.copy_(restored["trainable"][t][ab])
+                else:
+                    x.copy_(restored["trainable"][t])
         self.optimizer.load_state_dict(restored["opt_state"])
         self.global_step = step
         logger.info("resumed from %s at step %d", path, step)
@@ -511,6 +642,7 @@ class Trainer:
         self.save(self.global_step)
         if self._log_file:
             self._log_file.close()
+            self._log_file = None
         self._close_trackers()
 
     # ------------------------------------------------------------------
@@ -551,24 +683,38 @@ class Trainer:
             self._log_file.write(json.dumps({"memory": rec}) + "\n")
 
     def save(self, step: int) -> Path:
-        state = {"trainable": self._trainable_state(),
-                 "opt_state": self.optimizer.state_dict()}
-        path = ckpt_mod.save_checkpoint(self.args.output_dir, step, state,
-                                        limit=self.args.checkpointing_limit)
-        logger.info("saved checkpoint %s", path)
+        """The whole state (gathered from the shards under a mesh), written
+        by rank 0; every rank returns when the file is there."""
+        splits = self.trainable_splits()
+        opt_state = self.optimizer.state_dict()
+        if any(splits):
+            opt_state = opt_state_tp_specs(
+                opt_state, splits, [_local(p).shape for p in self.trainable_tensors()],
+                lambda sp, t: sp.gather(t))
+        state = {"trainable": self._trainable_state(), "opt_state": opt_state}
+        path = self.args.output_dir / f"{ckpt_mod.CHECKPOINT_PREFIX}{step}"
+        if self.is_main:
+            path = ckpt_mod.save_checkpoint(self.args.output_dir, step, state,
+                                            limit=self.args.checkpointing_limit)
+            logger.info("saved checkpoint %s", path)
+        dist_mod.barrier()
         return path
 
     def export(self, out_dir: str | Path) -> None:
         """The deployable export: peft LoRA weights, or the DiT in diffusers
         layout under sft."""
         if self.args.training_type == "lora":
-            ckpt_mod.export_lora_safetensors(
-                self.lora_params, Path(out_dir) / "pytorch_lora_weights.safetensors")
+            if self.is_main:
+                ckpt_mod.export_lora_safetensors(
+                    self.lora_params, Path(out_dir) / "pytorch_lora_weights.safetensors")
         else:
+            state = self._trainable_state()  # gathered: every rank takes part
             base = Path(self.args.model_path) / "transformer" / "config.json"
-            ckpt_mod.export_dit_safetensors(
-                self.dit, Path(out_dir) / "transformer",
-                base_config=base if base.exists() else None)
+            if self.is_main:
+                ckpt_mod.export_dit_safetensors(
+                    state, Path(out_dir) / "transformer",
+                    base_config=base if base.exists() else None)
+        dist_mod.barrier()
 
     def validate(self, step: int) -> dict[str, float]:
         """One-step SR on the held-out clips of ``validation_dir`` (video
@@ -579,6 +725,10 @@ class Trainer:
         no second copy of the weights is made; the staged path with
         ``enable_tiling``, the fused one otherwise. A metric whose weights
         are missing warns and is skipped; an unknown name raises.
+        Under a mesh every rank serves every clip: under TP over the mesh on
+        the staged path (the JAX package's rule), under DDP over the "data"
+        ranks, under FSDP each rank alone (its DiT gathers its shards); rank
+        0 writes and scores, and every rank returns its summary.
         Full-reference metrics take the clip of the same name under
         ``validation_ref_videos``, cropped to the common shape. Each clip's
         SR is written as ``<stem>.mp4`` where OpenCV imports, else as the
@@ -621,16 +771,22 @@ class Trainer:
         cuda_rng = (torch.cuda.get_rng_state(self.device)
                     if self.device.type == "cuda" else None)
         lora = self.lora_params if self.args.training_type == "lora" else None
+        tp = args.tensor_parallel > 1
+        serve_mesh = (self.mesh if self.mesh.size > 1
+                      and (tp or self.mesh.shape["model"] == 1) else None)
         try:
             with torch.no_grad():
                 pipe = DovePipeline(
                     config=self.config, dit=self.dit, vae=self.vae,
                     prompt_embedding=self.empty_prompt, dtype=self.dtype,
-                    device=self.device, vae_tiling=args.enable_tiling,
-                    lora=lora, lora_scale=getattr(self, "lora_scale", 1.0))
+                    device=self.device, vae_tiling=args.enable_tiling or tp,
+                    lora=lora, lora_scale=getattr(self, "lora_scale", 1.0),
+                    inference_mode=False)
                 for clip in clips:
                     frames = video_io.load_sequence(clip)
-                    sr = pipe.process_frames(frames)
+                    sr = pipe.process_frames(frames, mesh=serve_mesh)
+                    if not self.is_main:
+                        continue
                     if artifact_kind == "mp4":
                         video_io.save_video(sr, out_dir / f"{clip.stem}.mp4",
                                             fps=args.gen_fps)
@@ -660,8 +816,9 @@ class Trainer:
             torch.set_rng_state(cpu_rng)
             if cuda_rng is not None:
                 torch.cuda.set_rng_state(cuda_rng, self.device)
-        summary = {n: float(np.sum(results[n]) / len(results[n]))
-                   for n in sorted(results) if results[n]}
+        summary = dist_mod.broadcast_object(
+            {n: float(np.sum(results[n]) / len(results[n]))
+             for n in sorted(results) if results[n]})
         rec = {"step": step, "validation": summary, "artifact": artifact_kind}
         logger.info("%s", rec)
         if self._log_file:

@@ -333,8 +333,14 @@ def test_train_cli_help_and_refusals():
     assert res.returncode == 0, res.stderr
     for flag in ("--device", "--do_validation", "--is_latent", "--validation_dir"):
         assert flag in res.stdout
-    with pytest.raises(NotImplementedError, match="A.12"):
-        train_main(["--model_path", "m", "--multihost", "true", "--device", "cpu"])
+    # what the JAX package refuses, the port refuses: tensor_parallel beside
+    # fsdp, and optical flow (A.13); --multihost runs (2 processes:
+    # tests/test_torch_parallel_train.py)
+    with pytest.raises(ValueError, match="tensor_parallel and fsdp"):
+        train_main(["--model_path", "m", "--tensor_parallel", "2", "--fsdp", "2",
+                    "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match=r"A\.13"):
+        train_main(["--model_path", "m", "--use_optical_flow", "true", "--device", "cpu"])
     # the options A.8 ported parse as the JAX package's CLI parses them (runs:
     # tests/test_torch_accumulation.py)
     argv = ["--model_path", "m", "--report_to", "wandb", "--optimizer", "came",

@@ -227,13 +227,17 @@ def test_every_flag_of_the_jax_cli_is_accepted():
     assert ours - ref == {"--device", "--hand_conv"}
 
 
-@pytest.mark.parametrize("flags,match", [
-    (["--data_parallel", "2"], r"ROADMAP A\.12"),
-    (["--tensor_parallel", "2"], r"ROADMAP A\.12"),
+@pytest.mark.parametrize("flags,error,match", [
+    (["--tensor_parallel", "2"], SystemExit, r"staged path; add --is_vae_st"),
+    (["--tensor_parallel", "3", "--is_vae_st"], ValueError, r"tensor_parallel=3 must divide"),
 ])
-def test_unported_flags_are_refused(tmp_path, flags, match):
-    with pytest.raises(NotImplementedError, match=match):
-        inference.main(["--input_dir", str(tmp_path), "--device", "cpu", *flags])
+def test_unported_flags_are_refused(tmp_path, flags, error, match):
+    """What the JAX CLI refuses of the mesh flags (scripts/inference.py:
+    273-277 and validate_tp), the port refuses too; the multi-rank runs are
+    tests/test_torch_parallel.py's."""
+    with pytest.raises(error, match=match):
+        inference.main(["--input_dir", str(tmp_path), "--device", "cpu",
+                        "--preset", "tiny", *flags])
 
 
 @pytest.mark.parametrize("case", ["preset_cogvideox_2b", "dtype_float16"])

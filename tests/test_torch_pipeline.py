@@ -137,12 +137,26 @@ def test_multi_chunk_clip_matches_jax(models):
 
 
 def test_unported_paths_raise(models):
-    _, tp = _pipes(models)
+    """The mesh routes the JAX package refuses, the port refuses too: a
+    "model" axis (tensor parallelism) off the staged path, and a TP degree
+    that does not divide the heads (tiny_test has 4). The meshes are built
+    by hand: the refusals come before any collective (the multi-rank runs
+    are tests/test_torch_parallel.py's)."""
+    from dove_tpu.parallel.mesh import make_mesh as jmesh
+    from dove_tpu_torch.parallel.mesh import Mesh
+
+    jp, tp = _pipes(models)
     frames = _clip(1, 16, 16, 4)
-    with pytest.raises(NotImplementedError, match="A.12"):
-        tp.process_frames(frames, mesh=object())
-    with pytest.raises(NotImplementedError, match="A.12"):
-        dataclasses.replace(tp, vae_tiling=False).process_frames(frames, mesh=object())
+    fused = dataclasses.replace(tp, vae_tiling=False)
+    with pytest.raises(ValueError, match="requires the staged path"):
+        fused.process_frames(frames, mesh=Mesh({"data": 1, "model": 2}, 0))
+    with pytest.raises(ValueError, match="requires the staged path"):
+        dataclasses.replace(jp, vae_tiling=False).process_frames(
+            frames, mesh=jmesh(data=1, model=2))
+    with pytest.raises(ValueError, match="tensor_parallel=3 must divide"):
+        tp.process_frames(frames, mesh=Mesh({"data": 1, "model": 3}, 0))
+    with pytest.raises(ValueError, match="tensor_parallel=3 must divide"):
+        jp.process_frames(frames, mesh=jmesh(data=1, model=3))
 
 
 # The fused outer-tile path. Each case keeps to one or two tile geometries
