@@ -91,7 +91,7 @@ Phases, one result line each; any failure exits non-zero:
    layers: first on a 9x64x128 clip under each --upscale_mode but bilinear
    (bicubic, nearest, area, lanczos: ops/resize.py on the card, held to the
    same op on the CPU), K1's launches held to the measured calls; then on
-   the 32-frame 180x320 clip in 256x256 tiles of 16-frame chunks,
+   a 17-frame 180x320 clip in 256x256 tiles of 16-frame chunks,
    two tiles a call, every DiT pass under 2048 tokens: through K1 and
    through the plain attention, then under int8-dit through K2 and
    "plain-qk8", compared by PSNR, with the launches held to layers x the
@@ -128,7 +128,8 @@ Phases, one result line each; any failure exits non-zero:
    DataLoader at 8 worker processes (and at the host's core count), the
    workers' first batch equal to the in-process one, the peak host RSS, a
    stage-2 item with its image pair from a PNG file, Pillow's libjpeg;
-23. the training entry point at 42 layers: ``python -m
+23. the training entry point at 2 layers (42 until the run outgrew its
+   time limit): ``python -m
    dove_tpu_torch.train``'s main with scripts/train_s1.sh's flags (4 steps,
    a checkpoint every 2, validation every 2 on two PNG-folder clips with
    GT, psnr and ssim, items made in this process) on phase 22's dataset:
@@ -198,7 +199,30 @@ Phases, one result line each; any failure exits non-zero:
    two ways (sequence parallelism) against the whole DiT in bf16 and
    int8-dit, and a tensor-parallel stage-1 step at 2 layers against one
    process. A correctness run: two ranks on one card measure no
-   speed-up.
+   speed-up;
+31. T5-XXL (24 blocks, d_model 4096, 4.76 B parameters) on seeded weights
+   built on the card, one seeded 226-token sequence: bf16 time (the median
+   and range of 20 calls timed one by one by CUDA events after 3 warm-ups,
+   and the host's time to issue a call) and peak memory, held to the same
+   module in fp32;
+32. a non-empty prompt through ``python -m dove_tpu_torch.inference``: phase
+   24's two mp4 clips at 2 layers from a model folder the phase writes (phase
+   24's seeded DiT and VAE, a one-block T5 at XXL's width as text_encoder/,
+   a word-level tokenizer/), a prompt on one clip: its frames differ from
+   phase 24's empty-prompt PNG run, the other clip's are equal (fails loudly
+   without tokenizers or transformers);
+33. RAFT and flow fusion: raft_bi_clip on the main path's 32-frame 180x320
+   LQ clip (resized to 184 and back, 25-frame windows), then
+   optical_flow_feature, fusion_module_forward (the identity at init,
+   exactly) and the learnable propagation_forward (mid_channels 256, 16
+   groups) on a [1, 9, 90, 160, 16] tensor; times and peak memory;
+34. whole-tensor optimizer statistics on split tensors (ROADMAP C.7): two
+   gloo ranks on the card, phase 30(c)'s 2-layer step under SFT with CAME,
+   Prodigy, 8- and 4-bit AdamW under tensor_parallel=2 and fsdp=2: loss
+   and gradients against the one-process step, each sharded optimizer step
+   against one device's optimizer on the gathered gradient (weights within
+   one bf16 ulp, statistics and codes), K1-lse, K3a and K3b launches per
+   rank.
 
 Then one JSON line with the kernels' numbers, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}.
@@ -278,6 +302,7 @@ REMAT_REL_RMS_TOL = 1e-3
 # 256x256 in 16-frame chunks, two tiles a call, whose DiT passes are all under
 # 2048 tokens; phase 19 the CLI docstring's 384x384 tiles and 16-frame chunks.
 FUSED_2L = dict(tile_size_hw=(256, 256), chunk_len=16, tile_batch=2)
+FUSED_2L_FRAMES = 17
 FUSED_CLI = ["--tile_size_hw", "384", "384", "--chunk_len", "16"]
 # Scoring (phase 20): the in-process metrics against the eval_metrics CLI's
 # on the same frames read back from PNG; PSNR and SSIM are float64, LPIPS
@@ -508,7 +533,7 @@ MIXED_FORMS = ("K2", "K2 fp16")
 # the packages a media route for the CLI could use on the card
 MEDIA_PACKAGES = ("PIL", "cv2", "torchvision.io", "av", "imageio")
 # what a tokenizer (CLIP-IQA, T5) or NIQE's .mat params could lean on there
-TOOL_PACKAGES = ("transformers", "regex", "ftfy", "scipy.io")
+TOOL_PACKAGES = ("transformers", "tokenizers", "regex", "ftfy", "scipy.io")
 # SASS opcodes counted per kernel form: Hopper's warpgroup MMA (HGMMA on
 # floating-point operands, IGMMA on int8), its TMA tensor load (UTMALDG) and
 # bulk copy (UBLKCP), and the pre-Hopper mma.sync (HMMA, IMMA)
@@ -599,9 +624,14 @@ def video_probe() -> str:
 def phase_build() -> None:
     import ctypes
     import re
+    from concurrent.futures import ThreadPoolExecutor
 
     from dove_tpu_torch import kernels
 
+    # the probes' child processes run while nvcc builds
+    pool = ThreadPoolExecutor(3)
+    probes = [pool.submit(import_probe, MEDIA_PACKAGES), pool.submit(import_probe, TOOL_PACKAGES),
+              pool.submit(video_probe)]
     t0 = time.perf_counter()
     built = kernels.build_all(list(SOURCES))
     wall = time.perf_counter() - t0
@@ -648,10 +678,12 @@ def phase_build() -> None:
         raise AssertionError(f"no ptxas report for some of {HOPPER_FORMS}: {spills}")
     import shutil
 
-    log(f"  media packages on this machine: {json.dumps(import_probe(MEDIA_PACKAGES))}")
-    log(f"  tool packages on this machine: {json.dumps(import_probe(TOOL_PACKAGES))}; "
+    media, tools, video = (f.result() for f in probes)
+    pool.shutdown()
+    log(f"  media packages on this machine: {json.dumps(media)}")
+    log(f"  tool packages on this machine: {json.dumps(tools)}; "
         f"ffmpeg binary: {shutil.which('ffmpeg')}")
-    log(f"  video files through the port's io/video.py: {video_probe()}")
+    log(f"  video files through the port's io/video.py: {video}")
     counts = sass_counts(kernels.library_path("flash_fwd_sm90"))
     if counts is None:
         log("  SASS: no cuobjdump in this toolkit; opcode counts not taken")
@@ -2845,8 +2877,9 @@ def _fused_upscale_modes(cfg, dit, vae, prompt) -> dict:
 
 
 def phase_fused_kernel_vs_plain() -> dict:
-    """The fused path at full widths and 2 DiT layers on the 32-frame 180x320
-    clip, in 256x256 tiles of 16-frame chunks, two tiles a call: every DiT
+    """The fused path at full widths and 2 DiT layers on a 17-frame 180x320
+    clip (32 frames until the run outgrew its time limit), in 256x256 tiles
+    of 16-frame chunks, two tiles a call: every DiT
     pass is under 2048 tokens (measured from K1's launches), where the
     automatic rule would take the naive attention; the fused path takes K1.
     Once through the kernels and once through attention_backend="plain",
@@ -2863,11 +2896,11 @@ def phase_fused_kernel_vs_plain() -> dict:
     cfg, dit, vae = _two_layer_models()
     layers = cfg.dit.num_layers
     clip = np.random.default_rng(18).uniform(
-        0, 1, (CLIP_FRAMES, CLIP_H, CLIP_W, 3)).astype(np.float32)
-    plan = fused_plan(cfg, CLIP_FRAMES, CLIP_H, CLIP_W, cfg.upscale, **FUSED_2L)
+        0, 1, (FUSED_2L_FRAMES, CLIP_H, CLIP_W, 3)).astype(np.float32)
+    plan = fused_plan(cfg, FUSED_2L_FRAMES, CLIP_H, CLIP_W, cfg.upscale, **FUSED_2L)
     prompt = torch.zeros((cfg.dit.max_text_seq_length, cfg.dit.text_embed_dim),
                          dtype=torch.bfloat16)
-    expect = (CLIP_FRAMES, CLIP_H * cfg.upscale, CLIP_W * cfg.upscale, 3)
+    expect = (FUSED_2L_FRAMES, CLIP_H * cfg.upscale, CLIP_W * cfg.upscale, 3)
     result = {"modes": _fused_upscale_modes(cfg, dit, vae, prompt)}
     for mode, backends in ((None, (None, "plain")), ("int8-dit", (None, "plain-qk8"))):
         outs = {}
@@ -3928,11 +3961,19 @@ def _fit_kernel_vs_plain(argv: list[str], batches: list) -> dict:
 
 
 def phase_train_entry_point(data: dict) -> dict:
-    """Phase 23: python -m dove_tpu_torch.train's main at 42 layers with
+    """Phase 23: python -m dove_tpu_torch.train's main at 2 layers with
     scripts/train_s1.sh's flags (4 steps, checkpoints every 2, validation
     every 2), a resume from checkpoint-2, the is_latent route, and
-    scripts/train_s2.sh's flags for 2 steps; then the same 2 steps at 2
-    layers through the kernels and through the plain attention."""
+    scripts/train_s2.sh's flags for 2 steps; then the same 2 steps through
+    the kernels and through the plain attention. The phase ran at 42 layers
+    until the run grew past its time limit: its time goes to the
+    host's items and the VAE, and phases 11, 17 and 26 run the recipes' steps
+    at 42 layers."""
+    with _two_layer_presets():
+        return _train_entry_point(data)
+
+
+def _train_entry_point(data: dict) -> dict:
     import shutil
     from pathlib import Path
 
@@ -4208,7 +4249,10 @@ def phase_video_files() -> dict:
     if not calls["mpeg4"]:
         raise AssertionError("phase 24: no item drew the mpeg4 codec in 8 seeds")
     backend = deg_mod.compression_backend()
-    shutil.rmtree(root, ignore_errors=True)
+    # phase 32 runs the CLI again on these clips with a prompt, beside these
+    # PNG outputs (the empty prompt's)
+    for sub in ("mp4", "data"):
+        shutil.rmtree(root / sub, ignore_errors=True)
     log(f"phase 24 video files (ROADMAP C.2; OpenCV {cv2.__version__}): "
         f"{len(written)} mp4 clips {list(written.values())} -> python -m "
         f"dove_tpu_torch.inference --is_vae_st ({layers} layers): outputs "
@@ -5277,6 +5321,11 @@ def _spawn_ranks(kind: str, backend: str, world: int, timeout: float) -> list[di
     """``world`` subprocesses of this script as the ranks of ``kind`` over
     ``backend``, every one on cuda:0, joined through a file rendezvous; each
     writes a JSON result. Raises if a rank fails or outlasts ``timeout``."""
+    return _collect_ranks(_start_ranks(kind, backend, world), timeout)
+
+
+def _start_ranks(kind: str, backend: str, world: int):
+    """The ranks of _spawn_ranks, started; _collect_ranks waits for them."""
     import os
 
     os.makedirs(PARALLEL_DIR, exist_ok=True)
@@ -5286,6 +5335,11 @@ def _spawn_ranks(kind: str, backend: str, world: int, timeout: float) -> list[di
         [sys.executable, os.path.abspath(__file__), "--rank-body", kind, backend,
          str(r), str(world), init, outs[r]],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    return kind, backend, procs, outs
+
+
+def _collect_ranks(started, timeout: float) -> list[dict]:
+    kind, backend, procs, outs = started
     logs = []
     try:
         deadline = time.perf_counter() + timeout
@@ -5298,7 +5352,7 @@ def _spawn_ranks(kind: str, backend: str, world: int, timeout: float) -> list[di
                 p.wait()
     for r, (p, text) in enumerate(zip(procs, logs)):
         if p.returncode:
-            raise AssertionError(f"phase 30 {kind} over {backend}: rank {r} exited "
+            raise AssertionError(f"ranks of {kind} over {backend}: rank {r} exited "
                                  f"{p.returncode}:\n{text[-3000:]}")
     return [json.loads(open(o).read()) for o in outs]
 
@@ -5413,12 +5467,33 @@ def _tp_body(rank: int, world: int) -> dict:
                        launches={n: c.count for n, c in counters.items()},
                        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     if rank == 0:
-        ref = torch.load(f"{PARALLEL_DIR}/tp_step_ref.pt", weights_only=True)
+        ref = _load_ref(f"{PARALLEL_DIR}/tp_step_ref.pt")
         res["step"]["ref_loss"] = ref["loss"]
         res["step"]["grad_rel_rms"] = {
             name: _rel_rms(gr, ref["grads"][i].to(gr.device))
             for i, (name, gr) in enumerate(zip(ref["names"], grads))}
     return res
+
+
+def _save_ref(obj, path: str) -> None:
+    """torch.save to ``path`` through a temporary name, so that a rank that
+    waits for the file (_load_ref) reads it whole."""
+    import os
+
+    torch.save(obj, path + ".tmp")
+    os.replace(path + ".tmp", path)
+
+
+def _load_ref(path: str, timeout: float = 600.0):
+    """The reference the parent writes while the ranks run (_save_ref)."""
+    import os
+
+    deadline = time.perf_counter() + timeout
+    while not os.path.exists(path):
+        if time.perf_counter() > deadline:
+            raise TimeoutError(f"no reference at {path} after {timeout:.0f}s")
+        time.sleep(0.5)
+    return torch.load(path, weights_only=True)
 
 
 def _lora_b_off_zero(tr) -> None:
@@ -5444,8 +5519,8 @@ def _tp_step_reference(world: int) -> dict:
     _lora_b_off_zero(tr)
     loss, _, grads = tr.loss_and_grads(tr.device_batch(train_batch(seed=30, batch=1)))
     names = [f"{t}.{ab}" for t in tr.lora_params for ab in ("A", "B")]
-    torch.save({"loss": float(loss), "grads": [x.cpu() for x in grads], "names": names},
-               f"{PARALLEL_DIR}/tp_step_ref.pt")
+    _save_ref({"loss": float(loss), "grads": [x.cpu() for x in grads], "names": names},
+              f"{PARALLEL_DIR}/tp_step_ref.pt")
     del tr, grads
     torch.cuda.empty_cache()
     return dict(loss=float(loss))
@@ -5462,9 +5537,19 @@ def _tp_step(parallel: dict, kernel: str) -> list | None:
             else [r["step"]["launches"][kernel] for r in parallel["tp"]])
 
 
+def _c7_launches(c7: dict, kernel: str) -> dict:
+    """Phase 34's launches of ``kernel`` per layout, one entry a rank."""
+    return {layout: [r[layout]["launches"][kernel] for r in c7["ranks"]]
+            for layout in C7_LAYOUTS}
+
+
 def rank_body(kind: str, backend: str, rank: int, world: int, init: str, out: str) -> int:
-    """One rank of phase 30, started by _spawn_ranks."""
+    """One rank of phase 30 or 34, started by _spawn_ranks."""
+    import faulthandler
+
     import torch.distributed as dist
+
+    faulthandler.enable()  # a crash prints the rank's Python stack
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5472,7 +5557,7 @@ def rank_body(kind: str, backend: str, rank: int, world: int, init: str, out: st
     dist.init_process_group(backend, init_method=f"file://{init}", rank=rank,
                             world_size=world)
     try:
-        res = {"probe": _probe_body, "tp": _tp_body}[kind](rank, world)
+        res = {"probe": _probe_body, "tp": _tp_body, "c7": _c7_body}[kind](rank, world)
     finally:
         dist.destroy_process_group()
     with open(out, "w") as f:
@@ -5511,14 +5596,8 @@ def phase_parallel(main_out: np.ndarray, train_step1: dict) -> dict:
     t_phase = time.perf_counter()
     os.makedirs(PARALLEL_DIR, exist_ok=True)
     t0 = time.perf_counter()
-    from concurrent.futures import ThreadPoolExecutor
-
-    with ThreadPoolExecutor(2) as pool:  # the two groups' ranks start together
-        runs = {b: pool.submit(_spawn_ranks, "probe", b, n, 240)
-                for b, n in (("gloo", 2), ("nccl", 1))}
-        probe = {b: r.result()[0] for b, r in runs.items()}
-    probe_s = time.perf_counter() - t0
-    log(f"phase 30(a) collectives on CUDA tensors ({probe_s:.1f}s): {json.dumps(probe)}")
+    # (a) the two groups' ranks probe while (b) runs in this process
+    probes = {b: _start_ranks("probe", b, n) for b, n in (("gloo", 2), ("nccl", 1))}
 
     # (b) world size 1 over NCCL
     init = os.path.abspath(f"{PARALLEL_DIR}/rdv_ws1_{time.time_ns()}")
@@ -5560,6 +5639,9 @@ def phase_parallel(main_out: np.ndarray, train_step1: dict) -> dict:
         torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
+    probe = {b: _collect_ranks(st, 240)[0] for b, st in probes.items()}
+    log(f"phase 30(a) collectives on CUDA tensors ({time.perf_counter() - t0:.1f}s, "
+        f"beside (b)): {json.dumps(probe)}")
     if (step["loss"], step["grad_norm"]) != (train_step1["loss"], train_step1["grad_norm"]) \
             or step_launches != want:
         raise AssertionError(f"phase 30(b): the step under the group {step} differs from "
@@ -5574,8 +5656,11 @@ def phase_parallel(main_out: np.ndarray, train_step1: dict) -> dict:
     tp = None
     if takes:
         t0 = time.perf_counter()
+        if os.path.exists(f"{PARALLEL_DIR}/tp_step_ref.pt"):
+            os.remove(f"{PARALLEL_DIR}/tp_step_ref.pt")
+        started = _start_ranks("tp", "gloo", 2)  # they start while the reference runs
         ref = _tp_step_reference(2)
-        tp = _spawn_ranks("tp", "gloo", 2, 600)
+        tp = _collect_ranks(started, 600)
         tp_s = time.perf_counter() - t0
         r0 = tp[0]
         worst = max(r0["step"]["grad_rel_rms"].values())
@@ -5614,6 +5699,463 @@ def phase_parallel(main_out: np.ndarray, train_step1: dict) -> dict:
     log(f"phase 30 took {phase_s:.1f}s")
     return dict(probe=probe, clip_launches=clip_launches, step=step, tp=tp,
                 phase_s=phase_s)
+
+
+# ---------------------------------------------------------------------------
+# Phases 31-34: T5, the prompt path, flow fusion, whole-tensor optimizer
+# statistics on split tensors
+# ---------------------------------------------------------------------------
+
+T5_TOKENS = 226
+T5_WARMUP = 3
+T5_REPS = 20
+# T5-XXL in bf16 against the same seeded module in fp32 on the card: 24
+# blocks of bf16 matmuls and residual adds, each rounding at ~2^-9
+# relative; held relative to the fp32 output's RMS (and its largest value).
+T5_REL_RMS_TOL = 3e-2
+T5_REL_MAX_TOL = 5e-2
+PROMPT = "a red cat runs in the snow"
+PROMPT_WORDS = ("a", "red", "cat", "runs", "in", "the", "snow", "dog", "city", "car")
+# phase 34: the SFT step's optimizers, their learning rates (AdamW's at one
+# where each step moves a bf16 weight of ~0.02 by about eight ulps; Prodigy
+# at its customary 1), and the bars of the sharded step against one device's
+# optimizer on the same (gathered) gradient: every weight within one bf16 ulp
+# and at most C7_DIFF_SHARE of them off (the clip's norm is summed in another
+# order), every float statistic within C7_STATE_REL of its largest value
+# (Prodigy's sums over the model are added in another order), at most
+# C7_DIFF_SHARE of the block codes off
+C7_OPTS = ("came", "prodigy", "adamw-8bit", "adamw-4bit")
+# optimizer steps on the step's gradients: Prodigy's sums over the model
+# are 0 on its first (no weight has moved from its start yet)
+C7_STEPS = 2
+C7_LR = {"came": 1e-3, "prodigy": 1.0, "adamw-8bit": 1e-3, "adamw-4bit": 1e-3}
+C7_DIFF_SHARE = 1e-3
+C7_STATE_REL = 1e-5
+C7_LAYOUTS = ("tensor_parallel", "fsdp")
+
+
+def _t5_reps(fn) -> dict:
+    """T5's forward timed call by call: the median and range of T5_REPS
+    calls, each between two CUDA events with the queue drained before it;
+    the host's time to issue one call (no synchronisation inside the loop);
+    and one call's device time when T5_REPS calls are queued back to back,
+    which the host's issue rate bounds where it is the slower."""
+    for _ in range(T5_WARMUP):
+        fn()
+    times = []
+    for _ in range(T5_REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(T5_REPS):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / T5_REPS
+    torch.cuda.synchronize()
+    return dict(ms=statistics.median(times), ms_min=min(times), ms_max=max(times),
+                host_ms=host_ms, queued_ms=cuda_ms(fn, reps=T5_REPS, warmup=0))
+
+
+def phase_t5_xxl() -> dict:
+    """Phase 31: T5-XXL (24 blocks, d_model 4096, 64 heads, d_ff 10240) on
+    seeded weights built on the card, one 226-token id sequence from a
+    seeded generator: bf16 time and peak, held to the same module in fp32
+    (drawn from the same seed in fp32, so the bf16 weights are its rounding)."""
+    from dove_tpu_torch.models.t5 import init_t5, t5_xxl
+
+    cfg = t5_xxl()
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    ids = torch.randint(0, cfg.vocab_size, (1, T5_TOKENS), generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_t5(cfg, seed=31, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_gib = sum(p.numel() * p.element_size() for p in model.parameters()) / 2**30
+    with torch.no_grad():
+        out = model(ids).float()
+        reps = _t5_reps(lambda: model(ids))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del model
+    torch.cuda.empty_cache()
+    ref_model = init_t5(cfg, seed=31, dtype=torch.float32, device="cuda")
+    with torch.no_grad():
+        ref = ref_model(ids)
+        fp32_ms = cuda_ms(lambda: ref_model(ids), reps=2, warmup=0)
+    del ref_model
+    torch.cuda.empty_cache()
+    err = attn_errors(out, ref)
+    res = dict(params=n_params, weight_gib=weight_gib, build_s=build_s, **reps,
+               fp32_ms=fp32_ms, peak_gib=peak, rel_rms=err["rel_rms"],
+               rel_max=err["rel_max"], shape=list(out.shape))
+    log(f"phase 31 T5-XXL ({n_params / 1e9:.3f} B parameters, {weight_gib:.2f} GiB in "
+        f"bf16, built on the card in {build_s:.1f}s): {T5_TOKENS} tokens in {reps['ms']:.3f} "
+        f"ms, the median of {T5_REPS} calls timed one by one by CUDA events after "
+        f"{T5_WARMUP} warm-ups (range {reps['ms_min']:.3f}-{reps['ms_max']:.3f}; the host "
+        f"issues a call in {reps['host_ms']:.3f} ms, its device time with the queue fed "
+        f"{reps['queued_ms']:.3f} ms; fp32 {fp32_ms:.2f} ms), peak {peak:.2f} GiB; "
+        f"bf16 against fp32: rel rms {err['rel_rms']:.2e} (bar {T5_REL_RMS_TOL}), rel max "
+        f"{err['rel_max']:.2e} (bar {T5_REL_MAX_TOL})")
+    if (res["shape"] != [1, T5_TOKENS, cfg.d_model] or not bool(torch.isfinite(out).all())
+            or not err["rel_rms"] <= T5_REL_RMS_TOL or not err["rel_max"] <= T5_REL_MAX_TOL):
+        raise AssertionError(f"phase 31: {res}")
+    return res
+
+
+def _write_prompt_model(root) -> dict:
+    """A diffusers folder for the CLI: the 5B at full width and 2 layers with
+    the seeded bf16 weights the CLI draws without --model_path at --seed 0
+    (DiT seed 0, VAE seed 1), its VAE and scheduler, a one-block T5 at XXL's
+    width as ``text_encoder/`` and a word-level ``tokenizer/``."""
+    import dataclasses
+
+    from tokenizers import Tokenizer, models, pre_tokenizers, processors
+
+    from dove_tpu_torch import cogvideox1_5_5b, init_dit_params, init_vae_params
+    from dove_tpu_torch import safetensors_io
+    from dove_tpu_torch.models.t5 import hf_state_dict, init_t5, t5_xxl
+
+    cfg = cogvideox1_5_5b()
+    cfg = dataclasses.replace(cfg, dit=dataclasses.replace(cfg.dit, num_layers=2))
+    for sub, name, conf in (("transformer", "config.json", cfg.dit),
+                            ("vae", "config.json", cfg.vae),
+                            ("scheduler", "scheduler_config.json", cfg.scheduler)):
+        (root / sub).mkdir(parents=True)
+        (root / sub / name).write_text(json.dumps(dataclasses.asdict(conf)))
+    for sub, module in (("transformer", init_dit_params(cfg.dit, seed=0, device="cuda",
+                                                        dtype=torch.bfloat16)),
+                        ("vae", init_vae_params(cfg.vae, seed=1, device="cuda",
+                                                dtype=torch.bfloat16))):
+        safetensors_io.save_file({k: v.cpu() for k, v in module.state_dict().items()},
+                                 root / sub / "diffusion_pytorch_model.safetensors")
+        del module
+    vocab = {"<pad>": 0, "</s>": 1, "<unk>": 2}
+    vocab.update({w: i + 3 for i, w in enumerate(PROMPT_WORDS)})
+    t5_cfg = dataclasses.replace(t5_xxl(), num_layers=1, vocab_size=len(vocab))
+    (root / "text_encoder").mkdir()
+    t5 = init_t5(t5_cfg, seed=32, dtype=torch.bfloat16, device="cuda")
+    safetensors_io.save_file({k: v.cpu() for k, v in hf_state_dict(t5).items()},
+                             root / "text_encoder" / "model.safetensors")
+    (root / "text_encoder" / "config.json").write_text(json.dumps(dataclasses.asdict(t5_cfg)))
+    del t5
+    tok = Tokenizer(models.WordLevel(vocab, unk_token="<unk>"))
+    tok.pre_tokenizer = pre_tokenizers.Whitespace()
+    tok.post_processor = processors.TemplateProcessing(single="$A </s>",
+                                                       special_tokens=[("</s>", 1)])
+    (root / "tokenizer").mkdir()
+    tok.save(str(root / "tokenizer" / "tokenizer.json"))
+    (root / "tokenizer" / "tokenizer_config.json").write_text(json.dumps(
+        {"tokenizer_class": "PreTrainedTokenizerFast", "pad_token": "<pad>",
+         "eos_token": "</s>", "unk_token": "<unk>", "model_max_length": 512}))
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.dit.num_layers, t5=dataclasses.asdict(t5_cfg))
+
+
+def phase_prompt_cli() -> dict:
+    """Phase 32: a non-empty prompt through ``python -m
+    dove_tpu_torch.inference``: phase 24's two mp4 clips at 2 layers
+    (--is_vae_st --png_save) from a model folder with phase 24's seeded
+    weights, a T5 ``text_encoder/`` and its tokenizer; clip0 has a prompt,
+    clip1 none. Against phase 24's PNG run (the same weights and flags, the
+    empty prompt): clip0's frames differ, clip1's are equal (the default
+    embedding came back). Needs phase 24's outputs; fails loudly where
+    tokenizers or transformers does not import."""
+    import shutil
+    from pathlib import Path
+
+    from dove_tpu_torch.inference import main as cli_main
+    from dove_tpu_torch.io import video as video_io
+    from dove_tpu_torch.ops import flash_attention as fa
+
+    root = Path(VIDEO_DIR)
+    if not (root / "png").is_dir():
+        raise AssertionError(f"phase 32 needs phase 24's outputs under {root}")
+    t0 = time.perf_counter()
+    model = _write_prompt_model(root / "model")
+    write_s = time.perf_counter() - t0
+    (root / "prompts.json").write_text(json.dumps({"clip0": PROMPT}))
+    argv = ["--input_dir", str(root / "in"), "--output_path", str(root / "prompt"),
+            "--model_path", str(root / "model"), "--is_vae_st", "--png_save", "--seed", "0",
+            "--input_json", str(root / "prompts.json")]
+    fa.launches.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cli_main(argv)
+    torch.cuda.synchronize()
+    run = dict(wall_s=time.perf_counter() - t0, k1=fa.launches.count)
+    frames = {(k, c): np.round(video_io.read_image_folder(root / k / c) * 255).astype(np.uint8)
+              for k in ("prompt", "png") for c in ("clip0", "clip1")}
+    res = dict(write_s=write_s, run=run,
+               clip0_db=psnr_u8(frames["prompt", "clip0"], frames["png", "clip0"]),
+               clip0_differs=bool(np.any(frames["prompt", "clip0"] != frames["png", "clip0"])),
+               clip1_equal=bool(np.array_equal(frames["prompt", "clip1"],
+                                               frames["png", "clip1"])))
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"phase 32 prompt through the CLI (2 layers, T5 text_encoder of 1 block at "
+        f"d_model {model['t5']['d_model']}, written in {write_s:.1f}s): {PROMPT!r} on "
+        f"clip0, none on clip1: {json.dumps(rounded(run, 3))}; against phase 24's "
+        f"empty-prompt run: clip0 {res['clip0_db']:.2f} dB (differs: "
+        f"{res['clip0_differs']}), clip1 equal: {res['clip1_equal']}")
+    want_k1 = model["layers"] * len(VIDEO_CLIPS)
+    if not (res["clip0_differs"] and res["clip1_equal"]) or run["k1"] != want_k1:
+        raise AssertionError(f"phase 32: {res}, want K1 {want_k1}")
+    return res
+
+
+def phase_flow_fusion() -> dict:
+    """Phase 33: raft_bi_clip (seeded raft-things weights at full channels,
+    20 iterations) on the main path's 32-frame 180x320 LQ clip (180 is no
+    multiple of 8: resized to 184 and the flows back; windows of 25 frames
+    sharing one); then on a latent-sized [1, 9, 90, 160, 16] tensor with the
+    first 8 flows: optical_flow_feature, fusion_module_forward at init (the
+    identity, exactly) and the learnable propagation_forward (mid_channels
+    256, 16 deform groups). Times and peak memory."""
+    from dove_tpu_torch.models import flow_fusion as ffm
+    from dove_tpu_torch.models.raft import convert_raft
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(s=time.perf_counter() - t0,
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+    gen = torch.Generator().manual_seed(33)
+    weights = convert_raft({k: v.numpy() for k, v in _raft_things_sd(gen).items()}, "cuda")
+    clip = torch.from_numpy(np.random.default_rng(4).uniform(
+        0, 1, (CLIP_FRAMES, CLIP_H, CLIP_W, 3)).astype(np.float32)).cuda()[None]
+    with torch.no_grad():
+        (fwd, bwd), raft = timed(lambda: ffm.raft_bi_clip(weights, clip))
+        want = (1, CLIP_FRAMES - 1, CLIP_H, CLIP_W, 2)
+        raft.update(shape=list(fwd.shape), max_px=float(torch.stack([fwd, bwd]).abs().max()))
+        gen_c = torch.Generator(device="cuda").manual_seed(33)
+        x = torch.randn((1, 9, 90, 160, 16), generator=gen_c, device="cuda")
+        ff8, fb8 = fwd[:, :8].contiguous(), bwd[:, :8].contiguous()
+        (back, forw), feature = timed(lambda: ffm.optical_flow_feature(x, ff8, fb8))
+        fusion_p = ffm.init_fusion_module_params(16, seed=33, device="cuda")
+        fused, fusion = timed(lambda: ffm.fusion_module_forward(fusion_p, x, back, forw))
+        prop_p = ffm.init_propagation_params(16, seed=34, device="cuda")
+        prop, propagation = timed(lambda: ffm.propagation_forward(prop_p, x, ff8, fb8))
+    res = dict(raft=raft, feature=feature, fusion=fusion, propagation=propagation,
+               fusion_identity=bool(torch.equal(fused, x)),
+               finite=all(bool(torch.isfinite(t).all()) for t in (fwd, bwd, back, forw, prop)),
+               prop_shape=list(prop.shape))
+    del weights, clip, fwd, bwd, x, back, forw, fused, prop
+    torch.cuda.empty_cache()
+    log(f"phase 33 RAFT and flow fusion: raft_bi_clip on the {CLIP_FRAMES}x{CLIP_H}x{CLIP_W} "
+        f"clip (20 iterations) {json.dumps(rounded(raft, 3))}; on [1, 9, 90, 160, 16]: "
+        f"optical_flow_feature {json.dumps(rounded(feature, 3))}, fusion_module_forward "
+        f"{json.dumps(rounded(fusion, 3))} (identity at init: {res['fusion_identity']}), "
+        f"learnable propagation_forward (mid 256, 16 groups) "
+        f"{json.dumps(rounded(propagation, 3))}; finite: {res['finite']}")
+    if (raft["shape"] != list(want) or not res["finite"] or not res["fusion_identity"]
+            or res["prop_shape"] != [1, 9, 90, 160, 16]):
+        raise AssertionError(f"phase 33: {res}")
+    return res
+
+
+def _c7_args(layout: str | None, world: int, opt: str = "adamw"):
+    """Phase 30(c)'s step (batch 1 of train_s1.sh's clip) under SFT, without
+    warmup, over ``layout`` ("tensor_parallel" or "fsdp") or on one device."""
+    import dataclasses
+
+    kw = {layout: world} if layout else {}
+    return dataclasses.replace(
+        _train_args(f"{PARALLEL_DIR}/c7_{layout or 'one'}"), training_type="sft",
+        batch_size=1, lr_warmup_steps=0, optimizer=opt, learning_rate=C7_LR.get(opt, 1e-3),
+        **kw)
+
+
+def _c7_config():
+    import dataclasses
+
+    from dove_tpu_torch import cogvideox1_5_5b
+
+    base = cogvideox1_5_5b()
+    return dataclasses.replace(base, dit=dataclasses.replace(base.dit,
+                                                             num_layers=TP_STEP_LAYERS))
+
+
+def _c7_reference() -> dict:
+    """The one-process SFT step's loss and gradients, written for rank 0."""
+    from dove_tpu_torch.train.trainer import DOVES1Trainer
+
+    tr = DOVES1Trainer(_c7_args(None, 1), pipeline_config=_c7_config(), device="cuda")
+    tr.load_components()
+    loss, _, grads = tr.loss_and_grads(tr.device_batch(train_batch(seed=34, batch=1)))
+    _save_ref({"loss": float(loss), "grads": [g.cpu() for g in grads]},
+              f"{PARALLEL_DIR}/c7_ref.pt")
+    del tr, grads
+    torch.cuda.empty_cache()
+    return dict(loss=float(loss))
+
+
+def _ulp_bf16(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each |x| (the smallest normal's where x is 0)."""
+    e = torch.floor(torch.log2(x.float().abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def _c7_body(rank: int, world: int) -> dict:
+    """Phase 34 on one rank: per layout, the SFT step's forward and backward
+    once (K1-lse, K3a, K3b on this rank's heads or the whole batch), the
+    gradients gathered whole; then each optimizer of C7_OPTS from the same
+    weights: C7_STEPS sharded steps on those gradients (train/optim.py with
+    the trainer's splits), the updated weights and the state gathered
+    whole. Rank 0 holds the loss and
+    gradients to the one-process step, and the sharded step to one device's
+    optimizer applied to the gathered gradient."""
+    from dove_tpu_torch.train.optim import make_lr_schedule, make_optimizer
+    from dove_tpu_torch.train.trainer import DOVES1Trainer, _local
+
+    ref = None
+    res = {}
+    for layout in C7_LAYOUTS:
+        tr = DOVES1Trainer(_c7_args(layout, world), pipeline_config=_c7_config(),
+                           device=f"cuda:{torch.cuda.current_device()}")
+        tr.load_components()
+        log(f"  rank {rank} {layout}: components loaded")
+        names = [n for n, _ in tr.dit.named_parameters()]
+        splits = tr.trainable_splits()
+        start = [_local(p).detach().clone() for p in tr.trainable_tensors()]
+        w0 = {k: v.clone() for k, v in tr._trainable_state().items()}
+        counters = _k3_counters()
+        for c in counters.values():
+            c.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _, grads = tr.loss_and_grads(tr.device_batch(train_batch(seed=34, batch=1)))
+        torch.cuda.synchronize()
+        log(f"  rank {rank} {layout}: loss and gradients")
+        row = dict(loss=float(loss), fwd_bwd_s=time.perf_counter() - t0,
+                   launches={n: c.count for n, c in counters.items()},
+                   split=sum(sp is not None for sp in splits), tensors=len(splits))
+        whole = [g if sp is None else sp.gather(g) for g, sp in zip(grads, splits)]
+        if rank == 0:
+            ref = ref or _load_ref(f"{PARALLEL_DIR}/c7_ref.pt")
+            row["ref_loss"] = ref["loss"]
+            refs = [r.to(g.device).float() for g, r in zip(whole, ref["grads"])]
+            diff = sum(float((g.float() - r).square().sum()) for g, r in zip(whole, refs))
+            row["grad_rel_rms"] = math.sqrt(diff / sum(float(r.square().sum()) for r in refs))
+            row["grad_worst_tensor_rel_rms"] = max(
+                _rel_rms(g, r) for g, r in zip(whole, refs) if bool(r.any()))
+            del refs
+        row["opts"] = {}
+        for opt in C7_OPTS:
+            with torch.no_grad():
+                for p, x in zip(tr.trainable_tensors(), start):
+                    _local(p).copy_(x)
+            tr.optimizer = None
+            torch.cuda.empty_cache()
+            tr.args.optimizer, tr.args.learning_rate = opt, C7_LR[opt]
+            tr.prepare_optimizer(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(C7_STEPS):
+                gnorm = tr.optimizer.step([_local(p) for p in tr.trainable_tensors()], grads)
+            torch.cuda.synchronize()
+            step_s = (time.perf_counter() - t0) / C7_STEPS
+            log(f"  rank {rank} {layout} {opt}: stepped in {step_s:.2f}s")
+            w1 = tr._trainable_state()
+            state = tr.optimizer.map_shards(tr.optimizer.state_dict(),
+                                            lambda sp, t: sp.gather(t))
+            if rank != 0:
+                continue
+            args = tr.args
+            lr = make_lr_schedule(args.learning_rate, warmup_steps=0, total_steps=1,
+                                  kind=args.lr_scheduler)
+            one = make_optimizer(opt, lr, betas=(args.beta1, args.beta2), beta3=args.beta3,
+                                 eps=args.epsilon, weight_decay=args.weight_decay,
+                                 max_grad_norm=args.max_grad_norm)
+            params = [w0[n].clone() for n in names]
+            one.init(params)
+            for _ in range(C7_STEPS):
+                one_norm = one.step(params, whole)
+            off, worst_ulps, moved = 0, 0.0, 0
+            for n, p in zip(names, params):
+                d = (w1[n].float() - p.float()).abs()
+                off += int((d > 0).sum())
+                worst_ulps = max(worst_ulps, float((d / _ulp_bf16(p)).max()))
+                moved += int((p != w0[n]).sum())
+            n_el = sum(p.numel() for p in params)
+            state_rel, code_off, codes = 0.0, 0, 0
+            for key, want in one.state_dict().items():
+                got = state[key]
+                for a, b in zip(got if isinstance(got, list) else [got],
+                                want if isinstance(want, list) else [want]):
+                    if not isinstance(b, torch.Tensor):
+                        continue
+                    if b.dtype in (torch.uint8, torch.int8):
+                        code_off += int((a != b).sum())
+                        codes += b.numel()
+                    elif b.numel():
+                        scale = float(b.float().abs().max()) or 1.0
+                        state_rel = max(state_rel,
+                                        float((a.float() - b.float()).abs().max()) / scale)
+            row["opts"][opt] = dict(
+                step_s=step_s, grad_norm=float(gnorm), one_grad_norm=float(one_norm),
+                weights_off_share=off / n_el, worst_ulps=worst_ulps, moved_share=moved / n_el,
+                state_rel=state_rel, codes_off_share=code_off / codes if codes else 0.0,
+                state_gib=tr.optimizer.state_bytes() / 2**30)
+        res[layout] = row
+        tr.optimizer = None
+        del tr, grads, whole, start, w0
+        torch.cuda.empty_cache()
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return res
+
+
+def phase_c7() -> dict:
+    """Phase 34 (ROADMAP C.7): two gloo ranks sharing the card, the SFT
+    stage-1 step at full width and TP_STEP_LAYERS layers (phase 30(c)'s
+    setting, batch 1) under tensor_parallel=2 and under fsdp=2, with CAME,
+    Prodigy, 8-bit and 4-bit AdamW: the loss within 1e-2 and the gradient
+    within 5e-2 RMS of the one-process step's (phase 30(c)'s bars); two
+    sharded optimizer steps on it held to one device's optimizer on the
+    gathered gradient (C7_* bars); K1-lse, K3a and K3b launched per rank as one
+    process launches them."""
+    import os
+
+    os.makedirs(PARALLEL_DIR, exist_ok=True)
+    if os.path.exists(f"{PARALLEL_DIR}/c7_ref.pt"):
+        os.remove(f"{PARALLEL_DIR}/c7_ref.pt")
+    t0 = time.perf_counter()
+    started = _start_ranks("c7", "gloo", 2)  # they start while the reference runs
+    ref = _c7_reference()
+    ranks = _collect_ranks(started, 900)
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    layers = TP_STEP_LAYERS
+    want = {"k1": 0, "k1_lse": 2 * layers, "k2": 0, "k3a": layers, "k3b": layers}
+    log(f"phase 34 C.7: SFT step at {layers} layers, full width, two gloo ranks on the "
+        f"card ({wall:.1f}s with the one-process step; loss {ref['loss']:.6f}): "
+        + json.dumps(rounded({k: v for k, v in r0.items()}, 6)))
+    for r, res in enumerate(ranks):
+        for layout in C7_LAYOUTS:
+            if res[layout]["launches"] != want:
+                raise AssertionError(f"phase 34 rank {r} {layout}: launches "
+                                     f"{res[layout]['launches']}, want {want}")
+    for layout in C7_LAYOUTS:
+        row = r0[layout]
+        loss_rel = abs(row["loss"] - row["ref_loss"]) / abs(row["ref_loss"])
+        if not loss_rel <= TRAIN_LOSS_REL_TOL or not row["grad_rel_rms"] <= TRAIN_GRAD_REL_RMS_TOL:
+            raise AssertionError(f"phase 34 {layout}: loss rel {loss_rel}, worst gradient "
+                                 f"rel rms {row['grad_rel_rms']}")
+        for opt, o in row["opts"].items():
+            if (o["worst_ulps"] > 1.0 or o["weights_off_share"] > C7_DIFF_SHARE
+                    or o["state_rel"] > C7_STATE_REL or o["codes_off_share"] > C7_DIFF_SHARE):
+                raise AssertionError(f"phase 34 {layout} {opt}: {o}")
+    return dict(ranks=ranks, ref=ref, wall_s=wall)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -5683,7 +6225,11 @@ def main(argv: list[str] | None = None) -> int:
                 ({28}, lambda: phase_2b_serving(phase_main_path()["out"])),
                 ({29}, phase_fp16_training),
                 ({30}, lambda: phase_parallel(phase_main_path()["out"],
-                                              phase_train_recipe()["steps"][0]))):
+                                              phase_train_recipe()["steps"][0])),
+                ({31}, phase_t5_xxl),
+                ({32}, lambda: (phase_video_files(), phase_prompt_cli())),
+                ({33}, phase_flow_fusion),
+                ({34}, phase_c7)):
             if numbers & chosen:
                 t0 = time.perf_counter()
                 run()
@@ -5691,38 +6237,48 @@ def main(argv: list[str] | None = None) -> int:
         log(f"partial run of phases {sorted(chosen)} on {card}: no result line")
         log(f"all chosen phases took {time.perf_counter() - t_start:.1f}s")
         return 0
-    k1 = phase_k1(seq, heads)
-    phase_kernel_vs_plain_pipeline()
-    main_path = phase_main_path(args.profile)
-    k2 = phase_k2(seq, heads)
-    phase_k2_pipeline()
-    int8_main, streamed = phase_int8_paths(args.profile)
-    k3 = phase_k3(heads, seq_s2)
-    phase_train_kernel_vs_plain()
-    train = phase_train_recipe(args.profile)
-    k4, k5, quantizer = phase_conv_kernels()
-    phase_k4_pipeline()
-    dit_dec = phase_int8_dit_dec(args.profile)
-    hand = phase_hand_conv()
-    phase_s2_kernel_vs_plain()
-    s2 = phase_s2_recipe(args.profile)
-    fused_2l = phase_fused_kernel_vs_plain()
-    fused, _ = phases_fused_and_scoring()
-    data = phase_data_pipeline()
-    fit = phase_train_entry_point(data)
-    t_new = time.perf_counter()
-    video = phase_video_files()
-    drift = phase_int8_drift(card)
-    opt = phase_optimizers(data)
-    log(f"phases 24-26 took {time.perf_counter() - t_new:.1f}s")
-    t_new = time.perf_counter()
-    fp16 = phase_fp16_kernels(seq, heads, *shapes_2b)
+    phase_s = {}
+
+    def timed(label: str, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        phase_s[label] = round(time.perf_counter() - t0, 1)
+        log(f"  (phase {label} took {phase_s[label]}s)")
+        return out
+
+    k1 = timed("2", phase_k1, seq, heads)
+    timed("3", phase_kernel_vs_plain_pipeline)
+    main_path = timed("4", phase_main_path, args.profile)
+    k2 = timed("5", phase_k2, seq, heads)
+    timed("6", phase_k2_pipeline)
+    int8_main, streamed = timed("7-8", phase_int8_paths, args.profile)
+    k3 = timed("9", phase_k3, heads, seq_s2)
+    timed("10", phase_train_kernel_vs_plain)
+    train = timed("11", phase_train_recipe, args.profile)
+    k4, k5, quantizer = timed("12", phase_conv_kernels)
+    timed("13", phase_k4_pipeline)
+    dit_dec = timed("14", phase_int8_dit_dec, args.profile)
+    hand = timed("15", phase_hand_conv)
+    timed("16", phase_s2_kernel_vs_plain)
+    s2 = timed("17", phase_s2_recipe, args.profile)
+    fused_2l = timed("18", phase_fused_kernel_vs_plain)
+    fused, _ = timed("19-21", phases_fused_and_scoring)
+    data = timed("22", phase_data_pipeline)
+    fit = timed("23", phase_train_entry_point, data)
+    video = timed("24", phase_video_files)
+    drift = timed("25", phase_int8_drift, card)
+    opt = timed("26", phase_optimizers, data)
+    fp16 = timed("27", phase_fp16_kernels, seq, heads, *shapes_2b)
     main_out = main_path.pop("out")
-    serving_2b = phase_2b_serving(main_out)
-    training_2b = phase_fp16_training()
-    log(f"phases 27-29 took {time.perf_counter() - t_new:.1f}s")
-    parallel = phase_parallel(main_out, train["steps"][0])
+    serving_2b = timed("28", phase_2b_serving, main_out)
+    training_2b = timed("29", phase_fp16_training)
+    parallel = timed("30", phase_parallel, main_out, train["steps"][0])
     del main_out
+    timed("31", phase_t5_xxl)
+    timed("32", phase_prompt_cli)
+    timed("33", phase_flow_fusion)
+    c7 = timed("34", phase_c7)
+    log(f"seconds by phase: {json.dumps(phase_s)}")
     log(f"all phases took {time.perf_counter() - t_start:.1f}s")
 
     kernels = [{
@@ -5794,6 +6350,8 @@ def main(argv: list[str] | None = None) -> int:
         "tp2_launches_per_rank": _tp_rows(parallel, "bf16", "launches"),
         "tp2_shape": _tp_rows(parallel, "bf16", "shape"),
         "tp2_lse_launches_per_rank": _tp_step(parallel, "k1_lse"),
+        # phase 34: the SFT step under tensor_parallel=2 and fsdp=2, per rank
+        "c7_lse_launches_per_rank": _c7_launches(c7, "k1_lse"),
     }, {
         "name": "flash_fwd_qk8",
         "route": "cuda",
@@ -5857,6 +6415,7 @@ def main(argv: list[str] | None = None) -> int:
                                       for n, r in opt["optimizers"].items()},
             "mesh_ws1_launches": parallel["step"]["launches"][key],
             "tp2_launches_per_rank": _tp_step(parallel, key),
+            "c7_launches_per_rank": _c7_launches(c7, key),
         })
     conv_source = "dove_tpu_torch/csrc/conv3d_taps_sm90.cu"
     kernels.append({

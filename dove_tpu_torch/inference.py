@@ -31,8 +31,14 @@ Several devices: one process per device, every one with the same flags
 ``--data_parallel`` spreads chunks, spatial windows or tile batches over the
 "data" ranks; ``--tensor_parallel`` splits the DiT over "model" and serves
 the staged path only (``--is_vae_st``), as in the JAX package; rank 0 writes
-the outputs and the metrics. Not ported yet, refused with the ROADMAP item:
-non-empty prompts through a T5 text encoder (A.13).
+the outputs and the metrics.
+
+Prompts: ``--input_json`` maps a clip's name (or stem) to a prompt. Where
+one is non-empty and ``--model_path`` has a ``text_encoder/``, the clip is
+served with that prompt's T5 embedding (``models/t5.py``, bf16, cast to the
+pipeline's dtype; every rank of a mesh encodes it) and the default
+embedding comes back for the next clip; without a text encoder the prompt
+is ignored with a warning, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -267,16 +273,19 @@ def main(argv=None) -> None:
     out_dir = Path(args.output_path)
     out_dir.mkdir(parents=True, exist_ok=True)
 
+    pipe = load_pipeline(args)
     prompt_map = {}
+    prompt_encoder = None
     if args.input_json:
         prompt_map = json.loads(Path(args.input_json).read_text())
         if any(prompt_map.values()) and args.model_path and (
                 Path(args.model_path) / "text_encoder").exists():
-            raise NotImplementedError(
-                "non-empty prompts need the T5 text encoder, which is not "
-                "ported yet (ROADMAP A.13)")
+            from dove_tpu_torch.models.t5 import PromptEncoder
 
-    pipe = load_pipeline(args)
+            # every rank of a mesh encodes the same prompt itself
+            prompt_encoder = PromptEncoder(
+                args.model_path, max_length=pipe.config.dit.max_text_seq_length,
+                device=pipe.device)
     if mesh is not None and mesh.shape["model"] > 1:
         from dove_tpu_torch.parallel.tp import shard_dit_tp
 
@@ -293,10 +302,18 @@ def main(argv=None) -> None:
 
     save_pool = ThreadPoolExecutor(max_workers=1)
     save_futures = []
+    default_prompt_embedding = pipe.prompt_embedding
     for vpath in videos:
-        if prompt_map.get(vpath.name, prompt_map.get(vpath.stem, "")):
-            logging.warning("prompt for %s ignored (no text_encoder in "
-                            "--model_path)", vpath.name)
+        prompt = prompt_map.get(vpath.name, prompt_map.get(vpath.stem, ""))
+        if prompt and prompt_encoder is not None:
+            # T5 runs in bf16; the embedding takes the pipeline's dtype after
+            pipe.prompt_embedding = torch.from_numpy(prompt_encoder(prompt)).to(
+                pipe.device, pipe.dtype)
+        else:
+            if prompt:
+                logging.warning("prompt for %s ignored (no text_encoder in "
+                                "--model_path)", vpath.name)
+            pipe.prompt_embedding = default_prompt_embedding
         t0 = time.perf_counter()
         out = pipe.process_video_file(vpath, mesh=mesh, **process_kwargs(args))
         if not lead:  # rank 0 has the clip; it writes and scores

@@ -137,28 +137,6 @@ class Split:
         return shard_slice(full, self.dim, self.g.size, self.g.rank)
 
 
-def opt_state_tp_specs(state: Any, splits: list, shapes: list, fn) -> Any:
-    """``fn(split, tensor)`` over the optimizer-state tensors that mirror a
-    parameter (the JAX package's rule): entries of a list with one tensor
-    per parameter whose shape is that parameter's in ``shapes`` (the local
-    shapes to gather, the whole ones to cut). Everything else (counts,
-    factored statistics of another shape) passes as it is."""
-    n = len(splits)
-
-    def walk(x):
-        if isinstance(x, dict):
-            return {k: walk(v) for k, v in x.items()}
-        if (isinstance(x, list) and len(x) == n
-                and all(isinstance(t, torch.Tensor) for t in x)):
-            return [fn(sp, t) if sp is not None and tuple(t.shape) == tuple(sh) else t
-                    for sp, sh, t in zip(splits, shapes, x)]
-        if isinstance(x, list):
-            return [walk(v) for v in x]
-        return x
-
-    return walk(state)
-
-
 @torch.no_grad()
 def shard_dit_tp(dit: torch.nn.Module, g: Group) -> torch.nn.Module:
     """Keep this rank's TP shard of every split tensor of ``dit`` (in place;

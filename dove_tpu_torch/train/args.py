@@ -8,11 +8,9 @@ timestep range, the validation requirements. ``parse_args`` is the argparse
 bridge and ``dump_yaml`` writes ``args.yaml`` without PyYAML.
 
 The mesh options (``data_parallel``, ``fsdp``, ``tensor_parallel``,
-``multihost``) are the trainer's (``parallel/``). Once the JAX validators
-have passed, NotImplementedError names the ROADMAP item of what the port
-lacks: ``use_optical_flow`` (A.13), and the optimizers whose statistics span
-a whole tensor (CAME, Prodigy, the 8- and 4-bit AdamW) on a DiT that fsdp or
-tensor_parallel shards, which the port would take per shard (C.7).
+``multihost``) are the trainer's (``parallel/``), with every optimizer;
+``use_optical_flow`` loads the frozen RAFT from ``raft_weights``, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -29,10 +27,6 @@ MODEL_TYPES = ("real-sr", "real-sr-image-video")
 TRAINING_TYPES = ("lora", "sft")
 REPORT_TO = ("tensorboard", "jsonl", "wandb", "all")
 MIXED_PRECISION = ("no", "fp16", "bf16")
-# optimizers whose state holds statistics over a whole tensor (factored
-# means, weighted sums, blocks of codes), as the JAX package spells them
-SHARD_STATISTICS_OPTIMIZERS = ("came", "prodigy", "adamw-8bit", "adam-8bit",
-                               "adamw-4bit", "adam-4bit")
 
 _DEFAULT_OUTPUT_DIR = Path(
     "train_results/{:%Y-%m-%d-%H-%M-%S}".format(datetime.datetime.now())
@@ -160,7 +154,6 @@ class Args:
         self._check_resolution()
         self._check_frame_rule()
         self._check_validation()
-        self._check_ported()
 
     def _check_resolution(self) -> None:
         f, h, w = self.train_resolution
@@ -189,19 +182,6 @@ class Args:
         if self.tensor_parallel > 1 and self.fsdp > 1:
             raise ValueError(
                 "tensor_parallel and fsdp both shard over the 'model' mesh axis")
-
-    def _check_ported(self) -> None:
-        if self.use_optical_flow:
-            raise NotImplementedError(
-                "not ported yet: use_optical_flow (A.13) (ROADMAP queue A: flow "
-                "fusion is A.13)")
-        opt = self.optimizer.lower().replace("_", "-")
-        if (opt in SHARD_STATISTICS_OPTIMIZERS and self.training_type != "lora"
-                and max(self.fsdp, self.tensor_parallel) > 1):
-            raise NotImplementedError(
-                f"optimizer {self.optimizer} with training_type {self.training_type} "
-                "under fsdp or tensor_parallel: the port would take its statistics "
-                "over each rank's shard, not the whole tensor (ROADMAP C.7)")
 
     @classmethod
     def parse_args(cls, argv: list[str] | None = None) -> "Args":

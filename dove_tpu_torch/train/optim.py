@@ -34,6 +34,28 @@ own; under SFT the DiT's per-layer tensors in torch layout are):
 k micro-gradients, the inner chain (clip included) applied to the mean once
 every k calls. Each optimizer's ``state_dict`` holds tensors and ints only,
 so ``train/checkpointing.py`` saves and restores it exactly.
+
+Sharded parameters (``init(params, splits)``: a ``parallel.tp.Split`` for
+each tensor that FSDP or tensor parallelism cuts over the "model" group,
+None for one every rank holds whole) give one device's result, as GSPMD
+gives it to the JAX package:
+
+  * the global norm (``norm_fn``) sums the shards' squares over the group
+    and counts a whole tensor once;
+  * state that mirrors a parameter elementwise keeps its shard (Adam's
+    moments, CAME's ``m``, Prodigy's four tensors, the accumulator:
+    ``_shard_keys``);
+  * CAME's factored statistics and its RMS clip, and the 8- and 4-bit block
+    codes, are taken over the whole tensor: each split gradient is gathered
+    (an all-gather of one tensor at a time), the statistics and codes are
+    whole and replicated on every rank, and each rank applies its slice of
+    the step. CAME also gathers ``m`` for its instability statistic;
+  * Prodigy's two sums over every parameter add the shards' partial sums
+    over the group and count a whole tensor once.
+
+``map_shards`` applies a function to the mirrored state of the split
+tensors: the trainer gathers it into a checkpoint, which then holds the
+whole state and restores under any layout, and cuts it back.
 """
 
 from __future__ import annotations
@@ -143,9 +165,32 @@ def make_lr_schedule(
 
 
 
-def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in fp32 (optax.global_norm)."""
-    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+def _model_sum(terms: list[torch.Tensor], splits: list) -> torch.Tensor:
+    """The sum over the whole model of one term per tensor: a split tensor's
+    terms (each rank's part) are summed over its group, a whole tensor's (the
+    same on every rank) counted once."""
+    split = [sp for sp in splits if sp is not None]
+    if not split:
+        return sum(terms)
+    whole = sum((t for t, sp in zip(terms, splits) if sp is None), torch.zeros_like(terms[0]))
+    part = sum((t for t, sp in zip(terms, splits) if sp is not None),
+               torch.zeros_like(terms[0]))
+    torch.distributed.all_reduce(part, group=split[0].g.group)
+    return whole + part
+
+
+def _whole(t: torch.Tensor, sp) -> torch.Tensor:
+    """The whole tensor of which ``t`` is this rank's part."""
+    return t if sp is None else sp.gather(t)
+
+
+def _part(t: torch.Tensor, sp) -> torch.Tensor:
+    """This rank's part of the whole tensor ``t``."""
+    return t if sp is None else sp.take(t)
+
+
+def _whole_shape(p: torch.Tensor, sp) -> tuple:
+    return tuple(p.shape) if sp is None else tuple(sp.shape)
 
 
 def _bias_correction(beta: float, count: int) -> torch.Tensor:
@@ -163,18 +208,36 @@ class _Chain:
     ``_init`` and ``_update``."""
 
     _state_keys: tuple[str, ...] = ()
+    # the state lists whose tensors mirror their parameter elementwise (a
+    # split parameter's keep its shard)
+    _shard_keys: tuple[str, ...] = ()
 
     def __init__(self, lr_schedule: Schedule, max_grad_norm: float | None = None):
         self.lr_schedule = lr_schedule
         self.max_grad_norm = max_grad_norm
         self.count = 0
-        # the global norm of a gradient list; a trainer whose tensors are
-        # shards of the whole sets one that sums over its ranks
-        self.norm_fn = global_norm
+        self.splits: list = []
 
-    def init(self, params: list[torch.Tensor]) -> None:
+    def init(self, params: list[torch.Tensor], splits: list | None = None) -> None:
+        """The state of ``params``, this rank's tensors; ``splits`` gives
+        each one's ``Split`` over the "model" group, or None where it is
+        whole."""
         self.count = 0
+        self.splits = list(splits) if splits is not None else [None] * len(params)
         self._init(params)
+
+    def norm_fn(self, grads: list[torch.Tensor]) -> torch.Tensor:
+        """The gradients' global norm over the whole model (optax.global_norm:
+        the sqrt of the sum of squares, in fp32)."""
+        return torch.sqrt(_model_sum([g.float().square().sum() for g in grads], self.splits))
+
+    def map_shards(self, state: dict, fn) -> dict:
+        """``state`` (a ``state_dict``) with ``fn(split, tensor)`` applied
+        to the mirrored tensors of the split parameters."""
+        out = dict(state)
+        for k in self._shard_keys:
+            out[k] = [t if sp is None else fn(sp, t) for sp, t in zip(self.splits, state[k])]
+        return out
 
     def _init(self, params: list[torch.Tensor]) -> None:
         raise NotImplementedError
@@ -232,6 +295,7 @@ class Adam(_Chain):
     state is the update count and the two moments."""
 
     _state_keys = ("mu", "nu")
+    _shard_keys = ("mu", "nu")
 
     def __init__(self, lr_schedule: Schedule, b1: float, b2: float, eps: float,
                  weight_decay: float = 0.0, max_grad_norm: float | None = None):
@@ -278,9 +342,10 @@ class Came(_Chain):
     RMS-clipped and folded into the fp32 first moment ``m``, which the
     factored confidence then rescales. Vectors keep an unfactored second
     moment and take ``m`` as the step. The state keeps the JAX package's
-    shapes."""
+    shapes, the whole tensor's for the statistics of a split parameter."""
 
     _state_keys = ("m", "vr", "vc", "ur", "uc")
+    _shard_keys = ("m",)
 
     def __init__(self, lr_schedule: Schedule, b1: float = 0.9, b2: float = 0.999,
                  b3: float = 0.9999, eps1: float = 1e-30, eps2: float = 1e-16,
@@ -296,13 +361,14 @@ class Came(_Chain):
         def f32(shape, p):
             return torch.zeros(shape, dtype=torch.float32, device=p.device)
 
+        shapes = [_whole_shape(p, sp) for p, sp in zip(params, self.splits)]
         self.m = [f32(p.shape, p) for p in params]
-        self.vr = [f32(p.shape[:-1] if p.ndim >= 2 else p.shape, p) for p in params]
-        self.vc = [f32(p.shape[:-2] + p.shape[-1:] if p.ndim >= 2 else (), p)
-                   for p in params]
-        self.ur = [f32(p.shape[:-1] if p.ndim >= 2 else p.shape, p) for p in params]
-        self.uc = [f32(p.shape[:-2] + p.shape[-1:] if p.ndim >= 2 else (), p)
-                   for p in params]
+        self.vr = [f32(s[:-1] if len(s) >= 2 else s, p) for s, p in zip(shapes, params)]
+        self.vc = [f32(s[:-2] + s[-1:] if len(s) >= 2 else (), p)
+                   for s, p in zip(shapes, params)]
+        self.ur = [f32(s[:-1] if len(s) >= 2 else s, p) for s, p in zip(shapes, params)]
+        self.uc = [f32(s[:-2] + s[-1:] if len(s) >= 2 else (), p)
+                   for s, p in zip(shapes, params)]
 
     @staticmethod
     def _rsqrt_approx(r: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -315,7 +381,10 @@ class Came(_Chain):
     def _update(self, params, grads, lr: float) -> None:
         b1, b2, b3 = self.b1, self.b2, self.b3
         for i, (p, g_in) in enumerate(zip(params, grads)):
-            g = g_in.float()
+            # g and u whole (gathered where the parameter is split), m this
+            # rank's part
+            sp = self.splits[i]
+            g = _whole(g_in.float(), sp)
             vr, vc, m = self.vr[i], self.vc[i], self.m[i]
             g2 = g * g + self.eps1
             if g.ndim >= 2:
@@ -327,13 +396,13 @@ class Came(_Chain):
                 u = g * torch.rsqrt(vr)
             rms = torch.sqrt((u * u).mean() + 1e-38)
             u = u / torch.clamp_min(rms / self.clip_threshold, 1.0)
-            m.copy_(b1 * m + (1 - b1) * u)
+            m.copy_(b1 * m + (1 - b1) * _part(u, sp))
             if g.ndim >= 2:
-                inst = (u - m) ** 2 + self.eps2
+                inst = (u - _whole(m, sp)) ** 2 + self.eps2
                 ur, uc = self.ur[i], self.uc[i]
                 ur.copy_(b3 * ur + (1 - b3) * inst.mean(dim=-1))
                 uc.copy_(b3 * uc + (1 - b3) * inst.mean(dim=-2))
-                step = m * self._rsqrt_approx(ur, uc)
+                step = m * _part(self._rsqrt_approx(ur, uc), sp)
             else:
                 step = m
             _apply(p, g_in, step, lr, self.weight_decay)
@@ -353,8 +422,8 @@ class _BlockCodes:
         pad = (-flat.numel()) % self.block_size
         return torch.nn.functional.pad(flat, (0, pad)).reshape(-1, self.block_size)
 
-    def n_blocks(self, p: torch.Tensor) -> int:
-        return -(-max(p.numel(), 1) // self.block_size)
+    def n_blocks(self, numel: int) -> int:
+        return -(-max(numel, 1) // self.block_size)
 
     @staticmethod
     def values(vals: torch.Tensor, scale: torch.Tensor, shape) -> torch.Tensor:
@@ -367,7 +436,8 @@ class _LowBitAdamW(_Chain):
     update decodes m and sqrt(v), steps in fp32 as Adam does, and re-encodes
     m and sqrt(v) (storing sqrt(v) spends the code's range where rsqrt is
     sensitive). Subclasses give the code: ``_encode(x, signed)`` ->
-    (codes, scales) and ``_decode(codes, scales, shape, signed)``."""
+    (codes, scales) and ``_decode(codes, scales, shape, signed)``. The codes
+    of a split parameter are the whole tensor's."""
 
     _state_keys = ("m_q", "m_scale", "v_q", "v_scale")
 
@@ -379,34 +449,38 @@ class _LowBitAdamW(_Chain):
         self.weight_decay = weight_decay
         self.codes = _BlockCodes(block_size)
 
-    def _code_shape(self, p: torch.Tensor) -> tuple[int, int]:
-        return (self.codes.n_blocks(p), self.codes.block_size)
+    def _code_shape(self, numel: int) -> tuple[int, int]:
+        return (self.codes.n_blocks(numel), self.codes.block_size)
 
     def _init(self, params: list[torch.Tensor]) -> None:
-        def zeros(p, dtype):
-            return torch.zeros(self._code_shape(p), dtype=dtype, device=p.device)
+        numels = [math.prod(_whole_shape(p, sp)) for p, sp in zip(params, self.splits)]
 
-        def scales(p):
-            return torch.zeros(self.codes.n_blocks(p), dtype=torch.float32,
-                               device=p.device)
+        def zeros(n, p, dtype):
+            return torch.zeros(self._code_shape(n), dtype=dtype, device=p.device)
 
-        self.m_q = [zeros(p, self._m_dtype) for p in params]
-        self.v_q = [zeros(p, torch.uint8) for p in params]
-        self.m_scale = [scales(p) for p in params]
-        self.v_scale = [scales(p) for p in params]
+        def scales(n, p):
+            return torch.zeros(self.codes.n_blocks(n), dtype=torch.float32, device=p.device)
+
+        self.m_q = [zeros(n, p, self._m_dtype) for n, p in zip(numels, params)]
+        self.v_q = [zeros(n, p, torch.uint8) for n, p in zip(numels, params)]
+        self.m_scale = [scales(n, p) for n, p in zip(numels, params)]
+        self.v_scale = [scales(n, p) for n, p in zip(numels, params)]
 
     def _update(self, params, grads, lr: float) -> None:
         b1, b2 = self.b1, self.b2
         c1 = _bias_correction(b1, self.count)
         c2 = _bias_correction(b2, self.count)
         for i, (p, g) in enumerate(zip(params, grads)):
-            gf = g.float()
-            m = self._decode(self.m_q[i], self.m_scale[i], g.shape, True)
-            v_sqrt = self._decode(self.v_q[i], self.v_scale[i], g.shape, False)
+            # the whole gradient (gathered where the parameter is split):
+            # the codes are the whole tensor's, the step is this rank's part
+            sp = self.splits[i]
+            gf = _whole(g, sp).float()
+            m = self._decode(self.m_q[i], self.m_scale[i], gf.shape, True)
+            v_sqrt = self._decode(self.v_q[i], self.v_scale[i], gf.shape, False)
             v = v_sqrt * v_sqrt
             m = b1 * m + (1 - b1) * gf
             v = b2 * v + (1 - b2) * gf * gf
-            _apply(p, g, (m / c1) / (torch.sqrt(v / c2) + self.eps), lr,
+            _apply(p, g, _part((m / c1) / (torch.sqrt(v / c2) + self.eps), sp), lr,
                    self.weight_decay)
             for (q, s), dq, ds in ((self._encode(m, True), self.m_q[i], self.m_scale[i]),
                                    (self._encode(torch.sqrt(v), False),
@@ -473,8 +547,8 @@ class AdamW4bit(_LowBitAdamW):
         super().__init__(*args, block_size=block_size, **kw)
         self._books: dict = {}
 
-    def _code_shape(self, p: torch.Tensor) -> tuple[int, int]:
-        return (self.codes.n_blocks(p), self.codes.block_size // 2)
+    def _code_shape(self, numel: int) -> tuple[int, int]:
+        return (self.codes.n_blocks(numel), self.codes.block_size // 2)
 
     def _book(self, signed: bool, device) -> torch.Tensor:
         key = (signed, str(device))
@@ -505,6 +579,7 @@ class Prodigy(_Chain):
 
     _state_keys = ("exp_avg", "exp_avg_sq", "grad_sum", "params0", "estim_lr",
                    "numerator_weighted")
+    _shard_keys = ("exp_avg", "exp_avg_sq", "grad_sum", "params0")
 
     def __init__(self, lr_schedule: Schedule, betas: tuple[float, float] = (0.9, 0.999),
                  beta3: float | None = None, eps: float = 1e-8,
@@ -533,15 +608,17 @@ class Prodigy(_Chain):
         bc = (1 - torch.tensor(b2, dtype=torch.float32) ** self.count) ** 0.5 / (
             _bias_correction(b1, self.count))
         dlr = (d * lr * bc.to(d.device)).to(d.dtype)
-        numerator = sum(torch.vdot(g.reshape(-1).float(), (p0 - p).reshape(-1).float())
-                        for g, p0, p in zip(grads, self.params0, params))
-        denominator = 0.0
+        numerator = _model_sum(
+            [torch.vdot(g.reshape(-1).float(), (p0 - p).reshape(-1).float())
+             for g, p0, p in zip(grads, self.params0, params)], self.splits)
+        sums = []
         for g, ea, eas, gs in zip(grads, self.exp_avg, self.exp_avg_sq, self.grad_sum):
             dg = d * g
             ea.copy_(b1 * ea + (1 - b1) * dg)
             eas.copy_(b2 * eas + (1 - b2) * dg * dg)
             gs.copy_(b3 * gs + dlr * dg / self.estim_lr0)
-            denominator = denominator + gs.abs().sum()
+            sums.append(gs.abs().sum())
+        denominator = _model_sum(sums, self.splits)
         nw = b3 * self.numerator_weighted + (d / self.estim_lr0) * dlr * numerator
         self.numerator_weighted.copy_(nw)
         self.estim_lr = torch.maximum(d, self.estim_lr_coef * nw / denominator).to(d.dtype)
@@ -571,10 +648,20 @@ class MultiSteps:
     def count(self) -> int:
         return self.inner.count
 
-    def init(self, params: list[torch.Tensor]) -> None:
-        self.inner.init(params)
+    @property
+    def splits(self) -> list:
+        return self.inner.splits
+
+    def init(self, params: list[torch.Tensor], splits: list | None = None) -> None:
+        self.inner.init(params, splits)
         self.mini_step = self.gradient_step = 0
         self.acc = [torch.zeros_like(p) for p in params]
+
+    def map_shards(self, state: dict, fn) -> dict:
+        """As the inner optimizer's; the accumulator mirrors the parameters."""
+        return dict(state, acc=[t if sp is None else fn(sp, t)
+                                for sp, t in zip(self.splits, state["acc"])],
+                    inner=self.inner.map_shards(state["inner"], fn))
 
     @torch.no_grad()
     def step(self, params: list[torch.Tensor], grads: list[torch.Tensor]) -> torch.Tensor:

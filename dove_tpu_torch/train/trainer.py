@@ -32,11 +32,12 @@ per device, ``parallel/``), each "data" row loads its slice of every batch
 and the gradients are averaged over "data" (DDP); the logged loss is the
 global mean, the same on every rank. "model" carries FSDP (FSDP2's
 ``fully_shard`` on the DiT) or tensor parallelism (``shard_dit_tp``), and the
-optimizer steps on each rank's shards, its moments mirroring them (AdamW and
-Adam; ``Args`` refuses the optimizers whose statistics span a whole tensor
-there, ROADMAP C.7). A checkpoint holds the whole state, gathered and
-written by rank 0, so it restores under any layout; rank 0 writes the logs
-and the exports.
+optimizer steps on each rank's shards with one device's result: moments that
+mirror a parameter keep its shard, and the statistics that span a whole
+tensor (CAME's factored ones and RMS clip, Prodigy's sums, the 8- and 4-bit
+blocks) are taken over the whole tensor (``train/optim.py``). A checkpoint
+holds the whole state, gathered and written by rank 0, so it restores under
+any layout; rank 0 writes the logs and the exports.
 
 ``fit`` is the whole run: the components, the dataset and loader
 (``prepare_dataset``: ``data/``, the JAX package's datasets and
@@ -80,7 +81,7 @@ from dove_tpu_torch.models.vae import draw_part, encode_moments, init_vae_params
 from dove_tpu_torch.ops.scheduler import Schedule
 from dove_tpu_torch.parallel import distributed as dist_mod
 from dove_tpu_torch.parallel.mesh import make_mesh, shard_params
-from dove_tpu_torch.parallel.tp import Group, Split, opt_state_tp_specs, shard_dit_tp, tp_dim, validate_tp
+from dove_tpu_torch.parallel.tp import Group, Split, shard_dit_tp, tp_dim, validate_tp
 from dove_tpu_torch.pipeline import resolve_device
 from dove_tpu_torch.train import checkpointing as ckpt_mod
 from dove_tpu_torch.train import components as components_mod
@@ -189,6 +190,20 @@ class Trainer:
 
     def load_components(self) -> None:
         args, cfg = self.args, self.config
+        # the frozen bidirectional RAFT of --use_optical_flow (reference
+        # trainer.py:433-434: built, consumed by nothing in the released
+        # recipe; the flow toolkit is models/flow_fusion.py), checked before
+        # the DiT is built
+        self.raft = None
+        if args.use_optical_flow:
+            if not args.raft_weights or not Path(args.raft_weights).exists():
+                raise FileNotFoundError(
+                    "--use_optical_flow needs --raft_weights pointing at "
+                    "raft-things.pth (the reference hardcodes "
+                    "utils/RAFT/raft-things.pth and fails the same way)")
+            from dove_tpu_torch.models.raft import load_raft
+
+            self.raft = load_raft(args.raft_weights, self.device)
         model_dir = Path(args.model_path)
         if (model_dir / "transformer").exists():
             self.dit = weights.load_dit(model_dir, cfg.dit, self.dtype, self.device)
@@ -276,19 +291,17 @@ class Trainer:
 
     def _trainable_state(self) -> dict[str, Any]:
         """The LoRA tree, or the DiT's whole state dict (gathered from the
-        ranks' shards: a collective under FSDP or TP)."""
+        ranks' shards: a collective under FSDP or TP). FSDP's shards are
+        gathered as TP's are, through ``Split.gather``: DTensor's
+        ``full_tensor`` takes functional collectives, which crash over gloo
+        on CUDA tensors (torch 2.11; chip_smoke.py phase 34)."""
         if self.args.training_type == "lora":
             return {t: {ab: x.detach() for ab, x in d.items()}
                     for t, d in self.lora_params.items()}
         out = {}
         for k, v in self.dit.state_dict().items():
             sp = self._split(k, v)
-            if sp is None:
-                out[k] = v
-            elif hasattr(v, "full_tensor"):
-                out[k] = v.full_tensor()
-            else:
-                out[k] = sp.gather(v)
+            out[k] = v if sp is None else sp.gather(_local(v))
         return out
 
     def prepare_dataset(self) -> None:
@@ -363,24 +376,13 @@ class Trainer:
             eps=args.epsilon, weight_decay=args.weight_decay,
             max_grad_norm=args.max_grad_norm,
         )
-        splits = self.trainable_splits()
-        if any(splits):
-            # the global norm sums the shards' squares over "model"
-            g = self._model_group()
-
-            def norm_fn(grads):
-                whole = sum((x.float().square().sum() for x, sp in zip(grads, splits)
-                             if sp is None), torch.zeros((), device=self.device))
-                part = sum((x.float().square().sum() for x, sp in zip(grads, splits)
-                            if sp is not None), torch.zeros((), device=self.device))
-                torch.distributed.all_reduce(part, group=g.group)
-                return torch.sqrt(whole + part)
-
-            self.optimizer.norm_fn = norm_fn
         if args.gradient_accumulation_steps > 1:
             self.optimizer = MultiSteps(self.optimizer, args.gradient_accumulation_steps)
         with torch.no_grad():
-            self.optimizer.init([_local(p) for p in self.trainable_tensors()])
+            # under FSDP or TP the optimizer takes each split tensor's
+            # statistics over the whole tensor (train/optim.py)
+            self.optimizer.init([_local(p) for p in self.trainable_tensors()],
+                                self.trainable_splits())
 
     def dit_kwargs(self) -> dict[str, Any]:
         """The DiT's training forward: LoRA merged in, checkpointed blocks."""
@@ -568,7 +570,6 @@ class Trainer:
         # its shards where "model" splits a tensor (Split.take), then each
         # tensor is held to the live one's shape and copied into it
         raw = ckpt_mod.load_state(path)
-        splits = self.trainable_splits()
         if args.training_type == "lora":
             live = {t: {ab: x.detach() for ab, x in d.items()}
                     for t, d in self.lora_params.items()}
@@ -578,9 +579,8 @@ class Trainer:
             cut = {k: self._split(k, v) for k, v in state.items()}
             raw["trainable"] = {k: x if cut.get(k) is None else cut[k].take(x)
                                 for k, x in raw["trainable"].items()}
-        raw["opt_state"] = opt_state_tp_specs(
-            raw["opt_state"], splits, [sp and sp.shape for sp in splits],
-            lambda sp, t: sp.take(t))
+        raw["opt_state"] = self.optimizer.map_shards(raw["opt_state"],
+                                                     lambda sp, t: sp.take(t))
         restored = ckpt_mod.restore_state(
             raw, {"trainable": live, "opt_state": self.optimizer.state_dict()})
         with torch.no_grad():
@@ -685,12 +685,8 @@ class Trainer:
     def save(self, step: int) -> Path:
         """The whole state (gathered from the shards under a mesh), written
         by rank 0; every rank returns when the file is there."""
-        splits = self.trainable_splits()
-        opt_state = self.optimizer.state_dict()
-        if any(splits):
-            opt_state = opt_state_tp_specs(
-                opt_state, splits, [_local(p).shape for p in self.trainable_tensors()],
-                lambda sp, t: sp.gather(t))
+        opt_state = self.optimizer.map_shards(self.optimizer.state_dict(),
+                                              lambda sp, t: sp.gather(t))
         state = {"trainable": self._trainable_state(), "opt_state": opt_state}
         path = self.args.output_dir / f"{ckpt_mod.CHECKPOINT_PREFIX}{step}"
         if self.is_main:

@@ -17,7 +17,7 @@ the port's DiT then carries the same codes and scales in ``QLinear`` or
 with ``kernel_q``, ``kernel_scale`` and optionally ``kernel_ksum`` and
 ``equalize_inv``) likewise gives a VAE with the same codes in ``QConv3d``s.
 ``from_jax_lora`` carries the JAX package's LoRA tree across, ``from_jax_vgg``
-its VGG16 and perceptual heads, and
+its VGG16 and perceptual heads, ``from_jax_t5`` its T5 encoder, and
 ``fuse_lora_into_dit`` fuses a peft adapter (the trained LoRA's export) into
 a DiT so that the pipeline serves it.
 
@@ -309,6 +309,28 @@ def from_jax_vgg(
     heads_t = [[torch.tensor(np.asarray(v, np.float32), device=device) for v in head]
                for head in heads]
     return vgg_from_kernels(convs, device), heads_t
+
+
+def from_jax_t5(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The JAX package's T5 tree (``init_t5_params`` / ``convert_t5``'s,
+    NumPy leaves, [in, out] kernels) -> the state dict of the port's
+    ``models.t5.T5Encoder`` ([out, in] linears), dtypes as they are."""
+
+    def t(x, transpose=False):
+        x = np.asarray(x)
+        return torch.from_numpy(np.array(x.T if transpose else x))
+
+    out = {"embed": t(params["embed"]["weight"]),
+           "rel_emb": t(params["rel_emb"]["weight"]),
+           "final_ln": t(params["final_ln"]["weight"])}
+    for i, blk in enumerate(params["blocks"]):
+        out[f"blocks.{i}.ln0"] = t(blk["ln0"]["weight"])
+        out[f"blocks.{i}.ln1"] = t(blk["ln1"]["weight"])
+        for name in ("q", "k", "v", "o"):
+            out[f"blocks.{i}.{name}"] = t(blk["attn"][name]["kernel"], True)
+        for name in ("wi_0", "wi_1", "wo"):
+            out[f"blocks.{i}.{name}"] = t(blk["ffn"][name]["kernel"], True)
+    return out
 
 
 # ---------------------------------------------------------------------------

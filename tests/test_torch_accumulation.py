@@ -27,6 +27,7 @@ from dove_tpu_torch.train import checkpointing as tckpt
 from dove_tpu_torch.train import optim as toptim
 from dove_tpu_torch.train import tracking as ttracking
 from dove_tpu_torch.train.__main__ import main as train_main
+from torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 OPT_TOL = 1e-6  # fp32 against fp32, of the leaf's largest value
 SHAPES = [(3, 5), (4,), (2, 3, 2)]

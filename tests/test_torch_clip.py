@@ -29,6 +29,7 @@ from dove_tpu_torch import safetensors_io
 from dove_tpu_torch.eval import clip as tclip
 from dove_tpu_torch.eval import clip_tokenizer
 from test_clip import TINY
+from torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 FEATURE_TOL = 1e-5  # RMS-relative
 SCORE_ATOL = 1e-5

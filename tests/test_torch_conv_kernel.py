@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 import dove_tpu.ops.pallas.conv3d_int8 as conv_mod
 from dove_tpu_torch.ops import conv3d_int8 as tconv
+from torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 
 @pytest.fixture(autouse=True)

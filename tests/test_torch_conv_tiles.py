@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from dove_tpu_torch.ops import conv3d_int8 as tconv
+from torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 
 def _reference(x: torch.Tensor, w: torch.Tensor, kt: int) -> torch.Tensor:

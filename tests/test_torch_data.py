@@ -34,6 +34,7 @@ from dove_tpu_torch.data import degradation as tdeg
 from dove_tpu_torch.data import loader as tloader
 from dove_tpu_torch.data import yaml_lite
 from test_trainer import TINY_DEGRADATION, _write_clip
+from torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 CONFIGS = REPO / "configs"

@@ -21,6 +21,7 @@ from dove_tpu.models import dit as jdit
 from dove_tpu.models import vae as jvae
 from dove_tpu_torch import config as tcfg
 from dove_tpu_torch import weights as tweights
+from torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

@@ -44,6 +44,7 @@ from dove_tpu_torch.pipeline import DovePipeline
 from dove_tpu_torch.train import lora as tlora
 from dove_tpu_torch.train import losses as tlosses
 from test_torch_dit import PSNR_BAR_DB, golden_config, golden_fixture, psnr_db
+from torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

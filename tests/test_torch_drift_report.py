@@ -36,6 +36,7 @@ from dove_tpu_torch import config as tcfg
 from dove_tpu_torch import int8_drift_report as tdrift
 from dove_tpu_torch import weights as tweights
 from test_torch_dit import golden_config
+from torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 # one frame chunk in the encoder and the decoder: XLA's compile of the JAX

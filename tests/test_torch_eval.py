@@ -31,6 +31,7 @@ from dove_tpu_torch import safetensors_io
 from dove_tpu_torch.eval import color_fix as tcolor
 from dove_tpu_torch.eval import metrics as tmetrics
 from dove_tpu_torch.io import video as tvideo
+from torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 REL_TOL = 1e-6  # float64 metrics

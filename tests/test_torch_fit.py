@@ -47,6 +47,7 @@ from dove_tpu_torch.train import args as targs
 from dove_tpu_torch.train import trainer as ttrainer
 from dove_tpu_torch.train.__main__ import main as train_main
 from test_trainer import TINY_DEGRADATION, _write_clip
+from torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 LOSS_RTOL = 1e-4  # the batches differ by the data ops' float rounding
@@ -327,20 +328,21 @@ def test_train_script_flags_parse_as_jax(script):
     assert targs.Args.from_namespace(ns).model_dump() == ours
 
 
-def test_train_cli_help_and_refusals():
+def test_train_cli_help_and_refusals(tmp_path):
     res = subprocess.run([sys.executable, "-m", "dove_tpu_torch.train", "--help"],
                          cwd=REPO, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     for flag in ("--device", "--do_validation", "--is_latent", "--validation_dir"):
         assert flag in res.stdout
     # what the JAX package refuses, the port refuses: tensor_parallel beside
-    # fsdp, and optical flow (A.13); --multihost runs (2 processes:
-    # tests/test_torch_parallel_train.py)
+    # fsdp, and optical flow without RAFT's weights (before any model is
+    # built); --multihost runs (2 processes: tests/test_torch_parallel_train.py)
     with pytest.raises(ValueError, match="tensor_parallel and fsdp"):
         train_main(["--model_path", "m", "--tensor_parallel", "2", "--fsdp", "2",
                     "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match=r"A\.13"):
-        train_main(["--model_path", "m", "--use_optical_flow", "true", "--device", "cpu"])
+    with pytest.raises(FileNotFoundError, match="raft_weights"):
+        train_main(["--model_path", "m", "--use_optical_flow", "true", "--device", "cpu",
+                    "--output_dir", str(tmp_path / "flow")])
     # the options A.8 ported parse as the JAX package's CLI parses them (runs:
     # tests/test_torch_accumulation.py)
     argv = ["--model_path", "m", "--report_to", "wandb", "--optimizer", "came",

@@ -14,6 +14,7 @@ from test_torch_fit import (  # noqa: F401 (fixtures)
     checkpoint,
     same_start,
 )
+from torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 
 def test_fit_stage2_image_video_matches_jax(checkpoint, tmp_path, same_start):

@@ -26,6 +26,7 @@ from dove_tpu.ops.pallas.flash_attention import flash_attention as jax_flash
 from dove_tpu_torch import kernels
 from dove_tpu_torch.ops import attention as tattn
 from dove_tpu_torch.ops import flash_attention as fa
+from torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 ATOL = 2e-5  # fp32: the two differ only in summation order

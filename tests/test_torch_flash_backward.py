@@ -24,6 +24,7 @@ from dove_tpu.ops.pallas.flash_attention import _flash_fwd
 from dove_tpu.ops.pallas.flash_attention import flash_attention as jax_flash
 from dove_tpu_torch.ops import attention as tattn
 from dove_tpu_torch.ops import flash_attention as fa
+from torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 # fp32 on both sides; they differ in summation order (over up to 640 keys
 # and queries, with values of order 1)

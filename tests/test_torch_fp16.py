@@ -53,6 +53,7 @@ from dove_tpu_torch.train import lora as tlora
 from dove_tpu_torch.train import losses as tlosses
 from test_torch_dit import golden_config
 from test_torch_dit_2b import SCALE, _jax_config, _lora_tree, _perturbed
+from torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

@@ -13,7 +13,9 @@ schema, holds what ``dove_tpu.eval.metrics`` computes on the port's own
 frames within 1e-6, and the JAX CLI's values within what one-LSB frame
 differences allow. ``--preset cogvideox-2b`` (at tiny widths) and ``--dtype
 float16`` run through the CLI and write the frames the in-process pipeline
-gives on the same flags (1e-6). The refusals name their ROADMAP items.
+gives on the same flags (1e-6). A prompt beside a T5 ``text_encoder/``
+serves its clip with the prompt's embedding and the next clip with the
+default one. The refusals name their ROADMAP items.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ from dove_tpu_torch.eval import metrics as tmetrics
 from dove_tpu_torch.io import video as tvideo
 from dove_tpu_torch.train import checkpointing as tckpt
 from test_torch_dit import golden_config
+from torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 METRIC_REL_TOL = 1e-6
@@ -270,11 +273,31 @@ def test_2b_and_fp16_run_through_the_cli(tmp_path, checkpoint, monkeypatch, case
 
 
 def test_a_prompt_beside_a_t5_checkpoint_is_refused(tmp_path, checkpoint):
-    _write_clip(tmp_path / "in" / "clip.mp4", 9, 16, 16, seed=3)
-    (tmp_path / "model").mkdir()
-    (tmp_path / "model" / "text_encoder").mkdir()
-    (tmp_path / "p.json").write_text(json.dumps({"clip": "a cat"}))
-    with pytest.raises(NotImplementedError, match=r"T5.*ROADMAP A\.13"):
-        inference.main(["--input_dir", str(tmp_path / "in"), "--device", "cpu",
-                        "--model_path", str(tmp_path / "model"),
-                        "--input_json", str(tmp_path / "p.json")])
+    """A prompt beside a T5 ``text_encoder/`` was refused until T5 was
+    ported (ROADMAP A.13). Now the clip it names is served with the
+    prompt's embedding (a tiny T5 at the DiT's text width, written with its
+    tokenizer): its frames differ from the empty-prompt run's, and the next
+    clip, which has no prompt, gets the default embedding back (its frames
+    equal the empty-prompt run's)."""
+    from dove_tpu.models import t5 as jt5
+    from dove_tpu_torch.io import video as video_io
+    from test_torch_t5 import write_t5_folder
+
+    model = tmp_path / "model"
+    model.mkdir()
+    for sub in ("transformer", "vae", "scheduler"):
+        (model / sub).symlink_to(checkpoint / sub)
+    write_t5_folder(model, jax.tree.map(np.asarray, jt5.init_t5_params(
+        jax.random.PRNGKey(5), jt5.t5_tiny())))
+    for name, seed in (("a", 3), ("b", 4)):
+        _write_clip(tmp_path / "in" / f"{name}.mp4", 9, 16, 16, seed=seed)
+    (tmp_path / "p.json").write_text(json.dumps({"a": "a red cat", "b.mp4": ""}))
+    flags = ["--input_dir", str(tmp_path / "in"), "--device", "cpu", "--seed", "0",
+             "--model_path", str(model), "--is_vae_st", "--png_save"]
+    inference.main(flags + ["--input_json", str(tmp_path / "p.json"),
+                            "--output_path", str(tmp_path / "prompt")])
+    inference.main(flags + ["--output_path", str(tmp_path / "empty")])
+    frames = {(run, c): video_io.read_image_folder(tmp_path / run / c)
+              for run in ("prompt", "empty") for c in ("a", "b")}
+    assert np.abs(frames["prompt", "a"] - frames["empty", "a"]).max() > 0
+    np.testing.assert_array_equal(frames["prompt", "b"], frames["empty", "b"])

@@ -27,6 +27,7 @@ from dove_tpu.ops import quant as jquant
 from dove_tpu_torch.int8_weight_floor import synthetic_vae
 from dove_tpu_torch.models import vae as tvae
 from dove_tpu_torch.ops import quant as tquant
+from torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 CONV = "decoder.up.3.res.2.conv2"
 # the two packages' local errors on the same codes: their int8 convs differ

@@ -37,6 +37,7 @@ from dove_tpu_torch import weights as tweights
 from dove_tpu_torch.ops import flash_attention as fa
 from dove_tpu_torch.ops import quant
 from dove_tpu_torch.pipeline import DovePipeline
+from torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -198,13 +199,21 @@ def test_flash_qk8_process_frames_matches_jax(models):
     assert fa.launches_qk8.count == 0  # the CPU runs the plain version
 
 
+@pytest.fixture(scope="module")
+def wide_float_clip(wide_models):
+    """The float pipelines' outputs (port, JAX) on the 5x8x12 clip of
+    test_int8_vae_modes_match_jax: the same for each of its modes."""
+    jf, tf = _wide_pipes(wide_models)
+    frames = _clip(5, 8, 12, 6)
+    return tf.process_frames(frames, seed=0), jf.process_frames(frames, seed=0)
+
+
 @pytest.mark.parametrize("mode", ["int8", "int8-vae", "int8-dit-dec"])
-def test_int8_vae_modes_match_jax(wide_models, mode):
+def test_int8_vae_modes_match_jax(wide_models, wide_float_clip, mode):
     """5 frames of 8x12, one pass, one window: the VAE's 64-channel convs
     (k_t = 3, the upsamplers' k_t = 1 and, with an int8 encoder, the stride-2
     downsampler) are int8 on both sides."""
     jp, tp = _wide_pipes(wide_models, quantize=mode)
-    jf, tf = _wide_pipes(wide_models)
     enc_q = 0 if mode == "int8-dit-dec" else 8
     assert (_n_qconvs(tp.vae.encoder), _n_qconvs(tp.vae.decoder)) == (enc_q, 14)
     n_qlinear = sum(isinstance(m, quant.QLinear) for m in tp.dit.modules())
@@ -213,9 +222,7 @@ def test_int8_vae_modes_match_jax(wide_models, mode):
     frames = _clip(5, 8, 12, 6)
     ours = tp.process_frames(frames, seed=0)
     assert ours.shape == (5, 32, 48, 3)
-    _assert_int8_vae_parity(ours, jp.process_frames(frames, seed=0),
-                            tf.process_frames(frames, seed=0),
-                            jf.process_frames(frames, seed=0),
+    _assert_int8_vae_parity(ours, jp.process_frames(frames, seed=0), *wide_float_clip,
                             float_encoder=mode == "int8-dit-dec")
 
 

@@ -21,6 +21,7 @@ from test_torch_int8_pipeline import (  # noqa: F401 (fixtures)
     models,
     wide_models,
 )
+from torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

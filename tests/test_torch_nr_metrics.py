@@ -32,6 +32,7 @@ from test_musiq import CFG as MUSIQ_TINY
 from test_musiq import _random_sd
 from test_niqe import _textured
 from test_torch_resize import ATOL as RESIZE_ATOL
+from torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 NIQE_REL = 1e-8
 SCORE_REL = 1e-4

@@ -25,6 +25,7 @@ from dove_tpu_torch.config import SchedulerConfig
 from dove_tpu_torch.ops import rope as trope
 from dove_tpu_torch.ops.scheduler import Schedule
 from dove_tpu_torch.pipeline import DovePipeline, bilinear_upscale
+from torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 ATOL = 1e-6
 

@@ -30,6 +30,7 @@ import torch
 from dove_tpu.train import optim as joptim
 from dove_tpu_torch.train import checkpointing as tckpt
 from dove_tpu_torch.train import optim as toptim
+from torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 SHAPES = [(7,), (37, 53), (3, 19, 41), (5, 9)]  # the last leaf's gradient is 0
 STEPS = 6
@@ -88,12 +89,13 @@ def _unpack(q: np.ndarray, name: str) -> np.ndarray:
     return np.stack([q & 0xF, q >> 4], axis=-1).reshape(q.shape[0], -1).astype(np.int64)
 
 
-def _pre_round(opt, grads: list[np.ndarray]) -> dict:
+def _pre_round(opt, grads: list[np.ndarray], max_norm=KW["max_grad_norm"]) -> dict:
     """The values the port's next step will encode, in float64 from its
     state before the step: m and sqrt(v) after the moment updates, on the
-    clipped gradients, flat per leaf and padded to whole blocks."""
+    gradients clipped to ``max_norm`` (None: no clip), flat per leaf and
+    padded to whole blocks."""
     norm = np.sqrt(sum(np.square(g.astype(np.float64)).sum() for g in grads))
-    factor = KW["max_grad_norm"] / norm if norm >= KW["max_grad_norm"] else 1.0
+    factor = max_norm / norm if max_norm is not None and norm >= max_norm else 1.0
     b1, b2 = KW["betas"]
     out = {"m_q": [], "v_q": []}
     for i, g in enumerate(grads):

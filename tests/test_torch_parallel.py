@@ -49,6 +49,7 @@ from dove_tpu_torch.io import video as tvideo
 from dove_tpu_torch.ops.quant import quantize_dit
 from dove_tpu_torch.parallel import mesh as tmesh
 from dove_tpu_torch.parallel import tp as ttp
+from torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 CAP = dict(dec_window_cap=(3, 3))  # a 2x2 decode plan on the 4x4 latent
 LONG = dict(chunk_len=9, overlap_t=4)

@@ -18,8 +18,19 @@ package's own:
     goes on (tests/test_tp_train.py's cross-layout resume); LoRA under TP
     with CAME and the 8-bit AdamW resumes to the state of the run it
     interrupted;
-  * the optimizers whose statistics span a whole tensor are refused on a
-    DiT that fsdp or tensor_parallel shards (ROADMAP C.7);
+  * the optimizers whose statistics span a whole tensor (CAME, Prodigy,
+    the 8- and 4-bit AdamW) on tensors that fsdp or tensor_parallel split
+    (odd sizes, a column and a row split, uneven FSDP chunks, an empty one,
+    replicated gains): two steps equal one device's bit for bit (Prodigy,
+    whose sums over the model add the shards' partial sums: rel 1e-6), and
+    a step-1 checkpoint restored under another layout or one device takes
+    step 2 to the same place (under its own layout bit for bit, Prodigy
+    too); every one of these runs is also held to the JAX package's
+    optimizer on the whole tensors, at tests/test_torch_optim.py's bars
+    (the parameters within 1e-6 of the tensor's largest value, 1e-5 for
+    CAME and Prodigy; the low-bit codes equal but near a tie); an SFT step
+    with CAME under data=2 x model=2 is held to one device's at the bars
+    above;
   * ``python -m dove_tpu_torch.train --multihost true`` in two processes:
     both ranks log the same losses, rank 0 alone writes, the checkpoint
     restores (tests/test_multihost.py).
@@ -49,18 +60,29 @@ from dove_tpu.models import dit as jdit
 from dove_tpu.models import vae as jvae
 from dove_tpu.ops.scheduler import Schedule as JSchedule
 from dove_tpu.train import args as jargs
+from dove_tpu.train import optim as joptim
 from dove_tpu.train.losses import stage1_loss as jstage1_loss
 from dove_tpu_torch import safetensors_io
 from dove_tpu_torch import weights as tweights
-from dove_tpu_torch.parallel.tp import Group, Split, opt_state_tp_specs
+from dove_tpu_torch.parallel.tp import Group, Split
 from dove_tpu_torch.train import args as targs
 from dove_tpu_torch.train.optim import make_lr_schedule, make_optimizer
 from test_trainer import TINY_DEGRADATION, _write_clip
+from test_torch_optim import PARAM_TOL, _check_codes, _pre_round
+from torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 MESH = dict(data_parallel=2, tensor_parallel=2)
 FSDP_LAYOUTS = [(2, 2), (1, 4), (4, 1)]
 RESUME_OPTS = ("came", "adamw-8bit")
+WHOLE_STAT_OPTS = ["came", "prodigy", "adamw_8bit", "adamw-4bit"]
+# tensors split over two ranks: a column and a row split (TP), torch.chunk's
+# uneven and empty FSDP parts, and gains every TP rank holds whole
+OPT_SHAPES = [(6, 5), (5, 6), (6,), (7,), (64, 100), (1, 4), (3, 4)]
+OPT_LAYOUTS = {"tensor_parallel": [0, 1, 0, None, 1, None, None],
+               "fsdp": [0] * len(OPT_SHAPES)}
+OPT_LR = 1e-2  # torch_parallel_ranks._opt_run's: constant, no clip
+PRODIGY_REL = 1e-6
 
 
 @pytest.fixture(scope="module")
@@ -109,8 +131,10 @@ def setup(tmp_path_factory):
                     validation_ref_videos=str(data / "val"), eval_metric_list="psnr")
     inputs = dict(dit=dit, vae=vae, prompt=np.zeros((L, D), np.float32), batch=batch,
                   fsdp_batch=fsdp_batch, args=args, fit_args=fit_args, sp_mesh=(2, 2),
-                  steps={w: {kind: (MESH if w > 1 else {}, dict(training_type=kind))
-                             for kind in ("sft", "lora")} for w in (1, 4)},
+                  steps={w: {kind: (MESH if w > 1 else {}, dict(
+                      training_type=kind.split("_")[0],
+                      optimizer=kind.split("_")[1] if "_" in kind else "adamw"))
+                      for kind in ("sft", "lora", "sft_came")} for w in (1, 4)},
                   fsdp={1: [(1, 1)], 4: FSDP_LAYOUTS}, resume_opts=RESUME_OPTS)
     ranks.dump(inputs, work / "in.pkl")
     out = {}
@@ -147,7 +171,7 @@ def _rel(a, b) -> float:
     return float(np.abs(a - b).max() / (np.abs(b).max() + 1e-12))
 
 
-@pytest.mark.parametrize("kind", ["sft", "lora"])
+@pytest.mark.parametrize("kind", ["sft", "lora", "sft_came"])
 def test_tp_train_step_matches_single_device(setup, kind):
     loss, gnorm, state = setup["out"]["train_step"][kind]
     loss1, gnorm1, state1 = setup["out"]["train_step1"][kind]
@@ -214,19 +238,113 @@ def test_lora_tp_resume_equals_the_uninterrupted_run(setup, opt):
         np.testing.assert_array_equal(resumed[k], v, err_msg=k)
 
 
-@pytest.mark.parametrize("opt", ["came", "prodigy", "adamw_8bit", "adamw-4bit"])
+@pytest.fixture(scope="module")
+def opt_shards(tmp_path_factory):
+    """``torch_parallel_ranks.optimizer_shards`` on two gloo ranks."""
+    work = tmp_path_factory.mktemp("optshards")
+    rng = np.random.default_rng(11)
+    inputs = dict(
+        params=[rng.normal(size=s).astype(np.float32) for s in OPT_SHAPES],
+        grads=[[rng.normal(size=s).astype(np.float32) for s in OPT_SHAPES] for _ in range(2)],
+        opts=["adamw"] + WHOLE_STAT_OPTS, layouts=OPT_LAYOUTS)
+    ranks.dump(inputs, work / "in.pkl")
+    ranks.spawn(ranks.optimizer_shards, 2, work, str(work / "in.pkl"), str(work / "out.pkl"))
+    jax_ref = {name: _jax_two_steps(name, inputs["params"], inputs["grads"])
+               for name in inputs["opts"]}
+    return inputs, ranks.load(work / "out.pkl"), jax_ref
+
+
+def _jax_two_steps(name, params, grads):
+    """The JAX package's optimizer for two steps on the whole tensors: its
+    parameters, its state, and (low-bit) the values the port's one-device
+    run encodes at step 2, for ``_check_codes``' ties."""
+    opt = joptim.make_optimizer(name, joptim.make_lr_schedule(OPT_LR), max_grad_norm=None)
+    p = [jnp.asarray(x) for x in params]
+    state = opt.init(p)
+    for g in grads:
+        upd, state = opt.update([jnp.asarray(x) for x in g], state, p)
+        p = optax.apply_updates(p, upd)
+    pre = None
+    if "bit" in name:
+        port = make_optimizer(name, make_lr_schedule(OPT_LR), max_grad_norm=None)
+        ps = [torch.from_numpy(x.copy()) for x in params]
+        port.init(ps)
+        port.step(ps, [torch.from_numpy(x) for x in grads[0]])
+        pre = _pre_round(port, grads[1], max_norm=None)
+    return [np.asarray(x) for x in p], state[0], pre
+
+
+def _matches_jax(run, opt, ref):
+    """One run's whole parameters and (low-bit) codes against JAX's; for
+    Prodigy, whose steps move the parameters by its distance estimate
+    (1e-6 at the start), also its moments, sums and estimate."""
+    (params, state), (p_j, state_j, pre) = run, ref
+    tol = PARAM_TOL.get(opt.replace("_", "-"), 1e-6)
+    for i, (ours, want) in enumerate(zip(params, p_j)):
+        err = np.abs(ours - want).max() / np.abs(want).max()
+        assert err <= tol, (opt, i, err)
+    if opt == "prodigy":
+        for k in ("exp_avg", "exp_avg_sq", "grad_sum"):
+            for i, want in enumerate(getattr(state_j, k)):
+                want = np.asarray(want)
+                err = np.abs(state[f"{k}.{i}"] - want).max() / np.abs(want).max()
+                assert err <= tol, (k, i, err)
+        for k in ("estim_lr", "numerator_weighted"):
+            np.testing.assert_allclose(state[k], np.asarray(getattr(state_j, k)), rtol=tol)
+    if pre is not None:
+        codes = {k: [torch.from_numpy(state[f"{k}.{i}"].astype(
+                     np.float32 if k.endswith("scale") else np.int64))
+                     for i in range(len(p_j))]
+                 for k in ("m_q", "v_q", "m_scale", "v_scale")}
+        _check_codes(opt, codes, state_j, pre)
+
+
+def _same_run(got, want, opt, exact=True):
+    (params, state), (params1, state1) = got, want
+    assert state.keys() == state1.keys()
+    for a, b in zip(params + list(state.values()), params1 + list(state1.values())):
+        assert a.shape == b.shape
+        if exact or opt.replace("_", "-") != "prodigy":
+            np.testing.assert_array_equal(a, b)
+        else:
+            np.testing.assert_allclose(a, b, rtol=PRODIGY_REL, atol=0)
+
+
+@pytest.mark.parametrize("opt", WHOLE_STAT_OPTS)
 @pytest.mark.parametrize("mesh", [dict(fsdp=2), dict(tensor_parallel=2)])
-def test_whole_tensor_statistics_refused_on_a_sharded_dit(opt, mesh):
-    """SFT shards the DiT's trainable tensors over "model", where these
-    optimizers would take their statistics per shard (ROADMAP C.7): the
-    port refuses what the JAX package runs, and LoRA (whole on every rank)
-    and AdamW (elementwise) stay accepted."""
+def test_whole_tensor_statistics_refused_on_a_sharded_dit(opt, mesh, opt_shards):
+    """These optimizers were refused with SFT on a DiT that fsdp or
+    tensor_parallel shards (ROADMAP C.7) until their statistics were taken
+    over the whole tensor: now ``Args`` accepts them as the JAX package
+    does, and two steps on split tensors equal one device's (the factored
+    statistics, the RMS clip and the block codes bit for bit; Prodigy within
+    rel 1e-6)."""
     kw = dict(model_path="x", optimizer=opt, training_type="sft", **mesh)
     jargs.Args(**kw)
-    with pytest.raises(NotImplementedError, match=r"C\.7"):
-        targs.Args(**kw)
-    targs.Args(**dict(kw, training_type="lora"))
-    targs.Args(**dict(kw, optimizer="adamw"))
+    targs.Args(**kw)
+    _, res, jax_ref = opt_shards
+    _same_run(res[(opt, next(iter(mesh)))], res[(opt, "one")], opt, exact=False)
+    for layout in ("one", next(iter(mesh))):
+        _matches_jax(res[(opt, layout)], opt, jax_ref[opt])
+
+
+@pytest.mark.parametrize("opt", ["adamw"] + WHOLE_STAT_OPTS)
+def test_sharded_optimizer_state_resumes_under_any_layout(opt, opt_shards):
+    """A step-1 checkpoint (the whole state) of each layout, restored under
+    each layout and one device, takes step 2 where one device does, and
+    under its own layout bit for bit where the uninterrupted run does; the
+    gradient norm of split tensors is the whole model's."""
+    inputs, res, jax_ref = opt_shards
+    for saved in OPT_LAYOUTS:
+        for layout in list(OPT_LAYOUTS) + ["one"]:
+            got = res[(opt, f"{saved}->{layout}")]
+            _same_run(got, res[(opt, "one")], opt, exact=False)
+            _matches_jax(got, opt, jax_ref[opt])
+            if layout == saved:
+                _same_run(got, res[(opt, layout)], opt)
+    ref = float(optax.global_norm([jnp.asarray(g) for g in inputs["grads"][0]]))
+    for layout in OPT_LAYOUTS:
+        assert res[("norm", layout)] == pytest.approx(ref, rel=1e-6)
 
 
 def test_tp_plus_fsdp_refused():
@@ -236,20 +354,29 @@ def test_tp_plus_fsdp_refused():
 
 
 def test_opt_state_tp_specs_mirror_params():
-    """adam's moments take their parameter's split (gathered by shape); the
-    count and tensors of another shape pass as they are."""
+    """``map_shards`` applies to the state that mirrors a split parameter
+    (Adam's moments, CAME's ``m``, the accumulator of ``MultiSteps``); the
+    count, whole parameters' state and CAME's whole-tensor statistics pass
+    as they are."""
+    from dove_tpu_torch.train.optim import MultiSteps
+
     params = [torch.zeros(4, 6), torch.zeros(3)]
-    opt = make_optimizer("adamw", make_lr_schedule(1e-3, warmup_steps=0))
-    opt.init(params)
-    state = opt.state_dict()
-    state["other"] = [torch.zeros(2), torch.zeros(5)]
     split = Split(0, (8, 6), Group(None, 2, 0))
-    seen = []
-    out = opt_state_tp_specs(state, [split, None], [p.shape for p in params],
-                             lambda sp, t: seen.append(t.shape) or "gathered")
-    assert out["mu"] == ["gathered", state["mu"][1]]
-    assert out["nu"][0] == "gathered" and out["other"] == state["other"]
-    assert out["count"] == state["count"] and len(seen) == 2
+    for name, keys in (("adamw", ("mu", "nu")), ("came", ("m",))):
+        opt = MultiSteps(make_optimizer(name, make_lr_schedule(1e-3, warmup_steps=0)), 2)
+        opt.init(params, [split, None])
+        state = opt.state_dict()
+        seen = []
+        out = opt.map_shards(state, lambda sp, t: seen.append(t.shape) or "gathered")
+        assert out["acc"] == ["gathered", state["acc"][1]]
+        for k in keys:
+            assert out["inner"][k] == ["gathered", state["inner"][k][1]]
+        for k in set(state["inner"]) - set(keys):
+            assert out["inner"][k] is state["inner"][k]
+        assert len(seen) == 1 + len(keys) and out["mini_step"] == state["mini_step"]
+    came = make_optimizer("came", make_lr_schedule(1e-3, warmup_steps=0))
+    came.init(params, [split, None])
+    assert came.vr[0].shape == (8,) and came.vc[0].shape == (6,)  # the whole tensor's
 
 
 def test_two_process_train_cli(setup, tmp_path):

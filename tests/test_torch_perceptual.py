@@ -26,6 +26,7 @@ from dove_tpu_torch.eval import dists as tdists
 from dove_tpu_torch.eval import lpips as tlpips
 from dove_tpu_torch.eval import vgg as tvgg
 from dove_tpu_torch.train import losses as tlosses
+from torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 torch.backends.cudnn.allow_tf32 = False
 

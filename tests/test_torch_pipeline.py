@@ -33,6 +33,7 @@ from dove_tpu.pipeline import DovePipeline as JPipeline
 from dove_tpu_torch import config as tcfg
 from dove_tpu_torch import weights as tweights
 from dove_tpu_torch.pipeline import DovePipeline, plan_axis
+from torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -228,15 +229,11 @@ def jax_fused(tmp_path_factory):
     return dict(np.load(out))
 
 
-def _fused_pipe(noise_step: int = 0) -> DovePipeline:
+def _fused_pipe(models, noise_step: int = 0) -> DovePipeline:
     """The port's tiny_test() pipeline, from the weights JAX's pipeline
-    makes (jax.random keys 0 and 1), with the default vae_tiling."""
-    cfg_j = jcfg.tiny_test()
-    dit_tree = jax.tree.map(np.asarray,
-                            jdit.init_dit_params(jax.random.PRNGKey(0), cfg_j.dit))
-    vae_tree = jax.tree.map(np.asarray,
-                            jvae.init_vae_params(jax.random.PRNGKey(1), cfg_j.vae))
-    prompt = np.random.default_rng(0).standard_normal((7, 32)).astype(np.float32)
+    makes (jax.random keys 0 and 1: the ``models`` fixture's trees), with the
+    default vae_tiling."""
+    _, dit_tree, vae_tree, prompt = models
     cfg_t = dataclasses.replace(tcfg.tiny_test(), noise_step=noise_step)
     dit, vae = tweights.from_jax_params(cfg_t, dit_tree, vae_tree)
     tp = DovePipeline(
@@ -252,11 +249,11 @@ def _noise(shape) -> np.ndarray:
 
 
 @pytest.mark.parametrize("case", list(FUSED_CASES))
-def test_fused_path_matches_jax(jax_fused, case):
+def test_fused_path_matches_jax(models, jax_fused, case):
     """process_frames on the fused path, float output at atol 1e-4. With
     noise_step != 0 both sides add the same seeded noise at that step."""
     frames_n, h, w, kw = FUSED_CASES[case]
-    tp = _fused_pipe(NOISE_STEP if case == "noise_step" else 0)
+    tp = _fused_pipe(models, NOISE_STEP if case == "noise_step" else 0)
     drawn = []
     tp._draw_noise = lambda shape, gen: drawn.append(shape) or torch.from_numpy(
         _noise(shape))
@@ -274,10 +271,10 @@ def test_fused_path_matches_jax(jax_fused, case):
         assert drawn == []
 
 
-def test_fused_batches_same_shaped_tiles(monkeypatch):
+def test_fused_batches_same_shaped_tiles(models, monkeypatch):
     """Three tiles of one geometry at tile_batch 2: two calls of batch 2, the
     second padded with a repeat whose output is dropped."""
-    tp = _fused_pipe()
+    tp = _fused_pipe(models)
     batches = []
     sr_tile = tp.sr_tile
     monkeypatch.setattr(tp, "sr_tile", lambda tile, gen: batches.append(
@@ -286,11 +283,11 @@ def test_fused_batches_same_shaped_tiles(monkeypatch):
     assert batches == [(2, 9, 64, 64, 3), (2, 9, 64, 64, 3)]
 
 
-def test_staged_matches_fused_when_untiled():
+def test_staged_matches_fused_when_untiled(models):
     """The port's staged path against its fused path on an untiled clip, at
     the JAX package's own bar (tests/test_pipeline.py): the staged path
     upscales on the device in the model's frame and returns uint8."""
-    tp = _fused_pipe()
+    tp = _fused_pipe(models)
     frames = np.random.default_rng(0).random((9, 8, 8, 3)).astype(np.float32)
     out_fused = tp.process_frames(frames)
     out_staged = dataclasses.replace(tp, vae_tiling=True).process_frames(frames)
@@ -324,7 +321,10 @@ def test_port_imports_no_jax():
             "dove_tpu_torch.eval.niqe", "dove_tpu_torch.eval.musiq",
             "dove_tpu_torch.eval.maniqa", "dove_tpu_torch.eval.ewarp",
             "dove_tpu_torch.models.raft", "dove_tpu_torch.int8_drift_report",
-            "dove_tpu_torch.int8_weight_floor", "dove_tpu_torch.train.tracking"} <= set(mods)
+            "dove_tpu_torch.int8_weight_floor", "dove_tpu_torch.train.tracking",
+            "dove_tpu_torch.models.t5", "dove_tpu_torch.models.flow_fusion",
+            "dove_tpu_torch.encode_prompts", "dove_tpu_torch.prepare_sft_ckpt",
+            "dove_tpu_torch.convert_frames_to_video"} <= set(mods)
     # nor cv2 or transformers (the card has neither): io/video.py imports
     # cv2 inside its video-file functions only
     code = (

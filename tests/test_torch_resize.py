@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from dove_tpu_torch.ops import resize as tresize
+from torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 FLAGS = {"linear": cv2.INTER_LINEAR, "cubic": cv2.INTER_CUBIC,
          "nearest": cv2.INTER_NEAREST, "area": cv2.INTER_AREA,

@@ -24,6 +24,7 @@ from dove_tpu_torch import config as tcfg
 from dove_tpu_torch import safetensors_io
 from dove_tpu_torch import weights as tweights
 from dove_tpu_torch.train import checkpointing as tckpt
+from torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 GOLDEN = Path(__file__).resolve().parent / "fixtures" / "golden"
 DTYPE_CASES = [torch.bfloat16, torch.float16, torch.float32, torch.float64,

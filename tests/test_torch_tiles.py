@@ -31,6 +31,7 @@ from dove_tpu_torch import weights as tweights
 from dove_tpu_torch.io import video as tvideo
 from dove_tpu_torch.models import vae as tvae
 from dove_tpu_torch.pipeline import bilinear_upscale
+from torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 ATOL = 1e-4
 UPSCALE_ATOL = 1e-5

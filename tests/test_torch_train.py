@@ -44,6 +44,7 @@ from dove_tpu_torch.train import lora as tlora
 from dove_tpu_torch.train import losses as tlosses
 from dove_tpu_torch.train import optim as toptim
 from dove_tpu_torch.train import trainer as ttrainer
+from torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -441,21 +442,17 @@ def test_args_parse_and_dump(tmp_path):
     dict(do_validation=True, validation_dir="v"), dict(is_latent=True),
 ])
 def test_args_of_later_slices_raise(later):
-    """The options of later slices raise, naming their ROADMAP item; those
-    ported since (do_validation, is_latent, report_to, and the mesh's fsdp,
-    tensor_parallel and multihost) give the JAX package's Args."""
+    """The options that later slices ported (the mesh's fsdp,
+    tensor_parallel and multihost, use_optical_flow, report_to,
+    do_validation, is_latent) once raised here; each now gives the JAX
+    package's Args."""
     ref = jargs.Args(model_path="x", **later)  # valid in the JAX package
-    if set(later) & {"do_validation", "is_latent", "report_to", "fsdp",
-                     "tensor_parallel", "multihost"}:
-        ours = targs.Args(model_path="x", **later).model_dump()
-        for name, want in ref.model_dump().items():
-            if name != "output_dir":  # the time of import, in both packages
-                got = ours[name]
-                assert (str(got) if isinstance(got, Path) else got) == (
-                    str(want) if isinstance(want, Path) else want), name
-        return
-    with pytest.raises(NotImplementedError, match=r"not ported.*\(A\.13\)"):
-        targs.Args(model_path="x", **later)
+    ours = targs.Args(model_path="x", **later).model_dump()
+    for name, want in ref.model_dump().items():
+        if name != "output_dir":  # the time of import, in both packages
+            got = ours[name]
+            assert (str(got) if isinstance(got, Path) else got) == (
+                str(want) if isinstance(want, Path) else want), name
 
 
 def test_registry_views_and_unported_parts(tmp_path):

@@ -38,6 +38,7 @@ from dove_tpu_torch.train import args as targs
 from dove_tpu_torch.train import lora as tlora
 from dove_tpu_torch.train import losses as tlosses
 from dove_tpu_torch.train import trainer as ttrainer
+from torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

@@ -30,6 +30,7 @@ from dove_tpu_torch import weights as tweights
 from dove_tpu_torch.models import vae as tvae
 from dove_tpu_torch.ops import conv3d_int8 as tconv
 from dove_tpu_torch.ops import quant
+from torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -587,7 +588,23 @@ def _rms(a) -> float:
     return float(np.sqrt(np.mean(np.square(np.asarray(a, np.float64)))))
 
 
+def _jax_forward_refs(fn_q, fn_float, x: np.ndarray, seed: int) -> tuple:
+    """JAX's quantized forward of ``x`` and of ``x`` moved by 1e-6 and 1e-5
+    (seeded), and its float forward: what the parity below holds the port
+    to."""
+    ref = np.asarray(fn_q(jnp.asarray(x)))
+    flt = np.asarray(fn_float(jnp.asarray(x)))
+    rng = np.random.default_rng(seed)
+    moved = [np.asarray(fn_q(jnp.asarray(x + rng.normal(0, eps, x.shape).astype(np.float32))))
+             for eps in (1e-6, 1e-5)]
+    return ref, flt, moved
+
+
 def _assert_quantized_forward_parity(fn_q, fn_float, ours: np.ndarray, x: np.ndarray, seed: int):
+    _assert_parity_with(_jax_forward_refs(fn_q, fn_float, x, seed), ours)
+
+
+def _assert_parity_with(refs: tuple, ours: np.ndarray) -> None:
     """A forward through several quantized convs is ill-conditioned, in JAX
     as in the port: each conv's range search makes a discrete choice and
     each code a rounding, so an input moved by 1e-6 moves JAX's own output by
@@ -598,11 +615,7 @@ def _assert_quantized_forward_parity(fn_q, fn_float, ours: np.ndarray, x: np.nda
     and it sits as far from the float model as JAX's own runs do (within 10%
     of their range). The
     single-conv tests above hold the arithmetic itself to 1e-4."""
-    ref = np.asarray(fn_q(jnp.asarray(x)))
-    flt = np.asarray(fn_float(jnp.asarray(x)))
-    rng = np.random.default_rng(seed)
-    moved = [np.asarray(fn_q(jnp.asarray(x + rng.normal(0, eps, x.shape).astype(np.float32))))
-             for eps in (1e-6, 1e-5)]
+    ref, flt, moved = refs
     own = max(_rms(m - ref) for m in moved)
     assert ours.shape == ref.shape
     assert _rms(ours - ref) <= 1.25 * own, (_rms(ours - ref), own)
@@ -612,22 +625,43 @@ def _assert_quantized_forward_parity(fn_q, fn_float, ours: np.ndarray, x: np.nda
     assert drift_ref < 0.05 * _rms(flt)  # int8 stays near the float model
 
 
+def _forward_inputs() -> tuple[np.ndarray, np.ndarray]:
+    rng = np.random.default_rng(13)
+    video = rng.uniform(-1, 1, (1, 5, 16, 16, 3)).astype(np.float32)
+    lat = rng.standard_normal((1, 2, 8, 8, 8)).astype(np.float32)
+    return video, lat
+
+
+@pytest.fixture(scope="module")
+def decoder_refs(vae64):
+    """JAX's decode of _forward_inputs' latent through its quantized decoder
+    (which="decoder"; "all" quantizes the decoder the same way), moved and
+    float: computed once for both cases of the test below."""
+    cfg_j, tree, _, _ = vae64
+    jt = jax.tree.map(jnp.asarray, tree)
+    q_tree = jquant.quantize_vae(jt, donate=False, which="decoder")
+    return q_tree["decoder"], _jax_forward_refs(
+        jax.jit(lambda z: jvae.decode(cfg_j, q_tree, z)),
+        jax.jit(lambda z: jvae.decode(cfg_j, jt, z)), _forward_inputs()[1], 2)
+
+
 @pytest.mark.parametrize("which", ["all", "decoder"])
-def test_quantized_vae_forwards_match_jax(vae64, which):
+def test_quantized_vae_forwards_match_jax(vae64, decoder_refs, which):
     """Encode and decode of the quantized VAE, one frame chunk each (the
     chunked forms run in tests/test_torch_int8_pipeline.py), each
     side quantizing its own copy of the same float weights (the codes are
     equal: test_quantize_vae_codes_match_jax). With ``which="decoder"`` the
-    encoder is the float one and matches elementwise."""
+    encoder is the float one and matches elementwise. Both cases decode with
+    the same quantized decoder (asserted), so JAX's decodes are shared."""
     cfg_j, tree, cfg_t, torch_vae = vae64
-    rng = np.random.default_rng(13)
-    video = rng.uniform(-1, 1, (1, 5, 16, 16, 3)).astype(np.float32)
-    lat = rng.standard_normal((1, 2, 8, 8, 8)).astype(np.float32)
+    video, lat = _forward_inputs()
     jt = jax.tree.map(jnp.asarray, tree)
     q_tree = jquant.quantize_vae(jt, donate=False, which=which)
+    dec_tree, dec_refs = decoder_refs
+    for a, b in zip(jax.tree.leaves(q_tree["decoder"]), jax.tree.leaves(dec_tree)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
     vae = quant.quantize_vae(torch_vae(), which=which)
     enc_q = jax.jit(lambda v: jvae.encode_moments(cfg_j, q_tree, v))
-    dec_q = jax.jit(lambda z: jvae.decode(cfg_j, q_tree, z))
     with torch.no_grad():
         ours_m = tvae.encode_moments(cfg_t, vae, torch.from_numpy(video)).numpy()
         ours_p = tvae.decode(cfg_t, vae, torch.from_numpy(lat)).numpy()
@@ -636,8 +670,7 @@ def test_quantized_vae_forwards_match_jax(vae64, which):
             enc_q, jax.jit(lambda v: jvae.encode_moments(cfg_j, jt, v)), ours_m, video, 1)
     else:
         np.testing.assert_allclose(ours_m, np.asarray(enc_q(jnp.asarray(video))), atol=ATOL)
-    _assert_quantized_forward_parity(
-        dec_q, jax.jit(lambda z: jvae.decode(cfg_j, jt, z)), ours_p, lat, 2)
+    _assert_parity_with(dec_refs, ours_p)
 
 
 def test_from_jax_params_takes_a_quantized_vae_tree(vae64, calibrated):

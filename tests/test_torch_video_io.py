@@ -17,6 +17,7 @@ from PIL import Image
 
 from dove_tpu.io import video as jvideo
 from dove_tpu_torch.io import video as tvideo
+from torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 
 def _frames(seed: int, n: int = 3, h: int = 13, w: int = 17) -> np.ndarray:

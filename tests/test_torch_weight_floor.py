@@ -32,6 +32,7 @@ from dove_tpu_torch import int8_drift_report as tdrift
 from dove_tpu_torch import int8_weight_floor as tfloor
 from dove_tpu_torch import weights as tweights
 from test_torch_drift_report import _jax_trees, _keys, _load_script, _wide, jdrift
+from torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 FLOOR_TOL = 1e-4
 STD_TOL = 0.2  # of fan_in^-0.5, on leaves of >= 1024 entries

@@ -163,7 +163,8 @@ def train_step(rank: int, world: int, inputs_path: str, out_path: str) -> None:
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
-    return t.detach().float().cpu().numpy()
+    """A copy: the tensor may be updated in place after."""
+    return t.detach().float().cpu().numpy().copy()
 
 
 def _flat(state: dict, prefix: str = "") -> dict:
@@ -300,3 +301,92 @@ def _tensors(state) -> dict:
     if isinstance(state, (list, tuple)):
         return {str(i): _tensors(v) for i, v in enumerate(state)}
     return torch.as_tensor(state)
+
+
+# ---------------------------------------------------------------------------
+# Optimizer statistics over split tensors
+# ---------------------------------------------------------------------------
+
+def _opt_run(name: str, params, grads_seq, splits=None, state=None, steps=None):
+    """``make_optimizer(name)`` (no clip) on ``params`` (this rank's parts,
+    updated in place) over the gradient lists of ``grads_seq``; ``state``
+    (a whole state dict) is restored first. Returns the optimizer."""
+    from dove_tpu_torch.train.optim import make_lr_schedule, make_optimizer
+
+    opt = make_optimizer(name, make_lr_schedule(1e-2, warmup_steps=0), max_grad_norm=None)
+    opt.init(params, splits)
+    if state is not None:
+        opt.load_state_dict(opt.map_shards(state, lambda sp, t: sp.take(t).clone()))
+    for grads in grads_seq[: steps]:
+        opt.step(params, grads)
+    return opt
+
+
+def _whole_state(opt) -> dict:
+    """A checkpoint's optimizer state: the whole tensors, copied."""
+    def copy(x):
+        if isinstance(x, dict):
+            return {k: copy(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [copy(v) for v in x]
+        return x.clone() if isinstance(x, torch.Tensor) else x
+
+    return copy(opt.map_shards(opt.state_dict(), lambda sp, t: sp.gather(t)))
+
+
+def optimizer_shards(rank: int, world: int, inputs_path: str, out_path: str) -> None:
+    """Each optimizer of ``inputs["opts"]`` for two steps on the whole
+    tensors of ``inputs["params"]`` (one device, in this process) and on
+    this rank's parts under each layout of ``inputs["layouts"]`` ({name:
+    split dim or None per tensor}); then the layouts' step-1 checkpoints
+    (the whole state) restored under the other layout and one device for
+    step 2. Rank 0 writes the whole parameters and state of each run, and
+    each layout's norm of the step-1 gradients."""
+    from dove_tpu_torch.parallel.tp import Group, Split
+
+    inputs = load(Path(inputs_path))
+    g = Group(dist.group.WORLD, world, rank)
+    whole = [torch.from_numpy(p) for p in inputs["params"]]
+    grads = [[torch.from_numpy(x) for x in step] for step in inputs["grads"]]
+    res: dict = {}
+
+    def split_of(dims):
+        return [None if d is None else Split(d, tuple(p.shape), g)
+                for d, p in zip(dims, whole)]
+
+    def local(ts, splits):
+        return [t.clone() if sp is None else sp.take(t).clone() for t, sp in zip(ts, splits)]
+
+    def gathered(ps, splits):
+        return [_np(p if sp is None else sp.gather(p)) for p, sp in zip(ps, splits)]
+
+    for name in inputs["opts"]:
+        params = [p.clone() for p in whole]
+        opt = _opt_run(name, params, grads)
+        res[(name, "one")] = ([_np(p) for p in params], _flat_np(opt.state_dict()))
+        ckpts = {}
+        for layout, dims in inputs["layouts"].items():
+            splits = split_of(dims)
+            params = local(whole, splits)
+            opt = _opt_run(name, params, [local(gs, splits) for gs in grads], splits,
+                           steps=1)
+            ckpts[layout] = ([_np(p if sp is None else sp.gather(p))
+                              for p, sp in zip(params, splits)], _whole_state(opt))
+            opt.step(params, local(grads[1], splits))
+            res[(name, layout)] = (gathered(params, splits), _flat_np(_whole_state(opt)))
+            if name == inputs["opts"][0]:
+                res[("norm", layout)] = float(opt.norm_fn(local(grads[0], splits)))
+        # resume: each layout's step-1 checkpoint under the other layouts
+        for saved, (ps, state) in ckpts.items():
+            for layout, dims in list(inputs["layouts"].items()) + [("one", None)]:
+                splits = split_of(dims) if dims else [None] * len(whole)
+                params = local([torch.from_numpy(p) for p in ps], splits)
+                opt = _opt_run(name, params, [local(grads[1], splits)], splits, state=state)
+                res[(name, f"{saved}->{layout}")] = (gathered(params, splits),
+                                                     _flat_np(_whole_state(opt)))
+    if rank == 0:
+        dump(res, Path(out_path))
+
+
+def _flat_np(state) -> dict:
+    return {k: _np(v) for k, v in _flat(_tensors(state)).items()}
