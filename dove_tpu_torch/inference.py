@@ -244,6 +244,19 @@ def load_pipeline(args):
     )
 
 
+def clip_log(times: dict) -> str:
+    """A clip's ``DovePipeline.stage_times`` for its log line: each span in
+    milliseconds, then the VAE's windows and the share of their latent
+    positions that overlap (computed twice)."""
+    spans = " ".join(f"{k} {v * 1e3:.0f}ms" for k, v in times.items()
+                      if not k.endswith(("_n", "_px")))
+    windows = [f"{stage} {times[f'{stage}.windows_n']} "
+               f"({100 * (1 - times[f'{stage}.frame_px'] / times[f'{stage}.window_px']):.1f}%"
+               " overlap)"
+               for stage in ("enc", "dec") if times.get(f"{stage}.windows_n")]
+    return f"spans {spans}" + (f"; windows {', '.join(windows)}" if windows else "")
+
+
 def process_kwargs(args) -> dict:
     """The flags that go to ``DovePipeline.process_frames``."""
     return dict(
@@ -319,8 +332,8 @@ def main(argv=None) -> None:
         if not lead:  # rank 0 has the clip; it writes and scores
             continue
         dt = time.perf_counter() - t0
-        logging.info("%s: %s in %.2fs (%.2f frames/s) stages %s", vpath.name,
-                     out.shape, dt, out.shape[0] / dt, pipe.stage_times)
+        logging.info("%s: %s in %.2fs (%.2f frames/s) %s", vpath.name,
+                     out.shape, dt, out.shape[0] / dt, clip_log(pipe.stage_times))
         if accumulator is not None:
             gt = None
             if args.gt_dir:

@@ -48,7 +48,7 @@ import ctypes
 import torch
 
 from dove_tpu_torch import kernels
-from dove_tpu_torch.ops.flash_attention import LaunchCounter
+from dove_tpu_torch.obs import LaunchCounter
 from dove_tpu_torch.ops.quant import asym_codes, int8_matmul
 
 launches_w8a8 = LaunchCounter()  # K4, k_t = 3

@@ -31,28 +31,11 @@ import math
 
 import torch
 
-from dove_tpu_torch import kernels
+from dove_tpu_torch import kernels, obs
+from dove_tpu_torch.obs import LaunchCounter
 
 LOG2E = 1.4426950408889634
 HEAD_DIM = 64
-
-
-class LaunchCounter:
-    """Number of kernel launches: the wrapper adds one per launch, and only
-    there, so a run can show that its path went through the kernel. Set
-    ``shapes`` to a list to have each launch also append its input's shape."""
-
-    def __init__(self) -> None:
-        self.count = 0
-        self.shapes: list | None = None
-
-    def reset(self) -> None:
-        self.count = 0
-
-    def add(self, shape: torch.Size) -> None:
-        self.count += 1
-        if self.shapes is not None:
-            self.shapes.append(tuple(shape))
 
 
 launches = LaunchCounter()  # K1, inference forms (no logsumexp)
@@ -126,11 +109,13 @@ def quantize_qk_pair(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K2's inputs from float q and k -> (q8, k8, factor): the int8 codes of
     each and the fp32 factor on their int32 logits, (s_q * s_k) * fp32(scale
-    * log2 e) in the TPU kernel's order, left on the device."""
-    q8, s_q = quantize_qk(q)
-    k8, s_k = quantize_qk(k)
-    factor = (s_q * s_k) * torch.tensor(scale * LOG2E, dtype=torch.float32,
-                                        device=s_q.device)
+    * log2 e) in the TPU kernel's order, left on the device (the span
+    ``dit.quantize``)."""
+    with obs.span("dit.quantize"):
+        q8, s_q = quantize_qk(q)
+        k8, s_k = quantize_qk(k)
+        factor = (s_q * s_k) * torch.tensor(scale * LOG2E, dtype=torch.float32,
+                                            device=s_q.device)
     return q8, k8, factor
 
 

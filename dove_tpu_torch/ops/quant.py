@@ -59,7 +59,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.profiler import record_function
+
+from dove_tpu_torch import obs
 
 EPS = 1e-12
 INV_127 = 1.0 / 127.0  # taken as fp32 by the tensor ops, as XLA folds it
@@ -147,12 +148,14 @@ def qlinear(
     scales -> x.dtype [..., out]. Epilogue in fp32: acc * (s_x * s_w), plus
     the bias, then the cast."""
     lead = x.shape[:-1]
-    x_q, s_x = dynamic_quant_rows(x.reshape(-1, x.shape[-1]))
+    with obs.span("dit.quantize"):
+        x_q, s_x = dynamic_quant_rows(x.reshape(-1, x.shape[-1]))
     acc = int8_matmul(x_q, w_q)
-    y = acc.float() * (s_x * w_scale.reshape(-1))
-    if bias is not None:
-        y = y + bias.float()
-    return y.reshape(*lead, acc.shape[-1]).to(x.dtype)
+    with obs.span("dit.dequantize"):
+        y = acc.float() * (s_x * w_scale.reshape(-1))
+        if bias is not None:
+            y = y + bias.float()
+        return y.reshape(*lead, acc.shape[-1]).to(x.dtype)
 
 
 class _Fp32Buffers(nn.Module):
@@ -234,7 +237,8 @@ class W8Linear(_Int8Weight):
 
     def matmul(self, x: torch.Tensor) -> torch.Tensor:
         """The product without the bias."""
-        w = self.weight_q.to(x.dtype) * self.scale.to(x.dtype)[:, None]
+        with obs.span("dit.dequantize"):
+            w = self.weight_q.to(x.dtype) * self.scale.to(x.dtype)[:, None]
         return x @ w.t()
 
 
@@ -646,7 +650,7 @@ def qconv(conv: QConv3d, x: torch.Tensor, stride: int = 1, padding: int = 1) -> 
     if C != conv.in_channels:
         raise ValueError(f"x has {C} channels, the conv takes {conv.in_channels}")
     plain = conv.backend == "plain"
-    with record_function("dove.qconv.quantize"):
+    with obs.span("qconv.quantize"):
         if conv.kernel_ksum is not None:
             s, m = asym_grid(x, eq_inv=conv.equalize_inv, channel_dim=1)
             x_q = conv3d_int8.quantize_pack(x, s, m, conv.equalize_inv, padding, plain)

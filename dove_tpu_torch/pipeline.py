@@ -8,8 +8,9 @@ linears W8A8 with K2's int8 Q K^T attention (``"int8-dit"``) or weight-only
 (``"int8-dit-dec"``). Two paths, as in the JAX package:
 
 The staged path (``vae_tiling=True``, the reference's ``--is_vae_st``, with
-no outer tiles). A clip of up to 33 frames is one pass of three stages, each
-ended by a device synchronisation (the stage barrier):
+no outer tiles). A clip of up to 33 frames is one pass of three stages, run
+back to back on the device's stream (the host waits only for the output's
+copy to the host):
 
   * enc: 4x bilinear upscale on the device, VAE encode over feathered
     spatial windows, feathered assembly of the moments;
@@ -39,6 +40,15 @@ bf16 or fp16, so an fp32 pipeline there needs ``attention_backend="plain"``. The
 automatic rule (the kernel from 2048 tokens); the fused path, whose tiles
 fall below that, takes the kernel at every length.
 
+Each call of ``process_frames`` is one unit of ``obs``: its spans (``prep``,
+``enc`` with ``enc.upload``, ``enc.upscale``, ``enc.windows`` and
+``enc.assemble``, ``dit`` with the int8 modes' ``dit.quantize`` and
+``dit.dequantize``, ``dec`` with ``dec.windows``, ``dec.assemble`` and
+``dec.download``, ``finish``; ``fused`` on the fused path) are timed on the
+device's clock, or the host's for host work, and with the window counters
+(``enc.windows_n``, ``enc.window_px``, ``enc.frame_px`` and the decoder's)
+land in ``stage_times`` when the clip ends.
+
 Mesh serving (``process_frames(mesh=...)``, ``parallel/``): one process per
 device, every rank calling with the same clip. On the staged path the
 spatial windows of the encode and decode spread over the ranks and
@@ -66,9 +76,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
-from torch.profiler import record_function
 
-from dove_tpu_torch import tiling
+from dove_tpu_torch import obs, tiling
 from dove_tpu_torch.config import PipelineConfig
 from dove_tpu_torch.io import video as video_io
 from dove_tpu_torch.models import vae as vae_mod
@@ -144,6 +153,19 @@ def _grad_off(method):
     return run
 
 
+def _one_unit(method):
+    """``method`` as one unit of ``obs``, its spans and counters left in
+    ``self.stage_times`` when it returns."""
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        with obs.unit(self.device) as unit:
+            out = method(self, *args, **kwargs)
+        self.stage_times = unit.times
+        return out
+
+    return run
+
+
 def _groups(items: list, size: int) -> Iterator[list]:
     """Consecutive groups of at most ``size`` items."""
     size = max(1, size)
@@ -187,6 +209,15 @@ def plan_axis(size: int, blend: int, max_tile: int) -> tuple[int, int, int]:
     n = -(-(size - blend) // (max_tile - blend))  # ceil division
     tile = min(-(-(size - blend) // n) + blend, max_tile)
     return tile, tile - blend, n
+
+
+def count_windows(stage: str, n_rows: int, n_cols: int, tile_h: int, tile_w: int,
+                  lat_h: int, lat_w: int) -> None:
+    """Count a window plan of ``stage`` ("enc" or "dec") once: its windows,
+    the latent positions (h x w) they compute and those of the frame."""
+    obs.count(f"{stage}.windows_n", n_rows * n_cols)
+    obs.count(f"{stage}.window_px", n_rows * n_cols * tile_h * tile_w)
+    obs.count(f"{stage}.frame_px", lat_h * lat_w)
 
 
 def feather_assemble(
@@ -379,7 +410,7 @@ class DovePipeline:
                 mod.backend = self.conv_backend
         vae_mod.set_pallas_conv(self.hand_conv)
         self.prompt_embedding = self.prompt_embedding.to(self.device, self.dtype)
-        # per-clip stage wall times (seconds), reset by process_frames
+        # the last clip's spans (seconds) and counters, set by process_frames
         self.stage_times: dict[str, float] = {}
         # mesh serving: the ranks that share the spatial windows and the
         # DiT's sequence-parallel group, set per call by process_frames
@@ -466,27 +497,32 @@ class DovePipeline:
         s = cfg.vae.spatial_scale
         _, _, H, W, _ = lq.shape
         Hu, Wu = H * cfg.upscale, W * cfg.upscale
-        up = bilinear_upscale(lq.float(), cfg.upscale).to(lq.dtype)
         lat_h, lat_w = Hu // s, Wu // s
         blend, enc_max, _ = self._window_budget()
         tile_h, stride_h, n_rows = plan_axis(lat_h, blend, enc_max[0])
         tile_w, stride_w, n_cols = plan_axis(lat_w, blend, enc_max[1])
+        count_windows("enc", n_rows, n_cols, tile_h, tile_w, lat_h, lat_w)
+        with obs.span("enc.upscale"):
+            up = _edge_pad_hw(bilinear_upscale(lq.float(), cfg.upscale).to(lq.dtype),
+                              ((n_rows - 1) * stride_h + tile_h) * s,
+                              ((n_cols - 1) * stride_w + tile_w) * s)
         if n_rows == 1 and n_cols == 1:
-            return vae_mod.encode_moments(cfg.vae, self.vae, up)
+            with obs.span("enc.windows"):
+                return vae_mod.encode_moments(cfg.vae, self.vae, up)
         th, tw = tile_h * s, tile_w * s
-        up = _edge_pad_hw(up, ((n_rows - 1) * stride_h + tile_h) * s,
-                          ((n_cols - 1) * stride_w + tile_w) * s)
-        tiles = self._window_map(
-            lambda rc: vae_mod.encode_moments(
-                cfg.vae, self.vae,
-                up[:, :, rc[0] * stride_h * s:rc[0] * stride_h * s + th,
-                   rc[1] * stride_w * s:rc[1] * stride_w * s + tw]),
-            [(r, c) for r in range(n_rows) for c in range(n_cols)])
-        return feather_assemble(
-            tiles, n_rows, n_cols,
-            blend if n_rows > 1 else 0, blend if n_cols > 1 else 0,
-            lat_h, lat_w,
-        )
+        with obs.span("enc.windows"):
+            tiles = self._window_map(
+                lambda rc: vae_mod.encode_moments(
+                    cfg.vae, self.vae,
+                    up[:, :, rc[0] * stride_h * s:rc[0] * stride_h * s + th,
+                       rc[1] * stride_w * s:rc[1] * stride_w * s + tw]),
+                [(r, c) for r in range(n_rows) for c in range(n_cols)])
+        with obs.span("enc.assemble"):
+            return feather_assemble(
+                tiles, n_rows, n_cols,
+                blend if n_rows > 1 else 0, blend if n_cols > 1 else 0,
+                lat_h, lat_w,
+            )
 
     def dit_step(
         self, moments: torch.Tensor, generator: torch.Generator | None = None
@@ -573,24 +609,29 @@ class DovePipeline:
         blend, _, dec_max = self._window_budget()
         tile_h, stride_h, n_rows = plan_axis(zh, blend, dec_max[0])
         tile_w, stride_w, n_cols = plan_axis(zw, blend, dec_max[1])
+        count_windows("dec", n_rows, n_cols, tile_h, tile_w, zh, zw)
         if n_rows == 1 and n_cols == 1:
-            pixels = vae_mod.decode(cfg.vae, self.vae, z)
+            with obs.span("dec.windows"):
+                pixels = vae_mod.decode(cfg.vae, self.vae, z)
         else:
-            zp = _edge_pad_hw(z, (n_rows - 1) * stride_h + tile_h,
-                              (n_cols - 1) * stride_w + tile_w)
-            tiles = self._window_map(
-                lambda rc: vae_mod.decode(
-                    cfg.vae, self.vae,
-                    zp[:, :, rc[0] * stride_h:rc[0] * stride_h + tile_h,
-                       rc[1] * stride_w:rc[1] * stride_w + tile_w]),
-                [(r, c) for r in range(n_rows) for c in range(n_cols)])
-            pixels = feather_assemble(
-                tiles, n_rows, n_cols,
-                (blend if n_rows > 1 else 0) * s,
-                (blend if n_cols > 1 else 0) * s,
-                zh * s, zw * s,
-            )
-        return (pixels.float() * 0.5 + 0.5).clamp(0.0, 1.0)
+            with obs.span("dec.windows"):
+                zp = _edge_pad_hw(z, (n_rows - 1) * stride_h + tile_h,
+                                  (n_cols - 1) * stride_w + tile_w)
+                tiles = self._window_map(
+                    lambda rc: vae_mod.decode(
+                        cfg.vae, self.vae,
+                        zp[:, :, rc[0] * stride_h:rc[0] * stride_h + tile_h,
+                           rc[1] * stride_w:rc[1] * stride_w + tile_w]),
+                    [(r, c) for r in range(n_rows) for c in range(n_cols)])
+            with obs.span("dec.assemble"):
+                pixels = feather_assemble(
+                    tiles, n_rows, n_cols,
+                    (blend if n_rows > 1 else 0) * s,
+                    (blend if n_cols > 1 else 0) * s,
+                    zh * s, zw * s,
+                )
+        with obs.span("dec.assemble"):
+            return (pixels.float() * 0.5 + 0.5).clamp(0.0, 1.0)
 
     def quantize_frames(self, out01: torch.Tensor) -> torch.Tensor:
         """[B, F, H, W, 3] float in [0,1] -> uint8 RGB, or packed I420.
@@ -618,7 +659,9 @@ class DovePipeline:
 
     def dec_all(self, z: torch.Tensor) -> torch.Tensor:
         """Window decode + assembly + uint8 (or I420) quantization."""
-        return self.quantize_frames(self.dec_float(z))
+        out01 = self.dec_float(z)
+        with obs.span("dec.assemble"):
+            return self.quantize_frames(out01)
 
     # ------------------------------------------------------------------
     # Host-side driver
@@ -628,31 +671,24 @@ class DovePipeline:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _add_time(self, stage: str, seconds: float) -> None:
-        self.stage_times[stage] = self.stage_times.get(stage, 0.0) + seconds
-
     @_grad_off
     def _sr_clip_staged(self, clip: np.ndarray, generator: torch.Generator) -> np.ndarray:
         """One pass: clip [F, H, W, 3] float in [-1, 1] at LQ resolution ->
-        uint8 [F, H*u, W*u, 3] (or I420). The stage barriers keep one
-        stage's temporaries from overlapping the next one's. Each stage is
-        a named range ("dove.enc", ...) in a torch.profiler trace."""
-        t0 = time.perf_counter()
-        with record_function("dove.enc"):
-            lq = torch.as_tensor(clip[None]).to(self.device).to(self.dtype)
+        uint8 [F, H*u, W*u, 3] (or I420). The stages run back to back on one
+        stream: the caching allocator hands out memory in the host's order,
+        so a stage's temporaries never overlap the next one's whether or not
+        the host waits between them; it waits only for the copy to the
+        host."""
+        with obs.span("enc"):
+            with obs.span("enc.upload"):
+                lq = torch.as_tensor(clip[None]).to(self.device).to(self.dtype)
             moments = self.enc_all(lq)
-            self._barrier()
-        t1 = time.perf_counter()
-        self._add_time("enc", t1 - t0)
-        with record_function("dove.dit"):
+        with obs.span("dit"):
             z = self.dit_step(moments, generator)
-            self._barrier()
-        t2 = time.perf_counter()
-        self._add_time("dit", t2 - t1)
-        with record_function("dove.dec"):
-            out = self.dec_all(z)[0].cpu().numpy()
-        self._add_time("dec", time.perf_counter() - t2)
-        return out
+        with obs.span("dec"):
+            frames = self.dec_all(z)[0]
+            with obs.span("dec.download"):
+                return frames.cpu().numpy()
 
     @_grad_off
     def _sr_clip_streamed(
@@ -689,46 +725,47 @@ class DovePipeline:
             return ls, ls + (e0 - s0) // cfg.vae.temporal_compression_ratio
 
         # ---- enc: window-major groups, the cache handed across segments ----
-        t0 = time.perf_counter()
-        with record_function("dove.enc"):
+        with obs.span("enc"):
             e_th, e_sh, e_nr = plan_axis(lat_h, blend, enc_max[0])
             e_tw, e_sw, e_nc = plan_axis(lat_w, blend, enc_max[1])
+            count_windows("enc", e_nr, e_nc, e_th, e_tw, lat_h, lat_w)
             cover = ((e_nr - 1) * e_sh + e_th) * s, ((e_nc - 1) * e_sw + e_tw) * s
             coords = [(r * e_sh * s, c * e_sw * s)
                       for r in range(e_nr) for c in range(e_nc)]
-            lq = torch.as_tensor(clip).to(self.device).to(self.dtype)[None]
+            with obs.span("enc.upload"):
+                lq = torch.as_tensor(clip).to(self.device).to(self.dtype)[None]
             moments: list[list[torch.Tensor]] = [[] for _ in segs]
             for group in _groups(coords, self.stream_enc_group):
                 cache = None
                 for si, (s0, e0) in enumerate(segs):
-                    up = _edge_pad_hw(
-                        bilinear_upscale(lq[:, s0:e0].float(), cfg.upscale)
-                        .to(self.dtype), *cover)
-                    tiles = torch.cat([
-                        up[:, :, y:y + e_th * s, x:x + e_tw * s] for y, x in group])
-                    m, cache = vae_mod.encode_moments_cached(
-                        cfg.vae, self.vae, tiles, cache)
+                    with obs.span("enc.upscale"):
+                        up = _edge_pad_hw(
+                            bilinear_upscale(lq[:, s0:e0].float(), cfg.upscale)
+                            .to(self.dtype), *cover)
+                    with obs.span("enc.windows"):
+                        tiles = torch.cat([
+                            up[:, :, y:y + e_th * s, x:x + e_tw * s] for y, x in group])
+                        m, cache = vae_mod.encode_moments_cached(
+                            cfg.vae, self.vae, tiles, cache)
                     moments[si].extend(m.unbind(0))
                 del cache
-            lat_stream = torch.empty(
-                (1, n_lat, lat_h, lat_w, cfg.vae.latent_channels),
-                dtype=self.dtype, device=self.device)
-            for si in range(len(segs)):
-                m = feather_assemble(
-                    [t[None] for t in moments[si]], e_nr, e_nc,
-                    blend if e_nr > 1 else 0, blend if e_nc > 1 else 0,
-                    lat_h, lat_w)
-                moments[si] = []
-                ls, le = lat_span(si)
-                lat_stream[:, ls:le] = vae_mod.sample_latent(
-                    m, generator if self.sample_posterior else None,
-                    cfg.vae.scaling_factor)
-            self._barrier()
-        t1 = time.perf_counter()
-        self._add_time("enc", t1 - t0)
+            with obs.span("enc.assemble"):
+                lat_stream = torch.empty(
+                    (1, n_lat, lat_h, lat_w, cfg.vae.latent_channels),
+                    dtype=self.dtype, device=self.device)
+                for si in range(len(segs)):
+                    m = feather_assemble(
+                        [t[None] for t in moments[si]], e_nr, e_nc,
+                        blend if e_nr > 1 else 0, blend if e_nc > 1 else 0,
+                        lat_h, lat_w)
+                    moments[si] = []
+                    ls, le = lat_span(si)
+                    lat_stream[:, ls:le] = vae_mod.sample_latent(
+                        m, generator if self.sample_posterior else None,
+                        cfg.vae.scaling_factor)
 
         # ---- dit: overlapping windows, midpoint trim in latent space ----
-        with record_function("dove.dit"):
+        with obs.span("dit"):
             wplan = plan_dit_windows(
                 n_lat, self.dit_window_latents,
                 self.dit_overlap_latents if overlap_lat is None else overlap_lat)
@@ -737,41 +774,41 @@ class DovePipeline:
                 x0 = self._denoise(lat_stream[:, ws:we], generator)
                 x0_stream[:, ws + klo:ws + khi] = x0[:, klo:khi]
             del lat_stream
-            self._barrier()
-        t2 = time.perf_counter()
-        self._add_time("dit", t2 - t1)
 
         # ---- dec: window-major groups, no temporal seams ----
-        with record_function("dove.dec"):
+        with obs.span("dec"):
             d_th, d_sh, d_nr = plan_axis(lat_h, blend, dec_max[0])
             d_tw, d_sw, d_nc = plan_axis(lat_w, blend, dec_max[1])
-            zp = _edge_pad_hw(x0_stream, (d_nr - 1) * d_sh + d_th,
-                              (d_nc - 1) * d_sw + d_tw)
-            del x0_stream
-            coords = [(r * d_sh, c * d_sw) for r in range(d_nr) for c in range(d_nc)]
-            pixels: list[list[torch.Tensor]] = [[] for _ in segs]
-            for group in _groups(coords, self.stream_dec_group):
-                cache = None
-                for si in range(len(segs)):
-                    ls, le = lat_span(si)
-                    tiles = torch.cat([
-                        zp[:, ls:le, y:y + d_th, x:x + d_tw] for y, x in group])
-                    px, cache = vae_mod.decode_cached(
-                        cfg.vae, self.vae, tiles, cache, self.stream_decode_latents)
-                    pixels[si].extend(px.unbind(0))
-                del cache
-            del zp
+            count_windows("dec", d_nr, d_nc, d_th, d_tw, lat_h, lat_w)
+            with obs.span("dec.windows"):
+                zp = _edge_pad_hw(x0_stream, (d_nr - 1) * d_sh + d_th,
+                                  (d_nc - 1) * d_sw + d_tw)
+                del x0_stream
+                coords = [(r * d_sh, c * d_sw) for r in range(d_nr) for c in range(d_nc)]
+                pixels: list[list[torch.Tensor]] = [[] for _ in segs]
+                for group in _groups(coords, self.stream_dec_group):
+                    cache = None
+                    for si in range(len(segs)):
+                        ls, le = lat_span(si)
+                        tiles = torch.cat([
+                            zp[:, ls:le, y:y + d_th, x:x + d_tw] for y, x in group])
+                        px, cache = vae_mod.decode_cached(
+                            cfg.vae, self.vae, tiles, cache, self.stream_decode_latents)
+                        pixels[si].extend(px.unbind(0))
+                    del cache
+                del zp
             out = np.empty((F_, Hp * 3 // 2, Wp) if self.output_i420
                            else (F_, Hp, Wp, 3), np.uint8)
             for si, (s0, e0) in enumerate(segs):
-                seg = feather_assemble(
-                    [t[None] for t in pixels[si]], d_nr, d_nc,
-                    (blend if d_nr > 1 else 0) * s, (blend if d_nc > 1 else 0) * s,
-                    Hp, Wp)
-                pixels[si] = []
-                out01 = (seg.float() * 0.5 + 0.5).clamp(0.0, 1.0)
-                out[s0:e0] = self.quantize_frames(out01)[0].cpu().numpy()
-        self._add_time("dec", time.perf_counter() - t2)
+                with obs.span("dec.assemble"):
+                    seg = feather_assemble(
+                        [t[None] for t in pixels[si]], d_nr, d_nc,
+                        (blend if d_nr > 1 else 0) * s, (blend if d_nc > 1 else 0) * s,
+                        Hp, Wp)
+                    pixels[si] = []
+                    frames = self.quantize_frames((seg.float() * 0.5 + 0.5).clamp(0.0, 1.0))
+                with obs.span("dec.download"):
+                    out[s0:e0] = frames[0].cpu().numpy()
         return out
 
     def _upscale_input(self, padded: np.ndarray, upscale: int,
@@ -883,6 +920,7 @@ class DovePipeline:
             self._win = mesh.axis_group(None)
             self._dit_sp = mesh.axis_group("data")
 
+    @_one_unit
     def process_frames(
         self,
         frames: np.ndarray,  # [F, H, W, 3] float32 in [0, 1] (LQ input)
@@ -913,28 +951,27 @@ class DovePipeline:
         self._mesh_route(mesh, staged)
         lead = mesh is None or mesh.rank == 0
         if not staged:
-            t0 = time.perf_counter()
-            padded, (pad_f, pad_h, pad_w) = tiling.pad_video(frames)
-            dp = None if mesh is None else mesh.axis_group("data")
-            out = self._sr_fused(
-                padded, upscale, chunk_len, tuple(tile_size_hw),
-                8 if overlap_t is None else overlap_t, tuple(overlap_hw), seed,
-                max(1, tile_batch), upscale_mode, dp)
-            if out is None:
-                return None
-            out = tiling.unpad_video(out, pad_f, pad_h * upscale, pad_w * upscale)
-            # [3, F, H, W] -> [F, H, W, 3], then one pull to the host
-            result = out.permute(1, 2, 3, 0).contiguous().cpu().numpy()
-            self.stage_times = {"fused": time.perf_counter() - t0}
+            with obs.span("fused"):
+                padded, (pad_f, pad_h, pad_w) = tiling.pad_video(frames)
+                dp = None if mesh is None else mesh.axis_group("data")
+                out = self._sr_fused(
+                    padded, upscale, chunk_len, tuple(tile_size_hw),
+                    8 if overlap_t is None else overlap_t, tuple(overlap_hw), seed,
+                    max(1, tile_batch), upscale_mode, dp)
+                if out is None:
+                    return None
+                out = tiling.unpad_video(out, pad_f, pad_h * upscale, pad_w * upscale)
+                # [3, F, H, W] -> [F, H, W, 3], then one pull to the host
+                result = out.permute(1, 2, 3, 0).contiguous().cpu().numpy()
             return result if lead else None
         if upscale != self.config.upscale:
             raise ValueError(
                 "the staged path upscales on the device using config.upscale; "
                 "rebuild the pipeline config to change it"
             )
-        self.stage_times = {}
-        padded, (pad_f, pad_h, pad_w) = tiling.pad_video(frames)
-        lq = padded * 2.0 - 1.0  # [-1, 1] at LQ resolution
+        with obs.span("prep", host=True):
+            padded, (pad_f, pad_h, pad_w) = tiling.pad_video(frames)
+            lq = padded * 2.0 - 1.0  # [-1, 1] at LQ resolution
         F_ = lq.shape[0]
         generator = torch.Generator(device=self.device).manual_seed(seed)
 
@@ -945,8 +982,9 @@ class DovePipeline:
                 lq, generator,
                 overlap_lat=None if overlap_t is None else max(0, round(overlap_t / 4)),
             )
-            out = _trim_output(out, pad_f, pad_h, pad_w, upscale)
-            return out if self.output_uint8 else out.astype(np.float32) / 255.0
+            with obs.span("finish", host=True):
+                out = _trim_output(out, pad_f, pad_h, pad_w, upscale)
+                return out if self.output_uint8 else out.astype(np.float32) / 255.0
 
         if overlap_t is None:
             overlap_t = 8  # the reference's default
@@ -966,7 +1004,8 @@ class DovePipeline:
             f_ext = chunk_len + math.ceil((F_ - chunk_len) / stride) * stride
             extra_f = f_ext - F_
             if extra_f:
-                lq = np.concatenate([lq, np.repeat(lq[-1:], extra_f, axis=0)])
+                with obs.span("prep", host=True):
+                    lq = np.concatenate([lq, np.repeat(lq[-1:], extra_f, axis=0)])
             F_ = f_ext
         chunks = tiling.temporal_chunks(F_, chunk_len, effective_ot)
 
@@ -975,8 +1014,9 @@ class DovePipeline:
             nf = data.shape[0]
             valid_nf = tiling.next_valid_frames(nf)
             if valid_nf != nf:
-                data = np.concatenate(
-                    [data, np.repeat(data[-1:], valid_nf - nf, axis=0)])
+                with obs.span("prep", host=True):
+                    data = np.concatenate(
+                        [data, np.repeat(data[-1:], valid_nf - nf, axis=0)])
             return data, nf
 
         if mesh is not None and mesh.shape["data"] > 1 and len(chunks) > 1:
@@ -1013,21 +1053,20 @@ class DovePipeline:
 
         # trim-based temporal stitching: every frame is written once (a
         # single chunk keeps all of its frames)
-        out = None
-        for ts, te in chunks:
-            piece = produced[(ts, te)]
-            if out is None:
-                out = np.empty((F_,) + piece.shape[1:], np.uint8)
-            vr = tiling.valid_region(
-                tiling.Tile(ts, te, 0, 1, 0, 1), (F_, 1, 1), effective_ot, (0, 0)
-            )
-            out[vr.dst[0]] = piece[vr.src[0]]
-        if extra_f:
-            out = out[:-extra_f]
-        out = _trim_output(out, pad_f, pad_h, pad_w, upscale)
-        if self.output_uint8:
-            return out
-        return out.astype(np.float32) / 255.0
+        with obs.span("finish", host=True):
+            out = None
+            for ts, te in chunks:
+                piece = produced[(ts, te)]
+                if out is None:
+                    out = np.empty((F_,) + piece.shape[1:], np.uint8)
+                vr = tiling.valid_region(
+                    tiling.Tile(ts, te, 0, 1, 0, 1), (F_, 1, 1), effective_ot, (0, 0)
+                )
+                out[vr.dst[0]] = piece[vr.src[0]]
+            if extra_f:
+                out = out[:-extra_f]
+            out = _trim_output(out, pad_f, pad_h, pad_w, upscale)
+            return out if self.output_uint8 else out.astype(np.float32) / 255.0
 
     def process_video_file(self, path: str | Path, **kwargs) -> np.ndarray | None:
         frames = video_io.read_video_frames(path)

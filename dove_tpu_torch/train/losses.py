@@ -14,8 +14,8 @@ from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
+from dove_tpu_torch import obs
 from dove_tpu_torch.config import PipelineConfig
 from dove_tpu_torch.models import vae as vae_mod
 from dove_tpu_torch.models.dit import CogVideoXTransformer3D, temporal_pad
@@ -191,14 +191,14 @@ def stage2_loss(
     counts match and the decode's memory stays bounded. All terms are taken
     in [0, 1] after a clamp of both sides (lora_one_s2_trainer.py:147,
     228-235); the frame-difference term only when F > 1."""
-    with record_function("dove.train.dit_fwd"):
+    with obs.span("train.dit_fwd"):
         x0 = one_step_x0_latent(cfg, schedule, dit, batch["lq_latent"],
                                 batch["prompt_embeds"], noise, **fwd_kwargs)
     z = x0 / torch.tensor(cfg.vae.scaling_factor, dtype=x0.dtype)
     B, Fl = z.shape[:2]
     z_frames = z.reshape((B * Fl, 1) + z.shape[2:])
     vae_dtype = vae.decoder.conv_in.conv.weight.dtype
-    with record_function("dove.train.decode"):
+    with obs.span("train.decode"):
         pred = vae_mod.decode(cfg.vae, vae, z_frames.to(vae_dtype),
                               remat=bool(fwd_kwargs.get("gradient_checkpointing")))
     pred = pred.reshape((B, Fl) + pred.shape[2:])  # [B, F, H, W, 3] in [-1, 1]
@@ -212,7 +212,7 @@ def stage2_loss(
     total = pixel_weight * loss_pixel
 
     if perceptual_fn is not None and perceptual_weight > 0:
-        with record_function("dove.train.perceptual"):
+        with obs.span("train.perceptual"):
             loss_perc = perceptual_fn(pf, hf)
         aux["loss_perceptual"] = loss_perc
         total = total + perceptual_weight * loss_perc

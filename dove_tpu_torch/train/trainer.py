@@ -71,10 +71,9 @@ from typing import Any
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from dove_tpu_torch import config as cfg_mod
-from dove_tpu_torch import weights
+from dove_tpu_torch import obs, weights
 from dove_tpu_torch.data.datasets import EMPTY_PROMPT_SHA
 from dove_tpu_torch.models.dit import init_dit_params, temporal_pad
 from dove_tpu_torch.models.vae import draw_part, encode_moments, init_vae_params, sample_latent
@@ -178,8 +177,8 @@ class Trainer:
         self.loader = None
         # seconds train() waited for each batch of the loader
         self.data_wait_s: list[float] = []
+        # the last step's spans (seconds), set by train_step
         self.step_times: dict[str, float] = {}
-        self._lap_t = 0.0
         self._log_file = None
         self._tb = None  # a tensorboard SummaryWriter when report_to asks for it
         self._wandb = None  # a WandbOfflineRun when report_to is wandb or all
@@ -436,54 +435,52 @@ class Trainer:
         return draw_part((B, F + temporal_pad(self.config.dit, F), C, h, w),
                          self.generator(step, 2), self.device, self._part())
 
-    def _barrier(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
-    def _lap(self, name: str) -> None:
-        """Record the time since the last lap under ``name`` in step_times."""
-        self._barrier()
-        now = time.perf_counter()
-        self.step_times[name] = self.step_times.get(name, 0.0) + now - self._lap_t
-        self._lap_t = now
+    def encode_batch(self, batch: dict[str, torch.Tensor], step: int) -> dict:
+        """The batch with its clips' latents in place of the clips, as
+        ``compute_loss`` takes it (a batch that has them is returned as it
+        is)."""
+        raise NotImplementedError
 
     def loss_and_grads(self, batch: dict[str, torch.Tensor]):
         """The loss of this step's batch and the gradients of the trainable
         tensors -> (loss, aux, grads); the tensors' ``.grad`` are left
-        empty."""
+        empty. Spans: "train.encode", then "train.dit_fwd_bwd" around the
+        forward and the loss ("train.dit_fwd", in ``compute_loss``) and
+        "train.backward"."""
         params = self.trainable_tensors()
         for p in params:
             p.grad = None
-        loss, aux = self.compute_loss(batch, self.global_step)
-        loss.backward()
-        grads = [_local(torch.zeros_like(p) if p.grad is None else p.grad) for p in params]
-        for p in params:
-            p.grad = None
-        # clones: an aux term may be the loss itself, reduced once each
-        loss, aux = loss.detach().clone(), {k: v.detach().clone() for k, v in aux.items()}
-        d = self.mesh.shape["data"]
-        if d > 1:  # DDP: the mean over the data rows' equal slices
-            group = self.mesh.group("data")
-            for t in grads + [loss] + list(aux.values()):
-                torch.distributed.all_reduce(t, group=group)
-                t.div_(d)
-        self._lap("dit_fwd_bwd")
+        with obs.span("train.encode"):
+            batch = self.encode_batch(batch, self.global_step)
+        with obs.span("train.dit_fwd_bwd"):
+            loss, aux = self.compute_loss(batch, self.global_step)
+            # the backward runs on autograd's thread; the host waits here
+            with obs.span("train.backward"):
+                loss.backward()
+            grads = [_local(torch.zeros_like(p) if p.grad is None else p.grad) for p in params]
+            for p in params:
+                p.grad = None
+            # clones: an aux term may be the loss itself, reduced once each
+            loss, aux = loss.detach().clone(), {k: v.detach().clone() for k, v in aux.items()}
+            d = self.mesh.shape["data"]
+            if d > 1:  # DDP: the mean over the data rows' equal slices
+                group = self.mesh.group("data")
+                for t in grads + [loss] + list(aux.values()):
+                    torch.distributed.all_reduce(t, group=group)
+                    t.div_(d)
         return loss, aux, grads
 
     def train_step(self, batch: dict[str, torch.Tensor]):
-        """One update -> (loss, aux, grad_norm), all device scalars. Times
-        the encode, the DiT's forward and backward, and the optimizer into
-        ``step_times``. The encode, the DiT's forward and the optimizer are
-        also named ranges ("dove.train.encode", "dove.train.dit_fwd",
-        "dove.train.optimizer") in a torch.profiler trace; the backward runs
-        on autograd's own thread, outside them."""
-        self.step_times = {}
-        self._barrier()
-        self._lap_t = time.perf_counter()
-        loss, aux, grads = self.loss_and_grads(batch)
-        with record_function("dove.train.optimizer"), torch.no_grad():
-            gnorm = self.optimizer.step([_local(p) for p in self.trainable_tensors()], grads)
-        self._lap("optimizer")
+        """One update -> (loss, aux, grad_norm), all device scalars. One unit
+        of ``obs``: the spans of ``loss_and_grads`` and "train.optimizer",
+        timed on the device's clock and resolved into ``step_times`` when
+        the step's work is done (its one wait for the device)."""
+        with obs.unit(self.device, "train") as unit:
+            loss, aux, grads = self.loss_and_grads(batch)
+            with obs.span("train.optimizer"), torch.no_grad():
+                gnorm = self.optimizer.step(
+                    [_local(p) for p in self.trainable_tensors()], grads)
+        self.step_times = unit.times
         return loss, aux, gnorm
 
     def device_batch(self, batch: dict[str, Any]) -> dict[str, torch.Tensor]:
@@ -837,18 +834,19 @@ class DOVES1Trainer(Trainer):
 
     stage = 1
 
-    def compute_loss(self, batch: dict[str, torch.Tensor], step: int):
+    def encode_batch(self, batch: dict[str, torch.Tensor], step: int) -> dict:
         if "lq_latent" in batch:  # precomputed latents
-            lq_lat, hq_lat = batch["lq_latent"], batch["hq_latent"]
-        else:
-            with record_function("dove.train.encode"):
-                lq_lat = self._encode(batch["lq_video"], self.generator(step, 0))
-                hq_lat = self._encode(batch["hq_video"], self.generator(step, 1))
-        self._lap("encode")
-        lq_lat = lq_lat.to(self.dtype)
-        loss_batch = {"lq_latent": lq_lat, "hq_latent": hq_lat,
+            return batch
+        return {"lq_latent": self._encode(batch["lq_video"], self.generator(step, 0)),
+                "hq_latent": self._encode(batch["hq_video"], self.generator(step, 1)),
+                "prompt_embeds": batch["prompt_embeds"]}
+
+    def compute_loss(self, batch: dict[str, torch.Tensor], step: int):
+        batch = self.encode_batch(batch, step)
+        lq_lat = batch["lq_latent"].to(self.dtype)
+        loss_batch = {"lq_latent": lq_lat, "hq_latent": batch["hq_latent"],
                       "prompt_embeds": batch["prompt_embeds"]}
-        with record_function("dove.train.dit_fwd"):
+        with obs.span("train.dit_fwd"):
             return losses.stage1_loss(self.config, self.schedule, self.dit, loss_batch,
                                       self._noise(lq_lat, step), **self.dit_kwargs())
 
@@ -908,12 +906,16 @@ class DOVES2Trainer(Trainer):
                  if k in ("hq_video", "lq_video", "prompt_embeds")}
         return super().train_step(batch)
 
+    def encode_batch(self, batch: dict[str, torch.Tensor], step: int) -> dict:
+        if "lq_latent" in batch:
+            return batch
+        return {"lq_latent": self._encode(batch["lq_video"], self.generator(step, 0),
+                                          per_frame=True),
+                "hq_video": batch["hq_video"], "prompt_embeds": batch["prompt_embeds"]}
+
     def compute_loss(self, batch: dict[str, torch.Tensor], step: int):
-        with record_function("dove.train.encode"):
-            lq_lat = self._encode(batch["lq_video"], self.generator(step, 0),
-                                  per_frame=True)
-        self._lap("encode")
-        lq_lat = lq_lat.to(self.dtype)
+        batch = self.encode_batch(batch, step)
+        lq_lat = batch["lq_latent"].to(self.dtype)
         loss_batch = {"lq_latent": lq_lat, "hq_video": batch["hq_video"],
                       "prompt_embeds": batch["prompt_embeds"]}
         a = self.args

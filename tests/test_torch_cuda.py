@@ -10,10 +10,12 @@ JAX-loading conftest:
 from __future__ import annotations
 
 import math
+import time
 
 import pytest
 import torch
 
+from dove_tpu_torch import obs
 from dove_tpu_torch.ops import conv3d_int8 as tconv
 from dove_tpu_torch.ops import flash_attention as fa
 from dove_tpu_torch.ops import quant
@@ -878,3 +880,40 @@ def test_fit_one_step_on_card(tmp_path, monkeypatch):
     step = [r for r in log if "loss" in r]
     assert [r["step"] for r in step] == [1] and math.isfinite(step[0]["loss"])
     assert (tmp_path / "out" / "checkpoint-1").is_dir()
+
+
+@pytest.mark.cuda
+def test_device_spans_time_the_stream_without_waiting():
+    """A span around queued matrix products returns long before they finish
+    (no span waits for the device), and reads their device time, as a pair
+    of events around the same work does; a nested span reads its half. A
+    second unit reuses the first one's events."""
+    dev = _card()
+    a = _randn((8192, 8192), 1, dev)
+    (a @ a).sum().item()
+    ref = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ref[0].record()
+    for _ in range(20):
+        a @ a
+    ref[1].record()
+    ref[1].synchronize()
+    want = ref[0].elapsed_time(ref[1]) / 1e3
+    pools = []
+    for _ in range(2):
+        with obs.unit(dev) as u:
+            t0 = time.perf_counter()
+            with obs.span("work"):
+                with obs.span("work.half"):
+                    for _ in range(10):
+                        a @ a
+                for _ in range(10):
+                    a @ a
+            host = time.perf_counter() - t0
+            with obs.span("host", host=True):
+                pass
+        pools.append({id(e) for e in obs._free_events[torch.cuda.current_device()]})
+        assert host < 0.5 * u.times["work"]
+        assert u.times["work"] == pytest.approx(want, rel=0.2)
+        assert u.times["work.half"] == pytest.approx(want / 2, rel=0.2)
+        assert set(u.times) == {"work", "work.half", "host"}
+    assert pools[0] == pools[1] and len(pools[0]) >= 4

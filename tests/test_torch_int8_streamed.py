@@ -51,7 +51,11 @@ def test_streamed_clip_matches_jax(models, mode, overlap_t, windows):
     assert streamed == [{"overlap_lat": None if overlap_t is None else 3}]
     assert ours.shape == (41, 56, 72, 3)
     _within_one_lsb(ours, ref)
-    assert set(tp.stage_times) == {"enc", "dit", "dec"}
+    assert set(tp.stage_times) == {
+        "prep", "enc", "enc.upload", "enc.upscale", "enc.windows", "enc.assemble", "dit",
+        "dec", "dec.windows", "dec.assemble", "dec.download", "finish", "dit.dequantize",
+        } | ({"dit.quantize"} if mode == "int8-dit" else set()) | {
+        f"{s}.{c}" for s in ("enc", "dec") for c in ("windows_n", "window_px", "frame_px")}
 
 
 def test_int8_streamed_clip_matches_jax(wide_models):

@@ -123,7 +123,11 @@ def test_process_frames_matches_jax(models, flags):
         assert np.abs(ours.astype(int) - ref.astype(int)).max() <= 1
     else:
         np.testing.assert_allclose(ours, ref, atol=LSB + 1e-6, rtol=0)
-    assert set(tp.stage_times) == {"enc", "dit", "dec"}
+    # one encode window (no assembly), 2x2 decode windows
+    assert set(tp.stage_times) == {
+        "prep", "enc", "enc.upload", "enc.upscale", "enc.windows", "dit", "dec",
+        "dec.windows", "dec.assemble", "dec.download", "finish"} | {
+        f"{s}.{c}" for s in ("enc", "dec") for c in ("windows_n", "window_px", "frame_px")}
 
 
 def test_multi_chunk_clip_matches_jax(models):

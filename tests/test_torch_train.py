@@ -295,7 +295,9 @@ def test_two_train_steps_match_jax(tmp_path):
         np.testing.assert_allclose(float(loss), want[0], rtol=LOSS_RTOL)
         np.testing.assert_allclose(float(gnorm), want[1], rtol=1e-4)
         assert float(gnorm) > tt.args.max_grad_norm  # the clip is active
-        assert set(tt.step_times) == {"encode", "dit_fwd_bwd", "optimizer"}
+        assert set(tt.step_times) == {"encode", "dit_fwd_bwd", "dit_fwd", "backward",
+                                      "optimizer"}
+        assert tt.step_times["dit_fwd_bwd"] >= tt.step_times["backward"]
     for t in tlora.TARGETS:
         for ab in ("A", "B"):
             ours = tt.lora_params[t][ab].detach().numpy()

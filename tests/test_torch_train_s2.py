@@ -367,7 +367,9 @@ def test_two_sft_steps_match_jax(models, monkeypatch, tmp_path):
         np.testing.assert_allclose(float(loss), want[0], rtol=LOSS_RTOL)
         np.testing.assert_allclose(float(gnorm), want[1], rtol=1e-4)
         assert float(gnorm) > tt.args.max_grad_norm  # the clip is active
-        assert set(tt.step_times) == {"encode", "dit_fwd_bwd", "optimizer"}
+        assert set(tt.step_times) == {"encode", "dit_fwd_bwd", "dit_fwd", "decode",
+                                      "perceptual", "backward", "optimizer"}
+        assert tt.step_times["dit_fwd_bwd"] >= tt.step_times["backward"]
     ours = tt.dit.state_dict()
     for k, v in tweights.jax_dit_to_diffusers(
             jax.tree.map(np.asarray, tj.dit_params)).items():
