@@ -8,7 +8,8 @@ Phases, one result line each; any failure exits non-zero:
 1. device and build: the card's name and power limit, and the nvcc builds of
    every kernel source under dove_tpu_torch/csrc/, one nvcc each, started
    together (flash_fwd_sm90 holds K1 and K2, flash_bwd_sm90 K3a and K3b,
-   conv3d_taps_sm90 K4 and K5, conv3d_taps the int8 quantizer's pass),
+   conv3d_taps_sm90 K4 and K5, conv3d_taps the int8 quantizer's pass,
+   group_norm_sm90 the VAE's fused GroupNorm),
    with ptxas's registers, shared memory and spills for each kernel form,
    and each form's count of HGMMA / IGMMA (wgmma on bf16 / int8), UTMALDG
    (TMA load), UBLKCP (bulk copy) and HMMA / IMMA (mma.sync) in its SASS
@@ -222,7 +223,15 @@ Phases, one result line each; any failure exits non-zero:
    and gradients against the one-process step, each sharded optimizer step
    against one device's optimizer on the gathered gradient (weights within
    one bf16 ulp, statistics and codes), K1-lse, K3a and K3b launches per
-   rank.
+   rank;
+35. the VAE's fused GroupNorm (ops/group_norm.py, group_norm_sm90.cu, the
+   port's own kernel pair): at the decoder's finest window, [1, 128, 33,
+   208, 200] bf16 with the spatial modulation of a [1, 16, 9, 26, 25]
+   latent, and at the encoder's, [1, 128, 33, 208, 232], held to its
+   float32 plain version, the statistics and apply kernels timed apart
+   (torch.profiler) and together (CUDA events) beside the bytes bound, the
+   plain version and the library route the port no longer takes
+   (F.group_norm, the affine, the nearest resize of the modulation, SiLU).
 
 Then one JSON line with the kernels' numbers, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}.
@@ -520,7 +529,8 @@ KERNEL_FORMS = {
     "quant_pack_kernelI6__halfE": "quantizer fp16",
     "quant_pack_kernelIfE": "quantizer fp32",
 }
-SOURCES = ("flash_fwd_sm90", "flash_bwd_sm90", "conv3d_taps_sm90", "conv3d_taps")
+SOURCES = ("flash_fwd_sm90", "flash_bwd_sm90", "conv3d_taps_sm90", "conv3d_taps",
+           "group_norm_sm90")
 # the kernels that must issue wgmma and TMA loads, no mma.sync, and spill
 # nothing (K4 and K5 take the output type at run time: one form serves bf16,
 # fp16 and fp32 out)
@@ -708,7 +718,7 @@ def phase_build() -> None:
         + f" of nvcc, {wall:.2f}s wall (flash_fwd_sm90: K1 in its four forms and "
         "K2; flash_bwd_sm90: K3a and K3b; "
         "conv3d_taps_sm90: K4 and K5 at k_t = 3 and 1; conv3d_taps: the int8 "
-        "quantizer's pass)")
+        "quantizer's pass; group_norm_sm90: the VAE's fused GroupNorm)")
 
 
 # ---------------------------------------------------------------------------
@@ -6158,6 +6168,113 @@ def phase_c7() -> dict:
     return dict(ranks=ranks, ref=ref, wall_s=wall)
 
 
+# ---------------------------------------------------------------------------
+# Phase 35: the VAE's fused GroupNorm
+# ---------------------------------------------------------------------------
+
+# the bf16 decode plan's finest window (26 x 25 latents of 9 frames, 33
+# frames of 208 x 200 at up.3) and the encode plan's first level (26 x 29)
+GN_DEC_SHAPE, GN_DEC_LATENT = (1, 128, 33, 208, 200), (1, 16, 9, 26, 25)
+GN_ENC_SHAPE = (1, 128, 33, 208, 232)
+
+
+def _kernel_device_ms(fn, reps: int, names: tuple[str, ...]) -> dict[str, float]:
+    """Device milliseconds a call of each kernel whose name holds one of
+    ``names``, from a torch.profiler trace of ``reps`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {n: 0.0 for n in names}
+    for evt in prof.key_averages():
+        for n in names:
+            if n in evt.key:
+                out[n] += evt.device_time_total / 1e3 / reps
+    return out
+
+
+def phase_group_norm() -> dict:
+    """Phase 35: the fused GroupNorm pair against its float32 plain version
+    at the decoder's finest window (with the modulation) and the encoder's
+    (without), timed beside its bytes bounds and the library route."""
+    import torch.nn.functional as F
+
+    from dove_tpu_torch.models import vae as tvae
+    from dove_tpu_torch.ops import group_norm as gn
+
+    gen = torch.Generator(device="cuda").manual_seed(35)
+    rows = {}
+    for name, shape, latent in (("decoder", GN_DEC_SHAPE, GN_DEC_LATENT),
+                                ("encoder", GN_ENC_SHAPE, None)):
+        C = shape[1]
+        x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 3).to(torch.bfloat16)
+        w = (torch.rand(C, generator=gen, device="cuda") + 0.5).to(torch.bfloat16)
+        b = (torch.randn(C, generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+        cy = cb = None
+        if latent is not None:
+            lat = (1, C) + latent[2:]
+            cy = (torch.randn(lat, generator=gen, device="cuda") * 0.5 + 1).to(torch.bfloat16)
+            cb = (torch.randn(lat, generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+        norm = torch.nn.GroupNorm(32, C, 1e-6, device="cuda", dtype=torch.bfloat16)
+        norm.weight.data.copy_(w)
+        norm.bias.data.copy_(b)
+
+        def kernel():
+            return gn.group_norm_silu_launch(x, 32, w, b, 1e-6, cy, cb, True)
+
+        def plain():
+            return gn.group_norm_silu_plain(x, 32, w, b, 1e-6, cy, cb, True)
+
+        def library():
+            y = tvae._group_norm(norm, x)
+            if cy is not None:
+                Fr, H, W = shape[2:]
+                y = (y * tvae._nearest_resize_causal(cy, Fr, H, W, True)
+                     + tvae._nearest_resize_causal(cb, Fr, H, W, True))
+            return F.silu(y)
+
+        out = kernel()
+        torch.cuda.synchronize()
+        ref = gn.group_norm_silu_plain(x.float(), 32, w.float(), b.float(), 1e-6,
+                                       None if cy is None else cy.float(),
+                                       None if cb is None else cb.float(), True)
+        err = (out.float() - ref).abs()
+        worst = float((err / (ref.abs() + 1e-3)).max())
+        if not bool((err <= 2.0 ** -8 * ref.abs() + 2e-5 * float(ref.abs().max())).all()):
+            raise AssertionError(f"phase 35 {name}: the kernel is off its plain version "
+                                 f"(worst relative error {worst})")
+        if not torch.equal(out, kernel()):
+            raise AssertionError(f"phase 35 {name}: two runs differ")
+        lib_err = float((library().float() - ref).abs().max())
+        del out, ref, err
+        n = x.numel()
+        extra = 0 if cy is None else 2 * cy.numel() * 2
+        split = _kernel_device_ms(kernel, 5, ("group_norm_stats", "group_norm_apply"))
+        row = dict(
+            shape=list(shape), latent=None if latent is None else list(latent),
+            splits=gn.splits(shape[0] * 32, n // 32, 2,
+                             torch.cuda.get_device_properties(0).multi_processor_count),
+            worst_rel_err=worst, library_max_abs_err=lib_err,
+            ms=cuda_ms(kernel, 10), stats_ms=split["group_norm_stats"],
+            apply_ms=split["group_norm_apply"],
+            plain_ms=cuda_ms(plain, 3), library_ms=cuda_ms(library, 10),
+            bound_ms=(2 * n * 2 + extra) / PEAK_BYTES * 1e3,
+            bound_r2w1_ms=(3 * n * 2 + extra) / PEAK_BYTES * 1e3, bound_by="bytes",
+            stats_bound_ms=n * 2 / PEAK_BYTES * 1e3,
+            apply_bound_ms=(2 * n * 2 + extra) / PEAK_BYTES * 1e3)
+        row["hbm_share_r2w1"] = row["bound_r2w1_ms"] / row["ms"]
+        rows[name] = row
+        del x, cy, cb
+        torch.cuda.empty_cache()
+    gn.launches.reset()
+    log("phase 35 fused GroupNorm (bf16): " + json.dumps(rounded(rows, 5)))
+    return rows
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -6229,7 +6346,8 @@ def main(argv: list[str] | None = None) -> int:
                 ({31}, phase_t5_xxl),
                 ({32}, lambda: (phase_video_files(), phase_prompt_cli())),
                 ({33}, phase_flow_fusion),
-                ({34}, phase_c7)):
+                ({34}, phase_c7),
+                ({35}, phase_group_norm)):
             if numbers & chosen:
                 t0 = time.perf_counter()
                 run()
@@ -6278,6 +6396,7 @@ def main(argv: list[str] | None = None) -> int:
     timed("32", phase_prompt_cli)
     timed("33", phase_flow_fusion)
     c7 = timed("34", phase_c7)
+    norm = timed("35", phase_group_norm)
     log(f"seconds by phase: {json.dumps(phase_s)}")
     log(f"all phases took {time.perf_counter() - t_start:.1f}s")
 
@@ -6473,6 +6592,22 @@ def main(argv: list[str] | None = None) -> int:
         "library_ms": None,
         "shape": quantizer["shape"],
         "drift_launches": drift_launches(drift, "quantize"),
+    })
+    kernels.append({
+        "name": "group_norm",
+        "route": "cuda",
+        "source": "dove_tpu_torch/csrc/group_norm_sm90.cu",
+        "replaces": "none: the port's own (the JAX package's GroupNorm is XLA)",
+        "max_rel_err": norm["decoder"]["worst_rel_err"],
+        "ms": norm["decoder"]["ms"],
+        "plain_ms": norm["decoder"]["plain_ms"],
+        "bound_ms": norm["decoder"]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": norm["decoder"]["library_ms"],
+        "library_call": "F.group_norm, the affine, the nearest resize of the "
+                        "modulation and F.silu: the route the port no longer takes",
+        "shape": norm["decoder"]["shape"],
+        "encoder": norm["encoder"],
     })
     kernels += fp16_kernel_rows(fp16, serving_2b, training_2b)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -31,8 +31,20 @@ state dict loads with ``load_state_dict``. The forward code is functional
 over those modules. Public functions keep the JAX package's [B, F, H, W, C]
 layout; inside, activations are NCDHW, the layout cuDNN's 3D convolution
 takes, and the int8 quantizer writes its codes channels-last for K4.
-GroupNorm takes its statistics in fp32 and applies the affine in the model
-dtype, as the JAX package does.
+Every GroupNorm of the VAE is followed by SiLU, and both run as one
+primitive, :func:`_norm_silu`, by one of two routes. On a CUDA tensor in
+bf16, fp16 or fp32 whose computation needs no gradient (serving, the
+training encode under ``no_grad``) it is the hand-written kernel pair of
+``ops.group_norm``: fp32 statistics split across the card, then one pass that
+applies the norm, its affine, the decoder's spatial modulation (read from the
+latent-resolution convs by nearest index, never resized) and SiLU, all in
+fp32 and rounded once to the model dtype. Otherwise (CPU tensors, and inputs
+that need a gradient: stage 2's decode and its ``remat`` recompute) it is the
+plain chain the JAX package computes: statistics in fp32, the affine, the
+modulation and SiLU each in the model dtype. The kernel's one rounding is at
+least as precise as the plain chain's four. Each norm site counts
+``vae.norm_n`` in the open ``obs`` unit, and ``vae.norm_fused_n`` where it
+took the kernel.
 """
 
 from __future__ import annotations
@@ -44,8 +56,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from dove_tpu_torch import obs
 from dove_tpu_torch.config import VAEConfig
-from dove_tpu_torch.ops import conv3d_int8, quant
+from dove_tpu_torch.ops import conv3d_int8, group_norm, quant
 
 Cache = dict[str, torch.Tensor]
 
@@ -414,20 +427,38 @@ def _spatial_norm3d(
     return _group_norm(p.norm_layer, x) * conv_y + conv_b
 
 
+def _norm_silu(
+    p: nn.GroupNorm | SpatialNorm3d, x: torch.Tensor, zq: torch.Tensor | None = None,
+    first: bool = True,
+) -> torch.Tensor:
+    """silu(GroupNorm(x)), or with ``zq`` silu(SpatialNorm3d(x, zq)): the
+    kernel on the card where nothing needs a gradient, else the plain chain
+    (module docstring)."""
+    obs.count("vae.norm_n", 1)
+    norm = p if zq is None else p.norm_layer
+    needs_grad = torch.is_grad_enabled() and (
+        x.requires_grad or (zq is not None and zq.requires_grad)
+        or any(t.requires_grad for t in p.parameters()))
+    if x.device.type != "cuda" or x.dtype not in group_norm.INPUT_TYPES or needs_grad:
+        return F.silu(_group_norm(p, x) if zq is None else _spatial_norm3d(p, x, zq, first))
+    cy = cb = None
+    if zq is not None:
+        cy, _ = causal_conv3d(p.conv_y, zq, None)
+        cb, _ = causal_conv3d(p.conv_b, zq, None)
+    obs.count("vae.norm_fused_n", 1)
+    return group_norm.group_norm_silu_launch(
+        x, norm.num_groups, norm.weight, norm.bias, norm.eps, cy, cb, first)
+
+
 def _resnet(
     p: ResnetBlock3d, x: torch.Tensor, zq: torch.Tensor | None, cache: Cache,
     new_cache: Cache, path: str, first: bool, keep_cache: bool,
 ) -> torch.Tensor:
-    def norm(m: nn.Module, h: torch.Tensor) -> torch.Tensor:
-        if zq is None:
-            return _group_norm(m, h)
-        return _spatial_norm3d(m, h, zq, first)
-
-    h = F.silu(norm(p.norm1, x))
+    h = _norm_silu(p.norm1, x, zq, first)
     h, new_cache[f"{path}.conv1"] = causal_conv3d(
         p.conv1, h, cache.get(f"{path}.conv1"), keep_cache, name=f"{path}.conv1"
     )
-    h = F.silu(norm(p.norm2, h))
+    h = _norm_silu(p.norm2, h, zq, first)
     h, new_cache[f"{path}.conv2"] = causal_conv3d(
         p.conv2, h, cache.get(f"{path}.conv2"), keep_cache, name=f"{path}.conv2"
     )
@@ -500,7 +531,7 @@ def encoder_forward(
                             name=f"down.{i}.downsample")
     for j, res in enumerate(enc.mid_block.resnets):
         h = _resnet(res, h, None, cache, nc, f"mid.{j}", True, keep_cache)
-    h = F.silu(_group_norm(enc.norm_out, h))
+    h = _norm_silu(enc.norm_out, h)
     h, nc["conv_out"] = causal_conv3d(enc.conv_out, h, cache.get("conv_out"), keep_cache,
                                       name="conv_out")
     return h, nc
@@ -561,7 +592,7 @@ def decoder_forward(
             return h
 
         h = run_level(up_level, h)
-    h = F.silu(_spatial_norm3d(dec.norm_out, h, z, first))
+    h = _norm_silu(dec.norm_out, h, z, first)
     h, nc["conv_out"] = causal_conv3d(dec.conv_out, h, cache.get("conv_out"), keep_cache,
                                       name="conv_out")
     return h, nc

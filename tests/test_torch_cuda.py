@@ -18,6 +18,7 @@ import torch
 from dove_tpu_torch import obs
 from dove_tpu_torch.ops import conv3d_int8 as tconv
 from dove_tpu_torch.ops import flash_attention as fa
+from dove_tpu_torch.ops import group_norm as tgn
 from dove_tpu_torch.ops import quant
 
 # bf16 bars, as chip_smoke.py holds K1: the absolute bar of
@@ -917,3 +918,163 @@ def test_device_spans_time_the_stream_without_waiting():
         assert u.times["work.half"] == pytest.approx(want / 2, rel=0.2)
         assert set(u.times) == {"work", "work.half", "host"}
     assert pools[0] == pools[1] and len(pools[0]) >= 4
+
+
+# The fused GroupNorm + affine + modulation + SiLU (ops/group_norm.py). The
+# cells' window shapes, each level: the decoder's 26 x 25 latent windows of 9
+# latent frames (bf16 and fp16 plans; the int8-dit plan's 34 x 34 at its
+# finest level), the encoder's 26 x 29 windows of 33 frames; (x shape, latent
+# frames / rows / columns or None for the encoder's norm, first).
+GN_DEC = (1, 16, 9, 26, 25)
+GN_WINDOWS = (
+    ((1, 512, 9, 26, 25), GN_DEC, True),  # mid, up.0
+    ((1, 512, 17, 52, 50), GN_DEC, True),  # up.1, first resnet
+    ((1, 256, 17, 52, 50), GN_DEC, True),
+    ((1, 256, 33, 104, 100), GN_DEC, True),  # up.2
+    ((1, 256, 33, 208, 200), GN_DEC, True),  # up.3, first resnet
+    ((1, 128, 33, 208, 200), GN_DEC, True),  # up.3, norm_out
+    ((1, 128, 33, 272, 272), (1, 16, 9, 34, 34), True),  # int8-dit plan, finest
+    ((1, 128, 33, 208, 232), None, True),  # down.0
+    ((1, 128, 17, 104, 116), None, True),  # down.1
+    ((1, 256, 17, 104, 116), None, True),
+    ((1, 256, 9, 52, 58), None, True),  # down.2
+    ((1, 512, 9, 26, 29), None, True),  # down.3, mid, norm_out
+    ((2, 128, 25, 320, 640), None, True),  # the training encode, batch 2
+)
+# ragged: F H W and W not multiples of 8, one channel a group (unaligned
+# spans), spans shorter than a vector, W under a vector, continuation
+# segments and even frame counts
+GN_RAGGED = (
+    ((1, 64, 9, 26, 29), (1, 16, 3, 13, 29), True),
+    ((2, 64, 9, 26, 29), (2, 16, 3, 13, 29), False),
+    ((2, 96, 8, 26, 29), (2, 16, 2, 26, 29), True),
+    ((1, 32, 9, 26, 29), None, True),
+    ((2, 32, 1, 1, 5), None, True),
+    ((1, 64, 5, 7, 5), (1, 16, 2, 7, 5), True),
+    ((1, 64, 1, 6, 10), (1, 16, 1, 3, 5), True),
+    ((2, 64, 4, 6, 10), (2, 16, 4, 3, 5), False),
+)
+GN_GROUPS, GN_EPS = 32, 1e-6
+
+
+def _gn_case(shape, latent, dtype, dev, seed: int):
+    """x off centre (mean 3, std 2: the statistics' cancellation shows), the
+    norm's gain and bias, the modulation's cy and cb, all in ``dtype``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(shape, generator=gen, device=dev) * 2 + 3).to(dtype)
+    C = shape[1]
+    w = (torch.rand(C, generator=gen, device=dev) + 0.5).to(dtype)
+    b = (torch.randn(C, generator=gen, device=dev) * 0.5).to(dtype)
+    cy = cb = None
+    if latent is not None:
+        lat = (shape[0], C) + tuple(latent[2:])
+        cy = (torch.randn(lat, generator=gen, device=dev) * 0.5 + 1).to(dtype)
+        cb = (torch.randn(lat, generator=gen, device=dev) * 0.5).to(dtype)
+    return x, w, b, cy, cb
+
+
+def _gn_check(shape, latent, first, dtype, seed):
+    """The kernel against the float32 plain version (no rounding at its end):
+    within one rounding to ``dtype`` and fp32's own slack; two runs equal."""
+    dev = _card()
+    x, w, b, cy, cb = _gn_case(shape, latent, dtype, dev, seed)
+    before = tgn.launches.count
+    out = tgn.group_norm_silu(x, GN_GROUPS, w, b, GN_EPS, cy, cb, first)
+    torch.cuda.synchronize()
+    assert tgn.launches.count == before + 1
+    assert out.shape == x.shape and out.dtype == dtype and out.is_contiguous()
+    f32 = [None if t is None else t.float() for t in (cy, cb)]
+    ref = tgn.group_norm_silu_plain(x.float(), GN_GROUPS, w.float(), b.float(), GN_EPS,
+                                    *f32, first)
+    rel = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11, torch.float32: 1e-5}[dtype]
+    err = (out.float() - ref).abs()
+    bar = rel * ref.abs() + 2e-5 * float(ref.abs().max())
+    assert bool(torch.isfinite(out).all())
+    assert bool((err <= bar).all()), float((err - bar).max())
+    again = tgn.group_norm_silu(x, GN_GROUPS, w, b, GN_EPS, cy, cb, first)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("shape,latent,first", GN_WINDOWS)
+def test_group_norm_at_the_cells_windows_on_card(shape, latent, first, dtype):
+    _gn_check(shape, latent, first, dtype, sum(shape))
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("shape,latent,first", GN_RAGGED)
+def test_group_norm_at_ragged_shapes_on_card(shape, latent, first, dtype):
+    _gn_check(shape, latent, first, dtype, sum(shape) + 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("latent", [None, (1, 16, 3, 13, 29)])
+def test_group_norm_nan_stays_in_its_group_on_card(latent):
+    """A NaN in one group makes that group's output NaN and leaves every
+    other group's bit for bit as without it."""
+    dev = _card()
+    x, w, b, cy, cb = _gn_case((1, 64, 9, 26, 29), latent, torch.bfloat16, dev, 11)
+    clean = tgn.group_norm_silu(x, GN_GROUPS, w, b, GN_EPS, cy, cb)
+    x[0, 6, 4, 10, 3] = float("nan")  # channel 6: group 3 of 2-channel groups
+    out = tgn.group_norm_silu(x, GN_GROUPS, w, b, GN_EPS, cy, cb)
+    torch.cuda.synchronize()
+    assert bool(out[:, 6:8].isnan().all())
+    others = torch.cat([out[:, :6], out[:, 8:]], dim=1)
+    assert torch.equal(others, torch.cat([clean[:, :6], clean[:, 8:]], dim=1))
+
+
+@pytest.mark.cuda
+def test_group_norm_wrapper_raises_on_what_the_kernel_does_not_take():
+    dev = _card()
+    x, w, b, cy, cb = _gn_case((1, 64, 9, 26, 29), (1, 16, 3, 13, 29), torch.bfloat16,
+                               dev, 12)
+    before = tgn.launches.count
+    with pytest.raises(ValueError, match="bf16, fp16 or fp32"):
+        tgn.group_norm_silu(x.double(), GN_GROUPS, w, b, GN_EPS)
+    with pytest.raises(ValueError, match="groups"):
+        tgn.group_norm_silu(x, 24, w, b, GN_EPS)
+    with pytest.raises(ValueError, match="non-integer"):
+        tgn.group_norm_silu(x[:, :, :8], GN_GROUPS, w, b, GN_EPS, cy, cb)
+    with pytest.raises(ValueError, match="both cy and cb"):
+        tgn.group_norm_silu(x, GN_GROUPS, w, b, GN_EPS, cy, None)
+    assert tgn.launches.count == before
+    # a transposed or unaligned input is copied, not misread
+    ref = tgn.group_norm_silu(x, GN_GROUPS, w, b, GN_EPS, cy, cb)
+    xt = x.transpose(3, 4).contiguous().transpose(3, 4)
+    assert torch.equal(tgn.group_norm_silu(xt, GN_GROUPS, w, b, GN_EPS, cy, cb), ref)
+    flat = torch.empty(x.numel() + 1, device=dev, dtype=x.dtype)
+    xo = flat[1:].view(x.shape)
+    xo.copy_(x)
+    assert torch.equal(tgn.group_norm_silu(xo, GN_GROUPS, w, b, GN_EPS, cy, cb), ref)
+
+
+@pytest.mark.cuda
+def test_vae_norm_sites_take_the_kernel_on_card():
+    """The VAE's norm primitive on the card: the kernel under no_grad (each
+    site counted as fused), within a bf16 rounding of the plain chain, and
+    the plain chain for an input that needs a gradient."""
+    from dove_tpu_torch.config import VAEConfig
+    from dove_tpu_torch.models import vae as tvae
+
+    dev = _card()
+    cfg = VAEConfig(block_out_channels=(32, 32, 32, 32), norm_num_groups=8)
+    m = tvae.init_vae_params(cfg, seed=3, device=dev, dtype=torch.bfloat16)
+    z = _randn((1, 16, 3, 4, 5), 13, dev)
+    with torch.no_grad(), obs.unit(dev) as u:
+        y, _ = tvae.decoder_forward(cfg, m.decoder, z, None)
+    assert u.times["vae.norm_n"] == u.times["vae.norm_fused_n"] == 37
+    p = m.decoder.norm_out
+    x = _randn((1, 32, 9, 32, 40), 14, dev)
+    with torch.no_grad():
+        fused = tvae._norm_silu(p, x, z, True)
+        plain = torch.nn.functional.silu(tvae._spatial_norm3d(p, x, z, True))
+    assert float((fused.float() - plain.float()).abs().max()) <= (
+        2.0 ** -6 * float(plain.float().abs().max()))
+    xg = x.clone().requires_grad_(True)
+    before = tgn.launches.count
+    out = tvae._norm_silu(p, xg, z, True)
+    assert tgn.launches.count == before and out.grad_fn is not None
+    assert torch.equal(out.detach(), plain)

@@ -55,7 +55,8 @@ def test_streamed_clip_matches_jax(models, mode, overlap_t, windows):
         "prep", "enc", "enc.upload", "enc.upscale", "enc.windows", "enc.assemble", "dit",
         "dec", "dec.windows", "dec.assemble", "dec.download", "finish", "dit.dequantize",
         } | ({"dit.quantize"} if mode == "int8-dit" else set()) | {
-        f"{s}.{c}" for s in ("enc", "dec") for c in ("windows_n", "window_px", "frame_px")}
+        f"{s}.{c}" for s in ("enc", "dec") for c in ("windows_n", "window_px", "frame_px")} | {
+        "vae.norm_n"}
 
 
 def test_int8_streamed_clip_matches_jax(wide_models):

@@ -31,6 +31,7 @@ from dove_tpu_torch.train import trainer as ttrainer
 from torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 COUNTERS = {f"{s}.{c}" for s in ("enc", "dec") for c in ("windows_n", "window_px", "frame_px")}
+COUNTERS |= {"vae.norm_n"}  # every VAE norm site run (the CPU route: none fused)
 SERVE_SPANS = {"prep", "enc", "enc.upload", "enc.upscale", "enc.windows", "enc.assemble",
                "dit", "dec", "dec.windows", "dec.assemble", "dec.download", "finish"}
 
@@ -217,7 +218,7 @@ def test_the_fused_path_is_one_span(tiny):
     pipe = _pipe(tiny, vae_tiling=False)
     pipe.output_uint8 = False
     pipe.process_frames(_clip(5, 16, 16), seed=0)
-    assert set(pipe.stage_times) == {"fused"} and pipe.stage_times["fused"] > 0
+    assert set(pipe.stage_times) == {"fused", "vae.norm_n"} and pipe.stage_times["fused"] > 0
 
 
 def test_a_training_step_carries_its_spans(tmp_path):
@@ -234,5 +235,6 @@ def test_a_training_step_carries_its_spans(tmp_path):
              for k in ("hq_video", "lq_video")}
     tr.train_step(tr.device_batch(batch))
     times = tr.step_times
-    assert set(times) == {"encode", "dit_fwd_bwd", "dit_fwd", "backward", "optimizer"}
+    assert set(times) == {"encode", "dit_fwd_bwd", "dit_fwd", "backward", "optimizer",
+                          "vae.norm_n"}
     assert times["dit_fwd_bwd"] >= times["backward"] + times["dit_fwd"] > 0

@@ -127,7 +127,8 @@ def test_process_frames_matches_jax(models, flags):
     assert set(tp.stage_times) == {
         "prep", "enc", "enc.upload", "enc.upscale", "enc.windows", "dit", "dec",
         "dec.windows", "dec.assemble", "dec.download", "finish"} | {
-        f"{s}.{c}" for s in ("enc", "dec") for c in ("windows_n", "window_px", "frame_px")}
+        f"{s}.{c}" for s in ("enc", "dec") for c in ("windows_n", "window_px", "frame_px")} | {
+        "vae.norm_n"}
 
 
 def test_multi_chunk_clip_matches_jax(models):
