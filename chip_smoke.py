@@ -231,7 +231,13 @@ Phases, one result line each; any failure exits non-zero:
    float32 plain version, the statistics and apply kernels timed apart
    (torch.profiler) and together (CUDA events) beside the bytes bound, the
    plain version and the library route the port no longer takes
-   (F.group_norm, the affine, the nearest resize of the modulation, SiLU).
+   (F.group_norm, the affine, the nearest resize of the modulation, SiLU);
+36. K1 at head dim 128 (``flash_fwd_sm90_kernel_d128``, bf16, online, no
+   logsumexp: Wan2.1's attention) against its plain version at Wan2.1-14B's
+   self-attention [1, 40, 34560, 128] and cross-attention (34560 queries, 512
+   keys), with logits as large as Wan's RMS norms allow, at every Sq, Skv
+   around its 128-row tiles with B*H = 3 and beside heads of NaN; both
+   shapes timed beside the bound, the exp floor, the plain version and SDPA.
 
 Then one JSON line with the kernels' numbers, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}.
@@ -528,6 +534,7 @@ KERNEL_FORMS = {
     "quant_pack_kernelI13__nv_bfloat16E": "quantizer bf16",
     "quant_pack_kernelI6__halfE": "quantizer fp16",
     "quant_pack_kernelIfE": "quantizer fp32",
+    "flash_fwd_sm90_kernel_d128I13__nv_bfloat16E": "K1 d128",
 }
 SOURCES = ("flash_fwd_sm90", "flash_bwd_sm90", "conv3d_taps_sm90", "conv3d_taps",
            "group_norm_sm90")
@@ -537,7 +544,7 @@ SOURCES = ("flash_fwd_sm90", "flash_bwd_sm90", "conv3d_taps_sm90", "conv3d_taps"
 _K1_FORMS = ("bounded", "online", "bounded lse", "online lse")
 HOPPER_FORMS = (tuple(f"K1 {f}" for f in _K1_FORMS) + tuple(f"K1 fp16 {f}" for f in _K1_FORMS)
                 + ("K2", "K2 fp16", "K3a", "K3b", "K3a fp16", "K3b fp16", "K4 k_t=3",
-                   "K4 k_t=1", "K5 k_t=3", "K5 k_t=1"))
+                   "K4 k_t=1", "K5 k_t=3", "K5 k_t=1", "K1 d128"))
 # the forms whose wgmma must be both int8 (Q K^T) and bf16 or fp16 (P V)
 MIXED_FORMS = ("K2", "K2 fp16")
 # the packages a media route for the CLI could use on the card
@@ -6275,6 +6282,121 @@ def phase_group_norm() -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 36: K1 at head dim 128
+# ---------------------------------------------------------------------------
+
+# K1 d128's tiles are 128 queries and 128 keys; Wan's cross-attention has 512
+D128_RAGGED = (1, 63, 64, 65, 127, 128, 129, 255, 256, 257, 512, 4097)
+# Wan2.1-14B at the 32x180x320 clip: 40 heads, 9 x 48 x 80 video tokens, 512
+# text slots
+WAN_HEADS, WAN_TOKENS, WAN_TEXT = 40, 34560, 512
+
+
+def k1_d128_edge_cases() -> dict:
+    """K1 d128 against its plain version at every (Sq, Skv) of D128_RAGGED,
+    B*H = 3, and with the neighbouring heads' q, k and v NaN."""
+    from dove_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(36)
+    worst = dict(max_abs=0.0, rel_max=0.0, rel_rms=0.0)
+
+    def rand(s):
+        return torch.randn((1, 3, s, 128), generator=gen, device=dev, dtype=torch.bfloat16)
+
+    def check(out, ref, what):
+        err = attn_errors(out, ref)
+        if not bool(torch.isfinite(out).all()) or not within_bars(err):
+            raise AssertionError(f"K1 d128 disagrees with its plain version at {what}: {err}")
+        for key in worst:
+            worst[key] = max(worst[key], err[key])
+
+    for sq in D128_RAGGED:
+        for skv in D128_RAGGED:
+            q, k, v = rand(sq), rand(skv), rand(skv)
+            out = fa.flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            check(out, fa.flash_attention_plain(q, k, v), f"sq={sq} skv={skv}")
+    for sq, skv in ((129, 193), (4097, 129), (300, 512)):
+        q, k, v = rand(sq), rand(skv), rand(skv)
+        for t in (q, k, v):
+            t[:, 0::2] = float("nan")
+        out = fa.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        if not bool(torch.isnan(out[:, 0::2].float()).all()):
+            raise AssertionError(f"K1 d128 wrote into a NaN head's output at sq={sq}")
+        mid = [t[:, 1:2].contiguous() for t in (q, k, v)]
+        check(out[:, 1:2], fa.flash_attention_plain(*mid), f"NaN neighbours sq={sq} skv={skv}")
+    log(f"  K1 d128 at every Sq, Skv in {D128_RAGGED} (B*H = 3) and beside NaN heads: "
+        f"{len(D128_RAGGED) ** 2 + 3} launches within the bars; worst "
+        + json.dumps({k: float(f"{x:.3e}") for k, x in worst.items()}))
+    return worst
+
+
+def phase_k1_d128() -> dict:
+    """Phase 36: K1 at head dim 128 at Wan2.1-14B's two attention shapes."""
+    from dove_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(360)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    for name, sq, skv in (("self", WAN_TOKENS, WAN_TOKENS), ("cross", WAN_TOKENS, WAN_TEXT)):
+        q, k, v = (torch.randn((1, WAN_HEADS, s, 128), generator=gen, device=dev,
+                               dtype=torch.bfloat16) for s in (sq, skv, skv))
+        errs = {}
+        # unit-variance rows, and rows whose logits reach Wan's |q| |k| / sqrt(D)
+        # scale (an RMS norm over 5120 channels lets one head hold them all)
+        for label, gain in (("unit", 1.0), ("wide", 16.0)):
+            qg = (q.float() * gain).to(torch.bfloat16)
+            out = fa.flash_attention(qg, k, v)
+            torch.cuda.synchronize()
+            ref = fa.flash_attention_plain(qg, k, v)
+            errs[label] = attn_errors(out, ref)
+            # the wide rows' outputs are single values of v (|o| up to ~5.6),
+            # where one bf16 ulp is 0.03125: the absolute bar scales with the
+            # largest value past 1, as for a gradient
+            ok = within_bars if label == "unit" else within_grad_bars
+            if not bool(torch.isfinite(out).all()) or not ok(errs[label]):
+                raise AssertionError(f"K1 d128 {name} {label}: {errs[label]}")
+            del out, ref, qg
+        if name == "self":
+            dropped = fa.flash_attention_plain(q, k[:, :, 64:].contiguous(),
+                                               v[:, :, 64:].contiguous())
+            miss = attn_errors(dropped, fa.flash_attention_plain(q, k, v))
+            if within_bars(miss):
+                raise AssertionError(f"K1 d128 bars accept a dropped KV tile: {miss}")
+            log(f"  bar check: one 64-key tile dropped at S={sq} gives rms err / rms ref "
+                f"{miss['rel_rms']:.3e}, rejected")
+            del dropped
+        scale = 128 ** -0.5
+        sdpa_before = cuda_ms(lambda: sdpa(q, k, v), 10)
+        ms = cuda_ms(lambda: fa.flash_fwd_launch(q, k, v, scale, False, False), 10)
+        clock = sm_clock_mhz()
+        sdpa_ms = min(sdpa_before, cuda_ms(lambda: sdpa(q, k, v), 10))
+        plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v), 1, warmup=0)
+        flops = 4.0 * sq * skv * 128 * WAN_HEADS
+        nbytes = 2 * WAN_HEADS * 128 * 2 * (sq + skv)
+        bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        rows[name] = dict(
+            shape=[1, WAN_HEADS, sq, skv, 128], ms=ms, plain_ms=plain_ms, sdpa_ms=sdpa_ms,
+            sdpa_ratio=ms / sdpa_ms, bound_ms=bound_ms,
+            bound_by="operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES
+            else "bytes", roofline_pct=100 * bound_ms / ms, tflops=flops / ms / 1e9,
+            exp_floor_ms=float(sq) * skv * WAN_HEADS / (16 * sms * clock * 1e6) * 1e3,
+            sm_clock_mhz=clock, errors=errs)
+        log(f"  K1 d128 {name}: " + json.dumps(rounded(rows[name])))
+        del q, k, v
+    rows["edges"] = k1_d128_edge_cases()
+    fa.launches.reset()
+    log("phase 36 K1 d128: " + json.dumps(rounded(
+        {n: {k: r[k] for k in ("ms", "bound_ms", "roofline_pct", "sdpa_ms", "plain_ms")}
+         for n, r in rows.items() if n != "edges"})))
+    return rows
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -6347,7 +6469,8 @@ def main(argv: list[str] | None = None) -> int:
                 ({32}, lambda: (phase_video_files(), phase_prompt_cli())),
                 ({33}, phase_flow_fusion),
                 ({34}, phase_c7),
-                ({35}, phase_group_norm)):
+                ({35}, phase_group_norm),
+                ({36}, phase_k1_d128)):
             if numbers & chosen:
                 t0 = time.perf_counter()
                 run()
@@ -6397,6 +6520,7 @@ def main(argv: list[str] | None = None) -> int:
     timed("33", phase_flow_fusion)
     c7 = timed("34", phase_c7)
     norm = timed("35", phase_group_norm)
+    d128 = timed("36", phase_k1_d128)
     log(f"seconds by phase: {json.dumps(phase_s)}")
     log(f"all phases took {time.perf_counter() - t_start:.1f}s")
 
@@ -6610,6 +6734,21 @@ def main(argv: list[str] | None = None) -> int:
         "encoder": norm["encoder"],
     })
     kernels += fp16_kernel_rows(fp16, serving_2b, training_2b)
+    kernels.append({
+        "name": "flash_fwd_d128_bf16",
+        "route": "cuda",
+        "source": "dove_tpu_torch/csrc/flash_fwd_sm90.cu",
+        "replaces": "dove_tpu/ops/pallas/flash_attention.py:75 at head dim 128",
+        "max_abs_err": max(e["max_abs"] for r in (d128["self"], d128["cross"])
+                           for e in r["errors"].values()),
+        "ms": d128["self"]["ms"],
+        "plain_ms": d128["self"]["plain_ms"],
+        "bound_ms": d128["self"]["bound_ms"],
+        "bound_by": d128["self"]["bound_by"],
+        "library_ms": d128["self"]["sdpa_ms"],
+        "shape": d128["self"]["shape"],
+        "cross": d128["cross"],
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

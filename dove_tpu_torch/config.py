@@ -147,12 +147,91 @@ class SchedulerConfig:
 class PipelineConfig:
     """Bundle of all model configs plus DOVE one-step inference constants."""
 
-    dit: DiTConfig = dataclasses.field(default_factory=DiTConfig)
-    vae: VAEConfig = dataclasses.field(default_factory=VAEConfig)
+    dit: DiTConfig | WanDiTConfig = dataclasses.field(default_factory=DiTConfig)
+    vae: VAEConfig | WanVAEConfig = dataclasses.field(default_factory=VAEConfig)
     scheduler: SchedulerConfig = dataclasses.field(default_factory=SchedulerConfig)
     sr_noise_step: int = 399
     noise_step: int = 0
     upscale: int = 4
+
+    @property
+    def family(self) -> str:
+        """"wan" for a Wan2.1 DiT and VAE, else "cogvideox"."""
+        return "wan" if isinstance(self.dit, WanDiTConfig) else "cogvideox"
+
+
+@dataclasses.dataclass(frozen=True)
+class WanDiTConfig:
+    """Wan2.1 text-to-video DiT (``wan/modules/model.py`` ``WanModel``):
+    the fields of its ``config.json`` and of ``wan/configs/wan_t2v_14B.py``."""
+
+    dim: int = 5120
+    ffn_dim: int = 13824
+    freq_dim: int = 256
+    num_heads: int = 40
+    num_layers: int = 40
+    in_dim: int = 16
+    out_dim: int = 16
+    text_len: int = 512
+    text_dim: int = 4096
+    patch_size: tuple[int, int, int] = (1, 2, 2)
+    eps: float = 1e-6
+    qk_norm: bool = True
+    cross_attn_norm: bool = True
+    window_size: tuple[int, int] = (-1, -1)
+    rope_theta: float = 10000.0
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.num_heads
+
+    # the names the pipeline reads of either DiT family
+    @property
+    def max_text_seq_length(self) -> int:
+        return self.text_len
+
+    @property
+    def text_embed_dim(self) -> int:
+        return self.text_dim
+
+
+# the 16-channel latent statistics of the public ``WanVAE`` wrapper
+# (``wan/modules/vae.py``): encode returns (mu - mean) / std
+WAN_LATENTS_MEAN = (-0.7571, -0.7089, -0.9113, 0.1075, -0.1745, 0.9653, -0.1517, 1.5508,
+                    0.4134, -0.0715, 0.5517, -0.3632, -0.1922, -0.9497, 0.2503, -0.2921)
+WAN_LATENTS_STD = (2.8184, 1.4541, 2.3275, 2.6558, 1.2196, 1.7708, 2.6052, 2.0743,
+                   3.2687, 2.1526, 2.8652, 1.5579, 1.6382, 1.1253, 2.8251, 1.9160)
+
+
+@dataclasses.dataclass(frozen=True)
+class WanVAEConfig:
+    """Wan2.1 causal video VAE (``wan/modules/vae.py`` ``_video_vae``):
+    RMS norms, zero-padded causal convolutions, a cache of the last
+    ``CACHE_T`` = 2 frames per convolution across chunks of 1 + 4k frames."""
+
+    base_dim: int = 96
+    z_dim: int = 16
+    dim_mult: tuple[int, ...] = (1, 2, 4, 4)
+    num_res_blocks: int = 2
+    attn_scales: tuple[float, ...] = ()
+    temperal_downsample: tuple[bool, ...] = (False, True, True)
+    latents_mean: tuple[float, ...] = WAN_LATENTS_MEAN
+    latents_std: tuple[float, ...] = WAN_LATENTS_STD
+
+    @property
+    def spatial_scale(self) -> int:
+        return 2 ** (len(self.dim_mult) - 1)
+
+    @property
+    def temporal_compression_ratio(self) -> int:
+        return 2 ** sum(bool(t) for t in self.temperal_downsample)
+
+    @property
+    def latent_channels(self) -> int:
+        return self.z_dim
+
+    def latent_frames(self, frames: int) -> int:
+        return (frames - 1) // self.temporal_compression_ratio + 1
 
 
 # ---------------------------------------------------------------------------
@@ -230,6 +309,23 @@ def tiny_test() -> PipelineConfig:
     )
 
 
+def wan2_1_t2v_14b() -> PipelineConfig:
+    """Wan2.1-T2V-14B (https://huggingface.co/Wan-AI/Wan2.1-T2V-14B) on
+    DOVE's one-step path: one flow-matching step at t = 399 (sigma 0.399,
+    shift 1), x-hat_0 = z - sigma * u."""
+    return PipelineConfig(dit=WanDiTConfig(), vae=WanVAEConfig())
+
+
+def tiny_wan() -> PipelineConfig:
+    """Tiny CPU-testable Wan: dim 256, 2 heads of 128, 2 layers, 16 text
+    slots, VAE base 8; every structural quirk of the 14B kept."""
+    return PipelineConfig(
+        dit=WanDiTConfig(dim=256, ffn_dim=512, freq_dim=32, num_heads=2, num_layers=2,
+                         text_len=16, text_dim=64),
+        vae=WanVAEConfig(base_dim=8),
+    )
+
+
 # ---------------------------------------------------------------------------
 # diffusers-config loading (so released checkpoints drive the same code)
 # ---------------------------------------------------------------------------
@@ -260,9 +356,50 @@ def scheduler_config_from_json(path: str | Path) -> SchedulerConfig:
     return SchedulerConfig(**_filter_kwargs(SchedulerConfig, raw))
 
 
+WAN_VAE_FILE = "Wan2.1_VAE.pth"
+
+
+def is_wan_folder(model_dir: str | Path) -> bool:
+    """A Wan2.1 release folder: a root ``config.json`` whose ``_class_name``
+    is ``WanModel``."""
+    path = Path(model_dir) / "config.json"
+    if not path.is_file():
+        return False
+    return json.loads(path.read_text()).get("_class_name") == "WanModel"
+
+
+def wan_dit_config_from_json(path: str | Path) -> WanDiTConfig:
+    raw = json.loads(Path(path).read_text())
+    kwargs = _filter_kwargs(WanDiTConfig, raw)
+    for name in ("patch_size", "window_size"):
+        if name in kwargs:
+            kwargs[name] = tuple(kwargs[name])
+    return WanDiTConfig(**kwargs)
+
+
+def wan_vae_config_from_weights(path: str | Path) -> WanVAEConfig:
+    """The release's ``_video_vae``, its base width and latent channels read
+    from the shapes in ``Wan2.1_VAE.pth`` where the file is there (memory-
+    mapped: nothing else is read)."""
+    path = Path(path)
+    if not path.is_file():
+        return WanVAEConfig()
+    import torch
+
+    state = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+    return WanVAEConfig(base_dim=state["encoder.conv1.weight"].shape[0],
+                        z_dim=state["conv2.weight"].shape[0])
+
+
 def pipeline_config_from_pretrained(model_dir: str | Path) -> PipelineConfig:
-    """Build a PipelineConfig from a diffusers-layout checkpoint directory."""
+    """Build a PipelineConfig from a diffusers-layout checkpoint directory,
+    or from a Wan2.1 release folder (root ``config.json`` of ``WanModel``,
+    safetensors shards, ``Wan2.1_VAE.pth``), whose VAE is the fixed
+    ``_video_vae`` of the release."""
     model_dir = Path(model_dir)
+    if is_wan_folder(model_dir):
+        return PipelineConfig(dit=wan_dit_config_from_json(model_dir / "config.json"),
+                              vae=wan_vae_config_from_weights(model_dir / WAN_VAE_FILE))
     return PipelineConfig(
         dit=dit_config_from_json(model_dir / "transformer" / "config.json"),
         vae=vae_config_from_json(model_dir / "vae" / "config.json"),

@@ -105,6 +105,33 @@
 //   epilogue writes O / l as bf16 pairs straight from registers, guarded
 //   per row, and the lse per row in the kLse forms only.
 
+// K1 at head dim 128 (flash_fwd_sm90_kernel_d128, bf16, the online form
+// without the logsumexp: the serving forward of Wan2.1, whose q and k RMS
+// norms span all heads, so one head's logit can pass 400 and the bounded
+// form would overflow). A kernel of its own beside the one above, whose
+// head-64 instantiations it leaves as they are; it shares the barriers, the
+// TMA load, the wgmma wrappers and the softmax's lazy rescale. FA3's layout
+// for head dim 128:
+// - 128 query rows a CTA as two consumer warpgroups of 64 (240 registers),
+//   one producer warpgroup (24); 384 threads.
+// - 128 keys a tile. A row of 128 values is 256 bytes, twice what one
+//   128B-swizzled TMA box holds, so Q and each K and V tile are two halves
+//   of [rows x 64], each loaded as one box at d = 0 and d = 64: Q 32 KB and
+//   K and V 32 KB a tile. Three stages: 32 + 3 x 64 = 224 KB of shared
+//   memory. FA3's two stages (160 KB) ran at 45.1 ms at the shape below,
+//   three at 36.7 (phase 36): with two consumers the ring must hide a whole
+//   tile's loads behind one consumer's softmax.
+// - S = Q K^T: eight k16 steps of m64n128k16, four in each half of d.
+//   O += P V: one m64n128k16 a k16 step of keys, V read MN-major across both
+//   halves (atoms of 64 d values 16 KB apart: the descriptor's leading
+//   offset; 8-key groups 1024 bytes apart: its stride offset). O is two
+//   accumulators of 32 registers, columns 0-63 and 64-127 (two m64n64k16
+//   per step, one a half, measured the same).
+// - The ping-pong, the ragged-tail mask and the online softmax are the head-64
+//   kernel's. The bound at [1, 40, 34560, 128]: 2.45e13 ops, 24.7 ms at
+//   989 TFLOP/s, against 4.78e10 exponentials, about 13.7 ms of SFU: at
+//   head dim 128 the MMAs bound it, where at 64 the two are co-bounds.
+
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes through the runtime
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -706,6 +733,314 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// K1 at head dim 128
+// ---------------------------------------------------------------------------
+
+constexpr int kD128 = 128;
+constexpr int kBM128 = 128;                    // query rows per CTA
+constexpr int kStages128 = 3;                  // K/V ring depth
+constexpr int kConsumers128 = kBM128 / 64;     // 2 consumer warpgroups
+constexpr int kThreads128 = 128 * (1 + kConsumers128);
+constexpr int kHalfRows = 64;                  // d values in one swizzled half
+constexpr int kQHalfBytes = kBM128 * kHalfRows * 2;  // 16 KB
+constexpr int kKVHalfBytes = kBN * kHalfRows * 2;    // 16 KB
+constexpr int kQBytes128 = 2 * kQHalfBytes;          // 32 KB
+constexpr int kKVTileBytes128 = 2 * kKVHalfBytes;    // 32 KB
+constexpr int kSmemBytes128 = 1024 + kQBytes128 + kStages128 * 2 * kKVTileBytes128;
+constexpr int kConsumerRegs128 = 240;
+// V as B of P V across both halves, MN-major: 64-value atoms kKVHalfBytes
+// apart (leading offset), 8-key groups 1024 bytes apart (stride offset)
+constexpr uint32_t kPvLbo128 = kKVHalfBytes, kPvSbo128 = 1024;
+
+#define DOVE_A(C, arr, n) C(arr[n])
+#define DOVE_A8(C, arr, n)                                                      \
+  DOVE_A(C, arr, n), DOVE_A(C, arr, n + 1), DOVE_A(C, arr, n + 2),              \
+      DOVE_A(C, arr, n + 3), DOVE_A(C, arr, n + 4), DOVE_A(C, arr, n + 5),      \
+      DOVE_A(C, arr, n + 6), DOVE_A(C, arr, n + 7)
+#define DOVE_A32(C, arr) \
+  DOVE_A8(C, arr, 0), DOVE_A8(C, arr, 8), DOVE_A8(C, arr, 16), DOVE_A8(C, arr, 24)
+
+// [d0 | d1][64 x 128] += A[64 x 16] B[16 x 128] in bf16; A from registers, B
+// from shared memory MN-major; d0 holds columns 0-63, d1 64-127.
+__device__ __forceinline__ void wgmma_pv128(float (&d0)[32], float (&d1)[32], uint32_t a0,
+                                            uint32_t a1, uint32_t a2, uint32_t a3,
+                                            uint64_t desc_b) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " DOVE_REGS64
+               ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+               : DOVE_A32(DOVE_RW_F32, d0), DOVE_A32(DOVE_RW_F32, d1)
+               : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
+}
+
+static_assert(128 * kProducerRegs + 128 * kConsumers128 * kConsumerRegs128 <= 65536,
+              "register split exceeds the SM's file");
+
+struct Barriers128 {
+  uint64_t full_q;
+  uint64_t full_k[kStages128];
+  uint64_t full_v[kStages128];
+  uint64_t empty[kStages128];
+};
+
+// One box of a 3-D map at (d0, row, bh), completing on `bar`.
+__device__ __forceinline__ void tma_load_at(uint32_t dst, const CUtensorMap* map,
+                                            uint64_t* bar, int d0, int row, int bh) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(d0),
+      "r"(row), "r"(bh)
+      : "memory");
+}
+
+// A tile of `rows` x 128 as two halves of rows x 64, `half_bytes` apart.
+__device__ __forceinline__ void tma_load_tile(uint32_t dst, const CUtensorMap* map,
+                                              uint64_t* bar, int row, int bh,
+                                              int half_bytes) {
+  tma_load_at(dst, map, bar, 0, row, bh);
+  tma_load_at(dst + half_bytes, map, bar, kHalfRows, row, bh);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads128, 1)
+    flash_fwd_sm90_kernel_d128(const __grid_constant__ CUtensorMap map_q,
+                               const __grid_constant__ CUtensorMap map_k,
+                               const __grid_constant__ CUtensorMap map_v,
+                               T* __restrict__ o, int sq, int skv, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ Barriers128 bars;
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_tile = base;
+  const uint32_t k_tiles = base + kQBytes128;
+  const uint32_t v_tiles = k_tiles + kStages128 * kKVTileBytes128;
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * kBM128;
+  const int ntiles = (skv + kBN - 1) / kBN;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&bars.full_q, 1);
+#pragma unroll
+    for (int st = 0; st < kStages128; ++st) {
+      mbar_init(&bars.full_k[st], 1);
+      mbar_init(&bars.full_v[st], 1);
+      mbar_init(&bars.empty[st], 4 * kConsumers128);  // one arrival per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---------------- producer: one thread issues every load ----------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(&bars.full_q, kQBytes128);
+      tma_load_tile(q_tile, &map_q, &bars.full_q, q0, bh, kQHalfBytes);
+      for (int j = 0; j < ntiles; ++j) {
+        const int st = j % kStages128;
+        mbar_wait(&bars.empty[st], ((j / kStages128) & 1) ^ 1);
+        mbar_expect_tx(&bars.full_k[st], kKVTileBytes128);
+        tma_load_tile(k_tiles + st * kKVTileBytes128, &map_k, &bars.full_k[st], j * kBN,
+                      bh, kKVHalfBytes);
+        mbar_expect_tx(&bars.full_v[st], kKVTileBytes128);
+        tma_load_tile(v_tiles + st * kKVTileBytes128, &map_v, &bars.full_v[st], j * kBN,
+                      bh, kKVHalfBytes);
+      }
+    }
+  } else {
+    // ---------------- consumers: 64 query rows each ----------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs128));
+    const int c = wg - 1;
+    const int tid = threadIdx.x - 128 * wg;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int tig = lane & 3;
+    const int my_bar = 1 + c;
+    const int next_bar = 1 + (c + 1) % kConsumers128;
+    // this consumer's 64 rows in each half of Q (128 bytes a row)
+    const uint32_t q_rows = q_tile + c * 64 * 128;
+
+    float acc[2][32];  // O, by half of d
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[h][i] = 0.f;
+    }
+    float s[64];
+    uint32_t p[32];
+    float lsum[2] = {0.f, 0.f};
+    float mrow[2] = {-INFINITY, -INFINITY};
+
+    auto issue_qk = [&](int st) {
+      const uint32_t kt = k_tiles + st * kKVTileBytes128;
+#pragma unroll
+      for (int kk = 0; kk < kD128 / 16; ++kk) {
+        const uint32_t off = (kk / 4) * kQHalfBytes + (kk % 4) * 32;
+        const uint32_t koff = (kk / 4) * kKVHalfBytes + (kk % 4) * 32;
+        wgmma_qk<T>(s, desc_kmajor<T>(q_rows + off), desc_kmajor<T>(kt + koff), kk > 0);
+      }
+    };
+    auto issue_pv = [&](int st) {
+      const uint32_t vt = v_tiles + st * kKVTileBytes128;
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk) {
+        wgmma_pv128(acc[0], acc[1], p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+                    make_desc(vt + kk * 16 * kHalfRows * 2, kPvLbo128, kPvSbo128));
+      }
+    };
+    auto release = [&](int st) {
+      if (lane == 0) mbar_arrive(&bars.empty[st]);
+    };
+    auto pass_turn = [&](bool last) {
+      if (!last || c != kConsumers128 - 1) bar_arrive(next_bar);
+    };
+    // The head-64 kernel's online softmax (its comment), on this tile's s.
+    auto softmax = [&](int j, float (&alpha)[2], bool masked) -> bool {
+      if (masked) {
+        const int kv0 = j * kBN;
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          if (kv0 + (i >> 2) * 8 + tig * 2 + (i & 1) >= skv) s[i] = -INFINITY;
+        }
+      }
+      float sum[2] = {0.f, 0.f};
+      using P2 = typename Pair<T>::type;
+      P2 pmax = Pair<T>::round(0.f, 0.f);
+#pragma unroll
+      for (int k = 0; k < 32; ++k) {
+        const int r = k & 1;
+        const float e0 = ex2(fmaf(s[2 * k], scale_log2, -mrow[r]));
+        const float e1 = ex2(fmaf(s[2 * k + 1], scale_log2, -mrow[r]));
+        sum[r] += e0;
+        sum[r] += e1;
+        const P2 pk = Pair<T>::round(e0, e1);
+        pmax = __hmax2(pmax, pk);
+        p[k] = *reinterpret_cast<const uint32_t*>(&pk);
+      }
+      const float big = fmaxf(__low2float(pmax), __high2float(pmax));
+      const bool rescale = __any_sync(0xffffffffu, !(big <= kLazyMax));
+      if (rescale) {
+        bool grow[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float mx = s[2 * r];
+#pragma unroll
+          for (int i = 2 * r; i < 64; i += 4) mx = fmaxf(mx, fmaxf(s[i], s[i + 1]));
+          mx *= scale_log2;
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          grow[r] = mx > mrow[r] + kLazyLog2;
+          alpha[r] = 1.f;
+          if (grow[r]) {
+            alpha[r] = ex2(mrow[r] - mx);
+            mrow[r] = mx;
+            lsum[r] *= alpha[r];
+            sum[r] = 0.f;
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < 32; ++k) {
+          const int r = k & 1;
+          if (grow[r]) {
+            const float e0 = ex2(fmaf(s[2 * k], scale_log2, -mrow[r]));
+            const float e1 = ex2(fmaf(s[2 * k + 1], scale_log2, -mrow[r]));
+            sum[r] += e0;
+            sum[r] += e1;
+            p[k] = pack2<T>(e0, e1);
+          }
+        }
+      }
+      lsum[0] += sum[0];
+      lsum[1] += sum[1];
+      return rescale;
+    };
+    auto softmax_tile = [&](int j, float (&alpha)[2]) -> bool {
+      return (j + 1) * kBN > skv ? softmax(j, alpha, true) : softmax(j, alpha, false);
+    };
+
+    if (c == kConsumers128 - 1) bar_arrive(next_bar);  // the first consumer goes first
+    mbar_wait(&bars.full_q, 0);
+
+    mbar_wait(&bars.full_k[0], 0);
+    bar_sync(my_bar);
+    wgmma_fence();
+    issue_qk(0);
+    wgmma_commit();
+    pass_turn(false);
+    wgmma_wait();
+    fence_regs(s);
+    float alpha[2];
+    softmax_tile(0, alpha);
+
+    for (int j = 1; j < ntiles; ++j) {
+      const int st = j % kStages128;
+      const int pst = (j - 1) % kStages128;
+      mbar_wait(&bars.full_k[st], (j / kStages128) & 1);
+      mbar_wait(&bars.full_v[pst], ((j - 1) / kStages128) & 1);
+      bar_sync(my_bar);
+      wgmma_fence();
+      issue_qk(st);
+      issue_pv(pst);
+      wgmma_commit();
+      pass_turn(false);
+      wgmma_wait();
+      fence_regs(s);
+      fence_regs(acc[0]);
+      fence_regs(acc[1]);
+      fence_regs(p);
+      release(pst);
+      if (softmax_tile(j, alpha)) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) acc[h][i] *= alpha[(i >> 1) & 1];
+        }
+      }
+    }
+
+    const int lst = (ntiles - 1) % kStages128;
+    mbar_wait(&bars.full_v[lst], ((ntiles - 1) / kStages128) & 1);
+    bar_sync(my_bar);
+    wgmma_fence();
+    issue_pv(lst);
+    wgmma_commit();
+    pass_turn(true);
+    wgmma_wait();
+    fence_regs(acc[0]);
+    fence_regs(acc[1]);
+    fence_regs(p);
+    release(lst);
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], 1);
+      lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], 2);
+    }
+    const float inv0 = 1.f / lsum[0];
+    const float inv1 = 1.f / lsum[1];
+    const int r0 = q0 + c * 64 + warp * 16 + g;
+    const int r1 = r0 + 8;
+    T* ob = o + static_cast<size_t>(bh) * sq * kD128;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int n = 0; n < kHalfRows / 8; ++n) {
+        const int col = h * kHalfRows + n * 8 + tig * 2;
+        if (r0 < sq) {
+          *reinterpret_cast<uint32_t*>(ob + static_cast<size_t>(r0) * kD128 + col) =
+              pack2<T>(acc[h][4 * n] * inv0, acc[h][4 * n + 1] * inv0);
+        }
+        if (r1 < sq) {
+          *reinterpret_cast<uint32_t*>(ob + static_cast<size_t>(r1) * kD128 + col) =
+              pack2<T>(acc[h][4 * n + 2] * inv1, acc[h][4 * n + 3] * inv1);
+        }
+      }
+    }
+  }
+}
+
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  void*, const cuuint64_t*, const cuuint64_t*,
                                  const cuuint32_t*, const cuuint32_t*,
@@ -822,7 +1157,65 @@ int fwd_qk8(const void* q8, const void* k8, const void* v, void* o, int bh, int 
   return static_cast<int>(err);
 }
 
+// A 3-D map over a contiguous [bh, s, 128] of bf16 or fp16 (256-byte rows):
+// boxes of `rows` x 64 values of one head (one 128B-swizzled half of a row);
+// rows past s read as zeros.
+template <typename E>
+bool make_map_d128(CUtensorMap* map, const void* ptr, int bh, int s, int rows) {
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  constexpr CUtensorMapDataType type =
+      kHalf<E> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const cuuint64_t row_bytes = kD128 * 2;
+  const cuuint64_t dims[3] = {kD128, static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {row_bytes, static_cast<cuuint64_t>(s) * row_bytes};
+  const cuuint32_t box[3] = {kHalfRows, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return encode(map, type, 3, const_cast<void*>(ptr), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// K1 at head dim 128, online, no lse.
+template <typename T>
+int fwd_d128(const void* q, const void* k, const void* v, void* o, int bh, int sq,
+             int skv, int head_dim, float scale, void* stream) {
+  bool bad = head_dim != kD128 || bh <= 0 || sq <= 0 || skv <= 0 || bh > 65535;
+  for (const void* ptr : {q, k, v, static_cast<const void*>(o)}) {
+    bad = bad || (reinterpret_cast<uintptr_t>(ptr) & 15) != 0;
+  }
+  if (bad) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap mq, mk, mv;
+  if (!make_map_d128<T>(&mq, q, bh, sq, kBM128) ||
+      !make_map_d128<T>(&mk, k, bh, skv, kBN) || !make_map_d128<T>(&mv, v, bh, skv, kBN)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = flash_fwd_sm90_kernel_d128<T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes128);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((sq + kBM128 - 1) / kBM128, bh);
+  kernel<<<grid, kThreads128, kSmemBytes128, static_cast<cudaStream_t>(stream)>>>(
+      mq, mk, mv, static_cast<T*>(o), sq, skv, scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// K1 at head dim 128, bf16, the online form without the logsumexp. q, k, v:
+// [bh, sq|skv, 128], o: [bh, sq, 128], contiguous on the device and 16-byte
+// aligned. Launches on `stream` and returns the launch's cudaError_t; it
+// does not synchronise.
+extern "C" int dove_flash_fwd_d128_bf16(const void* q, const void* k, const void* v,
+                                        void* o, int bh, int sq, int skv, int head_dim,
+                                        float scale, void* stream) {
+  return fwd_d128<__nv_bfloat16>(q, k, v, o, bh, sq, skv, head_dim, scale, stream);
+}
+
+// The dynamic shared memory a K1 at head dim 128 asks for.
+extern "C" int dove_flash_fwd_d128_smem_bytes() { return kSmemBytes128; }
 
 // The dynamic shared memory a K1 (qk8 = 0) or K2 (qk8 = 1) launch asks for
 // (Q, the K/V ring, and slack to align the tiles to 1024 bytes); the same in

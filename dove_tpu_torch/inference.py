@@ -14,8 +14,15 @@ int8 serving modes (``--quantize``; the ones that quantize the VAE also take
 ``--vae_calib`` and ``--vae_exclude``), ``--lora_path`` (fused into the DiT),
 ``--noise_step`` / ``--sr_noise_step`` / ``--upscale``, and inline scoring
 against ``--gt_dir`` (``--eval_metrics psnr,ssim,lpips,dists``). The port's
-own flags: ``--device`` and ``--hand_conv`` (the hand-written bf16 conv in a
-float VAE).
+own flags: ``--device``, ``--hand_conv`` (the hand-written bf16 conv in a
+float VAE) and ``--prompt_embedding`` (Wan2.1's umT5 context).
+
+Wan2.1 (``--model_path`` a Wan2.1 release folder: a root ``config.json`` of
+``WanModel``, its safetensors shards and ``Wan2.1_VAE.pth``; or ``--preset
+wan2.1-t2v-14b`` / ``tiny-wan`` with seeded weights) serves the staged path
+in the chosen dtype, with ``--prompt_embedding``, a umT5 embedding of
+[<= 512, 4096] (safetensors under ``prompt_embedding``, or .npy) padded
+with zero rows to 512; without one the context is all zeros.
 
 Without ``--model_path`` the weights are seeded random ones and the prompt
 embedding is zeros of shape (max_text_seq_length, text_embed_dim) unless the
@@ -66,7 +73,8 @@ def _preset(name: str):
     from dove_tpu_torch import config as cfg_mod
 
     return {"tiny": cfg_mod.tiny_test, "cogvideox-2b": cfg_mod.cogvideox_2b,
-            "cogvideox1.5-5b": cfg_mod.cogvideox1_5_5b}[name]
+            "cogvideox1.5-5b": cfg_mod.cogvideox1_5_5b,
+            "wan2.1-t2v-14b": cfg_mod.wan2_1_t2v_14b, "tiny-wan": cfg_mod.tiny_wan}[name]
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -83,7 +91,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lora_path", type=str, default=None,
                    help="pytorch_lora_weights.safetensors, or its directory")
     p.add_argument("--preset", type=str, default="cogvideox1.5-5b",
-                   choices=["cogvideox1.5-5b", "cogvideox-2b", "tiny"])
+                   choices=["cogvideox1.5-5b", "cogvideox-2b", "tiny", "wan2.1-t2v-14b",
+                            "tiny-wan"])
+    p.add_argument("--prompt_embedding", type=str, default=None,
+                   help="Wan2.1: a umT5 embedding [<= 512, 4096] (safetensors "
+                        "'prompt_embedding' or .npy), padded with zeros to 512")
     p.add_argument("--output_path", type=str, default="./results")
     p.add_argument("--fps", type=int, default=16)
     p.add_argument("--dtype", type=str, default="bfloat16",
@@ -199,6 +211,8 @@ def load_pipeline(args):
         cfg, sr_noise_step=args.sr_noise_step, noise_step=args.noise_step,
         upscale=args.upscale,
     )
+    if cfg.family == "wan":
+        return _wan_pipeline(args, cfg, dtype, device)
     if args.model_path:
         dit = weights.load_dit(args.model_path, cfg.dit, dtype, device)
         if args.lora_path:
@@ -242,6 +256,38 @@ def load_pipeline(args):
         dec_window_cap=tuple(args.dec_window_cap) if args.dec_window_cap else None,
         hand_conv=args.hand_conv,
     )
+
+
+def _wan_pipeline(args, cfg, dtype, device):
+    """The staged Wan2.1 pipeline of a release folder, or seeded weights."""
+    from dove_tpu_torch import weights
+    from dove_tpu_torch.models.wan_dit import WanModel, init_wan_params
+    from dove_tpu_torch.models.wan_vae import WanVAE_
+    from dove_tpu_torch.pipeline import DovePipeline
+
+    if args.lora_path or args.quantize:
+        raise SystemExit("Wan2.1 serves without --lora_path and --quantize")
+    if not args.is_vae_st:
+        logging.info("Wan2.1 serves the staged path: --is_vae_st implied")
+        args.is_vae_st = True
+    if args.model_path:
+        dit = weights.load_wan_dit(args.model_path, cfg.dit, dtype, device)
+        vae = weights.load_wan_vae(args.model_path, cfg.vae, dtype, device)
+    else:
+        logging.warning("no --model_path: seeded random weights, %s preset", args.preset)
+        dit = init_wan_params(WanModel(cfg.dit), args.seed).to(device, dtype)
+        vae = init_wan_params(WanVAE_(cfg.vae), args.seed + 1).to(device, dtype)
+    if args.prompt_embedding:
+        prompt = weights.load_wan_prompt(args.prompt_embedding, cfg.dit.text_len,
+                                         cfg.dit.text_dim, dtype)
+    else:
+        logging.warning("no --prompt_embedding: an all-zero umT5 context")
+        prompt = torch.zeros((cfg.dit.text_len, cfg.dit.text_dim), dtype=dtype)
+    return DovePipeline(
+        config=cfg, dit=dit, vae=vae, prompt_embedding=prompt, dtype=dtype, device=device,
+        vae_tiling=True, output_uint8=not args.eval_metrics,
+        output_i420=(not args.eval_metrics and not args.png_save
+                     and args.save_format != "lossless"))
 
 
 def clip_log(times: dict) -> str:

@@ -11,7 +11,10 @@ instantiation with an s8 wgmma for Q K^T) and K3a and K3b in
 what bounds the kernels on the H100 and how they differ from the TPU
 schedule. Every kernel takes the model type, bf16 or fp16 (the TPU kernels
 are generic in it), each as its own instantiation with its own C entry;
-any other dtype on the card raises.
+any other dtype on the card raises. Heads are 64 wide, or 128 for K1's
+serving form alone (``flash_fwd_sm90_kernel_d128``: bf16, the online
+softmax, no logsumexp); any other head dim, and any other form at 128,
+raises on the card.
 
 ``flash_attention`` keeps the JAX package's ``[B, H, S, D]`` layout. On a CUDA
 tensor it launches a kernel or raises; on a CPU tensor it runs the same
@@ -36,6 +39,7 @@ from dove_tpu_torch.obs import LaunchCounter
 
 LOG2E = 1.4426950408889634
 HEAD_DIM = 64
+HEAD_DIM_WIDE = 128  # K1's bf16 online serving form only
 
 
 launches = LaunchCounter()  # K1, inference forms (no logsumexp)
@@ -78,6 +82,13 @@ def _fwd_entry(dtype: torch.dtype):
     name = "dove_flash_fwd_f16" if dtype == torch.float16 else "dove_flash_fwd_bf16"
     return _entry(_library(), name, [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
+def _fwd_d128_entry():
+    """K1's C entry at head dim 128 (bf16, online, no logsumexp)."""
+    return _entry(_library(), "dove_flash_fwd_d128_bf16",
+                  [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                  + [ctypes.c_float, ctypes.c_void_p])
 
 
 def _qk8_entry(dtype: torch.dtype):
@@ -158,8 +169,12 @@ def _check_cuda_inputs(q, k, v, qk8: bool = False) -> tuple[int, int, int, int, 
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     B, H, Sq, D = q.shape
-    if D != HEAD_DIM:
-        raise ValueError(f"the CUDA kernel supports head_dim {HEAD_DIM}, got {D}")
+    if D not in (HEAD_DIM, HEAD_DIM_WIDE):
+        raise ValueError(f"the CUDA kernels take head_dim {HEAD_DIM} or {HEAD_DIM_WIDE}, "
+                         f"got {D}")
+    if D == HEAD_DIM_WIDE and (qk8 or v.dtype != torch.bfloat16):
+        raise ValueError(f"head_dim {HEAD_DIM_WIDE} runs K1's bf16 form only, got "
+                         f"{'int8 codes' if qk8 else v.dtype}")
     if k.shape != v.shape or k.shape[:2] != (B, H) or k.shape[3] != D:
         raise ValueError(
             f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
@@ -307,6 +322,19 @@ def flash_fwd_launch(
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}'s data is not 16-byte aligned")
+    if D == HEAD_DIM_WIDE:
+        if bounded_logits or with_lse:
+            raise ValueError(f"head_dim {HEAD_DIM_WIDE} runs K1's online form without "
+                             "the logsumexp only")
+        out = torch.empty_like(q)
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            rc = _fwd_d128_entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                   B * H, Sq, Skv, D, float(scale), stream)
+        if rc != 0:
+            raise RuntimeError(f"flash_fwd d128 kernel launch failed: cudaError_t {rc}")
+        launches.add(q.shape)
+        return out, None
     out = torch.empty_like(q)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
@@ -328,6 +356,8 @@ def _check_bwd_inputs(q, k, v, do, lse, delta) -> tuple[int, int, int, int, int]
     if q.device.type != "cuda":
         raise ValueError(f"K3a and K3b run on cuda, not {q.device}")
     B, H, Sq, Skv, D = _check_cuda_inputs(q, k, v)
+    if D != HEAD_DIM:
+        raise ValueError(f"K3a and K3b take head_dim {HEAD_DIM}, got {D}")
     if do.shape != q.shape or do.dtype != q.dtype or not do.is_contiguous():
         raise ValueError("do must be a contiguous tensor of q's shape and dtype")
     for name, t in (("lse", lse), ("delta", delta)):
@@ -452,7 +482,7 @@ def flash_attention(
         return (out, lse) if with_lse else out
     if qk_int8:
         if q.device.type == "cuda":  # the kernel's checks come before any work
-            _check_cuda_inputs(q, k, v)
+            _check_cuda_inputs(q, k, v, qk8=q.shape[-1] == HEAD_DIM_WIDE)
         q8, k8, factor = quantize_qk_pair(q, k, sc)
         if q.device.type == "cpu":
             return flash_attention_qk8_plain(q8, k8, v, factor)

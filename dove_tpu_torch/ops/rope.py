@@ -7,6 +7,12 @@ over integer grid positions, broadcast over the (T, H, W) token grid and
 flattened T-major, then H, then W (the DiT's patchify token order).
 Frequencies repeat in interleaved pairs (cos0, cos0, cos1, cos1, ...) and the
 rotation acts on interleaved (even, odd) lanes.
+
+Wan2.1's table (``wan/modules/model.py`` ``rope_params`` / ``rope_apply``)
+takes the same interleaved rotation with other bands: of D/2 complex pairs,
+D/2 - 2 (D/12) turn with the frame and D/12 each with the row and the column
+(22 / 21 / 21 at D = 128), each band at 10000^(-2j / band width) over raw
+grid positions from 0.
 """
 
 from __future__ import annotations
@@ -28,27 +34,44 @@ def _rope_1d(dim: int, length: int, theta: float) -> tuple[np.ndarray, np.ndarra
 
 
 @functools.lru_cache(maxsize=64)
+def _rope_bands_np(
+    dims: tuple[int, int, int], num_frames: int, grid_h: int, grid_w: int, theta: float,
+) -> tuple[np.ndarray, np.ndarray]:
+    """(cos, sin), each (T*H*W, sum(dims)): the frame, row and column bands'
+    1D tables broadcast over the grid, T-major."""
+    tabs = [_rope_1d(d, n, theta) for d, n in zip(dims, (num_frames, grid_h, grid_w))]
+    shape = (num_frames, grid_h, grid_w)
+
+    def combine(i: int) -> np.ndarray:
+        t, h, w = (tab[i] for tab in tabs)
+        return np.concatenate([
+            np.broadcast_to(t[:, None, None, :], shape + (dims[0],)),
+            np.broadcast_to(h[None, :, None, :], shape + (dims[1],)),
+            np.broadcast_to(w[None, None, :, :], shape + (dims[2],)),
+        ], axis=-1).reshape(-1, sum(dims))
+
+    return combine(0), combine(1)
+
+
 def _rope_3d_np(
     head_dim: int, num_frames: int, grid_h: int, grid_w: int, theta: float,
 ) -> tuple[np.ndarray, np.ndarray]:
-    dim_t = head_dim // 4
-    dim_h = head_dim // 8 * 3
-    dim_w = head_dim // 8 * 3
-    if dim_t + dim_h + dim_w != head_dim:
+    dims = (head_dim // 4, head_dim // 8 * 3, head_dim // 8 * 3)
+    if sum(dims) != head_dim:
         raise ValueError(f"head_dim must be divisible by 8, got {head_dim}")
+    return _rope_bands_np(dims, num_frames, grid_h, grid_w, theta)
 
-    cos_t, sin_t = _rope_1d(dim_t, num_frames, theta)
-    cos_h, sin_h = _rope_1d(dim_h, grid_h, theta)
-    cos_w, sin_w = _rope_1d(dim_w, grid_w, theta)
 
-    def combine(t: np.ndarray, h: np.ndarray, w: np.ndarray) -> np.ndarray:
-        shape = (num_frames, grid_h, grid_w)
-        t3 = np.broadcast_to(t[:, None, None, :], shape + (dim_t,))
-        h3 = np.broadcast_to(h[None, :, None, :], shape + (dim_h,))
-        w3 = np.broadcast_to(w[None, None, :, :], shape + (dim_w,))
-        return np.concatenate([t3, h3, w3], axis=-1).reshape(-1, head_dim)
-
-    return combine(cos_t, cos_h, cos_w), combine(sin_t, sin_h, sin_w)
+def wan_rope_3d(
+    head_dim: int, num_frames: int, grid_h: int, grid_w: int, theta: float = 10000.0,
+    device: torch.device | str = "cpu",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Wan2.1's fp32 (cos, sin) tables (F*H*W, head_dim) for
+    :func:`apply_rotary`: the angles in float64, as Wan computes them."""
+    d6 = head_dim // 6
+    cos, sin = _rope_bands_np((head_dim - 4 * d6, 2 * d6, 2 * d6), num_frames, grid_h,
+                              grid_w, theta)
+    return torch.tensor(cos, device=device), torch.tensor(sin, device=device)
 
 
 def rope_3d(

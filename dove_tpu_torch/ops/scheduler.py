@@ -7,6 +7,10 @@ CogVideoX scheduler:
   * ``get_velocity(v, z, t)  = sqrt(abar_t) * z - sqrt(1-abar_t) * v``
     (called with (pred_velocity, noisy_latent) the result IS x-hat_0)
 
+Wan2.1 is a flow-matching model: z_t = (1 - sigma) x_0 + sigma eps and the
+DiT predicts u = eps - x_0, so one step from z at sigma = t / T (shift 1)
+gives x-hat_0 = z - sigma u (:func:`flow_x0`).
+
 The alpha-bar table is CogVideoX's: scaled-linear betas -> cumprod -> SNR
 shift -> zero-terminal-SNR rescale, built in float64 with NumPy and kept as
 an fp32 tensor.
@@ -99,3 +103,8 @@ class Schedule:
     ) -> torch.Tensor:
         """Explicitly-named alias for the one-step denoise formula."""
         return self.get_velocity(v_pred, z_t, t)
+
+
+def flow_x0(z: torch.Tensor, u: torch.Tensor, sigma: float) -> torch.Tensor:
+    """x-hat_0 = z - sigma * u in fp32 (a flow model's one step to t = 0)."""
+    return z.float() - sigma * u.float()

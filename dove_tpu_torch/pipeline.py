@@ -40,6 +40,16 @@ bf16 or fp16, so an fp32 pipeline there needs ``attention_backend="plain"``. The
 automatic rule (the kernel from 2048 tokens); the fused path, whose tiles
 fall below that, takes the kernel at every length.
 
+A Wan2.1 configuration (``config.family == "wan"``, models/wan_dit.py and
+models/wan_vae.py) takes the staged path's entry, padding and stages with
+its own bodies: ``enc`` the Wan VAE over whole frames, chunk by chunk with
+its cache (``enc.chunks``), no spatial windows; ``dit`` the posterior mean
+normalised by the latent statistics and one flow-matching step at
+``sr_noise_step`` (``dit.cross_attn`` inside); ``dec`` one latent frame per
+chunk (``dec.chunks``), clamped and quantised as each chunk comes. It
+serves in the model dtype only (no ``quantize`` mode, no fused path, no
+mesh).
+
 Each call of ``process_frames`` is one unit of ``obs``: its spans (``prep``,
 ``enc`` with ``enc.upload``, ``enc.upscale``, ``enc.windows`` and
 ``enc.assemble``, ``dit`` with the int8 modes' ``dit.quantize`` and
@@ -83,9 +93,10 @@ from dove_tpu_torch.io import video as video_io
 from dove_tpu_torch.models import vae as vae_mod
 from dove_tpu_torch.models.dit import CogVideoXTransformer3D, temporal_pad
 from dove_tpu_torch.models.vae import AutoencoderKLCogVideoX
+from dove_tpu_torch.models.wan_vae import latent_stats
 from dove_tpu_torch.ops import quant
 from dove_tpu_torch.ops.resize import resize
-from dove_tpu_torch.ops.scheduler import Schedule
+from dove_tpu_torch.ops.scheduler import Schedule, flow_x0
 from dove_tpu_torch.parallel import distributed as dist_mod
 from dove_tpu_torch.parallel.tp import Group, validate_tp
 from dove_tpu_torch.train.losses import one_step_x0_latent
@@ -293,8 +304,8 @@ class DovePipeline:
     outer-tile path."""
 
     config: PipelineConfig
-    dit: CogVideoXTransformer3D
-    vae: AutoencoderKLCogVideoX
+    dit: CogVideoXTransformer3D  # or models.wan_dit.WanModel (a Wan2.1 config)
+    vae: AutoencoderKLCogVideoX  # or models.wan_vae.WanVAE_
     prompt_embedding: torch.Tensor  # [L_text, text_embed_dim] (empty prompt)
     dtype: torch.dtype = torch.bfloat16
     device: Any = None  # None = "cuda" (raises without a card); "cpu" on request
@@ -380,6 +391,10 @@ class DovePipeline:
             )
         self.vae_exclude = tuple(self.vae_exclude)
         self._stream_enabled()  # an unknown streaming value fails here
+        self._wan = self.config.family == "wan"
+        if self._wan and (self.quantize is not None or self.config.noise_step != 0):
+            raise ValueError("a Wan2.1 pipeline serves in its model dtype at noise_step 0: "
+                             "no quantize mode")
         T = self.config.scheduler.num_train_timesteps
         for name in ("sr_noise_step", "noise_step"):
             t = getattr(self.config, name)
@@ -671,6 +686,37 @@ class DovePipeline:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _sr_clip_wan(self, clip: np.ndarray) -> np.ndarray:
+        """The Wan2.1 stages of one pass (``_sr_clip_staged``'s contract)."""
+        cfg = self.config
+        with obs.span("enc"):
+            with obs.span("enc.upload"):
+                lq = torch.as_tensor(clip[None]).to(self.device).to(self.dtype)
+            with obs.span("enc.upscale"):
+                up = bilinear_upscale(lq.float(), cfg.upscale).to(self.dtype)
+                up = up.permute(0, 4, 1, 2, 3)  # [1, 3, F, H, W]
+            with obs.span("enc.chunks"):
+                mu = self.vae.encode(up)
+            del up
+        with obs.span("dit"):
+            mean, std = latent_stats(cfg.vae, self.device)
+            z = (mu.float() - mean) / std
+            t = torch.full((1,), cfg.sr_noise_step, dtype=torch.long, device=self.device)
+            u = self.dit(z, self.prompt_embedding[None], t,
+                         attention_backend=self.attention_backend)
+            # sigma = t / T: the flow schedule at shift 1
+            x0 = flow_x0(z, u, cfg.sr_noise_step / cfg.scheduler.num_train_timesteps)
+            del z, u
+        with obs.span("dec"):
+            with obs.span("dec.chunks"):
+                frames = [self.quantize_frames(
+                    (px.float().clamp(-1.0, 1.0) * 0.5 + 0.5).permute(0, 2, 3, 4, 1))
+                    for px in self.vae.decode_chunks((x0 * std + mean).to(self.dtype))]
+            with obs.span("dec.assemble"):
+                out = torch.cat(frames, dim=1)[0]
+            with obs.span("dec.download"):
+                return out.cpu().numpy()
+
     @_grad_off
     def _sr_clip_staged(self, clip: np.ndarray, generator: torch.Generator) -> np.ndarray:
         """One pass: clip [F, H, W, 3] float in [-1, 1] at LQ resolution ->
@@ -679,6 +725,8 @@ class DovePipeline:
         so a stage's temporaries never overlap the next one's whether or not
         the host waits between them; it waits only for the copy to the
         host."""
+        if self._wan:
+            return self._sr_clip_wan(clip)
         with obs.span("enc"):
             with obs.span("enc.upload"):
                 lq = torch.as_tensor(clip[None]).to(self.device).to(self.dtype)
@@ -948,6 +996,9 @@ class DovePipeline:
         axis the DiT must be split over it first (``_mesh_route``)."""
         upscale = self.config.upscale if upscale is None else upscale
         staged = self.vae_tiling and tuple(tile_size_hw) == (0, 0)
+        if self._wan and (not staged or mesh is not None):
+            raise ValueError("a Wan2.1 pipeline runs the staged path (vae_tiling=True, no "
+                             "outer tiles) on one device")
         self._mesh_route(mesh, staged)
         lead = mesh is None or mesh.rank == 0
         if not staged:

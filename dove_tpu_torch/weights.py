@@ -158,6 +158,47 @@ def load_vae(model_dir: str | Path, cfg: VAEConfig, dtype=torch.bfloat16,
                        cfg, dtype, device)
 
 
+def _wan_module(cls, cfg, tensors: Tensors, dtype, device) -> nn.Module:
+    with torch.device("meta"):
+        module = cls(cfg, dtype=dtype)
+    state = {k: torch.as_tensor(tensors[k]).to(device=device, dtype=dtype)
+             for k in module.state_dict() if k in tensors}
+    module.load_state_dict(state, strict=True, assign=True)
+    return module.eval()
+
+
+def load_wan_dit(model_dir: str | Path, cfg, dtype=torch.bfloat16, device="cpu"):
+    """A Wan2.1 release folder's DiT: the safetensors shards at its root,
+    by ``WanModel``'s parameter names (a missing one raises)."""
+    from dove_tpu_torch.models.wan_dit import WanModel
+
+    return _wan_module(WanModel, cfg, load_safetensors_dir(model_dir), dtype, device)
+
+
+def load_wan_vae(model_dir: str | Path, cfg, dtype=torch.bfloat16, device="cpu"):
+    """A Wan2.1 release folder's VAE: the state dict of ``Wan2.1_VAE.pth``."""
+    from dove_tpu_torch.config import WAN_VAE_FILE
+    from dove_tpu_torch.models.wan_vae import WanVAE_
+
+    state = torch.load(Path(model_dir) / WAN_VAE_FILE, map_location="cpu", weights_only=True)
+    return _wan_module(WanVAE_, cfg, state, dtype, device)
+
+
+def load_wan_prompt(path: str | Path, text_len: int, text_dim: int,
+                    dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """A umT5 prompt embedding [L <= text_len, text_dim] (safetensors under
+    ``prompt_embedding``, or .npy), padded with zero rows to ``text_len``,
+    as ``WanModel`` pads its context."""
+    path = Path(path)
+    emb = (torch.from_numpy(np.load(path)) if path.suffix == ".npy"
+           else safetensors_io.load_file(path)["prompt_embedding"])
+    emb = emb.reshape(-1, emb.shape[-1])
+    if emb.shape[0] > text_len or emb.shape[1] != text_dim:
+        raise ValueError(f"a Wan prompt embedding is [<= {text_len}, {text_dim}], "
+                         f"got {tuple(emb.shape)}")
+    return torch.nn.functional.pad(emb, (0, 0, 0, text_len - emb.shape[0])).to(dtype)
+
+
 def load_prompt_embedding(
     path: str | Path, dtype: torch.dtype = torch.bfloat16
 ) -> torch.Tensor:

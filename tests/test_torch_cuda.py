@@ -65,11 +65,19 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take():
     dev = _card()
     q = _randn((1, 2, 64, 64), 4, dev)
     before = fa.launches.count
-    with pytest.raises(ValueError, match="bfloat16"):
+    with pytest.raises(ValueError, match="bf16 or fp16"):
         fa.flash_attention(q.float(), q.float(), q.float())
-    with pytest.raises(ValueError, match="head_dim"):
-        d128 = _randn((1, 2, 64, 128), 5, dev)
-        fa.flash_attention(d128, d128, d128)
+    with pytest.raises(ValueError, match="head_dim"):  # heads of 64 or 128 only
+        d96 = _randn((1, 2, 64, 96), 5, dev)
+        fa.flash_attention(d96, d96, d96)
+    d128 = _randn((1, 2, 64, 128), 5, dev)
+    with pytest.raises(ValueError, match="online form"):  # head dim 128: serving form
+        fa.flash_attention(d128, d128, d128, bounded_logits=True)
+    with pytest.raises(ValueError, match="online form"):
+        fa.flash_attention(d128, d128, d128, with_lse=True)
+    with pytest.raises(ValueError, match="bf16 form only"):
+        h = d128.half()
+        fa.flash_attention(h, h, h)
     with pytest.raises(ValueError, match="contiguous"):
         t = q.transpose(1, 2)
         fa.flash_attention(t, t, t)
@@ -80,9 +88,11 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take():
         fa.flash_attention(q, q, q, bounded_logits=True, qk_int8=True, with_lse=True)
     with pytest.raises(ValueError, match="requires bounded_logits"):
         fa.flash_attention(q, q, q, qk_int8=True)
-    with pytest.raises(ValueError, match="bfloat16"):  # K2 takes bf16 too
+    with pytest.raises(ValueError, match="bf16 or fp16"):  # K2 takes bf16 too
         fa.flash_attention(q.float(), q.float(), q.float(), bounded_logits=True,
                            qk_int8=True)
+    with pytest.raises(ValueError, match="int8"):  # K2 on codes that are not int8
+        fa.flash_qk8_launch(q, q, q, torch.ones((), device=dev))
     assert fa.launches.count == before
 
 
@@ -170,6 +180,61 @@ def test_k1_when_the_row_max_rises_late_on_card(bounded):
         _assert_within_bars(out, ref)
         if with_lse:
             assert float((lse - ref_lse).abs().max()) <= LSE_TOL
+
+
+# K1 at head dim 128 (its bf16 online serving form): 128-row tiles, and
+# Wan2.1's 512 text slots
+RAGGED_D128 = (1, 65, 127, 128, 129, 255, 257, 512, 4097)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skv", RAGGED_D128)
+@pytest.mark.parametrize("sq", (1, 127, 129, 4097))
+def test_k1_d128_at_ragged_lengths_on_card(sq, skv):
+    dev = _card()
+    q = _randn((1, 3, sq, 128), 70 + sq, dev)
+    k = _randn((1, 3, skv, 128), 71 + skv, dev)
+    v = _randn((1, 3, skv, 128), 72 + skv, dev)
+    before = fa.launches.count
+    out = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.launches.count == before + 1
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    assert bool(torch.isfinite(out).all())
+    _assert_within_bars(out, fa.flash_attention_plain(q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,skv", [(129, 193), (4097, 129), (300, 512)])
+def test_k1_d128_reads_and_writes_nothing_across_a_head(sq, skv):
+    dev = _card()
+    q = _randn((1, 3, sq, 128), 80, dev)
+    k = _randn((1, 3, skv, 128), 81, dev)
+    v = _randn((1, 3, skv, 128), 82, dev)
+    for t in (q, k, v):
+        t[:, 0::2] = float("nan")
+    out = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    mid = [t[:, 1:2].contiguous() for t in (q, k, v)]
+    assert bool(torch.isfinite(out[:, 1]).all())
+    _assert_within_bars(out[:, 1:2], fa.flash_attention_plain(*mid))
+    assert bool(torch.isnan(out[:, 0::2].float()).all())
+
+
+@pytest.mark.cuda
+def test_k1_d128_with_wan_sized_logits_on_card():
+    """q scaled so that logits reach hundreds, as Wan's RMS norms over all
+    heads allow, and keys whose logits rise late: the online form's max must
+    move; the bounded form would overflow."""
+    dev = _card()
+    q = _randn((1, 2, 300, 128), 90, dev) * 20
+    k = _randn((1, 2, 1000, 128), 91, dev)
+    v = _randn((1, 2, 1000, 128), 92, dev)
+    k[:, :, 600:] *= 4
+    out = fa.flash_attention(q.contiguous(), k.contiguous(), v)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    _assert_within_bars(out, fa.flash_attention_plain(q.contiguous(), k.contiguous(), v))
 
 
 def _assert_within_bars(out: torch.Tensor, ref: torch.Tensor,

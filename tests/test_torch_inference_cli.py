@@ -227,7 +227,7 @@ def test_every_flag_of_the_jax_cli_is_accepted():
     ours = {s for a in inference.build_parser()._actions for s in a.option_strings}
     ref = {s for a in _jax_cli().build_parser()._actions for s in a.option_strings}
     assert ref <= ours, sorted(ref - ours)
-    assert ours - ref == {"--device", "--hand_conv"}
+    assert ours - ref == {"--device", "--hand_conv", "--prompt_embedding"}
 
 
 @pytest.mark.parametrize("flags,error,match", [
