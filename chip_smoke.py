@@ -225,13 +225,18 @@ Phases, one result line each; any failure exits non-zero:
    one bf16 ulp, statistics and codes), K1-lse, K3a and K3b launches per
    rank;
 35. the VAE's fused GroupNorm (ops/group_norm.py, group_norm_sm90.cu, the
-   port's own kernel pair): at the decoder's finest window, [1, 128, 33,
+   port's own kernels): at the decoder's finest window, [1, 128, 33,
    208, 200] bf16 with the spatial modulation of a [1, 16, 9, 26, 25]
-   latent, and at the encoder's, [1, 128, 33, 208, 232], held to its
-   float32 plain version, the statistics and apply kernels timed apart
-   (torch.profiler) and together (CUDA events) beside the bytes bound, the
-   plain version and the library route the port no longer takes
+   latent, and at the encoder's, [1, 128, 33, 208, 232], each form held to
+   its float32 plain version: the NCDHW pair, and the channels-last form
+   writing two left frames in front of its output; each kernel timed apart
+   (torch.profiler) and each form together (CUDA events) beside its bytes
+   bound, the plain version and the library route the port no longer takes
    (F.group_norm, the affine, the nearest resize of the modulation, SiLU);
+   and a norm site with its causal conv both ways: the channels-last form
+   and cuDNN reading its output in place, against the route it replaced
+   (x.contiguous(), the NCDHW pair, torch.cat of the left frames, cuDNN on
+   NCDHW with its layout transposes);
 36. K1 at head dim 128 (``flash_fwd_sm90_kernel_d128``, bf16, online, no
    logsumexp: Wan2.1's attention) against its plain version at Wan2.1-14B's
    self-attention [1, 40, 34560, 128] and cross-attention (34560 queries, 512
@@ -6260,26 +6265,87 @@ def phase_group_norm() -> dict:
         del out, ref, err
         n = x.numel()
         extra = 0 if cy is None else 2 * cy.numel() * 2
-        split = _kernel_device_ms(kernel, 5, ("group_norm_stats", "group_norm_apply"))
+        split = _kernel_device_ms(kernel, 5, ("group_norm_stats_kernel",
+                                              "group_norm_apply_kernel"))
         row = dict(
             shape=list(shape), latent=None if latent is None else list(latent),
             splits=gn.splits(shape[0] * 32, n // 32, 2,
                              torch.cuda.get_device_properties(0).multi_processor_count),
             worst_rel_err=worst, library_max_abs_err=lib_err,
-            ms=cuda_ms(kernel, 10), stats_ms=split["group_norm_stats"],
-            apply_ms=split["group_norm_apply"],
+            ms=cuda_ms(kernel, 10), stats_ms=split["group_norm_stats_kernel"],
+            apply_ms=split["group_norm_apply_kernel"],
             plain_ms=cuda_ms(plain, 3), library_ms=cuda_ms(library, 10),
             bound_ms=(2 * n * 2 + extra) / PEAK_BYTES * 1e3,
             bound_r2w1_ms=(3 * n * 2 + extra) / PEAK_BYTES * 1e3, bound_by="bytes",
             stats_bound_ms=n * 2 / PEAK_BYTES * 1e3,
             apply_bound_ms=(2 * n * 2 + extra) / PEAK_BYTES * 1e3)
         row["hbm_share_r2w1"] = row["bound_r2w1_ms"] / row["ms"]
+        row["channels_last"] = _group_norm_cl(x, w, b, cy, cb, n, extra)
         rows[name] = row
         del x, cy, cb
         torch.cuda.empty_cache()
     gn.launches.reset()
     log("phase 35 fused GroupNorm (bf16): " + json.dumps(rounded(rows, 5)))
     return rows
+
+
+def _group_norm_cl(x, w, b, cy, cb, n: int, extra: int) -> dict:
+    """Phase 35's channels-last form at x's shape: held to its plain version
+    with two left frames of frame 0 in front, timed with its three kernels
+    apart, and a norm site with its 3x3x3 causal conv both ways."""
+    import torch.nn.functional as F
+
+    from dove_tpu_torch.ops import group_norm as gn
+
+    lead = 2
+    C, Fr, H, W = x.shape[1:]
+    xc = x.contiguous(memory_format=torch.channels_last_3d)
+    cyc, cbc = ((None, None) if cy is None else
+                (t.contiguous(memory_format=torch.channels_last_3d) for t in (cy, cb)))
+
+    def kernel():
+        return gn.group_norm_silu_launch(xc, 32, w, b, 1e-6, cyc, cbc, True, lead)
+
+    out = kernel()
+    torch.cuda.synchronize()
+    ref = gn.group_norm_silu_cl_plain(xc.float(), 32, w.float(), b.float(), 1e-6,
+                                      None if cy is None else cy.float(),
+                                      None if cb is None else cb.float(), True, lead)
+    err = (out.float() - ref).abs()
+    worst = float((err / (ref.abs() + 1e-3)).max())
+    if not bool((err <= 2.0 ** -8 * ref.abs() + 2e-5 * float(ref.abs().max())).all()):
+        raise AssertionError(f"phase 35 channels-last: the kernel is off its plain version "
+                             f"(worst relative error {worst})")
+    front = out[:, :, lead:lead + 1].expand(-1, -1, lead, -1, -1)
+    if not (gn.channels_last(out) and torch.equal(out, kernel())
+            and torch.equal(out[:, :, :lead], front)):
+        raise AssertionError("phase 35 channels-last: layout, left frames or two runs differ")
+    del ref, err
+    names = ("group_norm_stats_cl", "group_norm_finalize_cl", "group_norm_apply_cl")
+    split = _kernel_device_ms(kernel, 5, names)
+    conv = torch.nn.Conv3d(C, C, 3, device="cuda", dtype=x.dtype)
+    w_cl = conv.weight.detach().contiguous(memory_format=torch.channels_last_3d)
+    w_nc = conv.weight.detach().contiguous()
+
+    def cl_site():  # the kernel writes the conv's input, left frames in place
+        return F.conv3d(kernel(), w_cl, conv.bias, padding=(0, 1, 1))
+
+    def replaced_site():  # x.contiguous(), the NCDHW pair, torch.cat, cuDNN NCDHW
+        y = gn.group_norm_silu_launch(xc.contiguous(), 32, w, b, 1e-6, cy, cb, True)
+        y = torch.cat([y[:, :, :1].expand(-1, -1, lead, -1, -1), y], dim=2)
+        return F.conv3d(y, w_nc, conv.bias, padding=(0, 1, 1))
+
+    site_err = float((cl_site().float() - replaced_site().float()).abs().max())
+    written = n * (Fr + lead) // Fr
+    bound = (2 * n + written) * 2 + extra
+    row = dict(worst_rel_err=worst, ms=cuda_ms(kernel, 10),
+               **{k.replace("group_norm_", "") + "_ms": v for k, v in split.items()},
+               bound_r2w1_ms=bound / PEAK_BYTES * 1e3,
+               site_ms=cuda_ms(cl_site, 5), replaced_site_ms=cuda_ms(replaced_site, 5),
+               site_max_abs_diff=site_err)
+    row["hbm_share_r2w1"] = row["bound_r2w1_ms"] / row["ms"]
+    del out, conv
+    return row
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 // The VAE's norm primitive for Hopper (sm_90a): silu(GroupNorm(x)), with the
 // norm's affine and, in the decoder, the spatial modulation of SpatialNorm3d,
-// in two passes over NCDHW x.
+// in two forms: over NCDHW x (two passes), and over channels-last NDHWC x
+// (three passes), the form the VAE's activations take on the card.
 //
 // It replaces no TPU kernel: the JAX package's GroupNorm is XLA
 // (dove_tpu/models/vae.py), which fuses the statistics, the affine, the
@@ -11,6 +12,8 @@
 // SiLU, each a pass over memory. The work reads and writes memory only, so
 // bytes bound it: one read for the statistics, one read to apply them, one
 // write.
+//
+// The NCDHW form.
 //
 // group_norm_stats_kernel: a (sample, group) is one contiguous span of
 // (C / G) F H W elements. Each span is cut into S chunks, S chosen by the
@@ -32,6 +35,41 @@
 // stepped from there, element by element; the modulation's two values are
 // read again only where w' or the row changes (every 8 columns at the
 // decoder's finest level). At most 64 registers a thread, four blocks an SM.
+//
+// The channels-last form. In NDHWC a (sample, group) is no longer one span:
+// at each of a sample's P = F H W positions a row of C channels holds every
+// group's C / G of them side by side. A 16-byte vector of a row holds kVec
+// channels (8 in bf16 and fp16, 4 in fp32), so a group is part of a vector
+// (C / G < kVec: K = kVec G / C groups a vector), or one or more whole
+// vectors. A row is cols = C / kVec vectors, a power of two up to 256, and a
+// block's 256 threads sweep R = 256 / cols rows at a time: thread t always
+// reads vector column t % cols, so the channels it touches are fixed for its
+// whole life, and a warp reads whole rows, contiguous.
+//
+// group_norm_stats_cl_kernel: a sample's positions are cut into S chunks of
+// whole rows (S from the shape and the SM count, as in the NCDHW form). A
+// thread keeps a (count, mean, M2) for each of the K groups its column
+// touches and merges each vector's part into them; the block then merges,
+// for each group, its threads' moments in a fixed order (rows, then
+// columns) and writes one partial a group: [B, S, G, 3].
+//
+// group_norm_finalize_cl_kernel: one warp a (sample, group) merges the S
+// partials in a fixed order, and folds the statistics into each channel's
+// a = rstd gamma_c and b = beta_c - mean a: fp32 [B, C, 2].
+//
+// group_norm_apply_cl_kernel: each thread loads the a and b of its kVec
+// channels once, then per row y = a x + b, in the decoder times cy and plus
+// cb read as 16-byte vectors of a channels-last [B, Fl, Hl, Wl, C] by the
+// nearest-index rule, then SiLU, in fp32 with one rounding, stored NDHWC.
+// The output holds lead + F frames a sample, y from frame lead on: the frames
+// before it are the next causal conv's left context, so the conv reads its
+// input in place and nothing concatenates it. Where a row lies in frame 0 its
+// thread also writes those lead frames at the same position: a copy of the
+// caller's left frames (the conv's cache from the previous chunk), or at a
+// clip's start y itself, frame 0 repeated, as the causal conv pads.
+//
+// Neither form uses atomics: a clip is bit for bit the same from run to run,
+// and a NaN stays in its group.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -405,6 +443,224 @@ int launch(const void* x, const void* gamma, const void* beta, const void* cy,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---------------------------------------------------------------------------
+// The channels-last form
+// ---------------------------------------------------------------------------
+
+// a sample's shape as the channels-last passes see it
+struct ClGeometry {
+  long long positions;  // P = F H W
+  int channels, groups, cols, col_shift, splits;
+  int lead;             // frames in front of y in the output
+  uint32_t hw;          // H W: rows of frame 0 are those under it
+  FastDiv fhw, w;       // division by H W and by W: a row's frame, row, column
+  int lf, lh, lw;       // the modulation's Fl, Hl, Wl
+  FastDiv rf, rh, rw;   // x's frames, rows, columns per modulation one
+  int causal;
+};
+
+// this block's sample and its chunk of whole rows [r0, r1)
+struct RowChunk {
+  long long sample, r0, r1;
+};
+
+__device__ __forceinline__ RowChunk row_chunk(long long positions, int splits) {
+  RowChunk c;
+  c.sample = blockIdx.x / splits;
+  const long long part = blockIdx.x % splits;
+  c.r0 = positions * part / splits;
+  c.r1 = positions * (part + 1) / splits;
+  return c;
+}
+
+// K groups a vector: each takes kVec / K of its elements
+template <typename T, int K>
+__global__ void __launch_bounds__(kThreads)
+    group_norm_stats_cl_kernel(const T* __restrict__ x, float* __restrict__ partials,
+                               ClGeometry g) {
+  using P = Pack<T>;
+  constexpr int kVec = P::kVec;
+  constexpr int kPer = kVec / K;
+  const RowChunk c = row_chunk(g.positions, g.splits);
+  const int col = threadIdx.x & (g.cols - 1);
+  const int rows = kThreads >> g.col_shift;  // R
+  const uint4* xv = reinterpret_cast<const uint4*>(x) + c.sample * g.positions * g.cols + col;
+  Moments acc[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) acc[k] = Moments{0.f, 0.f, 0.f};
+  long long r = c.r0 + (threadIdx.x >> g.col_shift);
+  for (; r + rows < c.r1; r += 2 * rows) {  // two loads in flight
+    const uint4 r0 = __ldg(xv + r * g.cols), r1 = __ldg(xv + (r + rows) * g.cols);
+    float v[kVec];
+    P::unpack(r0, v);
+#pragma unroll
+    for (int k = 0; k < K; ++k) acc[k] = merge(acc[k], vector_moments<kPer>(v + k * kPer));
+    P::unpack(r1, v);
+#pragma unroll
+    for (int k = 0; k < K; ++k) acc[k] = merge(acc[k], vector_moments<kPer>(v + k * kPer));
+  }
+  if (r < c.r1) {
+    float v[kVec];
+    P::unpack(__ldg(xv + r * g.cols), v);
+#pragma unroll
+    for (int k = 0; k < K; ++k) acc[k] = merge(acc[k], vector_moments<kPer>(v + k * kPer));
+  }
+  __shared__ Moments moments[kThreads * K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) moments[threadIdx.x * K + k] = acc[k];
+  __syncthreads();
+  // group q: column q / K, part q % K of it where K > 1, else columns
+  // [q cpg, (q + 1) cpg) with cpg = cols / groups; rows, then columns
+  const int cpg = K > 1 ? 1 : g.cols / g.groups;
+  for (int q = threadIdx.x; q < g.groups; q += kThreads) {
+    const int c0 = K > 1 ? q / K : q * cpg;
+    const int k = K > 1 ? q % K : 0;
+    Moments m{0.f, 0.f, 0.f};
+    for (int rr = 0; rr < rows; ++rr)
+      for (int cc = c0; cc < c0 + cpg; ++cc) m = merge(m, moments[((rr << g.col_shift) + cc) * K + k]);
+    float* p = partials + 3 * (static_cast<long long>(blockIdx.x) * g.groups + q);
+    p[0] = m.n;
+    p[1] = m.mean;
+    p[2] = m.m2;
+  }
+}
+
+// one warp a (sample, group): ab[sample, c] = (a, b) of each of its channels
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    group_norm_finalize_cl_kernel(const float* __restrict__ partials,
+                                  const T* __restrict__ gamma, const T* __restrict__ beta,
+                                  float* __restrict__ ab, int spans, int groups, int channels,
+                                  int splits, float eps) {
+  const int span = (blockIdx.x * kThreads + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (span >= spans) return;  // the whole warp
+  const int sample = span / groups, q = span % groups;
+  Moments m{0.f, 0.f, 0.f};
+  for (int k = lane; k < splits; k += 32) {
+    const float* p = partials + 3 * ((static_cast<long long>(sample) * splits + k) * groups + q);
+    m = merge(m, Moments{p[0], p[1], p[2]});
+  }
+  m = warp_merge(m);
+  const float mean = __shfl_sync(0xffffffffu, m.mean, 0);
+  const float rstd = rsqrtf(__shfl_sync(0xffffffffu, m.m2, 0) /
+                                __shfl_sync(0xffffffffu, m.n, 0) + eps);
+  const int cg = channels / groups;
+  for (int i = lane; i < cg; i += 32) {
+    const int ch = q * cg + i;
+    const float a = rstd * to_float(gamma[ch]);
+    float* o = ab + 2 * (static_cast<long long>(sample) * channels + ch);
+    o[0] = a;
+    o[1] = fmaf(-mean, a, to_float(beta[ch]));
+  }
+}
+
+// out[sample] = lead frames, then silu(norm(x)) modulated where kMod:
+// [B, lead + F, H, W, C]; left: null (frame 0 repeated) or [B, lead, H, W, C]
+template <typename T, bool kMod>
+__global__ void __launch_bounds__(kThreads, 4)
+    group_norm_apply_cl_kernel(const T* __restrict__ x, const float* __restrict__ ab,
+                               const T* __restrict__ cy, const T* __restrict__ cb,
+                               const T* __restrict__ left, T* __restrict__ out, ClGeometry g) {
+  using P = Pack<T>;
+  constexpr int kVec = P::kVec;
+  const RowChunk c = row_chunk(g.positions, g.splits);
+  const int col = threadIdx.x & (g.cols - 1);
+  const int rows = kThreads >> g.col_shift;
+  float a[kVec], b[kVec];
+  {
+    const float2* abv =
+        reinterpret_cast<const float2*>(ab) + (c.sample * g.channels + col * kVec);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      const float2 t = abv[e];
+      a[e] = t.x;
+      b[e] = t.y;
+    }
+  }
+  const long long frame_rows = g.hw;
+  const uint4* xv = reinterpret_cast<const uint4*>(x) + c.sample * g.positions * g.cols + col;
+  uint4* ov = reinterpret_cast<uint4*>(out) +
+              (c.sample * (g.positions + g.lead * frame_rows)) * g.cols + col;
+  const uint4* lv = left == nullptr ? nullptr
+                    : reinterpret_cast<const uint4*>(left) +
+                          c.sample * g.lead * frame_rows * g.cols + col;
+
+  auto row = [&](long long r, const uint4& raw) {
+    float v[kVec];
+    P::unpack(raw, v);
+    float my[kVec], mb[kVec];
+    if (kMod) {
+      const uint32_t rr = static_cast<uint32_t>(r);
+      const uint32_t f = fdiv(rr, g.fhw);
+      const uint32_t rem = rr - f * g.fhw.d;
+      const uint32_t h = fdiv(rem, g.w);
+      const uint32_t w = rem - h * g.w.d;
+      const uint32_t fq = g.causal ? (f == 0 ? 0u : 1u + fdiv(f - 1, g.rf)) : fdiv(f, g.rf);
+      const long long at =
+          (((c.sample * g.lf + fq) * g.lh + fdiv(h, g.rh)) * g.lw + fdiv(w, g.rw)) * g.cols + col;
+      P::unpack(__ldg(reinterpret_cast<const uint4*>(cy) + at), my);
+      P::unpack(__ldg(reinterpret_cast<const uint4*>(cb) + at), mb);
+    }
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      float y = fmaf(a[e], v[e], b[e]);
+      if (kMod) y = fmaf(y, my[e], mb[e]);
+      // SiLU; the clamp keeps the divisor finite, a NaN stays a NaN
+      v[e] = __fdividef(y, 1.f + __expf(fminf(-y, 80.f)));
+    }
+    const uint4 o = P::pack(v);
+    ov[(g.lead * frame_rows + r) * g.cols] = o;
+    if (r < frame_rows) {  // frame 0: the lead frames at this position too
+      for (int l = 0; l < g.lead; ++l)
+        ov[(l * frame_rows + r) * g.cols] =
+            lv == nullptr ? o : __ldg(lv + (l * frame_rows + r) * g.cols);
+    }
+  };
+
+  long long r = c.r0 + (threadIdx.x >> g.col_shift);
+  for (; r + rows < c.r1; r += 2 * rows) {  // two loads in flight
+    const uint4 r0 = __ldg(xv + r * g.cols), r1 = __ldg(xv + (r + rows) * g.cols);
+    row(r, r0);
+    row(r + rows, r1);
+  }
+  if (r < c.r1) row(r, __ldg(xv + r * g.cols));
+}
+
+template <typename T>
+int launch_cl(const void* x, const void* gamma, const void* beta, const void* cy,
+              const void* cb, const void* left, void* out, void* partials, void* ab, int B,
+              int groups_per_vector, const ClGeometry& g, float eps, cudaStream_t st) {
+  const unsigned blocks = static_cast<unsigned>(static_cast<long long>(B) * g.splits);
+  const auto* xt = static_cast<const T*>(x);
+  auto* pt = static_cast<float*>(partials);
+  switch (groups_per_vector) {
+    case 1: group_norm_stats_cl_kernel<T, 1><<<blocks, kThreads, 0, st>>>(xt, pt, g); break;
+    case 2: group_norm_stats_cl_kernel<T, 2><<<blocks, kThreads, 0, st>>>(xt, pt, g); break;
+    case 4: group_norm_stats_cl_kernel<T, 4><<<blocks, kThreads, 0, st>>>(xt, pt, g); break;
+    default:
+      if constexpr (Pack<T>::kVec == 8) {
+        group_norm_stats_cl_kernel<T, 8><<<blocks, kThreads, 0, st>>>(xt, pt, g);
+      }
+  }
+  const int spans = B * g.groups;
+  group_norm_finalize_cl_kernel<T><<<(spans * 32 + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      pt, static_cast<const T*>(gamma), static_cast<const T*>(beta), static_cast<float*>(ab),
+      spans, g.groups, g.channels, g.splits, eps);
+  const auto* abt = static_cast<const float*>(ab);
+  const auto* lt = static_cast<const T*>(left);
+  auto* ot = static_cast<T*>(out);
+  if (cy != nullptr) {
+    group_norm_apply_cl_kernel<T, true><<<blocks, kThreads, 0, st>>>(
+        xt, abt, static_cast<const T*>(cy), static_cast<const T*>(cb), lt, ot, g);
+  } else {
+    group_norm_apply_cl_kernel<T, false><<<blocks, kThreads, 0, st>>>(
+        xt, abt, nullptr, nullptr, lt, ot, g);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // out = silu(GroupNorm(x) * gamma + beta), times cy and plus cb where cy is
@@ -445,4 +701,63 @@ extern "C" int dove_group_norm_silu(const void* x, const void* gamma, const void
   if (x_type == 2)
     return launch<__half>(x, gamma, beta, cy, cb, out, partials, B, span_len, g, st);
   return launch<float>(x, gamma, beta, cy, cb, out, partials, B, span_len, g, st);
+}
+
+// The channels-last form. x: [B, F, H, W, C] contiguous, of x_type as above,
+// C = cols kVec with cols a power of two up to 256 (kVec = 16 / element size),
+// and C / groups a multiple or a divisor of kVec; out: [B, lead + F, H, W, C]
+// contiguous, y from frame lead on; left: null (frame 0 of y repeated in the
+// lead frames) or [B, lead, H, W, C] contiguous; gamma, beta: [C]; cy, cb:
+// null, or [B, Fl, Hl, Wl, C] contiguous, under the NCDHW form's ratios;
+// x, out, left, cy, cb 16-byte aligned; partials: fp32 [B splits groups 3],
+// ab: fp32 [B C 2], scratch. Launches three kernels on stream; returns
+// cudaGetLastError().
+extern "C" int dove_group_norm_silu_cl(const void* x, const void* gamma, const void* beta,
+                                       const void* cy, const void* cb, const void* left,
+                                       void* out, void* partials, void* ab, int B, int C,
+                                       int F, int H, int W, int groups, int splits, float eps,
+                                       int Fl, int Hl, int Wl, int causal, int lead,
+                                       int x_type, void* stream) {
+  const bool mod = cy != nullptr;
+  const int vec = x_type == 0 ? 4 : 8;
+  const int cols = C > 0 && C % vec == 0 ? C / vec : 0;
+  int shift = 0;
+  while (shift < 9 && (1 << shift) < cols) ++shift;
+  const int cg = groups > 0 && C % groups == 0 ? C / groups : 0;
+  const int per_vector = cg > 0 && cg < vec && vec % cg == 0 ? vec / cg
+                         : cg > 0 && cg % vec == 0          ? 1
+                                                            : 0;
+  const long long positions = static_cast<long long>(F) * H * W;
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  bool ok = x_type >= 0 && x_type <= 2 && B > 0 && F > 0 && H > 0 && W > 0 && cols > 0 &&
+            (1 << shift) == cols && cols <= kThreads && per_vector > 0 && splits > 0 &&
+            splits <= positions && lead >= 0 &&
+            positions + static_cast<long long>(lead) * H * W < (1LL << 31) &&
+            static_cast<long long>(B) * splits < (1LL << 31) && aligned(x) && aligned(out) &&
+            (left == nullptr || aligned(left)) && (cb != nullptr) == mod &&
+            (!mod || (aligned(cy) && aligned(cb)));
+  int rf = 1, rh = 1, rw = 1;
+  if (ok && mod) {
+    ok = Fl > 0 && Hl > 0 && Wl > 0 && H % Hl == 0 && W % Wl == 0 &&
+         (causal ? Fl > 1 && (F - 1) % (Fl - 1) == 0 : F % Fl == 0);
+    if (ok) {
+      rf = causal ? (F - 1) / (Fl - 1) : F / Fl;
+      rh = H / Hl;
+      rw = W / Wl;
+    }
+  }
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  ClGeometry g{positions, C, groups, cols, shift, splits, lead,
+               static_cast<uint32_t>(H * W), make_div(static_cast<uint32_t>(H * W)),
+               make_div(W), Fl, Hl, Wl, make_div(rf), make_div(rh), make_div(rw),
+               mod && causal};
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (x_type == 1)
+    return launch_cl<__nv_bfloat16>(x, gamma, beta, cy, cb, left, out, partials, ab, B,
+                                    per_vector, g, eps, st);
+  if (x_type == 2)
+    return launch_cl<__half>(x, gamma, beta, cy, cb, left, out, partials, ab, B, per_vector,
+                             g, eps, st);
+  return launch_cl<float>(x, gamma, beta, cy, cb, left, out, partials, ab, B, per_vector, g,
+                          eps, st);
 }

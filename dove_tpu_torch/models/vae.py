@@ -29,22 +29,37 @@ The parameters live in ``nn.Module``s named like the diffusers checkpoint
 (``encoder.down_blocks.0.resnets.1.conv1.conv.weight``, ...), so a released
 state dict loads with ``load_state_dict``. The forward code is functional
 over those modules. Public functions keep the JAX package's [B, F, H, W, C]
-layout; inside, activations are NCDHW, the layout cuDNN's 3D convolution
-takes, and the int8 quantizer writes its codes channels-last for K4.
-Every GroupNorm of the VAE is followed by SiLU, and both run as one
-primitive, :func:`_norm_silu`, by one of two routes. On a CUDA tensor in
-bf16, fp16 or fp32 whose computation needs no gradient (serving, the
-training encode under ``no_grad``) it is the hand-written kernel pair of
-``ops.group_norm``: fp32 statistics split across the card, then one pass that
-applies the norm, its affine, the decoder's spatial modulation (read from the
-latent-resolution convs by nearest index, never resized) and SiLU, all in
-fp32 and rounded once to the model dtype. Otherwise (CPU tensors, and inputs
-that need a gradient: stage 2's decode and its ``remat`` recompute) it is the
-plain chain the JAX package computes: statistics in fp32, the affine, the
-modulation and SiLU each in the model dtype. The kernel's one rounding is at
-least as precise as the plain chain's four. Each norm site counts
-``vae.norm_n`` in the open ``obs`` unit, and ``vae.norm_fused_n`` where it
-took the kernel.
+layout; inside, activations are [B, C, F, H, W] tensors, laid out by route.
+
+The card's route (:func:`_on_card`: a CUDA tensor in bf16, fp16 or fp32
+whose computation needs no gradient: serving, the training encode under
+``no_grad``) keeps every activation channels-last (NDHWC memory,
+``torch.channels_last_3d`` strides) from the VAE's entry to its exit, the
+layout cuDNN's convolutions read without transposing. Every GroupNorm of the
+VAE is followed by SiLU and then by a causal 3x3x3 conv; there the norm is
+the hand-written kernel of ``ops.group_norm``: fp32 statistics split across
+the card, then one pass that applies the norm, its affine, the decoder's
+spatial modulation (read from the latent-resolution convs by nearest index,
+never resized) and SiLU, all in fp32 and rounded once to the model dtype,
+written channels-last with the conv's two left frames already in front (its
+cache, or frame 0 repeated at a clip's start), so the conv reads its input
+in place and nothing is concatenated. The float convs run on cuDNN with
+channels-last input and weight (each weight is converted in place on its
+first such call); the upsamplers write their nearest resize once; the int8
+convs (K4) and K5 take their input as they always did and hand back
+channels-last.
+
+Elsewhere (CPU tensors, and inputs that need a gradient: stage 2's decode
+and its ``remat`` recompute) the VAE runs the plain chain the JAX package
+computes, NCDHW: statistics in fp32, the affine, the modulation and SiLU each
+in the model dtype, ``torch.cat`` for the causal frames. The kernel's one
+rounding is at least as precise as the plain chain's four.
+
+Counted in the open ``obs`` unit: ``vae.norm_n`` at every norm site and
+``vae.norm_fused_n`` where it took the kernel; ``vae.conv_n`` for every float
+conv run on the card, ``vae.conv_cl_n`` where its input was channels-last,
+and ``vae.causal_inplace_n`` for the causal convs that read their left frames
+in place.
 """
 
 from __future__ import annotations
@@ -87,11 +102,12 @@ _CALIB: dict[str, torch.Tensor] | None = None
 _CALIB_SCOPE = ""
 
 
-def _calib_tap(name: str | None, x: torch.Tensor) -> None:
+def _calib_tap(name: str | None, x: torch.Tensor, lead: int = 0) -> None:
+    """Record the conv input x, less its ``lead`` causal frames in front."""
     if _CALIB is None or name is None:
         return
     key = f"{_CALIB_SCOPE}.{name}"
-    xf = x.float()
+    xf = x[:, :, lead:].float()
     amax = xf.abs().amax(dim=(0, 2, 3, 4))
     _CALIB[key] = torch.maximum(_CALIB[key], amax) if key in _CALIB else amax
     tkey = f"{key}#tapcorr"
@@ -290,49 +306,108 @@ class AutoencoderKLCogVideoX(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# Primitives (activations NCDHW)
+# Primitives (activations [B, C, F, H, W]: channels-last on the card's route)
 # ---------------------------------------------------------------------------
+
+CHANNELS_LAST = torch.channels_last_3d
+
+
+def _on_card(x: torch.Tensor, *modules: nn.Module, zq: torch.Tensor | None = None) -> bool:
+    """The card's route (module docstring): x a CUDA tensor in a type the
+    kernels take, and nothing of the step (x, ``zq``, the modules'
+    parameters) needing a gradient."""
+    if x.device.type != "cuda" or x.dtype not in group_norm.INPUT_TYPES:
+        return False
+    if not torch.is_grad_enabled():
+        return True
+    return not (x.requires_grad or (zq is not None and zq.requires_grad)
+                or any(t.requires_grad for m in modules for t in m.parameters()))
+
+
+def _cl_weight(conv: nn.Module) -> torch.Tensor:
+    """A float conv's weight channels-last, as cuDNN reads it beside a
+    channels-last input: the parameter is converted in place on the first
+    call (the same values), so no later call copies it. The copy is made
+    outside inference mode, so the parameter stays usable under autograd."""
+    w = conv.weight
+    fmt = CHANNELS_LAST if w.ndim == 5 else torch.channels_last
+    if not w.is_contiguous(memory_format=fmt):
+        with torch.inference_mode(False):
+            w.data = w.data.contiguous(memory_format=fmt)
+    return w
+
+
+def _count_conv(x: torch.Tensor, card: bool, in_place: bool = False) -> None:
+    if x.device.type == "cuda":
+        obs.count("vae.conv_n", 1)
+        if card:
+            obs.count("vae.conv_cl_n", 1)
+        if in_place:
+            obs.count("vae.causal_inplace_n", 1)
+
+
+def _float_conv3d(conv: nn.Module, x: torch.Tensor, card: bool, **kw) -> torch.Tensor:
+    """cuDNN's conv: channels-last input and weight on the card's route, and
+    so a channels-last output; NCDHW ones elsewhere, as always. A 2D conv's
+    weight runs as a k_t = 1 3D conv's."""
+    if card:
+        x, w = x.contiguous(memory_format=CHANNELS_LAST), _cl_weight(conv)
+    else:
+        w = conv.weight.contiguous()
+    return F.conv3d(x, w.unsqueeze(2) if w.ndim == 4 else w, conv.bias, **kw)
+
 
 def causal_conv3d(
     p: CausalConv3d | nn.Module, x: torch.Tensor, cache: torch.Tensor | None,
-    keep_cache: bool = True, name: str | None = None,
+    keep_cache: bool = True, name: str | None = None, framed: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Causal 3D conv: temporal left context from ``cache`` (or first-frame
-    replicate at clip start), symmetric zero spatial padding.
+    replicate at clip start), symmetric zero spatial padding. ``framed``: x
+    already carries its k_t-1 left frames in front of its own (the fused
+    norm wrote them there), so nothing is concatenated and ``cache`` is not
+    read.
 
     A ``QConv3d`` runs as an int8 convolution; an eligible float conv runs
-    through K5 when :func:`set_pallas_conv` is on; the rest through cuDNN.
-    ``name`` (the conv-cache key) feeds the calibration and attribution
-    taps. Returns (output, new_cache): the trailing k_t-1 input frames for
-    the next chunk (a copy, so it does not keep the padded input alive), or
-    None when k_t == 1 or the caller does not keep caches."""
+    through K5 when :func:`set_pallas_conv` is on; the rest through cuDNN,
+    channels-last on the card's route. ``name`` (the conv-cache key) feeds
+    the calibration and attribution taps. Returns (output, new_cache): the
+    trailing k_t-1 input frames for the next chunk (a copy, so it does not
+    keep the padded input alive), or None when k_t == 1 or the caller does
+    not keep caches."""
     conv = p.conv if isinstance(p, CausalConv3d) else p
-    _calib_tap(name, x)
-    if _qerr_active(name, conv):  # attribution: also run the int8 version
-        y_q, _ = causal_conv3d(_qerr_leaf(conv, name), x, cache, False)
-        y, new_cache = causal_conv3d(conv, x, cache, keep_cache)  # no re-tap
-        _qerr_record(name, y, y_q)
-        return y, new_cache
     quantized = isinstance(conv, quant.QConv3d)
     kt, kh, kw = (conv.kt, 3, 3) if quantized else conv.weight.shape[2:]
+    _calib_tap(name, x, kt - 1 if framed else 0)
+    if _qerr_active(name, conv):  # attribution: also run the int8 version
+        y_q, _ = causal_conv3d(_qerr_leaf(conv, name), x, cache, False, framed=framed)
+        y, new_cache = causal_conv3d(conv, x, cache, keep_cache, framed=framed)  # no re-tap
+        _qerr_record(name, y, y_q)
+        return y, new_cache
     hand = (not quantized and _HAND_BF16_CONV and (kt, kh, kw) == (3, 3, 3)
             and conv.in_channels % 128 == 0 and conv.out_channels % 128 == 0)
     if quantized or hand:
         _refuse_grad(x, "K4, the int8 conv" if quantized else "K5 (hand_conv)")
+    card = _on_card(x, conv)
     new_cache = None
     if kt > 1:
-        if cache is None:
-            left = x[:, :, :1].expand(-1, -1, kt - 1, -1, -1)
-        else:
-            left = cache.to(x.dtype)
-        x = torch.cat([left, x], dim=2)
+        if not framed:
+            if card:  # conv_in, a conv the norm does not feed: one copy
+                x = group_norm.with_left_frames(x, kt - 1, cache)
+            else:
+                if cache is None:
+                    left = x[:, :, :1].expand(-1, -1, kt - 1, -1, -1)
+                else:
+                    left = cache.to(x.dtype)
+                x = torch.cat([left, x], dim=2)
         if keep_cache:
             new_cache = x[:, :, -(kt - 1):].clone()
-    if quantized:
-        return quant.qconv(conv, x, stride=1, padding=1), new_cache
+    if quantized:  # K4 takes NCDHW; on the card its output goes back channels-last
+        y = quant.qconv(conv, x.contiguous(), stride=1, padding=1)
+        return (y.contiguous(memory_format=CHANNELS_LAST) if card else y), new_cache
+    _count_conv(x, card, in_place=card and framed and kt > 1)
     if hand:
-        return _hand_conv3d(conv, x), new_cache
-    y = F.conv3d(x, conv.weight, conv.bias, padding=(0, (kh - 1) // 2, (kw - 1) // 2))
+        return _hand_conv3d(conv, x, card), new_cache
+    y = _float_conv3d(conv, x, card, padding=(0, (kh - 1) // 2, (kw - 1) // 2))
     return y, new_cache
 
 
@@ -346,15 +421,18 @@ def _refuse_grad(x: torch.Tensor, route: str) -> None:
             "decode) needs the float VAE with hand_conv off")
 
 
-def _hand_conv3d(conv: nn.Conv3d, x: torch.Tensor) -> torch.Tensor:
-    """K5's route: x NCDHW with its causal frames -> bf16 channels-last with
-    the spatial border in place (the kernel computes VALID), weights rounded
-    to bf16 in the kernel's tap layout, the output in x's dtype, NCDHW."""
+def _hand_conv3d(conv: nn.Conv3d, x: torch.Tensor, channels_last: bool = False) -> torch.Tensor:
+    """K5's route: x with its causal frames (either layout) -> bf16
+    channels-last with the spatial border in place (the kernel computes
+    VALID), weights rounded to bf16 in the kernel's tap layout, the output
+    in x's dtype, NCDHW or, with ``channels_last``, channels-last."""
     B, C, Ft, H, W = x.shape
     xp = torch.zeros((B, Ft, H + 2, W + 2, C), dtype=torch.bfloat16, device=x.device)
     xp[:, :, 1:-1, 1:-1].permute(0, 4, 1, 2, 3).copy_(x)
     wp = conv3d_int8.pack_taps(conv.weight.permute(2, 3, 4, 1, 0).to(torch.bfloat16))
-    y = conv3d_int8.conv_taps(xp, wp, None, 3, x.dtype, channels_first=True)
+    y = conv3d_int8.conv_taps(xp, wp, None, 3, x.dtype, channels_first=not channels_last)
+    if channels_last:
+        y = y.permute(0, 4, 1, 2, 3)
     if conv.bias is not None:
         y = y + conv.bias.to(y.dtype).view(1, -1, 1, 1, 1)
     return y
@@ -371,12 +449,16 @@ def _conv_per_frame(
         y = _conv_per_frame(p, x, stride, padding)  # name omitted: no re-tap
         _qerr_record(name, y, y_q)
         return y
+    card = _on_card(x, p.conv)
     if isinstance(p.conv, quant.QConv3d):
         _refuse_grad(x, "K4, the int8 conv")
-        return quant.qconv(p.conv, x, stride, padding)
-    w = p.conv.weight.unsqueeze(2)
-    return F.conv3d(x, w, p.conv.bias, stride=(1, stride, stride),
-                    padding=(0, padding, padding))
+        if not card:
+            return quant.qconv(p.conv, x, stride, padding)
+        y = quant.qconv(p.conv, x.contiguous(), stride, padding)
+        return y.contiguous(memory_format=CHANNELS_LAST)
+    _count_conv(x, card)
+    return _float_conv3d(p.conv, x, card, stride=(1, stride, stride),
+                         padding=(0, padding, padding))
 
 
 def _group_norm(p: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
@@ -387,18 +469,46 @@ def _group_norm(p: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
     return y * p.weight.to(x.dtype).view(shape) + p.bias.to(x.dtype).view(shape)
 
 
-def _nearest_resize(x: torch.Tensor, f: int, h: int, w: int) -> torch.Tensor:
-    """Integer-factor nearest upsampling of [B, C, F, H, W] to (f, h, w)."""
-    _, _, Fr, H, W = x.shape
-    if f % Fr or h % H or w % W:
+def _expand_into(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """dst[:, :, f, h, w] = src[:, :, f // rf, h // rh, w // rw]: a nearest
+    resize by integer factors, each element of dst written once, in dst's
+    own memory order."""
+    _, _, Fr, H, W = src.shape
+    _, _, f, h, w = dst.shape
+    view = dst.unflatten(4, (W, w // W)).unflatten(3, (H, h // H)).unflatten(2, (Fr, f // Fr))
+    view.copy_(src[:, :, :, None, :, None, :, None])
+
+
+def _nearest_resize(x: torch.Tensor, f: int, h: int, w: int, first_alone: bool = False
+                    ) -> torch.Tensor:
+    """Integer-factor nearest upsampling of [B, C, F, H, W] to (f, h, w).
+    ``first_alone``: frame 0 resizes only spatially and the rest fill frames
+    1 and on (the causal first frame). A channels-last x gets a channels-last
+    output, each element written once; an NCDHW x the plain chain's
+    repeat_interleave and concatenation, whose backward the decode with
+    gradients keeps."""
+    if first_alone and not group_norm.channels_last(x):
+        return torch.cat([_nearest_resize(x[:, :, :1], 1, h, w),
+                          _nearest_resize(x[:, :, 1:], f - 1, h, w)], dim=2)
+    B, C, Fr, H, W = x.shape
+    if (f - first_alone) % (Fr - first_alone) or h % H or w % W:
         raise ValueError(f"non-integer resize {tuple(x.shape)} -> {(f, h, w)}")
-    if f != Fr:
-        x = x.repeat_interleave(f // Fr, dim=2)
-    if h != H:
-        x = x.repeat_interleave(h // H, dim=3)
-    if w != W:
-        x = x.repeat_interleave(w // W, dim=4)
-    return x
+    if not group_norm.channels_last(x):
+        if f != Fr:
+            x = x.repeat_interleave(f // Fr, dim=2)
+        if h != H:
+            x = x.repeat_interleave(h // H, dim=3)
+        if w != W:
+            x = x.repeat_interleave(w // W, dim=4)
+        return x
+    out = torch.empty((B, C, f, h, w), dtype=x.dtype, device=x.device,
+                      memory_format=CHANNELS_LAST)
+    if first_alone:
+        _expand_into(out[:, :, :1], x[:, :, :1])
+        _expand_into(out[:, :, 1:], x[:, :, 1:])
+    else:
+        _expand_into(out, x)
+    return out
 
 
 def _nearest_resize_causal(
@@ -406,11 +516,7 @@ def _nearest_resize_causal(
 ) -> torch.Tensor:
     """Nearest upsample with the causal first-frame convention: an odd
     target length (>1) upsamples the first frame alone."""
-    if first and f > 1 and f % 2 == 1:
-        zf = _nearest_resize(z[:, :, :1], 1, h, w)
-        zr = _nearest_resize(z[:, :, 1:], f - 1, h, w)
-        return torch.cat([zf, zr], dim=2)
-    return _nearest_resize(z, f, h, w)
+    return _nearest_resize(z, f, h, w, first_alone=first and f > 1 and f % 2 == 1)
 
 
 def _spatial_norm3d(
@@ -429,39 +535,52 @@ def _spatial_norm3d(
 
 def _norm_silu(
     p: nn.GroupNorm | SpatialNorm3d, x: torch.Tensor, zq: torch.Tensor | None = None,
-    first: bool = True,
+    first: bool = True, lead: int = 0, left: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """silu(GroupNorm(x)), or with ``zq`` silu(SpatialNorm3d(x, zq)): the
-    kernel on the card where nothing needs a gradient, else the plain chain
-    (module docstring)."""
+    kernel on the card's route, else the plain chain (module docstring).
+    ``lead``: the result is the next causal conv's input, its ``lead`` left
+    frames in front: ``left`` (the conv's cache) or, where None, frame 0
+    repeated. The kernel writes them in place; the plain chain concatenates."""
     obs.count("vae.norm_n", 1)
     norm = p if zq is None else p.norm_layer
-    needs_grad = torch.is_grad_enabled() and (
-        x.requires_grad or (zq is not None and zq.requires_grad)
-        or any(t.requires_grad for t in p.parameters()))
-    if x.device.type != "cuda" or x.dtype not in group_norm.INPUT_TYPES or needs_grad:
-        return F.silu(_group_norm(p, x) if zq is None else _spatial_norm3d(p, x, zq, first))
+    if not _on_card(x, p, zq=zq):
+        h = F.silu(_group_norm(p, x) if zq is None else _spatial_norm3d(p, x, zq, first))
+        if not lead:
+            return h
+        left = h[:, :, :1].expand(-1, -1, lead, -1, -1) if left is None else left.to(h.dtype)
+        return torch.cat([left, h], dim=2)
     cy = cb = None
     if zq is not None:
         cy, _ = causal_conv3d(p.conv_y, zq, None)
         cb, _ = causal_conv3d(p.conv_b, zq, None)
     obs.count("vae.norm_fused_n", 1)
     return group_norm.group_norm_silu_launch(
-        x, norm.num_groups, norm.weight, norm.bias, norm.eps, cy, cb, first)
+        x, norm.num_groups, norm.weight, norm.bias, norm.eps, cy, cb, first, lead, left)
+
+
+def _norm_conv(
+    pn: nn.GroupNorm | SpatialNorm3d, pc: CausalConv3d, x: torch.Tensor,
+    zq: torch.Tensor | None, first: bool, cache: Cache, new_cache: Cache, key: str,
+    keep_cache: bool,
+) -> torch.Tensor:
+    """causal_conv3d(pc, silu(norm(x))) under the conv-cache key ``key``:
+    the norm hands the conv its input with the left frames in front."""
+    conv = pc.conv
+    kt = conv.kt if isinstance(conv, quant.QConv3d) else conv.weight.shape[2]
+    h = _norm_silu(pn, x, zq, first, kt - 1, cache.get(key))
+    y, new_cache[key] = causal_conv3d(pc, h, None, keep_cache, name=key, framed=True)
+    return y
 
 
 def _resnet(
     p: ResnetBlock3d, x: torch.Tensor, zq: torch.Tensor | None, cache: Cache,
     new_cache: Cache, path: str, first: bool, keep_cache: bool,
 ) -> torch.Tensor:
-    h = _norm_silu(p.norm1, x, zq, first)
-    h, new_cache[f"{path}.conv1"] = causal_conv3d(
-        p.conv1, h, cache.get(f"{path}.conv1"), keep_cache, name=f"{path}.conv1"
-    )
-    h = _norm_silu(p.norm2, h, zq, first)
-    h, new_cache[f"{path}.conv2"] = causal_conv3d(
-        p.conv2, h, cache.get(f"{path}.conv2"), keep_cache, name=f"{path}.conv2"
-    )
+    h = _norm_conv(p.norm1, p.conv1, x, zq, first, cache, new_cache, f"{path}.conv1",
+                   keep_cache)
+    h = _norm_conv(p.norm2, p.conv2, h, zq, first, cache, new_cache, f"{path}.conv2",
+                   keep_cache)
     if p.conv_shortcut is not None:
         x, _ = causal_conv3d(p.conv_shortcut, x, None, name=f"{path}.conv_shortcut")
     return x + h
@@ -472,16 +591,20 @@ def _downsample(
 ) -> torch.Tensor:
     """Spatial stride-2 conv with (0,1) asymmetric pad; optional 2x temporal
     mean-pool with causal first-frame passthrough on odd lengths."""
+    # in memory order: NDHWC on the card's route (frames dim 1), else NCDHW
+    cl = group_norm.channels_last(x)
+    v, t = (x.permute(0, 2, 3, 4, 1), 1) if cl else (x, 2)
     if compress_time:
-        B, C, Fr, H, W = x.shape
+        Fr = v.shape[t]
         if Fr % 2 == 1:
-            first, rest = x[:, :, :1], x[:, :, 1:]
-            if rest.shape[2] > 0:
-                rest = rest.reshape(B, C, rest.shape[2] // 2, 2, H, W).mean(dim=3)
-            x = torch.cat([first, rest], dim=2)
+            first, rest = v.narrow(t, 0, 1), v.narrow(t, 1, Fr - 1)
+            if Fr > 1:
+                rest = rest.unflatten(t, ((Fr - 1) // 2, 2)).mean(dim=t + 1)
+            v = torch.cat([first, rest], dim=t)
         else:
-            x = x.reshape(B, C, Fr // 2, 2, H, W).mean(dim=3)
-    x = F.pad(x, (0, 1, 0, 1))
+            v = v.unflatten(t, (Fr // 2, 2)).mean(dim=t + 1)
+    v = F.pad(v, (0, 0, 0, 1, 0, 1) if cl else (0, 1, 0, 1))
+    x = v.permute(0, 4, 1, 2, 3) if cl else v
     return _conv_per_frame(p, x, stride=2, padding=0, name=name)
 
 
@@ -496,9 +619,7 @@ def _upsample(
     _, _, Fr, H, W = x.shape
     if compress_time:
         if first and Fr > 1 and Fr % 2 == 1:
-            head = _nearest_resize(x[:, :, :1], 1, H * 2, W * 2)
-            rest = _nearest_resize(x[:, :, 1:], (Fr - 1) * 2, H * 2, W * 2)
-            x = torch.cat([head, rest], dim=2)
+            x = _nearest_resize(x, 2 * Fr - 1, H * 2, W * 2, first_alone=True)
         elif Fr > 1 or not first:
             x = _nearest_resize(x, Fr * 2, H * 2, W * 2)
         else:
@@ -509,7 +630,8 @@ def _upsample(
 
 
 # ---------------------------------------------------------------------------
-# Encoder / decoder (one chunk, cache-threaded; NCDHW in and out)
+# Encoder / decoder (one chunk, cache-threaded; [B, C, F, H, W] in and out,
+# channels-last out on the card's route)
 # ---------------------------------------------------------------------------
 
 def encoder_forward(
@@ -531,9 +653,8 @@ def encoder_forward(
                             name=f"down.{i}.downsample")
     for j, res in enumerate(enc.mid_block.resnets):
         h = _resnet(res, h, None, cache, nc, f"mid.{j}", True, keep_cache)
-    h = _norm_silu(enc.norm_out, h)
-    h, nc["conv_out"] = causal_conv3d(enc.conv_out, h, cache.get("conv_out"), keep_cache,
-                                      name="conv_out")
+    h = _norm_conv(enc.norm_out, enc.conv_out, h, None, True, cache, nc, "conv_out",
+                   keep_cache)
     return h, nc
 
 
@@ -559,6 +680,8 @@ def decoder_forward(
     first = cache is None
     cache = cache or {}
     nc: Cache = {}
+    if _on_card(z, dec):  # one channels-last copy of the latent for its 1x1x1 convs
+        z = z.contiguous(memory_format=CHANNELS_LAST)
 
     def run_level(fn, h: torch.Tensor) -> torch.Tensor:
         if not remat:
@@ -592,9 +715,7 @@ def decoder_forward(
             return h
 
         h = run_level(up_level, h)
-    h = _norm_silu(dec.norm_out, h, z, first)
-    h, nc["conv_out"] = causal_conv3d(dec.conv_out, h, cache.get("conv_out"), keep_cache,
-                                      name="conv_out")
+    h = _norm_conv(dec.norm_out, dec.conv_out, h, z, first, cache, nc, "conv_out", keep_cache)
     return h, nc
 
 

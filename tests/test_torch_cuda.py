@@ -10,6 +10,7 @@ JAX-loading conftest:
 from __future__ import annotations
 
 import math
+import sys
 import time
 
 import pytest
@@ -1114,6 +1115,155 @@ def test_group_norm_wrapper_raises_on_what_the_kernel_does_not_take():
     xo = flat[1:].view(x.shape)
     xo.copy_(x)
     assert torch.equal(tgn.group_norm_silu(xo, GN_GROUPS, w, b, GN_EPS, cy, cb), ref)
+
+
+# The channels-last form: x NDHWC, the output [B, C, lead + F, H, W]
+# channels-last with the next causal conv's two left frames in front.
+GN_LEAD = 2
+
+
+def _gn_cl_check(shape, latent, first, dtype, seed, with_left: bool):
+    """The channels-last form against its float32 plain version, the left
+    frames (a cache, or frame 0 repeated) bit for bit; two runs equal."""
+    dev = _card()
+    x, w, b, cy, cb = _gn_case(shape, latent, dtype, dev, seed)
+    cl = torch.channels_last_3d
+    x = x.contiguous(memory_format=cl)
+    if cy is not None:
+        cy, cb = cy.contiguous(memory_format=cl), cb.contiguous(memory_format=cl)
+    left = None
+    if with_left:
+        B, C, _, H, W = shape
+        left = _randn((B, C, GN_LEAD, H, W), seed + 1, dev, dtype).contiguous(memory_format=cl)
+    before = tgn.launches.count
+    out = tgn.group_norm_silu(x, GN_GROUPS, w, b, GN_EPS, cy, cb, first, GN_LEAD, left)
+    torch.cuda.synchronize()
+    assert tgn.launches.count == before + 1
+    assert out.shape == (shape[0], shape[1], shape[2] + GN_LEAD) + tuple(shape[3:])
+    assert out.dtype == dtype and tgn.channels_last(out)
+    f32 = [None if t is None else t.float() for t in (cy, cb)]
+    ref = tgn.group_norm_silu_cl_plain(x.float(), GN_GROUPS, w.float(), b.float(), GN_EPS,
+                                       *f32, first)
+    rel = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11, torch.float32: 1e-5}[dtype]
+    y = out[:, :, GN_LEAD:].float()
+    err = (y - ref).abs()
+    bar = rel * ref.abs() + 2e-5 * float(ref.abs().max())
+    assert bool(torch.isfinite(out).all())
+    assert bool((err <= bar).all()), float((err - bar).max())
+    want = (out[:, :, GN_LEAD:GN_LEAD + 1].expand(-1, -1, GN_LEAD, -1, -1) if left is None
+            else left)
+    assert torch.equal(out[:, :, :GN_LEAD], want)
+    again = tgn.group_norm_silu(x, GN_GROUPS, w, b, GN_EPS, cy, cb, first, GN_LEAD, left)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("shape,latent,first", GN_WINDOWS)
+def test_group_norm_channels_last_at_the_cells_windows_on_card(shape, latent, first, dtype):
+    _gn_cl_check(shape, latent, first, dtype, sum(shape) + 3, with_left=False)
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_left", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("shape,latent,first", GN_RAGGED)
+def test_group_norm_channels_last_at_ragged_shapes_on_card(shape, latent, first, dtype,
+                                                           with_left):
+    _gn_cl_check(shape, latent, first, dtype, sum(shape) + 9, with_left)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("latent", [None, (1, 16, 3, 13, 29)])
+def test_group_norm_channels_last_nan_stays_in_its_group_on_card(latent):
+    """In NDHWC a group shares every row with its neighbours: a NaN in one
+    group makes that group's output NaN and leaves every other group's bit
+    for bit as without it, left frames included."""
+    dev = _card()
+    x, w, b, cy, cb = _gn_case((1, 64, 9, 26, 29), latent, torch.bfloat16, dev, 21)
+    x = x.contiguous(memory_format=torch.channels_last_3d)
+    clean = tgn.group_norm_silu(x, GN_GROUPS, w, b, GN_EPS, cy, cb, True, GN_LEAD)
+    x[0, 6, 4, 10, 3] = float("nan")  # channel 6: group 3 of 2-channel groups
+    out = tgn.group_norm_silu(x, GN_GROUPS, w, b, GN_EPS, cy, cb, True, GN_LEAD)
+    torch.cuda.synchronize()
+    assert bool(out[:, 6:8].isnan().all())
+    others = torch.cat([out[:, :6], out[:, 8:]], dim=1)
+    assert bool(torch.isfinite(others).all())
+    assert torch.equal(others, torch.cat([clean[:, :6], clean[:, 8:]], dim=1))
+
+
+@pytest.mark.cuda
+def test_group_norm_channels_last_takes_what_it_is_given_on_card():
+    """An NCDHW x with a lead is copied to channels-last; widths the form
+    does not take (three channels a group) go through the NCDHW pair; a
+    channels-last x without a lead gets a channels-last output; each equals
+    the plain version's layout-free values."""
+    dev = _card()
+    x, w, b, cy, cb = _gn_case((1, 64, 9, 26, 29), (1, 16, 3, 13, 29), torch.bfloat16, dev, 22)
+    framed = tgn.group_norm_silu(x, GN_GROUPS, w, b, GN_EPS, cy, cb, True, GN_LEAD)
+    xc = x.contiguous(memory_format=torch.channels_last_3d)
+    assert torch.equal(tgn.group_norm_silu(xc, GN_GROUPS, w, b, GN_EPS, cy, cb, True, GN_LEAD),
+                       framed)
+    bare = tgn.group_norm_silu(xc, GN_GROUPS, w, b, GN_EPS, cy, cb, True)
+    assert tgn.channels_last(bare) and torch.equal(bare, framed[:, :, GN_LEAD:])
+    x96, w96, b96, _, _ = _gn_case((1, 96, 5, 6, 10), None, torch.bfloat16, dev, 23)
+    assert not tgn.takes_channels_last(96, GN_GROUPS, 2)
+    got = tgn.group_norm_silu(x96, GN_GROUPS, w96, b96, GN_EPS, lead=GN_LEAD)
+    want = tgn.group_norm_silu(x96, GN_GROUPS, w96, b96, GN_EPS)
+    assert tgn.channels_last(got) and torch.equal(got[:, :, GN_LEAD:], want)
+
+
+@pytest.mark.cuda
+def test_vae_is_channels_last_on_card(monkeypatch):
+    """The VAE on the card's route: every conv reads channels-last, every
+    causal conv a norm feeds reads its left frames in place (no torch.cat),
+    over two cache-threaded chunks of the encoder and the decoder; within a
+    bf16 rounding of the same weights in float32 on the CPU."""
+    from dove_tpu_torch.config import VAEConfig
+    from dove_tpu_torch.models import vae as tvae
+
+    dev = _card()
+    cfg = VAEConfig(block_out_channels=(32, 32, 32, 32), norm_num_groups=8)
+    m_cpu = tvae.init_vae_params(cfg, seed=4)
+    m = tvae.init_vae_params(cfg, seed=4, device=dev, dtype=torch.bfloat16)
+    m.load_state_dict(m_cpu.state_dict())
+    seen = {"conv": [], "cat": []}
+    conv3d, cat = torch.nn.functional.conv3d, torch.cat
+
+    def hook_conv(x, *a, **kw):
+        seen["conv"].append(tgn.channels_last(x))
+        return conv3d(x, *a, **kw)
+
+    def hook_cat(*a, **kw):
+        seen["cat"].append(sys._getframe(1).f_code.co_name)
+        return cat(*a, **kw)
+
+    video = torch.rand((1, 17, 32, 40, 3), generator=torch.Generator().manual_seed(5)) * 2 - 1
+    with torch.no_grad():
+        want = tvae.encode_moments(cfg, m_cpu, video, chunk_frames=8)
+        want_px = tvae.decode(cfg, m_cpu, want[..., :16], chunk_frames=2)
+    monkeypatch.setattr(torch.nn.functional, "conv3d", hook_conv)
+    monkeypatch.setattr(torch, "cat", hook_cat)
+    with torch.no_grad(), obs.unit(dev) as enc:
+        got = tvae.encode_moments(cfg, m, video.to(dev, torch.bfloat16), chunk_frames=8)
+    with torch.no_grad(), obs.unit(dev) as dec:
+        px = tvae.decode(cfg, m, want[..., :16].to(dev, torch.bfloat16), chunk_frames=2)
+    monkeypatch.undo()
+    assert all(seen["conv"]) and seen["conv"]
+    # the causal frames are never concatenated: only the encoder's odd-length
+    # temporal pools and the chunks' outputs are
+    assert set(seen["cat"]) == {"_downsample", "encode_moments_cached", "decode_cached"}
+    # per pass 33 float convs in the encoder, 115 in the decoder (the 1x1x1
+    # convs of its spatial norms included; equal widths: no shortcut conv)
+    for u, sites, convs in ((enc, 29, 33), (dec, 37, 115)):
+        t = u.times
+        assert t["vae.conv_n"] == t["vae.conv_cl_n"] == 2 * convs
+        assert t["vae.causal_inplace_n"] == t["vae.norm_fused_n"] == t["vae.norm_n"] == 2 * sites
+    for ours, ref in ((got, want), (px, want_px)):
+        assert ours.is_contiguous()
+        err = float((ours.float().cpu() - ref).abs().max())
+        assert err <= 2.0 ** -4 * float(ref.abs().max()), err
 
 
 @pytest.mark.cuda

@@ -202,3 +202,63 @@ def test_the_launch_refuses_a_cpu_tensor():
         tgn.group_norm_silu(x, 3, w, b, 1e-6)
     with pytest.raises(ValueError, match="both cy and cb"):
         tgn.group_norm_silu(x, 4, w, b, 1e-6, cy=x)
+
+
+# --- the channels-last form ---------------------------------------------------
+
+@pytest.mark.parametrize("frames", [9, 8])
+@pytest.mark.parametrize("with_mod", [True, False])
+@pytest.mark.parametrize("channels", [128, 256, 512])
+def test_channels_last_plain_is_the_ncdhw_plain(channels, with_mod, frames):
+    """The channels-last form's plain version (statistics over NDHWC rows,
+    the modulation gathered from channels-last cy and cb) equals the NCDHW
+    plain version at the VAE's widths, 32 groups, odd and even frame counts,
+    with and without the modulation; its output is channels-last."""
+    x = _x((1, channels, frames, 4, 6))
+    w, b = _x((channels,), seed=3).abs() + 0.5, _x((channels,), seed=4)
+    cy = cb = None
+    if with_mod:
+        lat = (1, channels, 5 if frames % 2 else 4, 2, 3)
+        cy, cb = _x(lat, seed=5) * 0.2, _x(lat, seed=6) * 0.2
+    want = tgn.group_norm_silu_plain(x, 32, w, b, 1e-6, cy, cb, True)
+    cl = torch.channels_last_3d
+    got = tgn.group_norm_silu(x.contiguous(memory_format=cl), 32, w, b, 1e-6,
+                              None if cy is None else cy.contiguous(memory_format=cl),
+                              None if cb is None else cb.contiguous(memory_format=cl), True)
+    assert tgn.channels_last(got) and got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_left_frames_at_a_clips_start_and_in_a_continuation(dtype):
+    """With lead = 2 the output is the next causal conv's input: at a clip's
+    start frame 0 repeated in front (the conv's causal padding), in a
+    continuation chunk the conv's cache, each bit for bit; y itself is the
+    form's output without a lead."""
+    x = _x((2, 8, 5, 4, 6), dtype).contiguous(memory_format=torch.channels_last_3d)
+    w, b = torch.rand(8) + 0.5, torch.randn(8)
+    bare = tgn.group_norm_silu(x, 4, w, b, 1e-6)
+    start = tgn.group_norm_silu(x, 4, w, b, 1e-6, lead=2)
+    cache = _x((2, 8, 2, 4, 6), dtype, seed=7)
+    cont = tgn.group_norm_silu(x, 4, w, b, 1e-6, lead=2, left=cache)
+    for out in (start, cont):
+        assert out.shape == (2, 8, 7, 4, 6) and tgn.channels_last(out) and out.dtype == dtype
+        assert torch.equal(out[:, :, 2:], bare)
+    assert torch.equal(start[:, :, :2], bare[:, :, :1].expand(-1, -1, 2, -1, -1))
+    assert torch.equal(cont[:, :, :2], cache)
+    # what conv_in's route builds: the same frames around any tensor
+    assert torch.equal(tgn.with_left_frames(bare, 2, cache), cont)
+    with pytest.raises(ValueError, match="left must be"):
+        tgn.group_norm_silu(x, 4, w, b, 1e-6, lead=2, left=cache[:, :, :1])
+
+
+@pytest.mark.parametrize("channels,groups,itemsize,takes", [
+    (128, 32, 2, True), (256, 32, 2, True), (512, 32, 2, True),  # the VAE in bf16, fp16
+    (128, 32, 4, True), (512, 32, 4, True),  # and in fp32
+    (32, 32, 2, True), (64, 32, 4, True),  # a channel or two a group
+    (96, 32, 2, False),  # three channels a group
+    (4096, 32, 2, False),  # more vectors a row than threads
+    (12, 4, 2, False),  # a row not whole vectors
+])
+def test_channels_last_widths_the_kernel_takes(channels, groups, itemsize, takes):
+    assert tgn.takes_channels_last(channels, groups, itemsize) is takes

@@ -8,6 +8,7 @@ time.
 
 from __future__ import annotations
 
+import sys
 from pathlib import Path
 
 import jax
@@ -188,3 +189,236 @@ def test_vae_golden_decode(golden_vae):
         out = tvae.decode(cfg.vae, vae, torch.from_numpy(fx["input_latent"]))
     assert out.shape == fx["vae_decode_out"].shape
     assert psnr_db(out.numpy(), fx["vae_decode_out"]) >= PSNR_BAR_DB
+
+
+# --- the card's route, channels-last, and the routes that keep NCDHW ----------
+# The card's route takes CUDA tensors only; here it runs on the CPU with the
+# route forced on and the GroupNorm kernel's plain channels-last version in
+# the kernel's place, so its layout logic, left frames and caches are held
+# to the NCDHW chain.
+LAYOUT_CFG = tcfg.VAEConfig(block_out_channels=(8, 16, 16, 16), norm_num_groups=4)
+
+
+def _card_route_on_cpu(mp: pytest.MonkeyPatch) -> None:
+    """The card's route forced on for CPU tensors: the GroupNorm kernel's
+    plain version in its place, and convolutions that hand back a
+    channels-last input's output channels-last, as cuDNN does."""
+    from dove_tpu_torch.ops import group_norm as tgn
+
+    conv3d = torch.nn.functional.conv3d
+
+    def conv3d_like_cudnn(x, *a, **kw):
+        y = conv3d(x, *a, **kw)
+        return y.contiguous(memory_format=torch.channels_last_3d) if tgn.channels_last(x) else y
+
+    mp.setattr(tvae, "_on_card", lambda x, *m, zq=None: not torch.is_grad_enabled())
+    mp.setattr(tgn, "group_norm_silu_launch", tgn.group_norm_silu)
+    mp.setattr(torch.nn.functional, "conv3d", conv3d_like_cudnn)
+
+
+def _two_chunks(fn, first_in: torch.Tensor, second_in: torch.Tensor):
+    with torch.no_grad():
+        a, cache = fn(first_in, None)
+        b, cache2 = fn(second_in, cache)
+    return a, b, cache, cache2
+
+
+def _layout_inputs():
+    gen = torch.Generator().manual_seed(21)
+    video = torch.rand((1, 3, 13, 16, 24), generator=gen) * 2 - 1  # 9 + 4 frames
+    z = torch.randn((1, 16, 5, 2, 3), generator=gen)  # 3 + 2 latent frames
+    return video, z
+
+
+def test_card_route_equals_the_ncdhw_route_over_two_chunks():
+    """encoder_forward and decoder_forward on the card's route (channels-last
+    activations, the norm writing each causal conv's left frames in place)
+    equal the NCDHW chain within fp32 tolerance over two cache-threaded
+    chunks, and so does every conv cache they hand on."""
+    vae = tvae.init_vae_params(LAYOUT_CFG, seed=5)
+    video, z = _layout_inputs()
+    enc = lambda x, c: tvae.encoder_forward(LAYOUT_CFG, vae.encoder, x, c)  # noqa: E731
+    dec = lambda x, c: tvae.decoder_forward(LAYOUT_CFG, vae.decoder, x, c)  # noqa: E731
+    cases = ((enc, video[:, :, :9], video[:, :, 9:]), (dec, z[:, :, :3], z[:, :, 3:]))
+    want = [_two_chunks(*c) for c in cases]
+    mp = pytest.MonkeyPatch()
+    _card_route_on_cpu(mp)
+    try:
+        got = [_two_chunks(fn, a.contiguous(memory_format=torch.channels_last_3d), b)
+               for fn, a, b in cases]
+    finally:
+        mp.undo()
+    for (a, b, c1, c2), (ra, rb, rc1, rc2) in zip(got, want):
+        for ours, ref in ((a, ra), (b, rb)):
+            assert ours.shape == ref.shape
+            assert float((ours - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+        for ours, ref in ((c1, rc1), (c2, rc2)):
+            assert ours.keys() == ref.keys()
+            for k in ref:
+                if ref[k] is None:
+                    assert ours[k] is None
+                    continue
+                scale = float(ref[k].abs().max()) or 1.0
+                assert float((ours[k] - ref[k]).abs().max()) <= 1e-4 * scale, k
+
+
+def test_card_route_reads_channels_last_and_concatenates_no_causal_frames():
+    """On the card's route every F.conv3d gets a channels-last input, and no
+    causal conv's left frames are concatenated: conv_in's are copied in front
+    once, every other causal conv reads what the norm wrote."""
+    vae = tvae.init_vae_params(LAYOUT_CFG, seed=6)
+    video, z = _layout_inputs()
+    seen = {"conv": [], "cat": []}
+    mp = pytest.MonkeyPatch()
+    _card_route_on_cpu(mp)
+    conv3d, cat = torch.nn.functional.conv3d, torch.cat
+
+    def hook_conv(x, *a, **kw):
+        seen["conv"].append(x.is_contiguous(memory_format=torch.channels_last_3d)
+                            and not x.is_contiguous())
+        return conv3d(x, *a, **kw)
+
+    def hook_cat(*a, **kw):
+        seen["cat"].append(sys._getframe(1).f_code.co_name)
+        return cat(*a, **kw)
+
+    mp.setattr(torch.nn.functional, "conv3d", hook_conv)
+    mp.setattr(torch, "cat", hook_cat)
+    try:
+        _two_chunks(lambda x, c: tvae.encoder_forward(LAYOUT_CFG, vae.encoder, x, c),
+                    video[:, :, :9], video[:, :, 9:])
+        _two_chunks(lambda x, c: tvae.decoder_forward(LAYOUT_CFG, vae.decoder, x, c),
+                    z[:, :, :3], z[:, :, 3:])
+    finally:
+        mp.undo()
+    assert seen["conv"] and all(seen["conv"])
+    assert set(seen["cat"]) <= {"_downsample"}  # the odd-length temporal pools only
+
+
+def _ncdhw_chain(mp: pytest.MonkeyPatch) -> None:
+    """The VAE's NCDHW primitives as they were before the card's route went
+    channels-last: the nearest resize by three repeat_interleave, the causal
+    upsampler's head and rest concatenated, the pool by reshape and mean,
+    and each norm's output concatenated with its conv's left frames inside
+    causal_conv3d."""
+
+    def nearest(x, f, h, w):
+        _, _, Fr, H, W = x.shape
+        if f != Fr:
+            x = x.repeat_interleave(f // Fr, dim=2)
+        if h != H:
+            x = x.repeat_interleave(h // H, dim=3)
+        if w != W:
+            x = x.repeat_interleave(w // W, dim=4)
+        return x
+
+    def nearest_causal(z, f, h, w, first=True):
+        if first and f > 1 and f % 2 == 1:
+            return cat_([nearest(z[:, :, :1], 1, h, w), nearest(z[:, :, 1:], f - 1, h, w)])
+        return nearest(z, f, h, w)
+
+    def cat_(parts):
+        return torch.cat(parts, dim=2)
+
+    def upsample(p, x, compress_time, first=True, name=None):
+        _, _, Fr, H, W = x.shape
+        if compress_time and first and Fr > 1 and Fr % 2 == 1:
+            x = cat_([nearest(x[:, :, :1], 1, H * 2, W * 2),
+                      nearest(x[:, :, 1:], (Fr - 1) * 2, H * 2, W * 2)])
+        elif compress_time:
+            x = nearest(x, Fr * 2 if Fr > 1 or not first else 1, H * 2, W * 2)
+        else:
+            x = nearest(x, Fr, H * 2, W * 2)
+        return tvae._conv_per_frame(p, x, stride=1, padding=1, name=name)
+
+    def downsample(p, x, compress_time, name=None):
+        if compress_time:
+            B, C, Fr, H, W = x.shape
+            if Fr % 2 == 1:
+                first, rest = x[:, :, :1], x[:, :, 1:]
+                if rest.shape[2] > 0:
+                    rest = rest.reshape(B, C, rest.shape[2] // 2, 2, H, W).mean(dim=3)
+                x = cat_([first, rest])
+            else:
+                x = x.reshape(B, C, Fr // 2, 2, H, W).mean(dim=3)
+        x = torch.nn.functional.pad(x, (0, 1, 0, 1))
+        return tvae._conv_per_frame(p, x, stride=2, padding=0, name=name)
+
+    def norm_conv(pn, pc, x, zq, first, cache, new_cache, key, keep_cache):
+        h = tvae._norm_silu(pn, x, zq, first)
+        y, new_cache[key] = tvae.causal_conv3d(pc, h, cache.get(key), keep_cache, name=key)
+        return y
+
+    for name, fn in (("_nearest_resize_causal", nearest_causal), ("_upsample", upsample),
+                     ("_downsample", downsample), ("_norm_conv", norm_conv)):
+        mp.setattr(tvae, name, fn)
+
+
+WIDE_CFG = tcfg.VAEConfig(latent_channels=8, block_out_channels=(128, 128), layers_per_block=1,
+                          norm_num_groups=4, sample_frames_batch_size=8,
+                          latent_frames_batch_size=2)
+
+
+@pytest.mark.parametrize("route", ["int8", "hand_conv", "grad"])
+def test_ncdhw_routes_keep_their_results_bit_for_bit(route):
+    """The routes that keep NCDHW (the int8 VAE convs, K5's route, a decode
+    with gradients; all on the CPU here) give what the NCDHW chain gave
+    before the card's route went channels-last, bit for bit: outputs, and
+    the gradient for the decode that takes one."""
+    from dove_tpu_torch.ops import quant
+
+    vae = tvae.init_vae_params(WIDE_CFG, seed=7)
+    if route == "int8":
+        vae = quant.quantize_vae(vae, which="all")
+    gen = torch.Generator().manual_seed(8)
+    video = torch.rand((1, 5, 8, 12, 3), generator=gen) * 2 - 1
+    lat = torch.randn((1, 2, 4, 6, 8), generator=gen)
+
+    def run():
+        if route == "grad":
+            z = lat.clone().requires_grad_(True)
+            px = tvae.decode(WIDE_CFG, vae, z, remat=True)
+            px.square().sum().backward()
+            return px.detach(), z.grad
+        with torch.no_grad():
+            return (tvae.encode_moments(WIDE_CFG, vae, video),
+                    tvae.decode(WIDE_CFG, vae, lat))
+
+    tvae.set_pallas_conv(route == "hand_conv")
+    try:
+        now = run()
+        mp = pytest.MonkeyPatch()
+        _ncdhw_chain(mp)
+        try:
+            before = run()
+        finally:
+            mp.undo()
+    finally:
+        tvae.set_pallas_conv(False)
+    for a, b in zip(now, before):
+        assert torch.equal(a, b)
+
+
+def test_weights_the_card_route_converted_serve_a_decode_with_gradients():
+    """The card's route converts each float conv's weight to channels-last
+    in place, under inference mode too; the same VAE then decodes with
+    gradients as a fresh one does, bit for bit."""
+    vae, fresh = (tvae.init_vae_params(LAYOUT_CFG, seed=9) for _ in range(2))
+    _, z = _layout_inputs()
+    mp = pytest.MonkeyPatch()
+    _card_route_on_cpu(mp)
+    try:
+        with torch.inference_mode():
+            tvae.decoder_forward(LAYOUT_CFG, vae.decoder, z[:, :, :3], None)
+    finally:
+        mp.undo()
+    w = vae.decoder.conv_in.conv.weight
+    assert w.is_contiguous(memory_format=torch.channels_last_3d) and not w.is_contiguous()
+    grads = []
+    for m in (vae, fresh):
+        zz = z[:, :, :3].clone().requires_grad_(True)
+        px, _ = tvae.decoder_forward(LAYOUT_CFG, m.decoder, zz, None)
+        px.square().sum().backward()
+        grads.append((px.detach(), zz.grad))
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
